@@ -1,12 +1,15 @@
-"""CBL: the k-mer set facade for the static build+query path.
+"""CBL: the k-mer set facade for the static and dynamic-round paths.
 
-Counterpart of `cbl_tpu/cbl.py` for one path: a record stream is packed
-on the host (16 bases per uint32), staged on the device once
-(`pack_stream`), built into an empty index (`insert_codes_stream`) and
-queried (`query_codes_stream`).  On the device each slab of up to 2^25
-k-mers runs extract -> (canonicalize) -> necklace (kernel B1) -> pack ->
-record-boundary blanking (kernel B2) -> sort (build) or merge join
-(query, kernel B3).
+Counterpart of `cbl_tpu/cbl.py` for two paths.  A record stream is packed
+on the host (16 bases per uint32) and staged on the device once
+(`pack_stream`).  On the device each slab of up to 2^25 k-mers runs
+extract -> (canonicalize) -> necklace (kernel B1) -> pack ->
+record-boundary blanking (kernel B2), then:
+- static: a sort builds an empty index (`insert_codes_stream`) and merge
+  joins (kernel B3) answer `query_codes_stream`;
+- dynamic: `dynamic_round(ins, qry, rm)` merges three tagged sorted
+  streams into the sorted log (B3) and scans it once (kernel B4) for the
+  round's query hits and the distinct count; `flush()` folds the log.
 
 Differences from `cbl_tpu.CBL`:
 - `device` is explicit (default "cuda"); "cuda" without a CUDA device
@@ -14,10 +17,12 @@ Differences from `cbl_tpu.CBL`:
   kernels.
 - Later slabs of a build are merged into the index at once
   (`_merge_sortedbatch_kernel`) instead of going through the pending log.
-- Not ported yet: inserting into a non-empty index and
-  `remove_codes_stream` (the pending log, ROADMAP slice 3), point
-  operations, dynamic rounds, set algebra, ordered membership, export
-  and serialisation, K >= 29.
+- Each round runs as eager PyTorch, not as one compiled program.
+- Not ported yet: inserting into a non-empty index,
+  `remove_codes_stream` and dynamic rounds over streams of several slabs
+  (the pending log, ROADMAP slice 3), point operations, set algebra,
+  ordered membership, export and serialisation, dynamic rounds at K=27
+  and K >= 29 (slice 6).
 """
 
 from __future__ import annotations
@@ -29,14 +34,16 @@ from . import kmer as kmod
 from . import necklace
 from .config import CBLConfig, get_config
 from .limbs import SENTINEL
-from .ops.scan import blank_mask
+from .ops.scan import blank_mask, slog_scan_counts
+from .ops.sort import merge_sorted_pair
 from .wordset import (
+    _SLOG_SEQ_MAX,
     DeviceWordSet,
-    _count_hits_merge_kernel,
-    _count_hits_merge_sorted_kernel,
     _distinct_count,
     _next_pow2,
+    _quantize_cap,
     resolve_device,
+    slog_key,
     sort_rows,
 )
 
@@ -91,6 +98,35 @@ def _fused_words_sorted(stream, starts, ends, nk_pad, cfg, canonical):
     words, n_valid = _device_words(stream, starts, ends, nk_pad, cfg,
                                    canonical)
     return sort_rows(words), n_valid
+
+
+def _fused_round_slog(a: torch.Tensor, seq: int, w_i, w_q, w_r,
+                      out_cap: int):
+    """One interleaved round over the sorted log (`cbl_tpu.cbl.
+    _fused_round_slog_fn`): tag the three PRE-SORTED word streams with
+    (seq << 2) | {1 insert, 2 query, 3 remove} (each stays sorted;
+    sentinel rows stay SENTINEL, at the end), combine them with two small
+    merges, merge the batch into the log `a` with one big merge (all B3),
+    truncate or pad with SENTINEL to `out_cap` (the caller guarantees
+    that only sentinel rows are cut), and scan once (B4).
+
+    The tags make the reference's sequential semantics a property of the
+    order: a round's queries sort after its inserts and before its
+    removes, and the scan honours only entries at or before each query.
+    -> (log [out_cap], positive, live) with int64 0-d counters."""
+    base = seq << 2
+    b = merge_sorted_pair(slog_key(w_i, base | 1), slog_key(w_q, base | 2))
+    b = merge_sorted_pair(b, slog_key(w_r, base | 3))
+    merged = merge_sorted_pair(a, b) if a.shape[0] else b
+    total = merged.shape[0]
+    if total > out_cap:
+        merged = merged[:out_cap]
+    elif total < out_cap:
+        pad = torch.full((out_cap - total,), SENTINEL, dtype=torch.int64,
+                         device=merged.device)
+        merged = torch.cat([merged, pad])
+    positive, live = slog_scan_counts(merged, base | 2)
+    return merged, positive, live
 
 
 class PackedStream:
@@ -251,6 +287,7 @@ class CBL:
                 "index only"
             )
         ps = self._resolve_stream(codes, offsets)
+        ws.flush()  # an active slog that never inserted folds to empty
         for i, (nk_pad, stream, s_arr, e_arr, n_here) in enumerate(ps.slabs):
             if i == 0:
                 data, n_dev, n_valid = _fused_build(
@@ -276,20 +313,20 @@ class CBL:
         """(total k-mers, k-mers present) over a record stream (codes and
         offsets, or a PackedStream).  The counters add up on the device;
         with lazy=True they come back as unsynced device 0-d tensors,
-        otherwise as ints after one sync."""
+        otherwise as ints after one sync.  An active slog is joined as it
+        is (B3 + B4), never folded."""
         ws = self.wordset
         ps = self._resolve_stream(codes, offsets)
-        data = ws._live()
         total = positive = None
         for i, (nk_pad, stream, s_arr, e_arr, _) in enumerate(ps.slabs):
             cached = ps._words.get(i)
-            if cached is not None:
+            if cached is not None:  # the memo holds sorted words
                 t = cached[1]
-                p = _count_hits_merge_sorted_kernel(data, cached[0])
+                p = ws.count_hits_device(cached[0], words_sorted=True)
             else:
                 words, t = _device_words(stream, s_arr, e_arr, nk_pad,
                                          self.cfg, self.canonical)
-                p = _count_hits_merge_kernel(data, words)
+                p = ws.count_hits_device(words)
             total = t if total is None else total + t
             positive = p if positive is None else positive + p
         if total is None:
@@ -299,3 +336,94 @@ class CBL:
             return total, positive
         t, p = torch.stack([total.to(torch.int64), positive]).tolist()
         return t, p
+
+    def flush(self) -> None:
+        """Fold an active sorted log into the static index."""
+        self.wordset.flush()
+
+    def dynamic_round(self, ins, qry, rm, lazy: bool = False):
+        """One interleaved round: insert every k-mer of `ins`, count-query
+        `qry` (it sees the inserts, not yet the removes), remove every
+        k-mer of `rm`, over the sorted log (`_fused_round_slog`).  Args are
+        PackedStreams or (codes, offsets) tuples of ONE slab each.
+        Returns (total, positive) ints, or unsynced device 0-d tensors with
+        lazy=True.
+
+        A round enters on the index as it is (its keys become seq-0
+        inserts), folds the log before its seq would pass 62, and commits
+        its state only after it was enqueued.  Streams of several slabs
+        (or none) raise NotImplementedError: `cbl_tpu` falls back to
+        separate insert, query and remove calls there, which need the
+        pending log (ROADMAP slice 3).  K=27 raises too: its words leave
+        no room for the tag in one int64 key (slice 6)."""
+        ws = self.wordset
+        if not ws._slog_pack:
+            raise NotImplementedError(
+                f"dynamic_round at K={self.cfg.k}: the word and its 8-bit "
+                "tag do not fit one int64 slog key; the unpacked layout "
+                "with a tag column comes with multi-limb keys (ROADMAP "
+                "slice 6)"
+            )
+        streams = [self._resolve_round_stream(x) for x in (ins, qry, rm)]
+        for ps in streams:
+            if len(ps.slabs) != 1:
+                raise NotImplementedError(
+                    f"dynamic_round takes streams of one slab, got "
+                    f"{len(ps.slabs)}; other streams need the separate "
+                    "insert/query/remove calls of the pending log "
+                    "(ROADMAP slice 3)"
+                )
+        (w_i, _), (w_q, total), (w_r, _) = (
+            self._sorted_slab_words(ps) for ps in streams
+        )
+        nk_i, nk_q, nk_r = (w.shape[0] for w in (w_i, w_q, w_r))
+        if ws._slog_seq >= _SLOG_SEQ_MAX:
+            ws._fold_slog()  # the 8-bit tag caps the round's seq at 62
+        ws.maybe_autofold_slog()
+        if ws._slog is not None:
+            a, a_real = ws._slog, ws._slog_real
+        elif ws._n_upper == 0:
+            a = torch.empty(0, dtype=torch.int64, device=self.device)
+            a_real = 0
+        else:
+            live = ws._live()
+            # the index's keys enter as implicit seq-0 inserts (tag 1)
+            a, a_real = slog_key(live, 1), min(ws._n_upper, live.shape[0])
+        a_cap = a.shape[0]
+        new_real = a_real + nk_i + nk_q + nk_r
+        out_cap = a_cap if new_real <= a_cap else _quantize_cap(new_real)
+        seq = ws._slog_seq + 1
+        merged, positive, live_n = _fused_round_slog(a, seq, w_i, w_q, w_r,
+                                                     out_cap)
+        # commit state only after the round was enqueued (a failed launch
+        # must not advance the log)
+        ws._slog = merged
+        ws._slog_seq = seq
+        ws._slog_real = new_real
+        ws._slog_count_dev = live_n  # free by-product of the round's scan
+        ws._n_upper = min(ws._n_upper + nk_i, out_cap)
+        if lazy:
+            return total, positive
+        t, p = torch.stack([total.to(torch.int64), positive]).tolist()
+        return t, p
+
+    def _sorted_slab_words(self, ps: PackedStream):
+        """(sorted words [nk_pad], n_valid) of a one-slab stream through
+        the PackedStream memo: a stream whose words were computed before
+        (its build, or an earlier round) is never run or sorted again."""
+        cached = ps._words.get(0)
+        if cached is None:
+            nk_pad, stream, s_arr, e_arr, _ = ps.slabs[0]
+            cached = _fused_words_sorted(stream, s_arr, e_arr, nk_pad,
+                                         self.cfg, self.canonical)
+            ps._words[0] = cached
+        return cached
+
+    def _resolve_round_stream(self, x) -> PackedStream:
+        if isinstance(x, PackedStream):
+            return self._resolve_stream(x, None)
+        if isinstance(x, tuple):
+            return self._resolve_stream(*x)
+        raise TypeError(
+            "dynamic_round takes PackedStreams or (codes, offsets) tuples"
+        )

@@ -1,7 +1,8 @@
 """Hopper kernels of the port and the seam where they plug in.
 
 - `necklace`: kernel B1, the batched necklace (`csrc/necklace.cu`);
-- `scan`: kernel B2, record-boundary blanking (`csrc/scan.cu`);
+- `scan`: kernel B2, record-boundary blanking (`csrc/scan.cu`), and
+  kernel B4, the liveness scan of a sorted log (`csrc/slog_scan.cu`);
 - `merge`: kernel B3, the merge of two sorted key runs (`csrc/merge.cu`);
 - `sort`: `torch.sort` and the merge dispatchers;
 - `_build`: the nvcc build, the ctypes binding and the launch counters.

@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels.
 
 The sources in `cbl_tpu_torch/csrc/*.cu` are compiled by `nvcc` for
-`sm_90a` into ONE shared library with a plain C interface, at first use,
-into `cbl_tpu_torch/_build/` (listed in `.gitignore`).  The file name
-carries a hash of the sources and flags, so an edited source rebuilds and
-an unchanged one loads at once.  The library is bound with `ctypes`.
+`sm_90a`, one process per source, all started together, and linked into
+ONE shared library with a plain C interface, at first use, into
+`cbl_tpu_torch/_build/` (listed in `.gitignore`).  The file name carries
+a hash of the sources and flags, so an edited source rebuilds and an
+unchanged one loads at once.  The library is bound with `ctypes`.
 
 Every C entry point launches on the stream it is given and returns
 `cudaGetLastError()`; `check_error` turns a non-zero code into an
@@ -32,12 +33,11 @@ import torch
 PKG_DIR = Path(__file__).resolve().parent.parent
 SRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
 
-LAUNCHES = {"necklace": 0, "blank": 0, "merge": 0}
+LAUNCHES = {"necklace": 0, "blank": 0, "merge": 0, "slog_scan": 0}
 
 _P = ctypes.c_void_p
 _N = ctypes.c_longlong
@@ -49,6 +49,8 @@ _SIGNATURES = {
     "cbl_blank_mask": [_P, _P, _P, _P, _N, _P],
     # (a, na, b, nb, out, co-rank scratch, stream)
     "cbl_merge_sorted": [_P, _N, _P, _N, _P, _P, _P],
+    # (keys, n, qtag, (hits, live) out, tile max scratch, stream)
+    "cbl_slog_scan_counts": [_P, _N, _I, _P, _P, _P],
 }
 
 
@@ -80,20 +82,37 @@ def build() -> tuple[Path, float]:
     so = _library_path()
     if so.exists():
         return so, 0.0
+    nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix(f".tmp{os.getpid()}.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp)]
-    cmd += [str(s) for s in _sources() if s.suffix == ".cu"]
+    tmp = f"tmp{os.getpid()}"
+    srcs = [s for s in _sources() if s.suffix == ".cu"]
+    objs = [so.with_suffix(f".{s.stem}.{tmp}.o") for s in srcs]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)]
+            for s, o in zip(srcs, objs)]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    results = []
+    for cmd, proc in zip(cmds, procs):
+        out, err = proc.communicate()
+        results.append((cmd, proc.returncode, out, err))
+    lib = so.with_suffix(f".{tmp}.so")
+    link = [nvcc, *ARCH, "-shared", "-o", str(lib), *map(str, objs)]
+    if all(rc == 0 for _, rc, _, _ in results):
+        proc = subprocess.run(link, capture_output=True, text=True)
+        results.append((link, proc.returncode, proc.stdout, proc.stderr))
     seconds = time.perf_counter() - t0
-    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stderr[-4000:]}"
-        )
-    os.replace(tmp, so)
+    so.with_suffix(".log").write_text(
+        "".join(out + err for _, _, out, err in results))
+    for o in objs:
+        o.unlink(missing_ok=True)
+    for cmd, rc, _, err in results:
+        if rc != 0:
+            raise RuntimeError(
+                f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{err[-4000:]}"
+            )
+    os.replace(lib, so)
     return so, seconds
 
 

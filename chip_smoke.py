@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's static build+query path on one NVIDIA GPU.
+"""Drive the PyTorch port's static and dynamic-round paths on one NVIDIA GPU.
 
 Run from the repository root, on a machine with one CUDA card, `nvcc` and
 `g++`:
@@ -7,19 +7,26 @@ Run from the repository root, on a machine with one CUDA card, `nvcc` and
     python3 chip_smoke.py
 
 Phases (any failure raises and the script exits non-zero):
-1. print the card, its power limit and the versions; build the three CUDA
-   kernels of `cbl_tpu_torch` from `cbl_tpu_torch/csrc/`;
+1. print the card, its power limit and the versions; build the four CUDA
+   kernels of `cbl_tpu_torch` from `cbl_tpu_torch/csrc/` (one nvcc per
+   source, in parallel);
 2. hold each kernel against its plain PyTorch version on the card at the
-   main path's shapes (exact equality) and time both with CUDA events;
-3. run the main path at full size: 32,000,000 random bases (one record)
-   at K=25, `pack_stream` -> `insert_codes_stream` -> `count_device` ->
-   `query_codes_stream(lazy=True)` with one sync, plain and canonical;
-   `distinct` must equal `bench/baseline.cpp`'s count and every k-mer
-   must be found;
+   main paths' shapes (exact equality) and time both with CUDA events;
+3. run the static path at full size: 32,000,000 random bases (one
+   record) at K=25, `pack_stream` -> `insert_codes_stream` ->
+   `count_device` -> `query_codes_stream(lazy=True)` with one sync, plain
+   and canonical; `distinct` must equal `bench/baseline.cpp`'s count and
+   every k-mer must be found;
 4. query a multi-record stream that was never inserted (its `positive`
    must equal a numpy oracle) and build a stream of two slabs;
-5. require every kernel's launch counter to have moved in phase 3;
-6. print the timings;
+5. run the dynamic path at full size (`bench.py --mode dynamic`): the same
+   32 Mbp in 8 segments, round i = `dynamic_round(segs[i],
+   segs[max(i-1, 0)], halves[i])`, one warm-up and one timed run;
+   `distinct` and the summed `positive` must equal `bench/baseline.cpp
+   dynamic`'s; then a query of the active log must equal the same query
+   after `flush()`;
+6. require every kernel of each path to have been launched in that
+   path's timed run, and print the timings;
 7. print the kernels' JSON line and, last, the device JSON line.
 
 The script imports no JAX.  The kernels and the baseline are built into
@@ -40,7 +47,10 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 K = 25
 MAIN_BASES = 32_000_000  # the static headline's stream (bench.py --bases)
 SLAB = 1 << 25  # k-mers per slab (cbl_tpu_torch.cbl._FUSED_SLAB)
+SEGS = 8  # dynamic rounds (bench.py SEGS, bench/baseline.cpp run_dynamic)
 DEVICE = "cuda"
+STATIC_KERNELS = ("necklace", "blank", "merge")
+KERNELS = STATIC_KERNELS + ("slog_scan",)  # all run on the dynamic path
 
 
 def log(msg: str) -> None:
@@ -157,6 +167,28 @@ def check_kernels(card: str) -> dict:
     ms = time_ms(lambda: merge.merge_sorted(a, b), 10)
     plain_ms = time_ms(lambda: merge.merge_sorted_plain(a, b), 3)
     results["merge"] = dict(err=max(errs), ms=ms, plain_ms=plain_ms)
+    del a, b
+
+    # B4: a synthetic slog of 2^26 rows (runs of ~16 rows across every
+    # tile boundary and one run of 2^20 rows, a 10 % sentinel tail), at a
+    # round's query tag and the join's 0xFF; also 2^26 - 4097 rows and one
+    errs = []
+    round_qtag = (5 << 2) | 2
+    for n in (2 * SLAB, 2 * SLAB - 4097, 1):
+        keys = slog_keys(rng, n)
+        for qtag in (round_qtag, 0xFF):
+            got = scan.slog_scan_counts(keys, qtag)
+            want = scan.slog_scan_counts_plain(keys, qtag)
+            errs.append(max(max_abs_err(g, w) for g, w in zip(got, want)))
+            log(f"B4 slog_scan n={n} qtag={qtag:#x}: hits {int(want[0])} "
+                f"live {int(want[1])}: kernel == plain: {errs[-1] == 0}")
+            assert n == 1 or int(want[0]) > 0 < int(want[1])
+        if n == 2 * SLAB:
+            ms = time_ms(lambda: scan.slog_scan_counts(keys, round_qtag), 20)
+            plain_ms = time_ms(
+                lambda: scan.slog_scan_counts_plain(keys, round_qtag), 3)
+    results["slog_scan"] = dict(err=max(errs), ms=ms, plain_ms=plain_ms)
+    del keys
 
     for name, r in results.items():
         log(f"kernel {name}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms "
@@ -167,7 +199,28 @@ def check_kernels(card: str) -> dict:
     return results
 
 
-# --- phase 3 and 4: the main path --------------------------------------------
+def slog_keys(rng, n: int):
+    """Sorted slog keys (`cbl_tpu_torch.wordset.slog_key`) on the card:
+    words of runs of ~16 rows and one run of min(n / 64, 2^20) rows, tags
+    (seq << 2) | typ of seqs 0-7 (insert twice as often as query or
+    remove), 5 % 0xFF join queries, a 10 % sentinel tail."""
+    import torch
+
+    from cbl_tpu_torch.limbs import SENTINEL
+    from cbl_tpu_torch.wordset import slog_key
+
+    dev = torch.device(DEVICE)
+    words = rng.integers(0, max(n // 16, 1), size=n) * 977 + (1 << 40)
+    words[: min(n // 64, 1 << 20)] = 12345
+    tags = (rng.integers(0, 8, size=n) << 2) | rng.choice([1, 1, 2, 3], n)
+    tags[rng.random(n) < 0.05] = 0xFF
+    keys = slog_key(torch.from_numpy(words).to(dev),
+                    torch.from_numpy(tags).to(dev))
+    keys[n - n // 10:] = SENTINEL
+    return torch.sort(keys).values
+
+
+# --- phase 3 and 4: the static path ------------------------------------------
 
 
 def build_baseline() -> str:
@@ -183,12 +236,14 @@ def build_baseline() -> str:
     return str(exe)
 
 
-def run_baseline(exe: str, codes: np.ndarray, canonical: bool) -> dict:
+def run_baseline(exe: str, codes: np.ndarray, mode: str | None) -> dict:
+    """`bench/baseline.cpp` on `codes`; mode None (static), "canonical" or
+    "dynamic"."""
     from cbl_tpu_torch.ops._build import BUILD_DIR
 
     path = BUILD_DIR / "codes.bin"
     codes.tofile(path)
-    cmd = [exe, str(path)] + (["canonical"] if canonical else [])
+    cmd = [exe, str(path)] + ([mode] if mode else [])
     out = subprocess.run(cmd, capture_output=True, check=True, timeout=600)
     path.unlink()
     return json.loads(out.stdout)
@@ -222,6 +277,59 @@ def static_run(codes: np.ndarray, offsets: np.ndarray, canonical: bool):
         distinct=distinct, total=total, positive=positive, stage_s=stage_s,
         wall_s=wall_s, insert_ms=ev[0].elapsed_time(ev[1]),
         query_ms=ev[1].elapsed_time(ev[2]),
+    )
+
+
+# --- phase 5: the dynamic path ------------------------------------------------
+
+
+def dynamic_run(codes: np.ndarray, timed: bool):
+    """`bench.py --mode dynamic` on the port: SEGS rounds of
+    `dynamic_round(segs[i], segs[max(i-1, 0)], halves[i], lazy=True)`,
+    one sync for the distinct count and the summed positives.  With
+    `timed`, the launch counters are set to 0 after staging and read
+    after the sync.  -> (index, segs, result dict)."""
+    import torch
+
+    from cbl_tpu_torch import CBL
+    from cbl_tpu_torch.ops import LAUNCHES
+
+    sb = len(codes) // SEGS
+    off1 = np.array([0, sb], dtype=np.int64)
+    off_h = np.array([0, sb // 2], dtype=np.int64)
+    torch.cuda.synchronize()
+    idx = CBL(k=K, device=DEVICE)
+    t0 = time.perf_counter()  # bench.py's t0: staging is inside the wall
+    segs = [idx.pack_stream(codes[i * sb:(i + 1) * sb], off1)
+            for i in range(SEGS)]
+    halves = [idx.pack_stream(codes[i * sb:i * sb + sb // 2], off_h)
+              for i in range(SEGS)]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    if timed:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    pos_dev = None
+    ops = 0
+    for i in range(SEGS):
+        _, p = idx.dynamic_round(segs[i], segs[i - 1 if i else 0], halves[i],
+                                 lazy=True)
+        pos_dev = p if pos_dev is None else pos_dev + p
+        ops += 2 * (sb - K + 1) + sb // 2 - K + 1
+    n_dev = idx.count_device()
+    ev[1].record()
+    distinct, positive = torch.stack([n_dev, pos_dev]).tolist()
+    t2 = time.perf_counter()
+    launches = dict(LAUNCHES) if timed else None
+    ws = idx.wordset
+    return idx, segs, dict(
+        ops=ops, distinct=distinct, positive=positive,
+        wall_s=t2 - t0, stage_s=t1 - t0, rounds_s=t2 - t1,
+        rounds_ms=ev[0].elapsed_time(ev[1]), launches=launches,
+        log_rows=ws._slog.shape[0], log_real=ws._slog_real,
+        seq=ws._slog_seq,
     )
 
 
@@ -293,7 +401,7 @@ def main() -> int:
     main_launches = None
     for canonical in (False, True):
         label = "canonical" if canonical else "plain"
-        base = run_baseline(exe, codes, canonical)
+        base = run_baseline(exe, codes, "canonical" if canonical else None)
         static_run(codes, offsets, canonical)  # warm-up
         torch.cuda.reset_peak_memory_stats()
         for name in LAUNCHES:
@@ -304,13 +412,14 @@ def main() -> int:
         log(f"main path {label}: {r} baseline {base} launches {launches}")
         assert r["positive"] == r["total"] == n_kmers, r
         assert r["distinct"] == base["distinct"], (r, base)
-        for name, n in launches.items():
-            assert n >= 1, f"kernel {name} never launched on the main path"
+        for name in STATIC_KERNELS:
+            assert launches[name] >= 1, (
+                f"kernel {name} never launched on the static path")
         runs[label] = (r, base)
         if not canonical:
             main_launches, plain_idx = launches, idx
         del idx, ps
-    log(f"launch counters on the main path (plain): {main_launches}")
+    log(f"launch counters on the static path (plain): {main_launches}")
 
     # phase 4: a multi-record query stream that was never inserted (half of
     # its records copied from the inserted stream, half fresh bases)
@@ -345,7 +454,7 @@ def main() -> int:
     off2 = np.array([0, len(codes2)], dtype=np.int64)
     n_merge = LAUNCHES["merge"]
     idx2, ps2, r2 = static_run(codes2, off2, canonical=False)
-    base2 = run_baseline(exe, codes2, canonical=False)
+    base2 = run_baseline(exe, codes2, None)
     log(f"two-slab build: slabs {[s[0] for s in ps2.slabs]} {r2} "
         f"baseline distinct {base2['distinct']} merge launches "
         f"{LAUNCHES['merge'] - n_merge}")
@@ -356,11 +465,46 @@ def main() -> int:
     assert LAUNCHES["merge"] - n_merge == 3
     del idx2, ps2
 
-    # phase 5
-    for name, n in main_launches.items():
-        assert n >= 1, name
+    # phase 5: the dynamic workload at full size
+    base_dyn = run_baseline(exe, codes, "dynamic")
+    dynamic_run(codes, timed=False)  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    idx, segs, dyn = dynamic_run(codes, timed=True)
+    dyn["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    log(f"dynamic path: {dyn} baseline {base_dyn}")
+    assert dyn["ops"] == base_dyn["ops"], (dyn, base_dyn)
+    assert dyn["distinct"] == base_dyn["distinct"], (dyn, base_dyn)
+    assert dyn["positive"] == base_dyn["positive"], (dyn, base_dyn)
+    dyn_launches = dyn["launches"]
+    # 3 merges a round, 2 in the first (there is no log to merge into yet,
+    # as in cbl_tpu); one scan a round
+    assert dyn_launches["merge"] == 3 * SEGS - 1, dyn_launches
+    assert dyn_launches["slog_scan"] == SEGS, dyn_launches
+    for name in KERNELS:
+        assert dyn_launches[name] >= 1, (
+            f"kernel {name} never launched on the dynamic path")
+    n_m, n_s = LAUNCHES["merge"], LAUNCHES["slog_scan"]
+    t_j = time.perf_counter()
+    joined = idx.query_codes_stream(segs[SEGS - 1])  # B3 + B4 on the log
+    t_j = time.perf_counter() - t_j
+    assert (LAUNCHES["merge"] - n_m, LAUNCHES["slog_scan"] - n_s) == (1, 1)
+    t_f = time.perf_counter()
+    idx.flush()
+    folded_n = idx.count()
+    t_f = time.perf_counter() - t_f
+    static = idx.query_codes_stream(segs[SEGS - 1])
+    log(f"query of segment {SEGS - 1}: against the log {joined} "
+        f"({t_j * 1e3:.1f} ms), after flush() {static}; flush + count "
+        f"{t_f * 1e3:.1f} ms, count {folded_n}")
+    sb = MAIN_BASES // SEGS
+    assert joined == static and joined[0] == sb - K + 1, (joined, static)
+    assert 0 < joined[1] < joined[0]
+    assert folded_n == dyn["distinct"]
+    del idx, segs
 
     # phase 6
+    for name in STATIC_KERNELS:
+        assert main_launches[name] >= 1, name
     for label, (r, base) in runs.items():
         rate = 2 * n_kmers / r["wall_s"]
         base_rate = 2 * n_kmers / (base["insert_s"] + base["query_s"])
@@ -370,6 +514,15 @@ def main() -> int:
             f"wall {r['wall_s'] * 1e3:.2f} ms = {rate:.4g} k-mers/s; peak "
             f"device memory {r['peak_gib']:.2f} GiB; baseline.cpp 1 core "
             f"{base_rate:.4g} k-mers/s")
+    log(f"[{card}] K={K} {MAIN_BASES / 1e6:.0f} Mbp dynamic, {SEGS} rounds, "
+        f"{dyn['ops']} ops: wall with staging {dyn['wall_s'] * 1e3:.2f} ms "
+        f"= {dyn['ops'] / dyn['wall_s']:.4g} ops/s (stage "
+        f"{dyn['stage_s'] * 1e3:.1f} ms); device rounds "
+        f"{dyn['rounds_s'] * 1e3:.2f} ms = {dyn['ops'] / dyn['rounds_s']:.4g}"
+        f" ops/s ({dyn['rounds_ms']:.2f} ms by device events); peak device "
+        f"memory {dyn['peak_gib']:.2f} GiB; final log {dyn['log_rows']} rows "
+        f"({dyn['log_real']} real bound, seq {dyn['seq']}); baseline.cpp "
+        f"1 core {base_dyn['ops_per_s']:.4g} ops/s")
 
     # phase 7
     src = {
@@ -379,13 +532,18 @@ def main() -> int:
                   "cbl_tpu/ops/scan_pallas.py:293"),
         "merge": ("cbl_tpu_torch/csrc/merge.cu",
                   "cbl_tpu/ops/merge_pallas.py:355"),
+        "slog_scan": ("cbl_tpu_torch/csrc/slog_scan.cu",
+                      "cbl_tpu/ops/scan_pallas.py:202"),
     }
+    # launches: the static path's timed run (plain) plus the dynamic
+    # path's timed run, each counted from 0
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src[name][0],
-         "replaces": src[name][1], "launches": main_launches[name],
+         "replaces": src[name][1],
+         "launches": main_launches[name] + dyn_launches[name],
          "max_abs_err": kern[name]["err"], "ms": kern[name]["ms"],
          "plain_ms": kern[name]["plain_ms"]}
-        for name in ("necklace", "blank", "merge")
+        for name in KERNELS
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -80,7 +80,9 @@ def test_cpu_path_never_counts_launches(monkeypatch):
     idx.insert_codes_stream(ps)
     assert idx.query_codes_stream(ps) == (2 * (3_000 - 24),) * 2
     assert idx.query_codes_stream(codes[:4000], np.array([0, 4000]))[0] > 0
-    assert LAUNCHES == {"necklace": 0, "blank": 0, "merge": 0}
+    idx.dynamic_round(ps, ps, (codes[:3000], np.array([0, 3000])))
+    assert idx.query_codes_stream(ps)[1] == idx.count() == 3_000 - 24
+    assert LAUNCHES == {"necklace": 0, "blank": 0, "merge": 0, "slog_scan": 0}
 
 
 def test_wrappers_check_inputs():
@@ -94,6 +96,8 @@ def test_wrappers_check_inputs():
         necklace.necklace_pos(x64.reshape(2, 4), 50)
     with pytest.raises(ValueError):
         scan.blank_mask(x64)
+    with pytest.raises(ValueError):
+        scan.slog_scan_counts(x32, 0xFF)
     with pytest.raises(ValueError):
         merge.merge_sorted(x64, x32)
     with pytest.raises(ValueError):
