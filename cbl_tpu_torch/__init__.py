@@ -1,10 +1,13 @@
-"""cbl_tpu_torch: the static build+query path of `cbl_tpu` on PyTorch.
+"""cbl_tpu_torch: `cbl_tpu`'s k-mer set on PyTorch, as far as it is ported.
 
-A port of `cbl_tpu` (JAX, TPU) to PyTorch and CUDA for an NVIDIA H100.
-It imports neither JAX nor `cbl_tpu`; `cbl_tpu` stays the reference the
-port is tested against.  Words are one int64 key each (odd K <= 27, see
-`limbs`).  The three kernels of the path are CUDA C++ for sm_90a under
-`csrc/`, built at first use by `ops._build`.
+A port of `cbl_tpu` (JAX, TPU) to PyTorch and CUDA for an NVIDIA H100:
+the static build+query path, the interleaved dynamic rounds over a sorted
+log, and the separate insert / query / remove calls and point operations
+over a pending log (see `cbl`).  It imports neither JAX nor `cbl_tpu`;
+`cbl_tpu` stays the reference the port is tested against.  Words are one
+int64 key each (odd K <= 27, see `limbs`).  The five kernels of these
+paths are CUDA C++ for sm_90a under `csrc/`, built at first use by
+`ops._build`.
 """
 
 from .cbl import CBL, PackedStream

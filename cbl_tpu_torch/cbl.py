@@ -1,28 +1,34 @@
-"""CBL: the k-mer set facade for the static and dynamic-round paths.
+"""CBL: the k-mer set facade for the stream and point operations.
 
-Counterpart of `cbl_tpu/cbl.py` for two paths.  A record stream is packed
-on the host (16 bases per uint32) and staged on the device once
-(`pack_stream`).  On the device each slab of up to 2^25 k-mers runs
-extract -> (canonicalize) -> necklace (kernel B1) -> pack ->
-record-boundary blanking (kernel B2), then:
+Counterpart of `cbl_tpu/cbl.py`.  A record stream is packed on the host
+(16 bases per uint32) and staged on the device once (`pack_stream`).  On
+the device each slab of up to 2^25 k-mers runs extract -> (canonicalize)
+-> necklace (kernel B1) -> pack -> record-boundary blanking (kernel B2),
+then:
 - static: a sort builds an empty index (`insert_codes_stream`) and merge
   joins (kernel B3) answer `query_codes_stream`;
+- separate calls: `insert_codes_stream` into a non-empty index and
+  `remove_codes_stream` append to the word set's pending log when the
+  batch fits it (else they merge or remove at once), and
+  `query_codes_stream` joins index and log without folding;
 - dynamic: `dynamic_round(ins, qry, rm)` merges three tagged sorted
   streams into the sorted log (B3) and scans it once (kernel B4) for the
   round's query hits and the distinct count; `flush()` folds the log.
+  Streams of several slabs (or none) take the separate calls instead.
+- point operations (`insert`, `remove`, `contains`, `*_kmers`) take
+  k-mers as packed integers and run on the same pending log.
+Every sort goes through `ops.sort.sort_keys` (`torch.sort`, or kernel B5
+under the "mergepath" mode).
 
 Differences from `cbl_tpu.CBL`:
 - `device` is explicit (default "cuda"); "cuda" without a CUDA device
   raises, and `device="cpu"` runs the plain tensor versions of the
   kernels.
-- Later slabs of a build are merged into the index at once
-  (`_merge_sortedbatch_kernel`) instead of going through the pending log.
-- Each round runs as eager PyTorch, not as one compiled program.
-- Not ported yet: inserting into a non-empty index,
-  `remove_codes_stream` and dynamic rounds over streams of several slabs
-  (the pending log, ROADMAP slice 3), point operations, set algebra,
-  ordered membership, export and serialisation, dynamic rounds at K=27
-  and K >= 29 (slice 6).
+- Each call runs as eager PyTorch, not as one compiled program.
+- Not ported yet: `insert_seq(s)` / `remove_seq(s)` / `contains_seq(s)` /
+  `contains_codes_stream` / `contains_all` (the chunked word pipeline and
+  ordered membership, ROADMAP slice 5), set algebra (slice 4), export and
+  serialisation, dynamic rounds at K=27 and K >= 29 (slice 6).
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ from .ops.scan import blank_mask, slog_scan_counts
 from .ops.sort import merge_sorted_pair
 from .wordset import (
     _SLOG_SEQ_MAX,
+    DEFAULT_PENDING_CAP,
     DeviceWordSet,
     _distinct_count,
     _next_pow2,
@@ -134,10 +141,11 @@ class PackedStream:
     starts, ends, n_kmers).  Build it once with `CBL.pack_stream` and pass
     it to insert and query, which then pay the host-to-device copy once.
 
-    `_words` memoizes each slab's (sorted words, n_valid): the necklace
-    transform is a pure function of the staged stream, so a build fills
-    the memo and a later query of the same stream merges the sorted words
-    with the index without a sort."""
+    `_words` memoizes each slab's (words, n_valid, sorted): the necklace
+    transform is a pure function of the staged stream, so an insert fills
+    the memo with sorted words and a later query of the same stream merges
+    them with the index without a sort; a remove or a query against the
+    pending log fills it with the words in stream order."""
 
     def __init__(self, cfg: CBLConfig, canonical: bool, slabs: list):
         self.cfg = cfg
@@ -147,17 +155,19 @@ class PackedStream:
 
 
 class CBL:
-    """An exact set of k-mers (static build+query path) on one device.
+    """A dynamic, exact set of k-mers on one device.
 
-    `k` (odd, <= 27 in this port) and `prefix_bits` as in `cbl_tpu.CBL`.
+    `k` (odd, <= 27 in this port), `prefix_bits` and `pending_cap` (rows
+    of the pending log) as in `cbl_tpu.CBL`.
     """
 
     def __init__(self, k: int = 25, prefix_bits: int = 24,
-                 canonical: bool = False, device="cuda"):
+                 canonical: bool = False, device="cuda",
+                 pending_cap: int = DEFAULT_PENDING_CAP):
         self.cfg = get_config(k=k, prefix_bits=prefix_bits)
         self.canonical = canonical
         self.device = resolve_device(device)
-        self.wordset = DeviceWordSet(self.cfg, self.device)
+        self.wordset = DeviceWordSet(self.cfg, self.device, pending_cap)
 
     @classmethod
     def new(cls, k: int = 25, prefix_bits: int = 24, **kw) -> "CBL":
@@ -272,61 +282,75 @@ class CBL:
             return codes
         return self.pack_stream(codes, offsets)
 
-    # --- build and query ---
+    # --- insert, remove and query of record streams ---
+
+    def _slab_words(self, ps: PackedStream, i: int):
+        """(words, n_valid, sorted) of slab `i` through the stream's memo;
+        a slab computed here is memoized in stream order (unsorted)."""
+        cached = ps._words.get(i)
+        if cached is None:
+            nk_pad, stream, s_arr, e_arr, _ = ps.slabs[i]
+            cached = _device_words(stream, s_arr, e_arr, nk_pad, self.cfg,
+                                   self.canonical) + (False,)
+            ps._words[i] = cached
+        return cached
 
     def insert_codes_stream(self, codes, offsets: np.ndarray | None = None):
-        """Build the index from every k-mer of a record stream (codes and
-        offsets, or a PackedStream).  The index must be empty: the first
-        slab's sorted words are adopted, each later slab is sorted and
-        merged in (kernel B3)."""
+        """Insert every k-mer of a record stream (codes and offsets, or a
+        PackedStream).  Pending work is folded first.  A slab that meets
+        an empty index is sorted and adopted as the index; any other slab
+        is sorted and appended to the pending log when it fits beside
+        what is queued, else merged into the index (kernel B3)."""
         ws = self.wordset
-        if ws._n_upper != 0:
-            raise NotImplementedError(
-                "insert into a non-empty index needs the pending log "
-                "(ROADMAP slice 3); cbl_tpu_torch builds into an empty "
-                "index only"
-            )
+        ws.flush()
         ps = self._resolve_stream(codes, offsets)
-        ws.flush()  # an active slog that never inserted folds to empty
         for i, (nk_pad, stream, s_arr, e_arr, n_here) in enumerate(ps.slabs):
-            if i == 0:
+            if ws._n_upper == 0:
                 data, n_dev, n_valid = _fused_build(
                     stream, s_arr, e_arr, nk_pad, self.cfg, self.canonical
                 )
                 # the memo shares `data`: nothing updates it in place
-                ps._words[i] = (data, n_valid)
+                ps._words[i] = (data, n_valid, True)
                 ws.adopt_built(data, n_dev, n_here)
+                continue
+            words, n_valid = _fused_words_sorted(
+                stream, s_arr, e_arr, nk_pad, self.cfg, self.canonical
+            )
+            ps._words[i] = (words, n_valid, True)
+            if words.shape[0] + ws.n_pending <= ws.pending_cap:
+                ws.insert_words(words)
             else:
-                words, n_valid = _fused_words_sorted(
-                    stream, s_arr, e_arr, nk_pad, self.cfg, self.canonical
-                )
-                ps._words[i] = (words, n_valid)
-                ws._merge_into(words, n_new_upper=n_here)
+                ws._merge_into(words, n_new_upper=n_here, batch_sorted=True)
 
     def remove_codes_stream(self, codes, offsets: np.ndarray | None = None):
-        raise NotImplementedError(
-            "remove_codes_stream needs the pending log (ROADMAP slice 3)"
-        )
+        """Remove every k-mer of a record stream: one batch for the word
+        set's log (`DeviceWordSet.remove_words`)."""
+        ps = self._resolve_stream(codes, offsets)
+        batches = [self._slab_words(ps, i)[0] for i in range(len(ps.slabs))]
+        if batches:
+            self.wordset.remove_words(
+                batches[0] if len(batches) == 1 else torch.cat(batches))
 
     def query_codes_stream(self, codes, offsets: np.ndarray | None = None,
                            lazy: bool = False):
         """(total k-mers, k-mers present) over a record stream (codes and
         offsets, or a PackedStream).  The counters add up on the device;
         with lazy=True they come back as unsynced device 0-d tensors,
-        otherwise as ints after one sync.  An active slog is joined as it
-        is (B3 + B4), never folded."""
+        otherwise as ints after one sync.  A pending log or an active slog
+        is joined as it is, never folded."""
         ws = self.wordset
         ps = self._resolve_stream(codes, offsets)
+        logged = ws.n_pending > 0 or ws._slog is not None
         total = positive = None
         for i, (nk_pad, stream, s_arr, e_arr, _) in enumerate(ps.slabs):
-            cached = ps._words.get(i)
-            if cached is not None:  # the memo holds sorted words
-                t = cached[1]
-                p = ws.count_hits_device(cached[0], words_sorted=True)
+            if logged or i in ps._words:
+                # a query against a log leaves its words in the memo
+                words, t, is_sorted = self._slab_words(ps, i)
             else:
                 words, t = _device_words(stream, s_arr, e_arr, nk_pad,
                                          self.cfg, self.canonical)
-                p = ws.count_hits_device(words)
+                is_sorted = False
+            p = ws.count_hits_device(words, words_sorted=is_sorted)
             total = t if total is None else total + t
             positive = p if positive is None else positive + p
         if total is None:
@@ -338,25 +362,32 @@ class CBL:
         return t, p
 
     def flush(self) -> None:
-        """Fold an active sorted log into the static index."""
+        """Fold an active sorted log and the pending log into the static
+        index."""
         self.wordset.flush()
 
     def dynamic_round(self, ins, qry, rm, lazy: bool = False):
         """One interleaved round: insert every k-mer of `ins`, count-query
         `qry` (it sees the inserts, not yet the removes), remove every
-        k-mer of `rm`, over the sorted log (`_fused_round_slog`).  Args are
-        PackedStreams or (codes, offsets) tuples of ONE slab each.
+        k-mer of `rm`.  Args are PackedStreams or (codes, offsets) tuples.
         Returns (total, positive) ints, or unsynced device 0-d tensors with
         lazy=True.
 
-        A round enters on the index as it is (its keys become seq-0
-        inserts), folds the log before its seq would pass 62, and commits
-        its state only after it was enqueued.  Streams of several slabs
-        (or none) raise NotImplementedError: `cbl_tpu` falls back to
-        separate insert, query and remove calls there, which need the
-        pending log (ROADMAP slice 3).  K=27 raises too: its words leave
-        no room for the tag in one int64 key (slice 6)."""
+        Streams of ONE slab each run over the sorted log
+        (`_fused_round_slog`): the round enters on the index as it is (its
+        keys become seq-0 inserts; a pending log is folded first), folds
+        the log before its seq would pass 62, and commits its state only
+        after it was enqueued.  At K=27 that raises NotImplementedError:
+        the word leaves no room for the tag in one int64 key (ROADMAP
+        slice 6).  Any other streams take the separate insert, query and
+        remove calls."""
         ws = self.wordset
+        streams = [self._resolve_round_stream(x) for x in (ins, qry, rm)]
+        if any(len(ps.slabs) != 1 for ps in streams):
+            self.insert_codes_stream(streams[0])
+            t, p = self.query_codes_stream(streams[1], lazy=lazy)
+            self.remove_codes_stream(streams[2])
+            return t, p
         if not ws._slog_pack:
             raise NotImplementedError(
                 f"dynamic_round at K={self.cfg.k}: the word and its 8-bit "
@@ -364,19 +395,12 @@ class CBL:
                 "with a tag column comes with multi-limb keys (ROADMAP "
                 "slice 6)"
             )
-        streams = [self._resolve_round_stream(x) for x in (ins, qry, rm)]
-        for ps in streams:
-            if len(ps.slabs) != 1:
-                raise NotImplementedError(
-                    f"dynamic_round takes streams of one slab, got "
-                    f"{len(ps.slabs)}; other streams need the separate "
-                    "insert/query/remove calls of the pending log "
-                    "(ROADMAP slice 3)"
-                )
         (w_i, _), (w_q, total), (w_r, _) = (
             self._sorted_slab_words(ps) for ps in streams
         )
         nk_i, nk_q, nk_r = (w.shape[0] for w in (w_i, w_q, w_r))
+        if ws.n_pending > 0:
+            ws.flush()
         if ws._slog_seq >= _SLOG_SEQ_MAX:
             ws._fold_slog()  # the 8-bit tag caps the round's seq at 62
         ws.maybe_autofold_slog()
@@ -410,14 +434,17 @@ class CBL:
     def _sorted_slab_words(self, ps: PackedStream):
         """(sorted words [nk_pad], n_valid) of a one-slab stream through
         the PackedStream memo: a stream whose words were computed before
-        (its build, or an earlier round) is never run or sorted again."""
+        (an insert, a remove, or an earlier round) is not run again, and
+        one whose words are sorted is not sorted again."""
         cached = ps._words.get(0)
         if cached is None:
             nk_pad, stream, s_arr, e_arr, _ = ps.slabs[0]
             cached = _fused_words_sorted(stream, s_arr, e_arr, nk_pad,
-                                         self.cfg, self.canonical)
-            ps._words[0] = cached
-        return cached
+                                         self.cfg, self.canonical) + (True,)
+        elif not cached[2]:
+            cached = (sort_rows(cached[0]), cached[1], True)
+        ps._words[0] = cached
+        return cached[:2]
 
     def _resolve_round_stream(self, x) -> PackedStream:
         if isinstance(x, PackedStream):
@@ -427,3 +454,46 @@ class CBL:
         raise TypeError(
             "dynamic_round takes PackedStreams or (codes, offsets) tuples"
         )
+
+    # --- point operations; k-mers are packed integers (2 bits a base) ---
+
+    def _word_rows_of_kmers(self, kmers_int) -> torch.Tensor:
+        """[N] words of k-mers given as Python ints (first base most
+        significant): canonicalize, necklace (plain version), pack."""
+        kmers = torch.tensor([int(v) for v in kmers_int], dtype=torch.int64,
+                             device=self.device)
+        if self.canonical:
+            kmers, _ = kmod.canonicalize(kmers, self.cfg)
+        best, pos = necklace.necklace_pos(kmers, self.cfg)
+        return necklace.pack_word(best, pos, self.cfg)
+
+    def contains_kmers(self, kmers_int) -> np.ndarray:
+        """[N] bool numpy mask, in the order given; never folds a log."""
+        words = self._word_rows_of_kmers(kmers_int)
+        return self.wordset.contains_words(words).cpu().numpy()
+
+    def insert_kmers(self, kmers_int) -> None:
+        self.wordset.insert_words(self._word_rows_of_kmers(kmers_int))
+
+    def remove_kmers(self, kmers_int) -> None:
+        self.wordset.remove_words(self._word_rows_of_kmers(kmers_int))
+
+    def contains(self, kmer_int: int) -> bool:
+        return bool(self.contains_kmers([kmer_int])[0])
+
+    def __contains__(self, kmer_int: int) -> bool:
+        return self.contains(kmer_int)
+
+    def insert(self, kmer_int: int) -> bool:
+        """True when the k-mer was absent."""
+        words = self._word_rows_of_kmers([kmer_int])
+        absent = not bool(self.wordset.contains_words(words)[0])
+        self.wordset.insert_words(words)
+        return absent
+
+    def remove(self, kmer_int: int) -> bool:
+        """True when the k-mer was present."""
+        words = self._word_rows_of_kmers([kmer_int])
+        present = bool(self.wordset.contains_words(words)[0])
+        self.wordset.remove_words(words)
+        return present

@@ -3,8 +3,11 @@
 - `necklace`: kernel B1, the batched necklace (`csrc/necklace.cu`);
 - `scan`: kernel B2, record-boundary blanking (`csrc/scan.cu`), and
   kernel B4, the liveness scan of a sorted log (`csrc/slog_scan.cu`);
-- `merge`: kernel B3, the merge of two sorted key runs (`csrc/merge.cu`);
-- `sort`: `torch.sort` and the merge dispatchers;
+- `merge`: kernel B3, the merge of two sorted key runs (`csrc/merge.cu`),
+  and kernel B5, the merge-path sort (`csrc/sort.cu`), both on
+  `csrc/merge_path.cuh`;
+- `sort`: the sort selector (`torch.sort` or B5) and the merge
+  dispatchers;
 - `_build`: the nvcc build, the ctypes binding and the launch counters.
 
 Each kernel module holds the plain tensor version beside the wrapper.  A

@@ -37,7 +37,8 @@ ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 
-LAUNCHES = {"necklace": 0, "blank": 0, "merge": 0, "slog_scan": 0}
+LAUNCHES = {"necklace": 0, "blank": 0, "merge": 0, "slog_scan": 0,
+            "sort": 0}
 
 _P = ctypes.c_void_p
 _N = ctypes.c_longlong
@@ -47,8 +48,12 @@ _SIGNATURES = {
     "cbl_necklace_pos": [_P, _P, _P, _N, _I, _P],
     # (delta, mask out, n_valid out, block sums scratch, n, stream)
     "cbl_blank_mask": [_P, _P, _P, _P, _N, _P],
-    # (a, na, b, nb, out, co-rank scratch, stream)
-    "cbl_merge_sorted": [_P, _N, _P, _N, _P, _P, _P],
+    # (a col 0, a col 1, na, b col 0, b col 1, nb, out col 0, out col 1,
+    # co-rank scratch, stream); the col 1 pointers are null for one column
+    "cbl_merge_sorted": [_P, _P, _N, _P, _P, _N, _P, _P, _P, _P],
+    # (in col 0, in col 1, out col 0, out col 1, scratch col 0, scratch
+    # col 1, n, co-rank scratch, stream)
+    "cbl_sort_keys": [_P, _P, _P, _P, _P, _P, _N, _P, _P],
     # (keys, n, qtag, (hits, live) out, tile max scratch, stream)
     "cbl_slog_scan_counts": [_P, _N, _I, _P, _P, _P],
 }

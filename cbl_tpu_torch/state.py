@@ -2,7 +2,10 @@
 
 `cbl_tpu.wordset.DeviceWordSet` holds its words as an [N, L] uint32 limb
 array (`np.asarray(ws.data)`) with its distinct count (`ws.count()`); this
-port holds one sorted int64 key tensor.  During dynamic rounds `cbl_tpu`
+port holds one sorted int64 key tensor.  Its pending log is a [P, L] limb
+array `pending`, uint32 `pending_tags` and the counters `n_pending` and
+`_pending_rm`; the port's is an int64 key tensor and int64 tags of the
+same values.  During dynamic rounds `cbl_tpu`
 holds a sorted log as uint32 columns (`ws._slog`): L limbs of
 (word << 8) | tag where the config leaves 8 spare bits, else L word limbs
 and a tag column; this port holds one int64 slog key per row
@@ -128,3 +131,34 @@ def slog_to_arrays(ws: DeviceWordSet):
     for c in cols:
         c[sent] = np.uint32(0xFFFFFFFF)
     return tuple(cols), ws._slog_seq, ws._slog_real, ws._n_upper
+
+
+def pending_from_arrays(ws: DeviceWordSet, pending_u32: np.ndarray,
+                        tags_u32: np.ndarray, n_pending: int,
+                        pending_rm: bool) -> None:
+    """Give the port word set `ws` `cbl_tpu`'s pending log: its `pending`
+    [P, L] limbs, `pending_tags` [P], `n_pending` and `_pending_rm`.  P
+    becomes the log's capacity."""
+    pending_u32 = np.asarray(pending_u32, dtype=np.uint32)
+    tags_u32 = np.asarray(tags_u32, dtype=np.uint32)
+    if (pending_u32.ndim != 2 or pending_u32.shape[1] != ws.cfg.word_limbs
+            or tags_u32.shape != pending_u32.shape[:1]):
+        raise ValueError(
+            f"expected [P, {ws.cfg.word_limbs}] limbs and [P] tags, got "
+            f"{pending_u32.shape} and {tags_u32.shape}"
+        )
+    if not 0 <= n_pending <= tags_u32.shape[0]:
+        raise ValueError(f"n_pending {n_pending} outside the log")
+    ws.pending_cap = tags_u32.shape[0]
+    ws.pending = torch.from_numpy(from_limbs(pending_u32)).to(ws.device)
+    ws.pending_tags = torch.from_numpy(tags_u32.astype(np.int64)).to(ws.device)
+    ws.n_pending = int(n_pending)
+    ws._pending_rm = bool(pending_rm)
+
+
+def pending_to_arrays(ws: DeviceWordSet):
+    """(pending [P, L] uint32, tags [P] uint32, n_pending, pending_rm) of
+    a port word set's pending log, in `cbl_tpu`'s layout."""
+    pending = to_limbs(ws.pending.cpu().numpy(), ws.cfg.word_limbs)
+    tags = ws.pending_tags.cpu().numpy().astype(np.uint32)
+    return pending, tags, ws.n_pending, ws._pending_rm

@@ -18,8 +18,18 @@ the log once for the round's query hits and the distinct count.  The log
 folds back into a sorted `data` tensor on `flush()`, at the tag's seq cap
 and under the autofold policy, exactly as in `cbl_tpu`.
 
-Not ported yet: the pending log, point operations, set algebra and
-export (ROADMAP slices 3 to 5), and dynamic rounds at K=27 (slice 6).
+Separate insert and remove calls go through the pending log, as in
+`cbl_tpu`: `pending` holds appended words and `pending_tags` their
+(seq << 1) | op (1 insert, 0 remove), so a small batch costs an append and
+not a merge with the whole index.  The log is sorted by (word, seqtag), a
+two-column key (the 23-bit seqtag does not fit beside a 56-bit word in
+one int64), and folds into `data` with last-write-wins on `flush()`,
+`count()` and overflow; queries join index and log without folding.
+
+Not ported yet: set algebra, with the "holes" state it leaves behind
+(`_holes` is carried and never set; its branches raise), ordered
+membership of streams and export (ROADMAP slices 4 and 5), and dynamic
+rounds at K=27 (slice 6).
 """
 
 from __future__ import annotations
@@ -29,9 +39,18 @@ import torch
 from .config import CBLConfig
 from .limbs import SENTINEL, check_config
 from .ops.scan import SLOG_TAG_MAX, slog_rows, slog_scan_counts
-from .ops.sort import merge_sorted_pair, merge_with_unsorted, sort_keys
+from .ops.sort import (
+    cat_cols,
+    merge_sorted_pair,
+    merge_with_unsorted,
+    sort_keys,
+)
 
 MIN_CAP = 4096
+DEFAULT_PENDING_CAP = 1 << 21
+# seqtag of a query row in a log join: above every (seq << 1) | op, so a
+# query sorts after every log entry of its word (`cbl_tpu`'s uint32 max)
+_QUERY_SEQTAG = 0xFFFFFFFF
 
 
 def _next_pow2(n: int) -> int:
@@ -76,12 +95,32 @@ def _valid_mask(keys: torch.Tensor) -> torch.Tensor:
     return keys != SENTINEL
 
 
+def _first_of_run(s: torch.Tensor) -> torch.Tensor:
+    """True where a sorted key differs from the one before it."""
+    first = torch.ones_like(s, dtype=torch.bool)
+    first[1:] = s[1:] != s[:-1]
+    return first
+
+
 def _distinct_count(s: torch.Tensor) -> torch.Tensor:
     """Distinct valid keys of a sorted (duplicates adjacent) tensor, as an
     int64 0-d tensor."""
-    first = torch.ones_like(s, dtype=torch.bool)
-    first[1:] = s[1:] != s[:-1]
-    return (first & _valid_mask(s)).sum()
+    return (_first_of_run(s) & _valid_mask(s)).sum()
+
+
+def _run_ids(run_start: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """A run id per row of a sorted tensor, for the scatters that reduce
+    over runs: a running sum of run starts.  Sentinel rows sort last and
+    form ONE run, millions of rows long in an index padded to its
+    capacity, and a scatter would pile that many atomic updates onto one
+    address (17 ms instead of 3 for an `index_add_` over 2^26 rows with
+    47 million sentinels, NVIDIA H100 80GB HBM3, 700 W).  Each of them
+    gets its own position as id instead: it lies beyond every valid run's
+    id, and nothing reads a sentinel row's result."""
+    run_id = torch.cumsum(run_start, 0) - 1
+    pos = torch.arange(run_start.shape[0], dtype=torch.int64,
+                       device=run_start.device)
+    return torch.where(valid, run_id, pos)
 
 
 def _shift_tag(keys: torch.Tensor, tag: int) -> torch.Tensor:
@@ -101,15 +140,13 @@ def _packed_join_count(s: torch.Tensor) -> torch.Tensor:
     ids instead; `torch.cummin` on CUDA is a slow scan: 197 ms of a
     215 ms main path at 2^26 keys on an NVIDIA H100 80GB HBM3, 700 W.)
     Sentinel keys are odd, so they count as data, but only in their own
-    run, and are masked."""
+    runs (`_run_ids`), and are masked."""
     is_data = (s & 1) == 1
-    word = s >> 1
-    run_start = torch.ones_like(s, dtype=torch.bool)
-    run_start[1:] = word[1:] != word[:-1]
-    run_id = torch.cumsum(run_start, 0) - 1
+    valid = _valid_mask(s)
+    run_id = _run_ids(_first_of_run(s >> 1), valid)
     data_in_run = torch.zeros(s.shape[0], dtype=torch.int32, device=s.device)
     data_in_run.index_add_(0, run_id, is_data.to(torch.int32))
-    hits = ~is_data & (data_in_run[run_id] > 0) & _valid_mask(s)
+    hits = ~is_data & (data_in_run[run_id] > 0) & valid
     return hits.sum()
 
 
@@ -132,6 +169,193 @@ def _merge_sortedbatch_kernel(data: torch.Tensor, batch: torch.Tensor):
     (merged keys, distinct count)."""
     s = merge_sorted_pair(data, batch)
     return s, _distinct_count(s)
+
+
+def _merge_keepdups_kernel(data: torch.Tensor, batch: torch.Tensor):
+    """`_merge_sortedbatch_kernel` for an unsorted batch: sort it, then
+    one merge."""
+    s = merge_with_unsorted(data, batch)
+    return s, _distinct_count(s)
+
+
+def _build_sorted_kernel(batch: torch.Tensor):
+    """Sort a fresh batch and count its distinct keys (insert into an
+    empty index)."""
+    s = sort_keys(batch)
+    return s, _distinct_count(s)
+
+
+def _compact_marked(words: torch.Tensor, keep: torch.Tensor, out_cap: int):
+    """Make every row that is not kept SENTINEL, compact by one sort, fit
+    to out_cap: (keys [out_cap], kept count)."""
+    s = sort_keys(torch.where(keep, words, SENTINEL))
+    return _fit(s, out_cap), keep.sum()
+
+
+def _dedup_sorted_kernel(data: torch.Tensor, out_cap: int):
+    """Drop the duplicates of a sorted tensor (valid keys first): mark
+    them SENTINEL, one sort, fit to out_cap."""
+    return _compact_marked(data, _valid_mask(data) & _first_of_run(data),
+                           out_cap)
+
+
+def _merge_sortcompact_kernel(data: torch.Tensor, batch: torch.Tensor,
+                              out_cap: int):
+    """Union of the index and a batch without duplicates: one sort of
+    both, duplicates and sentinels marked, one compaction sort."""
+    s = sort_keys(torch.cat([data, batch]))
+    return _compact_marked(s, _valid_mask(s) & _first_of_run(s), out_cap)
+
+
+def _setop_sort_kernel_packed(a: torch.Tensor, b: torch.Tensor, op: str,
+                              out_cap: int):
+    """A binary set operation as one tagged sort, adjacency marks and a
+    compaction sort (`cbl_tpu`'s kernel of the same name).  a-rows get tag
+    bit 1, so b-rows sort first among equal words and "the key before me
+    holds my word" tells an a-row that its word is in b.  Only "remove"
+    (alias "diff": a minus b, b may hold duplicates and sentinels) is
+    ported; the other operations come with set algebra."""
+    if op not in ("remove", "diff"):
+        raise NotImplementedError(
+            f"set operation {op!r}: only 'remove' is ported (set algebra is "
+            "ROADMAP slice 4)"
+        )
+    s = sort_keys(torch.cat([_shift_tag(a, 1), _shift_tag(b, 0)]))
+    word = s >> 1
+    keep = _valid_mask(s) & ((s & 1) == 1) & _first_of_run(word)
+    return _compact_marked(word, keep, out_cap)
+
+
+def _contains_kernel(data: torch.Tensor, queries: torch.Tensor):
+    """[Q] bool: which queries are keys of sorted, contiguous `data`
+    (duplicates allowed); SENTINEL queries are False.  `torch.searchsorted`
+    stands for `cbl_tpu`'s hand-rolled binary search (plain XLA there, no
+    kernel) and for its radix-window table, which answers the same
+    question."""
+    idx = torch.searchsorted(data, queries)
+    found = data[idx.clamp(max=data.shape[0] - 1)] == queries
+    return (idx < data.shape[0]) & found & _valid_mask(queries)
+
+
+# --- the pending log ---------------------------------------------------------
+#
+# Appended rows carry seqtag = (seq << 1) | op with seq = 1 + the row's
+# place in the log and op 1 insert, 0 remove; index rows count as seqtag 1
+# (an insert before every log entry).  Sorted by (word, seqtag), the last
+# row of a word's run decides whether the word is in the set.  SENTINEL
+# words (blanked k-mers, unused slots) are ignored everywhere.
+
+
+def _fold_keep_mask(words: torch.Tensor, seqtag: torch.Tensor):
+    """Last-write-wins over (word, seqtag)-sorted rows: keep the LAST row
+    of each word's run when its op bit says insert (which also drops
+    duplicates); never a SENTINEL row."""
+    last_of_run = torch.ones_like(words, dtype=torch.bool)
+    last_of_run[:-1] = words[1:] != words[:-1]
+    return _valid_mask(words) & last_of_run & ((seqtag & 1) == 1)
+
+
+def _index_cols(data: torch.Tensor):
+    """The index as (word, seqtag) rows: seqtag 1 everywhere, so sorted
+    `data` is sorted in both columns."""
+    return data, torch.ones_like(data)
+
+
+def _fold_log_kernel(data: torch.Tensor, pending: torch.Tensor,
+                     tags: torch.Tensor, out_cap: int):
+    """Fold a log of inserts and removes into the index with one sort of
+    index and log by (word, seqtag): (keys [out_cap], distinct count).
+    `data` may be in any order."""
+    words, seqtag = sort_keys(cat_cols(_index_cols(data), (pending, tags)))
+    return _compact_marked(words, _fold_keep_mask(words, seqtag), out_cap)
+
+
+def _fold_log_merge_kernel(data: torch.Tensor, pending: torch.Tensor,
+                           tags: torch.Tensor, out_cap: int):
+    """`_fold_log_kernel` for sorted, contiguous `data`: sort only the
+    log, then one merge (B3 on two columns)."""
+    words, seqtag = merge_with_unsorted(_index_cols(data), (pending, tags))
+    return _compact_marked(words, _fold_keep_mask(words, seqtag), out_cap)
+
+
+def _last_entry_of_runs(run_start: torch.Tensor, valid: torch.Tensor,
+                        is_entry: torch.Tensor):
+    """(run_id [n], last [n]) over sorted rows: each row's run id
+    (`_run_ids`), and per run id the row of the run's last entry (-1 when
+    it has none).
+
+    `cbl_tpu` finds the latest entry at or before each row with `cummax`
+    scans.  `torch.cummax` on CUDA is a slow generic scan (268 ms over 84M
+    rows on an NVIDIA H100 80GB HBM3, 700 W), and the rows that ask sort
+    after every entry of their word, so the run's last entry is the one
+    they need: a scatter-max over run ids finds it."""
+    n = run_start.shape[0]
+    run_id = _run_ids(run_start, valid)
+    idx = torch.arange(n, dtype=torch.int64, device=run_start.device)
+    last = torch.full((n,), -1, dtype=torch.int64, device=run_start.device)
+    last.scatter_reduce_(0, run_id, torch.where(is_entry, idx, -1), "amax")
+    return run_id, last
+
+
+def _log_join_count(words: torch.Tensor, seqtag: torch.Tensor):
+    """Hits over (word, seqtag)-sorted rows of index, log and queries: a
+    query row (seqtag `_QUERY_SEQTAG`, last in its word's run) hits when
+    the run's last entry has the insert bit.  int64 0-d tensor."""
+    valid = _valid_mask(words)
+    is_query = seqtag == _QUERY_SEQTAG
+    run_id, last = _last_entry_of_runs(_first_of_run(words), valid,
+                                       ~is_query & valid)
+    run_live = (last >= 0) & ((seqtag[last.clamp(min=0)] & 1) == 1)
+    return (is_query & valid & run_live[run_id]).sum()
+
+
+def _query_cols(queries: torch.Tensor):
+    return queries, torch.full_like(queries, _QUERY_SEQTAG)
+
+
+def _count_hits_log_merge_kernel(data, pending, tags, queries):
+    """Hits of `queries` against sorted, contiguous `data` and the pending
+    log WITHOUT folding: sort log and queries by (word, seqtag), then one
+    merge with the index (B3 on two columns).  (`cbl_tpu`'s
+    `_count_hits_log_kernel`, one sort of all three, serves an index with
+    holes and comes with that state: ROADMAP slice 4.)"""
+    return _log_join_count(*merge_with_unsorted(
+        _index_cols(data), cat_cols((pending, tags), _query_cols(queries))))
+
+
+_QPOS_BITS = 31  # query positions ride below the seqtag in column 1
+
+
+def _pending_override_kernel(pending, tags, queries):
+    """What the unfolded log says about each query: (has [Q] bool, present
+    [Q] bool).  `has` marks queries whose word the log mentions, `present`
+    its last logged op (True = insert).
+
+    One sort of log and queries by (word, seqtag, query position), the
+    last two packed into column 1 as (seqtag << 31) | position; the run's
+    last entry decides; a one-column sort by position restores the query
+    order (log rows carry position Q and fall off the end)."""
+    n_log, n_q = pending.shape[0], queries.shape[0]
+    if n_q >= 1 << _QPOS_BITS:
+        raise ValueError(f"{n_q} queries do not fit {_QPOS_BITS} bits")
+    dev = queries.device
+    seqtag = torch.cat([tags, torch.full_like(queries, _QUERY_SEQTAG)])
+    qpos = torch.cat([
+        torch.full((n_log,), n_q, dtype=torch.int64, device=dev),
+        torch.arange(n_q, dtype=torch.int64, device=dev),
+    ])
+    words, minor = sort_keys((torch.cat([pending, queries]),
+                              (seqtag << _QPOS_BITS) | qpos))
+    seqtag = minor >> _QPOS_BITS
+    valid = _valid_mask(words)
+    run_id, last = _last_entry_of_runs(_first_of_run(words), valid,
+                                       (seqtag != _QUERY_SEQTAG) & valid)
+    run_has = last >= 0
+    run_present = run_has & ((seqtag[last.clamp(min=0)] & 1) == 1)
+    answer = (run_has[run_id].to(torch.int64) << 1) | run_present[run_id]
+    qpos = minor & ((1 << _QPOS_BITS) - 1)
+    ordered = sort_keys((qpos << 2) | answer)[:n_q]
+    return (ordered & 2) != 0, (ordered & 1) != 0
 
 
 # --- the sorted log (slog) of dynamic rounds ---------------------------------
@@ -183,17 +407,21 @@ def slog_word(keys: torch.Tensor) -> torch.Tensor:
     return (keys >> 8) + _SLOG_BIAS
 
 
+def _fit(s: torch.Tensor, out_cap: int) -> torch.Tensor:
+    """Truncate, or pad with SENTINEL, to out_cap rows."""
+    if out_cap <= s.shape[0]:
+        return s[:out_cap]
+    pad = torch.full((out_cap - s.shape[0],), SENTINEL, dtype=torch.int64,
+                     device=s.device)
+    return torch.cat([s, pad])
+
+
 def _compact_sort_kernel(data: torch.Tensor, out_cap: int):
     """Sort so that sentinels fall to the end, then truncate or pad with
     SENTINEL to out_cap: (keys [out_cap], valid count).  The valid keys
     are unique and at most out_cap."""
     s = sort_keys(data)
-    n = _valid_mask(s).sum()
-    if out_cap <= s.shape[0]:
-        return s[:out_cap], n
-    pad = torch.full((out_cap - s.shape[0],), SENTINEL, dtype=torch.int64,
-                     device=s.device)
-    return torch.cat([s, pad]), n
+    return _fit(s, out_cap), _valid_mask(s).sum()
 
 
 def _slog_join_count(slog: torch.Tensor, words: torch.Tensor,
@@ -211,18 +439,13 @@ def _slog_fold_kernel(slog: torch.Tensor, out_cap: int):
     last entry is an insert (as its word), make every other row SENTINEL,
     one compaction sort.  -> (keys [out_cap], distinct count).
 
-    `cbl_tpu` reads that liveness off `_slog_scan`'s running max.  Here
-    runs get ids from a running sum of run starts and a scatter-max finds
-    each run's last entry row: `torch.cummax` on CUDA is a slow generic
-    scan (268 ms of flush() + count() on the 84M-row log of the 32 Mbp
+    `cbl_tpu` reads that liveness off `_slog_scan`'s running max; here a
+    scatter-max finds each run's last entry (`_last_entry_of_runs`: 24 ms
+    instead of 270 for flush() + count() on the 84M-row log of the 32 Mbp
     dynamic workload, NVIDIA H100 80GB HBM3, 700 W).  Sentinel rows are
-    never entries, so their run is never live."""
+    never entries, so their runs are never live."""
     run_start, _, is_entry, is_insert = slog_rows(slog)
-    n = slog.shape[0]
-    run_id = torch.cumsum(run_start, 0) - 1
-    idx = torch.arange(n, dtype=torch.int64, device=slog.device)
-    last = torch.full((n,), -1, dtype=torch.int64, device=slog.device)
-    last.scatter_reduce_(0, run_id, torch.where(is_entry, idx, -1), "amax")
+    run_id, last = _last_entry_of_runs(run_start, _valid_mask(slog), is_entry)
     run_live = (last >= 0) & is_insert[last.clamp(min=0)]
     keep = run_live[run_id]
     keep[:-1] &= run_start[1:]  # one row per run: its last
@@ -232,9 +455,11 @@ def _slog_fold_kernel(slog: torch.Tensor, out_cap: int):
 
 
 class DeviceWordSet:
-    """A set of packed words as a sorted int64 tensor on one device."""
+    """A dynamic set of packed words as a sorted int64 tensor on one
+    device, with a pending log of unfolded inserts and removes."""
 
-    def __init__(self, cfg: CBLConfig, device: torch.device):
+    def __init__(self, cfg: CBLConfig, device: torch.device,
+                 pending_cap: int = DEFAULT_PENDING_CAP):
         check_config(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -245,8 +470,18 @@ class DeviceWordSet:
         self._n_upper = 0  # host upper bound on valid rows of `data`
         self.capacity = MIN_CAP
         # `data` is sorted and contiguous (valid keys, then sentinels); with
-        # `_dups` it may hold duplicate keys
+        # `_dups` it may hold duplicate keys.  `_holes` (sentinel rows
+        # between valid ones) is what set algebra leaves behind in
+        # `cbl_tpu`; nothing ported sets it yet, and the paths that would
+        # have to handle it raise
         self._dups = False
+        self._holes = False
+        # the pending log: appended words, their (seq << 1) | op tags, the
+        # rows in use, and whether a remove is among them
+        self.pending_cap = pending_cap
+        self.n_pending = 0
+        self._pending_rm = False
+        self._reset_pending()
         # sorted-log state (dynamic rounds): while `_slog` is set it
         # REPLACES `data` as the set (data was merged into it on entry)
         # until `_fold_slog` runs.  `_slog_real` is a host upper bound on
@@ -258,6 +493,14 @@ class DeviceWordSet:
         self._slog_real = 0
         self._slog_pack = slog_packed(cfg)
 
+    def _reset_pending(self) -> None:
+        self.pending = torch.full((self.pending_cap,), SENTINEL,
+                                  dtype=torch.int64, device=self.device)
+        self.pending_tags = torch.zeros(self.pending_cap, dtype=torch.int64,
+                                        device=self.device)
+        self.n_pending = 0
+        self._pending_rm = False
+
     @property
     def n(self) -> int:
         """Exact distinct count (waits for the device if one is pending)."""
@@ -267,43 +510,169 @@ class DeviceWordSet:
                 self._n_upper = self._n_host
         return self._n_host
 
+    def _no_holes(self, what: str) -> None:
+        if self._holes:
+            raise NotImplementedError(
+                f"{what} on an index with holes: the holes state comes "
+                "with set algebra (ROADMAP slice 4)"
+            )
+
     def _live(self) -> torch.Tensor:
         """The prefix of `data` that can hold every valid key."""
+        if self._holes:
+            return self.data
         eff = min(self.data.shape[0], _next_pow2(max(self._n_upper, 1)))
         return self.data[:eff]
+
+    def _live_cap(self) -> int:
+        """The capacity a compacted index of `_n_upper` keys gets."""
+        return max(_next_pow2(max(self._n_upper, 1)), MIN_CAP)
+
+    def _dedup(self) -> None:
+        """Drop the duplicate keys a bulk build left behind (one sort).
+        Set algebra calls it on both operands (ROADMAP slice 4); until
+        then only the tests do."""
+        if not self._dups:
+            return
+        self.flush()
+        n = self.n  # one sync: the exact count sizes the result
+        out_cap = max(_next_pow2(max(n, 1)), MIN_CAP)
+        self.data, n_dev = _dedup_sorted_kernel(self._live(), out_cap)
+        self.capacity = out_cap
+        self._dups = False
+        self._holes = False
+        self._set_count(n_dev)
+        self._n_upper = n
 
     def adopt_built(self, data: torch.Tensor, n_dev, n_upper: int) -> None:
         """Take a fused build's result: `data` sorted ascending, valid keys
         first (duplicates allowed), sentinel padded; `n_dev` = device count
         of DISTINCT keys; `n_upper` bounds the valid keys."""
-        if self._n_upper != 0 or self._slog is not None:
+        if self._n_upper != 0 or self._slog is not None or self.n_pending:
             raise ValueError("adopt_built needs an empty word set")
         self.data = data
         self.capacity = data.shape[0]
+        self._holes = False
         self._dups = True
         self._set_count(n_dev)
         self._n_upper = min(n_upper, self.capacity)
 
-    def _merge_into(self, batch: torch.Tensor, n_new_upper: int) -> None:
-        """Fold a SORTED batch into the set (keeping duplicates)."""
-        if self._n_upper == 0:
-            self.data, n_dev = batch, _distinct_count(batch)
+    # --- insert path ---
+
+    def insert_words(self, words: torch.Tensor) -> None:
+        """Queue [N] words for insertion (SENTINEL rows are ignored)."""
+        self._append_log(words, tag=1)
+
+    def remove_words(self, words: torch.Tensor) -> None:
+        """Queue [N] words for removal (folds with the pending log)."""
+        self._append_log(words, tag=0)
+
+    def _append_log(self, words: torch.Tensor, tag: int) -> None:
+        """Append a batch with op `tag`.  A batch larger than the log is
+        applied at once; a batch that does not fit beside what is queued
+        folds the log first."""
+        n = words.shape[0]
+        if n > self.pending_cap:
+            self.flush()
+            if tag == 1:
+                self._merge_into(words, n_new_upper=n)
+            else:
+                self._remove_now(words)
+            return
+        if self.n_pending + n > self.pending_cap:
+            self.flush()
+        if tag == 0:
+            self._pending_rm = True
+        off = self.n_pending
+        seq = torch.arange(off + 1, off + n + 1, dtype=torch.int64,
+                           device=self.device)
+        # in place: the log's buffers belong to this word set alone
+        self.pending_tags[off:off + n] = (seq << 1) | tag
+        self.pending[off:off + n] = words
+        self.n_pending += n
+
+    def insert_rows_bulk(self, rows_list: list) -> None:
+        """Fold a stream's word batches in ONE merge.  Part of the word
+        set's interface for callers that hold word batches (in `cbl_tpu`
+        the measurement scripts); no entry point of `CBL` calls it."""
+        if not rows_list:
+            return
+        self.flush()
+        rows = rows_list[0] if len(rows_list) == 1 else torch.cat(rows_list)
+        self._merge_into(rows, n_new_upper=rows.shape[0])
+
+    def _pending_prefix(self):
+        """The next-power-of-two prefix of the log that holds every row in
+        use (few shapes, and a lightly filled log costs a small sort)."""
+        eff = min(_next_pow2(self.n_pending), self.pending_cap)
+        return self.pending[:eff], self.pending_tags[:eff]
+
+    def flush(self) -> None:
+        """Fold an active slog, then the pending log, into `data`."""
+        self._fold_slog()
+        if self.n_pending == 0:
+            return
+        n_pend = self.n_pending
+        rows, tags = self._pending_prefix()
+        had_rm = self._pending_rm
+        self._reset_pending()  # fresh buffers: `rows` and `tags` stay whole
+        if not had_rm:
+            self._merge_into(rows, n_new_upper=n_pend)
+            return
+        # inserts and removes: one last-write-wins fold (duplicate keys in
+        # `data` are tolerated, everything is sorted again)
+        out_cap = max(_next_pow2(self._n_upper + n_pend), MIN_CAP)
+        if self._n_upper == 0 and not self._holes:
+            fold, data = _fold_log_kernel, self.data[:0]
         else:
-            self.data, n_dev = _merge_sortedbatch_kernel(self._live(), batch)
-        self.capacity = self.data.shape[0]
-        self._dups = True
+            self._no_holes("a fold of the pending log")
+            fold, data = _fold_log_merge_kernel, self._live()
+        self.data, n_dev = fold(data, rows, tags, out_cap)
+        self.capacity = out_cap
+        self._holes = False
+        self._dups = False
+        self._set_count(n_dev)
+        self._n_upper = min(self._n_upper + n_pend, out_cap)
+
+    def _merge_into(self, rows: torch.Tensor, n_new_upper: int,
+                    batch_sorted: bool = False) -> None:
+        """Fold a batch of words into `data`; `batch_sorted` skips the
+        batch's sort."""
+        out_cap = max(_next_pow2(self._n_upper + n_new_upper), MIN_CAP)
+        if self._n_upper == 0 and not self._holes:
+            # fresh index: one sort of the batch, duplicates kept
+            if batch_sorted:
+                self.data, n_dev = rows, _distinct_count(rows)
+            else:
+                self.data, n_dev = _build_sorted_kernel(rows)
+            self.capacity = self.data.shape[0]
+            self._dups = True
+        elif self._holes:
+            self._no_holes("an insert")
+        elif self._live().shape[0] + rows.shape[0] <= 2 * out_cap:
+            # sort only the batch and merge; duplicates are kept, so the
+            # tensor stays monotone
+            kern = (_merge_sortedbatch_kernel if batch_sorted
+                    else _merge_keepdups_kernel)
+            self.data, n_dev = kern(self._live(), rows)
+            self.capacity = self.data.shape[0]
+            self._dups = True
+        else:
+            # duplicates and padding would pass one half: compact in the
+            # same step (two sorts), back to the live size
+            self.data, n_dev = _merge_sortcompact_kernel(self._live(), rows,
+                                                         out_cap)
+            self.capacity = out_cap
+            self._holes = False
+            self._dups = False
         self._n_dev = n_dev
         self._n_host = None
-        self._n_upper += n_new_upper
+        self._n_upper = min(self._n_upper + n_new_upper, out_cap)
 
     def _set_count(self, n_dev) -> None:
         self._n_dev = n_dev
         self._n_host = None
         self._n_upper = min(self._n_upper, self.capacity)
-
-    def flush(self) -> None:
-        """Fold an active slog into `data` (the port has no pending log)."""
-        self._fold_slog()
 
     def _fold_slog(self) -> None:
         """Collapse an active slog into a clean sorted `data` (one
@@ -315,9 +684,10 @@ class DeviceWordSet:
         self._slog_seq = 0
         self._slog_count_dev = None
         self._slog_real = 0
-        out_cap = max(_next_pow2(max(self._n_upper, 1)), MIN_CAP)
+        out_cap = self._live_cap()
         self.data, n_dev = _slog_fold_kernel(slog, out_cap)
         self.capacity = out_cap
+        self._holes = False
         self._dups = False
         self._set_count(n_dev)
 
@@ -333,9 +703,8 @@ class DeviceWordSet:
     def maybe_autofold_slog(self) -> None:
         if self._slog is None:
             return
-        live_cap = max(_next_pow2(max(self._n_upper, 1)), MIN_CAP)
         if (
-            self._slog_real > self._SLOG_FOLD_MULT * live_cap
+            self._slog_real > self._SLOG_FOLD_MULT * self._live_cap()
             or self._slog_real > self._SLOG_HARD_CAP
         ):
             self._fold_slog()
@@ -343,9 +712,60 @@ class DeviceWordSet:
             # (the fold's output has no duplicates); folds are rare
             _ = self.n
 
-    def count(self) -> int:
+    # --- queries and removal ---
+
+    def count_hits_device(self, words: torch.Tensor,
+                          words_sorted: bool = False):
+        """Stored words among `words` (SENTINEL rows ignored), as an
+        unsynced int64 0-d tensor: a merge join with the index, with index
+        and pending log (last write wins), or with an active slog; a query
+        never folds a log, except the slog when both logs are active.
+        `words_sorted` skips the sort of the query side where the join has
+        one to skip."""
         if self._slog is not None:
+            if self.n_pending == 0:
+                return _slog_join_count(self._slog, words, words_sorted)
+            self._fold_slog()  # rare: rounds and separate calls mixed
+        if self.n_pending > 0:
+            self._no_holes("a query with a pending log")
+            return _count_hits_log_merge_kernel(
+                self._live(), *self._pending_prefix(), words)
+        self._no_holes("a query")
+        if words_sorted:
+            return _count_hits_merge_sorted_kernel(self._live(), words)
+        return _count_hits_merge_kernel(self._live(), words)
+
+    def contains_words(self, words: torch.Tensor) -> torch.Tensor:
+        """[N] bool on the device; SENTINEL rows are False.  With a
+        pending log, the log's last op per word overrides the index's
+        answer: a point query never forces a fold."""
+        self._fold_slog()
+        base = self._contains_base(words)
+        if self.n_pending == 0:
+            return base
+        has, present = _pending_override_kernel(*self._pending_prefix(),
+                                                words)
+        return torch.where(has, present, base) & _valid_mask(words)
+
+    def _contains_base(self, words: torch.Tensor) -> torch.Tensor:
+        self._no_holes("a membership query")
+        return _contains_kernel(self._live(), words)
+
+    def _remove_now(self, words: torch.Tensor) -> None:
+        """Remove a batch at once (batches larger than the log)."""
+        self._no_holes("a remove")
+        out_cap = self._live_cap()
+        self.data, n_dev = _setop_sort_kernel_packed(
+            self._live(), words, "remove", out_cap)
+        self.capacity = out_cap
+        self._holes = False
+        self._dups = False  # remove keeps the first key of each run
+        self._set_count(n_dev)
+
+    def count(self) -> int:
+        if self._slog is not None and self.n_pending == 0:
             return int(self._slog_count())
+        self.flush()
         return self.n
 
     def _slog_count(self):
@@ -356,25 +776,15 @@ class DeviceWordSet:
         return self._slog_count_dev
 
     def count_device(self):
-        """The distinct count as an unsynced device 0-d tensor; an active
-        slog is counted by a scan (B4), not folded."""
-        if self._slog is not None:
+        """The distinct count as an unsynced device 0-d tensor.  The
+        pending log is folded (enqueued, never waited for); an active slog
+        alone is counted by a scan (B4), not folded."""
+        if self._slog is not None and self.n_pending == 0:
             return self._slog_count()
+        self.flush()
         if self._n_dev is None:
             return torch.zeros((), dtype=torch.int64, device=self.device)
         return self._n_dev
-
-    def count_hits_device(self, words: torch.Tensor,
-                          words_sorted: bool = False):
-        """Stored words among `words` (SENTINEL rows ignored), as an
-        unsynced int64 0-d tensor: a merge join with the index, or with an
-        active slog without folding it.  `words_sorted` skips the sort of
-        the query side."""
-        if self._slog is not None:
-            return _slog_join_count(self._slog, words, words_sorted)
-        if words_sorted:
-            return _count_hits_merge_sorted_kernel(self._live(), words)
-        return _count_hits_merge_kernel(self._live(), words)
 
     def is_empty(self) -> bool:
         return self.count() == 0

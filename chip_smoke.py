@@ -1,33 +1,54 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's static and dynamic-round paths on one NVIDIA GPU.
+"""Drive the PyTorch port's static, dynamic-round and separate-call paths
+on one NVIDIA GPU.
 
 Run from the repository root, on a machine with one CUDA card, `nvcc` and
 `g++`:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # every phase, ~2 minutes
+    python3 chip_smoke.py --profile  # only a `torch.profiler` table of
+                                     # the separate-calls workload
 
 Phases (any failure raises and the script exits non-zero):
-1. print the card, its power limit and the versions; build the four CUDA
+1. print the card, its power limit and the versions; build the five CUDA
    kernels of `cbl_tpu_torch` from `cbl_tpu_torch/csrc/` (one nvcc per
    source, in parallel);
 2. hold each kernel against its plain PyTorch version on the card at the
-   main paths' shapes (exact equality) and time both with CUDA events;
+   main paths' shapes (exact equality; B5 also against `torch.sort`), time
+   both with CUDA events, time the one PyTorch call that computes the
+   same function where there is one, and work out each kernel's bound
+   (the larger of bytes over the HBM peak and integer operations over
+   the INT32 peak);
 3. run the static path at full size: 32,000,000 random bases (one
    record) at K=25, `pack_stream` -> `insert_codes_stream` ->
    `count_device` -> `query_codes_stream(lazy=True)` with one sync, plain
    and canonical; `distinct` must equal `bench/baseline.cpp`'s count and
    every k-mer must be found;
-4. query a multi-record stream that was never inserted (its `positive`
-   must equal a numpy oracle) and build a stream of two slabs;
+4. query a multi-record stream that was never inserted against an index
+   of the first 8 Mbp (its `positive` must equal a numpy oracle) and
+   build a stream of two slabs;
 5. run the dynamic path at full size (`bench.py --mode dynamic`): the same
    32 Mbp in 8 segments, round i = `dynamic_round(segs[i],
    segs[max(i-1, 0)], halves[i])`, one warm-up and one timed run;
    `distinct` and the summed `positive` must equal `bench/baseline.cpp
    dynamic`'s; then a query of the active log must equal the same query
    after `flush()`;
-6. require every kernel of each path to have been launched in that
+6. run the separate calls (`dynamic_round`'s fallback: per round
+   `insert_codes_stream`, `query_codes_stream(lazy=True)`,
+   `remove_codes_stream`, then `count_device()` and one sync) under the
+   "mergepath" sort mode, where every sort is kernel B5: run A on the
+   32 Mbp of phase 5 (inserts exceed the pending log and merge, removes
+   stay in the log and fold), run B on its first 16 Mbp (inserts fit the
+   log, so every query joins index and log); counts must equal
+   `bench/baseline.cpp dynamic`'s and the launches of every kernel the
+   numbers derived from the code; run A again in the default mode
+   (`torch.sort`, no B5 launch) must give the same counts; then point
+   operations against a Python oracle with no fold in between, and a
+   round over a two-slab stream (the fallback) against the same three
+   calls on a second index;
+7. require every kernel of each path to have been launched in that
    path's timed run, and print the timings;
-7. print the kernels' JSON line and, last, the device JSON line.
+8. print the kernels' JSON line and, last, the device JSON line.
 
 The script imports no JAX.  The kernels and the baseline are built into
 `cbl_tpu_torch/_build/`.
@@ -50,7 +71,16 @@ SLAB = 1 << 25  # k-mers per slab (cbl_tpu_torch.cbl._FUSED_SLAB)
 SEGS = 8  # dynamic rounds (bench.py SEGS, bench/baseline.cpp run_dynamic)
 DEVICE = "cuda"
 STATIC_KERNELS = ("necklace", "blank", "merge")
-KERNELS = STATIC_KERNELS + ("slog_scan",)  # all run on the dynamic path
+ROUND_KERNELS = STATIC_KERNELS + ("slog_scan",)  # the dynamic rounds'
+KERNELS = ROUND_KERNELS + ("sort",)
+# Peaks of one H100 SXM (NVIDIA's data sheet): HBM3 at 3.35 TB/s; 67
+# TFLOP/s of float32 outside the tensor cores counts a fused multiply-add
+# as two, so its 128 float32 lanes an SM issue 33.5e12 operations a
+# second.  Every kernel here works on integers, and an SM has 64 INT32
+# lanes (adds, shifts, logic, compares, selects), half as many: 16.75e12
+# 32-bit integer operations a second.
+HBM_BYTES_S = 3.35e12
+INT_OPS_S = 67e12 / 4
 
 
 def log(msg: str) -> None:
@@ -91,6 +121,26 @@ def max_abs_err(got, want) -> float:
     return float((got.double() - want.double()).abs().max())
 
 
+def bound(n_bytes: float, n_ops: float) -> dict:
+    """The least time the card could take: every input byte read once and
+    every output byte written once at the HBM peak, or the 32-bit integer
+    operations at the INT32 peak, whichever is larger."""
+    by_bytes = n_bytes / HBM_BYTES_S * 1e3
+    by_ops = n_ops / INT_OPS_S * 1e3
+    return dict(bound_ms=max(by_bytes, by_ops),
+                bound_by="bytes" if by_bytes >= by_ops else "operations")
+
+
+def cols_equal(got, want) -> float:
+    """`max_abs_err` over key columns (a tensor or a tuple of tensors)."""
+    import torch
+
+    got = (got,) if isinstance(got, torch.Tensor) else got
+    want = (want,) if isinstance(want, torch.Tensor) else want
+    assert len(got) == len(want)
+    return max(max_abs_err(g, w) for g, w in zip(got, want))
+
+
 # --- phase 2: each kernel against its plain version -------------------------
 
 
@@ -98,7 +148,7 @@ def check_kernels(card: str) -> dict:
     import torch
 
     from cbl_tpu_torch import cbl as cmod
-    from cbl_tpu_torch.ops import merge, necklace, scan
+    from cbl_tpu_torch.ops import LAUNCHES, merge, necklace, scan, sort
 
     dev = torch.device(DEVICE)
     rng = np.random.default_rng(1)
@@ -116,7 +166,18 @@ def check_kernels(card: str) -> dict:
     x = torch.from_numpy(rng.integers(0, 1 << (2 * K), size=SLAB)).to(dev)
     ms = time_ms(lambda: necklace.necklace_pos(x, 2 * K), 10)
     plain_ms = time_ms(lambda: necklace.necklace_pos_plain(x, 2 * K), 3)
-    results["necklace"] = dict(err=max(errs), ms=ms, plain_ms=plain_ms)
+    # 8 bytes read, 8 + 4 written a k-mer.  Operations: W - 1 candidate
+    # rotations, each at least seven 32-bit integer instructions on a word
+    # held in two registers (two funnel shifts form it from the one
+    # before, two compares order it against the best, three selects keep
+    # the best's halves and its position).  The kernel's source also
+    # masks each rotation, so it executes more than this count
+    b1 = bound(SLAB * 20, SLAB * (2 * K - 1) * 7)
+    log(f"B1 necklace bound: {b1['bound_ms']:.4f} ms by {b1['bound_by']} "
+        f"({(2 * K - 1) * 7} INT32 operations a k-mer at {INT_OPS_S:.4g}/s); "
+        f"by bytes alone {bound(SLAB * 20, 0)['bound_ms']:.4f} ms")
+    results["necklace"] = dict(
+        err=max(errs), ms=ms, plain_ms=plain_ms, library_ms=None, **b1)
 
     # B2: the delta array of a 2^25 slab with many records and a short
     # trailing record
@@ -139,7 +200,12 @@ def check_kernels(card: str) -> dict:
     assert 0 < n_blank < nk_pad
     ms = time_ms(lambda: scan.blank_mask(delta), 20)
     plain_ms = time_ms(lambda: scan.blank_mask_plain(delta), 5)
-    results["blank"] = dict(err=err, ms=ms, plain_ms=plain_ms)
+    # 4 bytes read and 1 written a row; an add and a compare a row.  The
+    # library's way to the same function is `torch.cumsum`, a compare and
+    # a sum: the plain version itself
+    results["blank"] = dict(
+        err=err, ms=ms, plain_ms=plain_ms, library_ms=plain_ms,
+        **bound(nk_pad * 5 + 4, nk_pad * 2))
 
     # B3: 2^25 + 2^25 (the self-query join), skewed sides, an empty side;
     # heavy duplicates and sentinel keys
@@ -163,10 +229,50 @@ def check_kernels(card: str) -> dict:
                                 merge.merge_sorted_plain(a, b)))
         log(f"B3 merge {na} + {nb} (keys < 2^{hi.bit_length() - 1}): "
             f"kernel == plain: {errs[-1] == 0}")
+    # two columns, (word, seqtag) rows: a fold's shape (the index of 2^25
+    # rows against a sorted log of 2^21) and duplicate-heavy sides
+    def sorted_rows(n, hi, sent_frac=0.02):
+        w = rng.integers(0, hi, size=n)
+        w[rng.random(n) < sent_frac] = (1 << 63) - 1
+        t = rng.integers(2, 1 << 23, size=n)
+        return merge.sort_cols_plain((torch.from_numpy(w).to(dev),
+                                      torch.from_numpy(t).to(dev)))
+
+    for na, nb, hi in ((SLAB, 1 << 21, 1 << 56), (1 << 22, 1 << 22, 50),
+                       (0, 5000, 3)):
+        a, b = sorted_rows(na, hi), sorted_rows(nb, hi)
+        errs.append(cols_equal(merge.merge_sorted(a, b),
+                               merge.merge_sorted_plain(a, b)))
+        log(f"B3 merge, two columns, {na} + {nb} (words < "
+            f"2^{hi.bit_length() - 1}): kernel == plain: {errs[-1] == 0}")
+    # the largest fold of the separate calls (`_fold_log_merge_kernel`):
+    # an index of 2^26 rows, three quarters of them the sentinel tail,
+    # every seqtag 1, against a sorted log of 2^21 (word, seqtag) rows
+    w = rng.integers(0, 1 << 56, size=2 * SLAB)
+    w[SLAB // 2:] = (1 << 63) - 1
+    a = torch.sort(torch.from_numpy(w).to(dev)).values
+    a, b = (a, torch.ones_like(a)), sorted_rows(1 << 21, 1 << 56)
+    del w
+    errs.append(cols_equal(merge.merge_sorted(a, b),
+                           merge.merge_sorted_plain(a, b)))
+    log(f"B3 merge, two columns, {2 * SLAB} + {1 << 21} (a fold: 75 % "
+        f"sentinel tail): kernel == plain: {errs[-1] == 0}")
+    ms_fold = time_ms(lambda: merge.merge_sorted(a, b), 5)
+    log(f"B3 merge, two columns, {2 * SLAB} + {1 << 21}: {ms_fold:.4f} ms, "
+        f"bound {bound(2 * 16 * (2 * SLAB + (1 << 21)), 0)['bound_ms']:.4f} "
+        f"ms")
+    a, b = sorted_rows(SLAB, 1 << 56), sorted_rows(1 << 21, 1 << 56)
+    ms2 = time_ms(lambda: merge.merge_sorted(a, b), 10)
+    log(f"B3 merge, two columns, {SLAB} + {1 << 21}: {ms2:.4f} ms, bound "
+        f"{bound(2 * 16 * (SLAB + (1 << 21)), 0)['bound_ms']:.4f} ms")
     a, b = sorted_keys(SLAB, 1 << 57), sorted_keys(SLAB, 1 << 57)
     ms = time_ms(lambda: merge.merge_sorted(a, b), 10)
     plain_ms = time_ms(lambda: merge.merge_sorted_plain(a, b), 3)
-    results["merge"] = dict(err=max(errs), ms=ms, plain_ms=plain_ms)
+    # every key read once and written once; a 64-bit compare an output
+    results["merge"] = dict(
+        err=max(errs), ms=ms, plain_ms=plain_ms, library_ms=None,
+        two_col_ms=ms2, fold_ms=ms_fold,
+        **bound(2 * 8 * 2 * SLAB, 2 * SLAB * 2))
     del a, b
 
     # B4: a synthetic slog of 2^26 rows (runs of ~16 rows across every
@@ -187,12 +293,87 @@ def check_kernels(card: str) -> dict:
             ms = time_ms(lambda: scan.slog_scan_counts(keys, round_qtag), 20)
             plain_ms = time_ms(
                 lambda: scan.slog_scan_counts_plain(keys, round_qtag), 3)
-    results["slog_scan"] = dict(err=max(errs), ms=ms, plain_ms=plain_ms)
+    # one 8-byte read a row, two counters written; a few compares a row
+    results["slog_scan"] = dict(
+        err=max(errs), ms=ms, plain_ms=plain_ms, library_ms=None,
+        **bound(2 * SLAB * 8 + 16, 2 * SLAB * 6))
     del keys
 
+    # B5: 2^25 keys in one column (the static build's sort); 2^26 + 2^21
+    # keys, three quarters of them sentinels (the largest compaction of
+    # the separate calls: a fold's merged index and log); 2^21 + 2^21
+    # (word, seqtag) rows (a log join's sort of log and queries) and
+    # 2^22 + 2^21; 2^25 - 4097 rows, one row, a constant column, half
+    # sentinels.  Against its plain version and against the library sort,
+    # exact
+    def sort_case(label, keys, plain=True):
+        got = merge.sort_mergepath(keys)
+        want = merge.sort_cols_plain(merge.as_cols(keys))
+        err = cols_equal(merge.as_cols(got), want)
+        if plain:
+            err = max(err, cols_equal(
+                merge.as_cols(merge.sort_mergepath_plain(keys)), want))
+        log(f"B5 sort {label}: kernel == plain == torch.sort: {err == 0}")
+        return err
+
+    def rand_keys(n, hi, sent_frac=0.01):
+        v = rng.integers(0, hi, size=n)
+        v[rng.random(n) < sent_frac] = (1 << 63) - 1
+        return torch.from_numpy(v).to(dev)
+
+    n_join = (1 << 22) + (1 << 21)
+    n_fold = 2 * SLAB + (1 << 21)
+    x1 = rand_keys(SLAB, 1 << 57)
+    x2 = (rand_keys(n_join, 1 << 56, 0.02), rand_keys(n_join, 1 << 23, 0))
+    x3 = rand_keys(n_fold, 1 << 57, 0.75)
+    x4 = (rand_keys(1 << 22, 1 << 56, 0.02), rand_keys(1 << 22, 1 << 23, 0))
+    errs = [
+        sort_case(f"n={SLAB} one column", x1),
+        sort_case(f"n={n_fold} one column, 75 % sentinels", x3),
+        sort_case(f"n={n_join} two columns", x2),
+        sort_case(f"n={1 << 22} two columns", x4),
+        sort_case(f"n={n_join} two columns, 50 words",
+                  (rand_keys(n_join, 50, 0.02), x2[1])),
+        sort_case(f"n={SLAB - 4097}", x1[: SLAB - 4097].contiguous()),
+        sort_case("n=1", x1[:1].contiguous()),
+        sort_case(f"n={1 << 24} constant", torch.full_like(x1[: 1 << 24], 7)),
+        sort_case(f"n={1 << 24} half sentinels",
+                  rand_keys(1 << 24, 1 << 57, 0.5)),
+    ]
+    n_sort = LAUNCHES["sort"]
+    with sort.use_sort_mode("library"):
+        assert torch.equal(sort.sort_keys(x1), torch.sort(x1).values)
+    assert LAUNCHES["sort"] == n_sort  # the default mode never launches B5
+    ms = time_ms(lambda: merge.sort_mergepath(x1), 5)
+    plain_ms = time_ms(lambda: merge.sort_mergepath_plain(x1), 2)
+    library_ms = time_ms(lambda: torch.sort(x1), 5)
+    ms2 = time_ms(lambda: merge.sort_mergepath(x2), 5)
+    lib2 = time_ms(lambda: merge.sort_cols_plain(x2), 5)
+    log(f"B5 sort, two columns, {n_join}: {ms2:.4f} ms, two stable "
+        f"torch.sort passes {lib2:.4f} ms, bound "
+        f"{bound(2 * 16 * n_join, 0)['bound_ms']:.4f} ms")
+    ms3 = time_ms(lambda: merge.sort_mergepath(x3), 3)
+    lib3 = time_ms(lambda: torch.sort(x3), 3)
+    log(f"B5 sort, one column, {n_fold} (75 % sentinels): {ms3:.4f} ms, "
+        f"torch.sort {lib3:.4f} ms, bound "
+        f"{bound(2 * 8 * n_fold, 0)['bound_ms']:.4f} ms")
+    ms4 = time_ms(lambda: merge.sort_mergepath(x4), 5)
+    lib4 = time_ms(lambda: merge.sort_cols_plain(x4), 5)
+    log(f"B5 sort, two columns, {1 << 22}: {ms4:.4f} ms, two stable "
+        f"torch.sort passes {lib4:.4f} ms, bound "
+        f"{bound(2 * 16 * (1 << 22), 0)['bound_ms']:.4f} ms")
+    # every key read once and written once; n log2 n 64-bit compares
+    results["sort"] = dict(
+        err=max(errs), ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+        two_col_ms=ms2, two_col_library_ms=lib2, fold_ms=ms3,
+        fold_library_ms=lib3, **bound(2 * 8 * SLAB, SLAB * 25 * 2))
+    del x1, x2, x3, x4
+
     for name, r in results.items():
-        log(f"kernel {name}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms "
-            f"[{card}]")
+        lib = r["library_ms"]
+        log(f"kernel {name}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+            f"library call {'none' if lib is None else f'{lib:.4f} ms'}, "
+            f"bound {r['bound_ms']:.4f} ms by {r['bound_by']} [{card}]")
         if r["err"] != 0:
             raise AssertionError(f"kernel {name} disagrees with its plain "
                                  f"version (max abs err {r['err']})")
@@ -333,6 +514,186 @@ def dynamic_run(codes: np.ndarray, timed: bool):
     )
 
 
+# --- phase 6: the separate calls -------------------------------------------------
+
+
+def separate_run(codes: np.ndarray, sort_mode: str, log_at_query: bool):
+    """`dynamic_round`'s fallback on the port, under sort mode `sort_mode`:
+    SEGS rounds of `insert_codes_stream(segs[i])`,
+    `query_codes_stream(segs[max(i-1, 0)], lazy=True)`,
+    `remove_codes_stream(halves[i])`, then `count_device()` and one sync
+    for the distinct count and the summed positives.  `log_at_query` says
+    whether the inserts fit the pending log (then every query after round
+    0 joins index and log) or exceed it (then every query sees an empty
+    log); either way the removes stay in the log.  The launch counters
+    are set to 0 after staging and read after the sync.
+    -> (index, segs, result dict)."""
+    import torch
+
+    from cbl_tpu_torch import CBL
+    from cbl_tpu_torch.ops import LAUNCHES
+    from cbl_tpu_torch.ops.sort import use_sort_mode
+
+    sb = len(codes) // SEGS
+    off1 = np.array([0, sb], dtype=np.int64)
+    off_h = np.array([0, sb // 2], dtype=np.int64)
+    torch.cuda.synchronize()
+    with use_sort_mode(sort_mode):
+        idx = CBL(k=K, device=DEVICE)
+        ws = idx.wordset
+        t0 = time.perf_counter()
+        segs = [idx.pack_stream(codes[i * sb:(i + 1) * sb], off1)
+                for i in range(SEGS)]
+        halves = [idx.pack_stream(codes[i * sb:i * sb + sb // 2], off_h)
+                  for i in range(SEGS)]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        pos_dev = None
+        ops = 0
+        for i in range(SEGS):
+            idx.insert_codes_stream(segs[i])
+            assert (ws.n_pending > 0) == (log_at_query and i > 0), (
+                i, ws.n_pending)
+            _, p = idx.query_codes_stream(segs[i - 1 if i else 0], lazy=True)
+            idx.remove_codes_stream(halves[i])
+            assert ws.n_pending > 0 and ws._pending_rm, i
+            pos_dev = p if pos_dev is None else pos_dev + p
+            ops += 2 * (sb - K + 1) + sb // 2 - K + 1
+        n_dev = idx.count_device()
+        ev[1].record()
+        distinct, positive = torch.stack([n_dev, pos_dev]).tolist()
+        t2 = time.perf_counter()
+    return idx, segs, dict(
+        mode=sort_mode, ops=ops, distinct=distinct, positive=positive,
+        wall_s=t2 - t0, stage_s=t1 - t0, calls_s=t2 - t1,
+        calls_ms=ev[0].elapsed_time(ev[1]), launches=dict(LAUNCHES),
+        index_rows=ws.data.shape[0], n_upper=ws._n_upper,
+    )
+
+
+def separate_launches(sort_mode: str, log_at_query: bool) -> dict:
+    """The launches of one `separate_run`, derived from the code.
+
+    Every stream runs the word pipeline once (B1, B2): 2 a round.  Round
+    0 sorts its segment into the empty index, joins it with one merge and
+    appends its removes.  Every later round folds the logged removes at
+    its insert (a sort of the log, a two-column merge with the index, a
+    compaction sort), sorts its segment, joins with one merge, and
+    - run A (inserts exceed the log): merges the segment into the index;
+    - run B (inserts fit the log): sorts log and queries for the join,
+      and at the remove, which does not fit beside the inserts, sorts and
+      merges the logged inserts into the index.
+    `count_device()` folds the last removes (two sorts, one merge).  The
+    default mode does the same sorts with `torch.sort`."""
+    later = SEGS - 1
+    sorts = 1 + later * (5 if log_at_query else 3) + 2
+    return {"necklace": 2 * SEGS, "blank": 2 * SEGS,
+            "merge": 1 + later * 3 + 1, "slog_scan": 0,
+            "sort": sorts if sort_mode == "mergepath" else 0}
+
+
+def np_kmers(codes: np.ndarray) -> np.ndarray:
+    """The k-mers of one record as packed uint64 (first base most
+    significant)."""
+    nk = len(codes) - K + 1
+    v = np.zeros(nk, dtype=np.uint64)
+    for j in range(K):
+        v = (v << np.uint64(2)) | codes[j:j + nk].astype(np.uint64)
+    return v
+
+
+def point_ops_check(idx, seg_codes: np.ndarray) -> str:
+    """`insert_kmers`, `remove_kmers` and `contains_kmers` of a few
+    thousand k-mers on a built index, no fold in between, against a
+    Python oracle: the last logged op of a k-mer decides, else whether
+    the indexed stream holds it."""
+    rng = np.random.default_rng(6)
+    ws = idx.wordset
+    idx.flush()
+    data = ws.data
+    base = np_kmers(seg_codes)
+    inside = [int(v) for v in base[rng.integers(0, len(base), size=3000)]]
+    outside = [int(v) for v in rng.integers(0, 1 << (2 * K), size=3000)]
+    last = {}
+    idx.remove_kmers(inside[:1000])
+    last.update((v, False) for v in inside[:1000])
+    idx.insert_kmers(outside[:2000])
+    last.update((v, True) for v in outside[:2000])
+    idx.remove_kmers(outside[500:1000] + inside[2000:2200])
+    last.update((v, False) for v in outside[500:1000] + inside[2000:2200])
+    idx.insert_kmers(inside[:300])
+    last.update((v, True) for v in inside[:300])
+    probe = inside + outside
+    in_base = np.isin(np.array(probe, dtype=np.uint64), base)
+    want = [last.get(v, bool(b)) for v, b in zip(probe, in_base)]
+    got = idx.contains_kmers(probe)
+    assert got.tolist() == want, "point operations disagree with the oracle"
+    assert ws.data is data and ws.n_pending == 1000 + 2000 + 700 + 300
+    return (f"point operations: {len(probe)} k-mers probed after 4000 "
+            f"logged ops, {int(got.sum())} present, no fold "
+            f"(n_pending {ws.n_pending}): masks == oracle")
+
+
+def multi_slab_round_check(codes: np.ndarray) -> str:
+    """One `dynamic_round` whose insert stream has two slabs takes the
+    separate calls; the same three calls on a second index agree."""
+    from cbl_tpu_torch import CBL
+
+    one = lambda c: (c, np.array([0, len(c)], dtype=np.int64))
+    base, ins = one(codes[:1_000_000]), codes[500_000:2_000_000]
+    qry, rm = one(codes[:2_500_000]), one(codes[1_000_000:1_800_000])
+    a, b = CBL(k=K, device=DEVICE), CBL(k=K, device=DEVICE)
+    a.insert_codes_stream(*base)
+    b.insert_codes_stream(*base)
+    ps = a.pack_stream(*one(ins), slab=1 << 20)
+    assert len(ps.slabs) == 2
+    got = a.dynamic_round(ps, qry, rm)
+    assert a.wordset._slog is None and a.wordset.n_pending > 0
+    b.insert_codes_stream(*one(ins))
+    want = b.query_codes_stream(*qry)
+    b.remove_codes_stream(*rm)
+    assert got == want and 0 < got[1] < got[0], (got, want)
+    assert a.count() == b.count() > 0
+    return (f"two-slab round: slabs {[s[0] for s in ps.slabs]}, (total, "
+            f"positive) {got} == the separate calls, count {a.count()}")
+
+
+def profile_separate() -> int:
+    """`--profile`: the separate-calls workload (runs A and B) under
+    `torch.profiler` in both sort modes; prints the device time by
+    kernel name and the device's idle share of the calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    card = card_line()
+    codes = np.random.default_rng(0).integers(0, 4, size=MAIN_BASES,
+                                              dtype=np.uint8)
+    for label, n, log_at_query in (("A", MAIN_BASES, False),
+                                   ("B", MAIN_BASES // 2, True)):
+        for mode in ("mergepath", "library"):
+            separate_run(codes[:n], mode, log_at_query)  # warm-up
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                _, _, r = separate_run(codes[:n], mode, log_at_query)
+            rows = [(e.self_device_time_total / 1e3, e.count, e.key)
+                    for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and e.self_device_time_total > 0]
+            rows.sort(reverse=True)
+            busy = sum(t for t, _, _ in rows)
+            print(f"[{card}] run {label} {mode}: calls {r['calls_ms']:.2f} ms"
+                  f" by device events under the profiler, kernels "
+                  f"{busy:.2f} ms, idle {1 - busy / r['calls_ms']:.1%}, "
+                  f"stage {r['stage_s'] * 1e3:.1f} ms")
+            for t, count, key in rows[:14]:
+                print(f"  {t:9.3f} ms  {count:5d} x  {key[:90]}")
+    return 0
+
+
 def np_necklace_words(codes: np.ndarray, offsets: np.ndarray) -> np.ndarray:
     """Host oracle: the packed necklace words of every k-mer that lies
     inside one record (uint64 arithmetic, independent of the port)."""
@@ -371,7 +732,15 @@ def main() -> int:
               "needs a CUDA card", file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
+    from cbl_tpu_torch import CBL
     from cbl_tpu_torch.ops import LAUNCHES, _build
+    from cbl_tpu_torch.ops.sort import use_sort_mode
+
+    if sys.argv[1:] == ["--profile"]:
+        return profile_separate()
+    if sys.argv[1:]:
+        print(f"usage: {sys.argv[0]} [--profile]", file=sys.stderr)
+        return 2
 
     # phase 1
     card = card_line()
@@ -417,37 +786,43 @@ def main() -> int:
                 f"kernel {name} never launched on the static path")
         runs[label] = (r, base)
         if not canonical:
-            main_launches, plain_idx = launches, idx
+            main_launches = launches
         del idx, ps
     log(f"launch counters on the static path (plain): {main_launches}")
 
-    # phase 4: a multi-record query stream that was never inserted (half of
-    # its records copied from the inserted stream, half fresh bases)
+    # phase 4: a multi-record query stream that was never inserted, against
+    # an index of the first quarter of the bases (the numpy oracle's time
+    # goes with the index's size); half of its records are copied from the
+    # indexed bases, half are fresh
+    quarter = codes[: MAIN_BASES // 4]
+    q_off = np.array([0, len(quarter)], dtype=np.int64)
+    q_idx = CBL(k=K, device=DEVICE)
+    q_idx.insert_codes_stream(quarter, q_off)
     qrng = np.random.default_rng(2)
     parts = []
     for r in range(8):
         n = MAIN_BASES // 64
         if r % 2 == 0:
-            s = int(qrng.integers(0, MAIN_BASES - n))
-            parts.append(codes[s : s + n])
+            s = int(qrng.integers(0, len(quarter) - n))
+            parts.append(quarter[s : s + n])
         else:
             parts.append(qrng.integers(0, 4, size=n, dtype=np.uint8))
     parts.append(qrng.integers(0, 4, size=11, dtype=np.uint8))  # short tail
     qcodes = np.concatenate(parts)
     qoff = np.concatenate([[0], np.cumsum([len(p) for p in parts])])
     n_merge = LAUNCHES["merge"]
-    total, positive = plain_idx.query_codes_stream(qcodes, qoff)
+    total, positive = q_idx.query_codes_stream(qcodes, qoff)
     assert LAUNCHES["merge"] > n_merge
     t_o = time.perf_counter()
     q_words = np_necklace_words(qcodes, qoff)
-    i_words = np_necklace_words(codes, offsets)
+    i_words = np_necklace_words(quarter, q_off)
     want_pos = int(np.isin(q_words, i_words).sum())
-    log(f"foreign query: total {total} positive {positive}; numpy oracle "
-        f"total {len(q_words)} positive {want_pos} "
-        f"({time.perf_counter() - t_o:.1f} s)")
+    log(f"foreign query against {len(quarter) / 1e6:.0f} Mbp: total {total} "
+        f"positive {positive}; numpy oracle total {len(q_words)} positive "
+        f"{want_pos} ({time.perf_counter() - t_o:.1f} s)")
     assert (total, positive) == (len(q_words), want_pos)
     assert 0 < positive < total
-    del plain_idx
+    del q_idx
 
     codes2 = np.random.default_rng(3).integers(
         0, 4, size=SLAB + SLAB // 32 + K - 1, dtype=np.uint8)
@@ -480,9 +855,10 @@ def main() -> int:
     # as in cbl_tpu); one scan a round
     assert dyn_launches["merge"] == 3 * SEGS - 1, dyn_launches
     assert dyn_launches["slog_scan"] == SEGS, dyn_launches
-    for name in KERNELS:
+    for name in ROUND_KERNELS:
         assert dyn_launches[name] >= 1, (
             f"kernel {name} never launched on the dynamic path")
+    assert dyn_launches["sort"] == 0, dyn_launches  # the default sort mode
     n_m, n_s = LAUNCHES["merge"], LAUNCHES["slog_scan"]
     t_j = time.perf_counter()
     joined = idx.query_codes_stream(segs[SEGS - 1])  # B3 + B4 on the log
@@ -502,7 +878,45 @@ def main() -> int:
     assert folded_n == dyn["distinct"]
     del idx, segs
 
-    # phase 6
+    # phase 6: the separate calls, every sort through B5 ("mergepath"),
+    # then run A once more in the default mode
+    half_codes = codes[: MAIN_BASES // 2]
+    base_b = run_baseline(exe, half_codes, "dynamic")
+    sep = {}
+    for label, run_codes, mode, log_at_query, base in (
+            ("A", codes, "mergepath", False, base_dyn),
+            ("B", half_codes, "mergepath", True, base_b),
+            ("A default", codes, "library", False, base_dyn)):
+        separate_run(run_codes, mode, log_at_query)  # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        idx, segs, r = separate_run(run_codes, mode, log_at_query)
+        r["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        log(f"separate calls, run {label}: {r} baseline {base}")
+        assert r["ops"] == base["ops"], (r, base)
+        assert r["distinct"] == base["distinct"], (r, base)
+        assert r["positive"] == base["positive"], (r, base)
+        want = separate_launches(mode, log_at_query)
+        assert r["launches"] == want, (r["launches"], want)
+        sep[label] = r
+        del idx, segs
+    assert sep["A"]["distinct"] == dyn["distinct"]
+    assert sep["A"]["positive"] == dyn["positive"]
+    for name in STATIC_KERNELS + ("sort",):
+        assert sep["A"]["launches"][name] > 0 < sep["B"]["launches"][name]
+    assert sep["A default"]["launches"]["sort"] == 0
+    for name in STATIC_KERNELS:
+        assert sep["A default"]["launches"][name] > 0
+    with use_sort_mode("mergepath"):
+        idx = CBL(k=K, device=DEVICE)
+        seg0 = codes[: MAIN_BASES // SEGS]
+        idx.insert_codes_stream(seg0, np.array([0, len(seg0)]))
+        n_sort = LAUNCHES["sort"]
+        log(point_ops_check(idx, seg0))
+        assert LAUNCHES["sort"] > n_sort  # the log's override sorts
+        del idx
+    log(multi_slab_round_check(codes))
+
+    # phase 7
     for name in STATIC_KERNELS:
         assert main_launches[name] >= 1, name
     for label, (r, base) in runs.items():
@@ -524,7 +938,18 @@ def main() -> int:
         f"({dyn['log_real']} real bound, seq {dyn['seq']}); baseline.cpp "
         f"1 core {base_dyn['ops_per_s']:.4g} ops/s")
 
-    # phase 7
+    for label, r in sep.items():
+        log(f"[{card}] K={K} separate calls run {label} "
+            f"({len(codes if label != 'B' else half_codes) / 1e6:.0f} Mbp, "
+            f"{SEGS} rounds, {r['ops']} ops, sort mode {r['mode']}): device "
+            f"calls {r['calls_s'] * 1e3:.2f} ms = "
+            f"{r['ops'] / r['calls_s']:.4g} ops/s ({r['calls_ms']:.2f} ms by "
+            f"device events); with staging {r['wall_s'] * 1e3:.2f} ms = "
+            f"{r['ops'] / r['wall_s']:.4g} ops/s (stage "
+            f"{r['stage_s'] * 1e3:.1f} ms); peak device memory "
+            f"{r['peak_gib']:.2f} GiB; launches {r['launches']}")
+
+    # phase 8
     src = {
         "necklace": ("cbl_tpu_torch/csrc/necklace.cu",
                      "cbl_tpu/ops/necklace_pallas.py:102"),
@@ -534,15 +959,23 @@ def main() -> int:
                   "cbl_tpu/ops/merge_pallas.py:355"),
         "slog_scan": ("cbl_tpu_torch/csrc/slog_scan.cu",
                       "cbl_tpu/ops/scan_pallas.py:202"),
+        "sort": ("cbl_tpu_torch/csrc/sort.cu",
+                 "cbl_tpu/ops/merge_pallas.py:426"),
     }
-    # launches: the static path's timed run (plain) plus the dynamic
-    # path's timed run, each counted from 0
+    # launches: the timed runs of the static path (plain), the dynamic
+    # rounds and the separate calls (runs A and B under "mergepath"), each
+    # counted from 0
+    paths = (main_launches, dyn_launches, sep["A"]["launches"],
+             sep["B"]["launches"])
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src[name][0],
          "replaces": src[name][1],
-         "launches": main_launches[name] + dyn_launches[name],
+         "launches": sum(p[name] for p in paths),
          "max_abs_err": kern[name]["err"], "ms": kern[name]["ms"],
-         "plain_ms": kern[name]["plain_ms"]}
+         "plain_ms": kern[name]["plain_ms"],
+         "bound_ms": kern[name]["bound_ms"],
+         "bound_by": kern[name]["bound_by"],
+         "library_ms": kern[name]["library_ms"]}
         for name in KERNELS
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,6 @@
 """Parity of the port's static build+query slice with `cbl_tpu.CBL`.
+(The pending log and the separate calls have their own file,
+tests/test_torch_pending.py.)
 
 The same record streams go through `cbl_tpu.CBL` (JAX CPU backend, once
 with its defaults and once with its Pallas merge forced on in interpret
@@ -155,16 +157,28 @@ def test_lazy_query_and_empty_index():
 
 
 def test_unported_paths_raise():
+    """K >= 29 is refused; a second insert and a remove, refused until the
+    pending log was ported, now match `cbl_tpu` call by call."""
     with pytest.raises(NotImplementedError, match="slice 6"):
         CBL(k=29, device="cpu")
     CBL(k=27, device="cpu")  # the widest K one int64 key holds
-    codes, off, _, _ = _streams(25)
+    codes, off, q, qoff = _streams(25)
+    jidx = cbl_tpu.CBL(k=25)
     idx = CBL(k=25, device="cpu")
-    idx.insert_codes_stream(codes, off)
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        idx.insert_codes_stream(codes, off)
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        idx.remove_codes_stream(codes, off)
+    for i in (jidx, idx):
+        i.insert_codes_stream(codes, off)
+        i.insert_codes_stream(q, qoff)  # into a non-empty index: the log
+    assert idx.wordset.n_pending == jidx.wordset.n_pending > 0
+    assert idx.query_codes_stream(q, qoff) == \
+        jidx.query_codes_stream(q, qoff) == (_n_kmers(qoff, 25),) * 2
+    for i in (jidx, idx):
+        i.remove_codes_stream(codes, off)
+    assert idx.wordset._pending_rm and jidx.wordset._pending_rm
+    want = jidx.query_codes_stream(q, qoff)
+    assert idx.query_codes_stream(q, qoff) == want and 0 < want[1] < want[0]
+    assert idx.count() == jidx.count() > 0
+    np.testing.assert_array_equal(_port_rows(idx),
+                                  _valid_rows(jidx.wordset.data))
     other = CBL(k=25, canonical=True, device="cpu")
     with pytest.raises(ValueError, match="different config"):
         other.query_codes_stream(idx.pack_stream(codes, off))

@@ -228,18 +228,32 @@ def test_slog_carried_across_from_jax():
 
 
 def test_unported_round_paths_raise():
+    """K=27 rounds are refused; rounds over streams of several slabs, or
+    of none, refused until the pending log was ported, now take the
+    separate calls and match `cbl_tpu`'s."""
     codes = np.random.default_rng(3).integers(0, 4, size=9_000,
                                               dtype=np.uint8)
     with pytest.raises(NotImplementedError, match="slice 6"):
         CBL(k=27, device="cpu").dynamic_round(_one(codes), _one(codes),
                                                _one(codes))
-    idx = CBL(k=25, device="cpu")
+    jidx, idx = _pair()
     multi = idx.pack_stream(*_one(codes), slab=4096)
     assert len(multi.slabs) == 3
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        idx.dynamic_round(multi, _one(codes), _one(codes))
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        idx.dynamic_round(_one(codes), _one(codes[:10]), _one(codes))
     with pytest.raises(TypeError):
         idx.dynamic_round(codes, codes, codes)
     assert idx.wordset._slog is None and idx.count() == 0
+    half = _one(codes[2_000:6_000])
+    got = idx.dynamic_round(multi, _one(codes), half)
+    jidx.insert_codes_stream(*_one(codes))
+    want = jidx.query_codes_stream(*_one(codes))
+    jidx.remove_codes_stream(*half)
+    assert got == want == (len(codes) - 24,) * 2
+    assert idx.wordset._slog is None and idx.wordset.n_pending > 0
+    # a query stream too short for one k-mer has no slab
+    got = idx.dynamic_round(_one(codes[:3_000]), _one(codes[:10]), half)
+    jidx.insert_codes_stream(*_one(codes[:3_000]))
+    jidx.remove_codes_stream(*half)
+    assert got == (0, 0) and idx.wordset._slog is None
+    assert idx.query_codes_stream(*_one(codes)) == \
+        jidx.query_codes_stream(*_one(codes))
+    assert idx.count() == jidx.count() > 0

@@ -1,4 +1,4 @@
-"""Kernels B1-B4 against their plain versions on a CUDA card.
+"""Kernels B1-B5 against their plain versions on a CUDA card.
 
 Marked `gpu`: every test needs a CUDA device and `nvcc`, and skips where
 `torch.cuda.is_available()` is False (decided inside the `cuda` fixture).
@@ -10,7 +10,8 @@ JAX test harness:
 The cases are the kernels' edges (sizes around their tiles, one-element
 and empty sides, duplicates, sentinels, negative keys, a word run over
 many tiles), the static slice on CUDA against the slice on the CPU, and
-dynamic rounds on CUDA against a Python-set oracle.  Inputs come from
+dynamic rounds and the separate insert / query / remove calls (in both
+sort modes) on CUDA against a Python-set oracle.  Inputs come from
 numpy.random.default_rng; every comparison is exact integer equality.
 """
 
@@ -21,7 +22,7 @@ import torch
 from cbl_tpu_torch import CBL, LAUNCHES
 from cbl_tpu_torch import wordset as tws
 from cbl_tpu_torch.limbs import SENTINEL
-from cbl_tpu_torch.ops import merge, necklace, scan
+from cbl_tpu_torch.ops import merge, necklace, scan, sort
 
 pytestmark = pytest.mark.gpu
 
@@ -80,6 +81,68 @@ def test_merge_kernel_matches_plain(cuda, na, nb, hi):
     got = merge.merge_sorted(a, b)
     torch.cuda.synchronize()
     assert torch.equal(got, merge.merge_sorted_plain(a, b))
+
+
+@pytest.mark.parametrize("na,nb", [
+    (0, 1), (1, 1), (2048, 2048), (5000, 3), (3, 5000), (100_000, 77_777),
+])
+@pytest.mark.parametrize("hi", [3, 1 << 40])
+def test_two_column_merge_kernel_matches_plain(cuda, na, nb, hi):
+    rng = np.random.default_rng(na * 5 + nb + hi % 999)
+
+    def side(n):
+        v = rng.integers(-hi, hi, size=n)
+        v[rng.random(n) < 0.05] = SENTINEL
+        cols = (torch.from_numpy(v).to(cuda),
+                torch.from_numpy(rng.integers(0, 1 << 23, size=n)).to(cuda))
+        return merge.sort_cols_plain(cols)
+
+    a, b = side(na), side(nb)
+    n0 = LAUNCHES["merge"]
+    got = merge.merge_sorted(a, b)
+    torch.cuda.synchronize()
+    assert LAUNCHES["merge"] == n0 + 1
+    for g, w in zip(got, merge.merge_sorted_plain(a, b), strict=True):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("n", [
+    0, 1, 2, 2047, 2048, 2049, 4096, 4097, 3 * 2048 + 5, 100_003,
+    (1 << 20) - 4097,
+])
+@pytest.mark.parametrize("two", [False, True])
+@pytest.mark.parametrize("hi", [1, 3, 1 << 40])
+def test_sort_kernel_matches_plain(cuda, n, two, hi):
+    """B5 at sizes around its tile and run boundaries: constant keys,
+    heavy duplicates, wide keys with negative values, half sentinels."""
+    rng = np.random.default_rng(n + two + hi % 997)
+    v = rng.integers(-hi, hi, size=n)
+    v[rng.random(n) < 0.5 * (hi == 3)] = SENTINEL
+    keys = torch.from_numpy(v).to(cuda)
+    if two:
+        keys = (keys, torch.from_numpy(
+            rng.integers(0, 1 << 23, size=n)).to(cuda))
+    before = [c.clone() for c in merge.as_cols(keys)]
+    n0 = LAUNCHES["sort"]
+    with sort.use_sort_mode("mergepath"):
+        got = sort.sort_keys(keys)
+    torch.cuda.synchronize()
+    assert LAUNCHES["sort"] == n0 + (n > 1)  # empty and one row: no launch
+    want = merge.sort_cols_plain(merge.as_cols(keys))
+    for g, w, p in zip(merge.as_cols(got), want,
+                       merge.as_cols(merge.sort_mergepath_plain(keys)),
+                       strict=True):
+        assert torch.equal(g, w) and torch.equal(p, w)
+    for c, b in zip(merge.as_cols(keys), before):
+        assert torch.equal(c, b)  # the caller's tensors are not written
+
+
+def test_library_mode_never_launches_the_sort_kernel(cuda):
+    x = torch.arange(10_000, 0, -1, device=cuda)
+    n0 = LAUNCHES["sort"]
+    with sort.use_sort_mode("library"):
+        assert torch.equal(sort.sort_keys(x), torch.sort(x).values)
+    assert LAUNCHES["sort"] == n0
 
 
 def test_merge_rejects_mixed_devices(cuda):
@@ -205,3 +268,66 @@ def test_dynamic_rounds_on_cuda_match_set_oracle(cuda, monkeypatch):
     idx.flush()
     assert idx.count() == len(oracle)
     assert idx.query_codes_stream(*one(codes[:2 * sb])) == want
+
+
+def _np_kmers(codes, k=25):
+    out = []
+    for s in range(len(codes) - k + 1):
+        v = 0
+        for c in codes[s:s + k]:
+            v = (v << 2) | int(c)
+        out.append(v)
+    return out
+
+
+@pytest.mark.parametrize("mode", sort.SORT_MODES)
+def test_separate_calls_on_cuda_match_set_oracle(cuda, monkeypatch, mode):
+    """Insert / query / remove of streams and point operations against
+    the pending log (a 8192-row log: inserts of 4096 rows fit it, a
+    16384-row remove does not), held against a Python set of k-mers."""
+    rng = np.random.default_rng(9)
+    sb = 3_000
+    codes = rng.integers(0, 4, size=6 * sb, dtype=np.uint8)
+    for name in LAUNCHES:
+        monkeypatch.setitem(LAUNCHES, name, 0)
+    one = lambda c: (c, np.array([0, len(c)], dtype=np.int64))
+    with sort.use_sort_mode(mode):
+        idx = CBL(k=25, device=cuda, pending_cap=8192)
+        oracle = set()
+        for r in range(4):
+            seg = codes[r * sb:(r + 1) * sb]
+            qry = codes[max(r - 1, 0) * sb:(r + 1) * sb]
+            rm = codes[r * sb:r * sb + sb // 2]
+            idx.insert_codes_stream(*one(seg))
+            oracle |= set(_np_kmers(seg))
+            assert (idx.wordset.n_pending > 0) == (r > 0)
+            qk = _np_kmers(qry)
+            want = (len(qk), sum(v in oracle for v in qk))
+            assert idx.query_codes_stream(*one(qry)) == want
+            idx.remove_codes_stream(*one(rm))
+            oracle -= set(_np_kmers(rm))
+            assert idx.wordset.n_pending > 0
+        assert idx.count() == len(oracle)
+        big = codes[sb:]  # 16384 rows: removed at once; segment 0 stays
+        idx.remove_codes_stream(*one(big))
+        oracle -= set(_np_kmers(big))
+        assert idx.wordset.n_pending == 0
+        assert idx.count() == len(oracle) > 1_000
+        # point operations on the log, no fold in between
+        kmers = _np_kmers(codes[4 * sb:4 * sb + 600])
+        idx.insert_kmers(kmers[:300])
+        oracle |= set(kmers[:300])
+        idx.remove_kmers(kmers[100:200])
+        oracle -= set(kmers[100:200])
+        probe = kmers + _np_kmers(codes[sb - 400:sb])
+        assert idx.contains_kmers(probe).tolist() == [
+            v in oracle for v in probe]
+        assert idx.wordset.n_pending == 400
+        assert idx.insert(kmers[150]) and not idx.insert(kmers[150])
+        assert idx.remove(kmers[0]) and kmers[0] not in idx
+        oracle = (oracle | {kmers[150]}) - {kmers[0]}
+        assert idx.wordset.n_pending == 403
+        assert idx.count() == len(oracle)
+    assert (LAUNCHES["sort"] > 0) == (mode == "mergepath"), dict(LAUNCHES)
+    assert all(LAUNCHES[n] > 0 for n in ("necklace", "blank", "merge"))
+    assert LAUNCHES["slog_scan"] == 0

@@ -19,7 +19,7 @@ import pytest
 import torch
 
 from cbl_tpu_torch import CBL, LAUNCHES
-from cbl_tpu_torch.ops import _build, merge, necklace, scan
+from cbl_tpu_torch.ops import _build, merge, necklace, scan, sort
 
 torch.set_num_threads(2)
 
@@ -82,7 +82,14 @@ def test_cpu_path_never_counts_launches(monkeypatch):
     assert idx.query_codes_stream(codes[:4000], np.array([0, 4000]))[0] > 0
     idx.dynamic_round(ps, ps, (codes[:3000], np.array([0, 3000])))
     assert idx.query_codes_stream(ps)[1] == idx.count() == 3_000 - 24
-    assert LAUNCHES == {"necklace": 0, "blank": 0, "merge": 0, "slog_scan": 0}
+    with sort.use_sort_mode("mergepath"):  # the separate calls, B5's mode
+        idx.insert_codes_stream(codes[:3000], np.array([0, 3000]))
+        assert idx.query_codes_stream(ps)[1] == 2 * (3_000 - 24)
+        idx.remove_codes_stream(codes[3000:], np.array([0, 3000]))
+        assert idx.count() == 3_000 - 24
+        assert idx.contains_kmers([0, 1]).tolist() == [False, False]
+    assert LAUNCHES == {"necklace": 0, "blank": 0, "merge": 0, "slog_scan": 0,
+                        "sort": 0}
 
 
 def test_wrappers_check_inputs():
@@ -100,6 +107,10 @@ def test_wrappers_check_inputs():
         scan.slog_scan_counts(x32, 0xFF)
     with pytest.raises(ValueError):
         merge.merge_sorted(x64, x32)
+    with pytest.raises(ValueError):
+        merge.sort_mergepath(x32)
+    with pytest.raises(ValueError):
+        merge.sort_mergepath((x64, x64[:4]))
     with pytest.raises(ValueError):
         _build.check_cuda(x64)  # a CPU tensor never reaches a kernel
 

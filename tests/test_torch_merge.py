@@ -5,7 +5,7 @@ and the dispatchers of `cbl_tpu_torch.ops.sort` against the Pallas
 merge-path kernel `merge_sorted_cols` in interpret mode, at the sizes and
 tile logs that tests/test_merge_pallas.py uses.  Limb columns become
 int64 keys through `limbs.from_limbs`, so all-ones sentinel rows become
-INT64_MAX.  Inputs come from numpy.random.default_rng; every comparison
+INT64_MAX; a two-column case merges (word, tag) rows.  Inputs come from numpy.random.default_rng; every comparison
 is exact integer equality.
 """
 
@@ -56,6 +56,35 @@ def test_merge_matches_pallas(na_log, nb_log, t_log, L):
     cb = _sorted_cols(1 << nb_log, nb_log * 7 + L, L=L)
     want = _check(ca, cb, t_log)
     assert (want == SENTINEL).any()
+
+
+@pytest.mark.parametrize("na_log,nb_log,t_log,hi", [
+    (12, 12, 10, 1 << 16), (13, 11, 10, 5), (12, 10, 11, 1 << 16),
+])
+def test_two_column_merge_matches_pallas(na_log, nb_log, t_log, hi):
+    """(word, seqtag) rows: `cbl_tpu` merges two word limbs and a tag
+    column, the port an int64 word column and an int64 tag column."""
+    ca = _sorted_cols(1 << na_log, na_log + hi % 7, L=3, hi=hi)
+    cb = _sorted_cols(1 << nb_log, nb_log + hi % 5, L=3, hi=hi)
+    got_j = merge_pallas.merge_sorted_cols(
+        tuple(jnp.asarray(c) for c in ca), tuple(jnp.asarray(c) for c in cb),
+        t_log=t_log, interpret=True)
+
+    def two(cols):
+        cols = [np.asarray(c) for c in cols]
+        word = from_limbs(np.stack(cols[:2], axis=-1))
+        tag = cols[2].astype(np.int64)
+        tag[word == SENTINEL] = SENTINEL
+        return torch.from_numpy(word), torch.from_numpy(tag)
+
+    want = two(got_j)
+    assert (want[0] == SENTINEL).any()
+    for fn in (merge.merge_sorted, merge.merge_sorted_plain,
+               sort.merge_sorted_pair):
+        got = fn(two(ca), two(cb))
+        assert isinstance(got, tuple) and len(got) == 2
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
 
 
 def test_merge_heavy_duplicates():
