@@ -16,9 +16,16 @@ then:
   round's query hits and the distinct count; `flush()` folds the log.
   Streams of several slabs (or none) take the separate calls instead.
 - point operations (`insert`, `remove`, `contains`, `*_kmers`) take
-  k-mers as packed integers and run on the same pending log.
-Every sort goes through `ops.sort.sort_keys` (`torch.sort`, or kernel B5
-under the "mergepath" mode).
+  k-mers as packed integers and run on the same pending log;
+- set algebra: `a | b`, `a & b`, `a - b`, `a ^ b`, their in-place forms,
+  `CBL.merge([...])` and `CBL.intersect([...])` build a new index from
+  indexes of one configuration and never consume an operand
+  (`DeviceWordSet.union` and the rest).
+Every sort goes through `ops.sort.sort_keys` (`torch.sort`, kernel B5
+under the "mergepath" sort mode, kernel B6 under "bitonic") and every
+merge through `ops.sort.merge_sorted_pair` / `merge_with_unsorted`
+(kernel B3, kernel B7 under the "bitonic" merge mode, or one sort of both
+sides under "sort").
 
 Differences from `cbl_tpu.CBL`:
 - `device` is explicit (default "cuda"); "cuda" without a CUDA device
@@ -27,8 +34,8 @@ Differences from `cbl_tpu.CBL`:
 - Each call runs as eager PyTorch, not as one compiled program.
 - Not ported yet: `insert_seq(s)` / `remove_seq(s)` / `contains_seq(s)` /
   `contains_codes_stream` / `contains_all` (the chunked word pipeline and
-  ordered membership, ROADMAP slice 5), set algebra (slice 4), export and
-  serialisation, dynamic rounds at K=27 and K >= 29 (slice 6).
+  ordered membership, ROADMAP slice 5), export and serialisation,
+  dynamic rounds at K=27 and K >= 29 (slice 6).
 """
 
 from __future__ import annotations
@@ -176,6 +183,14 @@ class CBL:
     @classmethod
     def new_canonical(cls, k: int = 25, prefix_bits: int = 24, **kw) -> "CBL":
         return cls(k=k, prefix_bits=prefix_bits, canonical=True, **kw)
+
+    def _like(self, wordset: DeviceWordSet) -> "CBL":
+        """An index of this one's configuration over `wordset`."""
+        out = CBL(k=self.cfg.k, prefix_bits=self.cfg.prefix_bits,
+                  canonical=self.canonical, device=self.device,
+                  pending_cap=wordset.pending_cap)
+        out.wordset = wordset
+        return out
 
     def is_canonical(self) -> bool:
         return self.canonical
@@ -337,7 +352,8 @@ class CBL:
         offsets, or a PackedStream).  The counters add up on the device;
         with lazy=True they come back as unsynced device 0-d tensors,
         otherwise as ints after one sync.  A pending log or an active slog
-        is joined as it is, never folded."""
+        is joined as it is, never folded, and an index with holes (a set
+        operation's result) is joined by one sort, never compacted."""
         ws = self.wordset
         ps = self._resolve_stream(codes, offsets)
         logged = ws.n_pending > 0 or ws._slog is not None
@@ -404,6 +420,8 @@ class CBL:
         if ws._slog_seq >= _SLOG_SEQ_MAX:
             ws._fold_slog()  # the 8-bit tag caps the round's seq at 62
         ws.maybe_autofold_slog()
+        if ws._slog is None:
+            ws._compact()  # the index's keys enter the log as a sorted run
         if ws._slog is not None:
             a, a_real = ws._slog, ws._slog_real
         elif ws._n_upper == 0:
@@ -497,3 +515,71 @@ class CBL:
         present = bool(self.wordset.contains_words(words)[0])
         self.wordset.remove_words(words)
         return present
+
+    # --- set algebra ---
+
+    def _check_mode(self, other: "CBL") -> None:
+        if self.canonical != other.canonical:
+            raise ValueError(
+                "One of the index is canonical while the other isn't")
+        if self.cfg != other.cfg:
+            raise ValueError("Mismatched CBL configurations")
+        if self.device != other.device:
+            raise ValueError(
+                f"indexes on two devices: {self.device} and {other.device}")
+
+    def __or__(self, other: "CBL") -> "CBL":
+        self._check_mode(other)
+        return self._like(self.wordset.union(other.wordset))
+
+    def __ior__(self, other: "CBL") -> "CBL":
+        self._check_mode(other)
+        self.wordset = self.wordset.union(other.wordset)
+        return self
+
+    def __and__(self, other: "CBL") -> "CBL":
+        self._check_mode(other)
+        return self._like(self.wordset.intersection(other.wordset))
+
+    def __iand__(self, other: "CBL") -> "CBL":
+        self._check_mode(other)
+        self.wordset = self.wordset.intersection(other.wordset)
+        return self
+
+    def __sub__(self, other: "CBL") -> "CBL":
+        self._check_mode(other)
+        return self._like(self.wordset.difference(other.wordset))
+
+    def __isub__(self, other: "CBL") -> "CBL":
+        self._check_mode(other)
+        self.wordset = self.wordset.difference(other.wordset)
+        return self
+
+    def __xor__(self, other: "CBL") -> "CBL":
+        self._check_mode(other)
+        return self._like(self.wordset.symmetric_difference(other.wordset))
+
+    def __ixor__(self, other: "CBL") -> "CBL":
+        self._check_mode(other)
+        self.wordset = self.wordset.symmetric_difference(other.wordset)
+        return self
+
+    @classmethod
+    def _checked_wordsets(cls, cbls: list) -> list:
+        if not cbls:
+            raise ValueError("expected at least one index")
+        for c in cbls[1:]:
+            cbls[0]._check_mode(c)
+        return [c.wordset for c in cbls]
+
+    @classmethod
+    def merge(cls, cbls: list) -> "CBL":
+        """Union of every index of the list."""
+        sets = cls._checked_wordsets(cbls)
+        return cbls[0]._like(DeviceWordSet.merge_many(sets))
+
+    @classmethod
+    def intersect(cls, cbls: list) -> "CBL":
+        """Intersection of every index of the list."""
+        sets = cls._checked_wordsets(cbls)
+        return cbls[0]._like(DeviceWordSet.intersect_many(sets))

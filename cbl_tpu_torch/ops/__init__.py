@@ -6,8 +6,11 @@
 - `merge`: kernel B3, the merge of two sorted key runs (`csrc/merge.cu`),
   and kernel B5, the merge-path sort (`csrc/sort.cu`), both on
   `csrc/merge_path.cuh`;
-- `sort`: the sort selector (`torch.sort` or B5) and the merge
-  dispatchers;
+- `bitonic`: kernel B6, the bitonic sort (`csrc/bitonic_sort.cu`), and
+  kernel B7, the bitonic merge (`csrc/bitonic_merge.cu`), both on
+  `csrc/bitonic.cuh`;
+- `sort`: the sort selector (`torch.sort`, B5 or B6) and the merge
+  selector (B3, B7 or one sort of both sides);
 - `_build`: the nvcc build, the ctypes binding and the launch counters.
 
 Each kernel module holds the plain tensor version beside the wrapper.  A

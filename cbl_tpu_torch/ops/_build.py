@@ -38,7 +38,7 @@ NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 
 LAUNCHES = {"necklace": 0, "blank": 0, "merge": 0, "slog_scan": 0,
-            "sort": 0}
+            "sort": 0, "bitonic_sort": 0, "bitonic_merge": 0}
 
 _P = ctypes.c_void_p
 _N = ctypes.c_longlong
@@ -56,6 +56,12 @@ _SIGNATURES = {
     "cbl_sort_keys": [_P, _P, _P, _P, _P, _P, _N, _P, _P],
     # (keys, n, qtag, (hits, live) out, tile max scratch, stream)
     "cbl_slog_scan_counts": [_P, _N, _I, _P, _P, _P],
+    # (in col 0, in col 1, out col 0, out col 1, work col 0, work col 1,
+    # rows of work, n, stream)
+    "cbl_bitonic_sort": [_P, _P, _P, _P, _P, _P, _N, _N, _P],
+    # (a col 0, a col 1, na, b col 0, b col 1, nb, out col 0, out col 1,
+    # work col 0, work col 1, rows of work, stream)
+    "cbl_bitonic_merge": [_P, _P, _N, _P, _P, _N, _P, _P, _P, _P, _N, _P],
 }
 
 

@@ -1,24 +1,29 @@
 """The seam where the sort and merge kernels plug in.
 
 Counterpart of the dispatchers in `cbl_tpu/ops/sort_pallas.py`
-(`_sort_mode`, `sort_cols_auto`, `merge_with_unsorted`,
-`merge_sorted_pair`).  Keys are one int64 column (a 1-D tensor) or two (a
-tuple of two), ordered lexicographically with column 0 major (see
-`ops.merge`).
+(`_sort_mode`, `_merge_mode`, `sort_cols_auto`, `merge_with_unsorted`,
+`merge_sorted_pair`, `use_merge_combine`).  Keys are one int64 column (a
+1-D tensor) or two (a tuple of two), ordered lexicographically with column
+0 major (see `ops.merge`).
 
-The sort has two modes:
+The sort has three modes:
 - "library" (the default, as `xla` is `cbl_tpu`'s): `torch.sort`; for two
   columns, two stable passes;
-- "mergepath": kernel B5 for CUDA tensors at every size (it runs or the
-  call raises; there is no way back to `torch.sort`), and B5's plain
-  version for CPU tensors.
-The mode is read at every `sort_keys` call: `use_sort_mode` overrides the
-environment variable `CBL_TORCH_SORT`.  `cbl_tpu`'s 2^20-row engage floor,
-its `-force` modes and tile knobs are tuning for its own device and are
-not carried over.
-
-Merges go through `ops.merge.merge_sorted`, which launches kernel B3 for
-every CUDA merge (no size floor, no mode).
+- "mergepath": kernel B5 for CUDA tensors, its plain version for CPU
+  tensors;
+- "bitonic": kernel B6 for CUDA tensors, its plain version for CPU tensors.
+The merge of two sorted runs has three modes:
+- "mergepath" (the default, as in `cbl_tpu`): kernel B3;
+- "bitonic": kernel B7 (`cbl_tpu`'s `pallas`);
+- "sort": no merge kernel, one `sort_keys` of the concatenation
+  (`cbl_tpu`'s `xla`); set algebra then takes its sort path
+  (`use_merge_combine`).
+On CUDA a kernel mode engages at every size (the kernel runs or the call
+raises; there is no way back to `torch.sort`); on the CPU it runs the
+kernel's plain version.  A mode is read at every call: `use_sort_mode` /
+`use_merge_mode` override the environment variables `CBL_TORCH_SORT` /
+`CBL_TORCH_MERGE`.  `cbl_tpu`'s row floors, its `-force` modes and tile
+knobs are tuning for its own device and are not carried over.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ import os
 
 import torch
 
+from .bitonic import bitonic_merge, bitonic_sort
 from .merge import (
     _like,
     as_cols,
@@ -37,54 +43,94 @@ from .merge import (
 )
 
 SORT_ENV = "CBL_TORCH_SORT"
-SORT_MODES = ("library", "mergepath")
-_override: str | None = None
+SORT_MODES = ("library", "mergepath", "bitonic")
+MERGE_ENV = "CBL_TORCH_MERGE"
+MERGE_MODES = ("mergepath", "bitonic", "sort")
+# the `use_*_mode` overrides, by environment variable
+_override: dict = {SORT_ENV: None, MERGE_ENV: None}
 
 
-def _check_mode(mode: str, where: str) -> str:
-    if mode not in SORT_MODES:
-        raise ValueError(f"{where}={mode!r}: expected one of {SORT_MODES}")
+def _check_mode(mode: str, modes: tuple, where: str) -> str:
+    if mode not in modes:
+        raise ValueError(f"{where}={mode!r}: expected one of {modes}")
     return mode
+
+
+def _mode(env: str, modes: tuple) -> str:
+    if _override[env] is not None:
+        return _override[env]
+    return _check_mode(os.environ.get(env, modes[0]), modes, env)
+
+
+@contextlib.contextmanager
+def _use_mode(env: str, modes: tuple, mode: str, where: str):
+    _check_mode(mode, modes, where)
+    before, _override[env] = _override[env], mode
+    try:
+        yield
+    finally:
+        _override[env] = before
 
 
 def sort_mode() -> str:
     """The sort mode in force: the `use_sort_mode` override, else the
     environment variable `CBL_TORCH_SORT`, else "library"."""
-    if _override is not None:
-        return _override
-    return _check_mode(os.environ.get(SORT_ENV, "library"), SORT_ENV)
+    return _mode(SORT_ENV, SORT_MODES)
 
 
-@contextlib.contextmanager
 def use_sort_mode(mode: str):
     """Run the block under sort mode `mode`, whatever the environment."""
-    global _override
-    _check_mode(mode, "use_sort_mode")
-    before, _override = _override, mode
-    try:
-        yield
-    finally:
-        _override = before
+    return _use_mode(SORT_ENV, SORT_MODES, mode, "use_sort_mode")
+
+
+def merge_mode() -> str:
+    """The merge mode in force: the `use_merge_mode` override, else the
+    environment variable `CBL_TORCH_MERGE`, else "mergepath"."""
+    return _mode(MERGE_ENV, MERGE_MODES)
+
+
+def use_merge_mode(mode: str):
+    """Run the block under merge mode `mode`, whatever the environment."""
+    return _use_mode(MERGE_ENV, MERGE_MODES, mode, "use_merge_mode")
+
+
+def use_merge_combine() -> bool:
+    """True when two sorted runs are combined by a merge kernel (B3 or
+    B7): callers then keep layouts a merge can use (sorted, contiguous
+    operands; compaction put off)."""
+    return merge_mode() != "sort"
 
 
 def sort_keys(keys):
     """Sort keys ascending (one column or two, lexicographic)."""
-    if sort_mode() == "mergepath":
+    mode = sort_mode()
+    if mode == "mergepath":
         return sort_mergepath(keys)
+    if mode == "bitonic":
+        return bitonic_sort(keys)
     return _like(keys, sort_cols_plain(as_cols(keys)))
 
 
 def merge_sorted_pair(sorted_a, sorted_b):
     """Merge two sorted key runs; equals `sort_keys` of their
-    concatenation."""
-    return merge_sorted(sorted_a, sorted_b)
+    concatenation (which is what the "sort" merge mode does)."""
+    mode = merge_mode()
+    if mode == "mergepath":
+        return merge_sorted(sorted_a, sorted_b)
+    if mode == "bitonic":
+        return bitonic_merge(sorted_a, sorted_b)
+    both = cat_cols(as_cols(sorted_a), as_cols(sorted_b))
+    return sort_keys(_like(sorted_a, both))
 
 
 def merge_with_unsorted(sorted_keys, unsorted_keys):
-    """Sort only the unsorted side, then merge the two runs."""
-    return merge_sorted(sorted_keys, sort_keys(unsorted_keys))
+    """Sort only the unsorted side, then merge the two runs; in the "sort"
+    merge mode, one sort of both."""
+    if use_merge_combine():
+        unsorted_keys = sort_keys(unsorted_keys)
+    return merge_sorted_pair(sorted_keys, unsorted_keys)
 
 
 def cat_cols(*parts):
-    """Concatenate two-column key runs column by column."""
+    """Concatenate key runs (tuples of columns) column by column."""
     return tuple(torch.cat(cs) for cs in zip(*parts, strict=True))

@@ -24,33 +24,56 @@ from .wordset import _SLOG_BIAS, DeviceWordSet, slog_packed
 
 
 def wordset_from_arrays(words_u32: np.ndarray, n_distinct: int,
-                        cfg: CBLConfig, device) -> DeviceWordSet:
-    """A port word set from `cbl_tpu` limbs [N, L] and its distinct count.
+                        cfg: CBLConfig, device, holes: bool = False,
+                        dups: bool = True,
+                        n_upper: int | None = None) -> DeviceWordSet:
+    """A port word set from `cbl_tpu`'s `data` limbs [N, L], its distinct
+    count and its state: `holes` and `dups` are its `_holes` and `_dups`
+    flags, `n_upper` its `_n_upper` (default: the number of valid rows).
 
-    The keys are sorted on the way in, so a limb array with sentinel rows
-    between valid ones (`cbl_tpu`'s "holes" state) becomes contiguous."""
+    With `holes` the rows keep their order (valid keys ascending, sentinel
+    rows anywhere); without, the keys are sorted on the way in, so any
+    limb array gives a contiguous index."""
     if words_u32.ndim != 2 or words_u32.shape[1] != cfg.word_limbs:
         raise ValueError(
             f"expected [N, {cfg.word_limbs}] limbs, got {words_u32.shape}"
         )
     ws = DeviceWordSet(cfg, device)
-    keys = torch.sort(torch.from_numpy(from_limbs(words_u32))).values
-    n_valid = int((keys != SENTINEL).sum())
+    keys = torch.from_numpy(from_limbs(words_u32))
+    valid = keys[keys != SENTINEL]
+    if holes:
+        if bool((valid[1:] <= valid[:-1]).any()):
+            raise ValueError("an index with holes needs its valid keys "
+                             "ascending and unique")
+    else:
+        keys = torch.sort(keys).values
+    n_valid = valid.shape[0]
     if n_valid == 0:
         return ws
-    ws.adopt_built(
-        keys.to(ws.device),
-        torch.tensor(int(n_distinct), dtype=torch.int64, device=ws.device),
-        n_valid,
-    )
+    if n_upper is None:
+        n_upper = n_valid
+    if not n_valid <= n_upper <= keys.shape[0]:
+        raise ValueError(f"n_upper {n_upper} does not bound the "
+                         f"{n_valid} valid rows of {keys.shape[0]}")
+    ws.data = keys.to(ws.device)
+    ws.capacity = keys.shape[0]
+    ws._holes, ws._dups = bool(holes), bool(dups)
+    ws._n_upper = int(n_upper)
+    ws._set_count(
+        torch.tensor(int(n_distinct), dtype=torch.int64, device=ws.device))
     return ws
 
 
-def wordset_to_arrays(ws: DeviceWordSet) -> tuple[np.ndarray, int]:
+def wordset_to_arrays(ws: DeviceWordSet) -> tuple[np.ndarray, int, dict]:
     """(limbs [capacity, L] uint32 with sentinel rows all-ones, distinct
-    count) of a port word set, in `cbl_tpu`'s layout."""
+    count, state) of a port word set, in `cbl_tpu`'s layout, its logs
+    folded first; `state` holds `holes`, `dups` and `n_upper`, the keyword
+    arguments of `wordset_from_arrays`.  Rows keep their order, holes
+    included."""
+    n = ws.count()
     keys = ws.data.cpu().numpy()
-    return to_limbs(keys, ws.cfg.word_limbs), ws.count()
+    return to_limbs(keys, ws.cfg.word_limbs), n, dict(
+        holes=ws._holes, dups=ws._dups, n_upper=ws._n_upper)
 
 
 def _jax_slog_packed(cfg: CBLConfig) -> bool:

@@ -26,10 +26,20 @@ two-column key (the 23-bit seqtag does not fit beside a 56-bit word in
 one int64), and folds into `data` with last-write-wins on `flush()`,
 `count()` and overflow; queries join index and log without folding.
 
-Not ported yet: set algebra, with the "holes" state it leaves behind
-(`_holes` is carried and never set; its branches raise), ordered
-membership of streams and export (ROADMAP slices 4 and 5), and dynamic
-rounds at K=27 (slice 6).
+Set algebra (`union`, `intersection`, `difference`,
+`symmetric_difference`, `merge_many`, `intersect_many`) never consumes its
+operands.  Under a merge kernel (`ops.sort.use_merge_combine`) two
+contiguous operands are combined by ONE merge: a union keeps duplicate
+keys (`_dups`), and a marking operation makes the rows it drops SENTINEL
+where they stand, which leaves the "holes" state (`_holes`: valid keys
+ascending and unique, sentinel rows between them) with no compaction
+sort.  Sort joins, folds and further merges take holes as they are; what
+needs a contiguous prefix (`_contains_base`, a merge join, a dynamic
+round) compacts first (`_compact`, one sort).  In the "sort" merge mode
+every operation is a tagged sort, adjacency marks and a compaction sort.
+
+Not ported yet: ordered membership of streams and export (ROADMAP slice
+5), and dynamic rounds at K=27 (slice 6).
 """
 
 from __future__ import annotations
@@ -44,6 +54,7 @@ from .ops.sort import (
     merge_sorted_pair,
     merge_with_unsorted,
     sort_keys,
+    use_merge_combine,
 )
 
 MIN_CAP = 4096
@@ -55,6 +66,11 @@ _QUERY_SEQTAG = 0xFFFFFFFF
 
 def _next_pow2(n: int) -> int:
     return 1 << max(n - 1, 1).bit_length() if n > 1 else 1
+
+
+def _out_cap(upper: int) -> int:
+    """The capacity of a compacted index of at most `upper` keys."""
+    return max(MIN_CAP, _next_pow2(upper))
 
 
 def _quantize_cap(n: int, frac_log: int = 3) -> int:
@@ -207,23 +223,77 @@ def _merge_sortcompact_kernel(data: torch.Tensor, batch: torch.Tensor,
     return _compact_marked(s, _valid_mask(s) & _first_of_run(s), out_cap)
 
 
+def _setop_keep(s: torch.Tensor, op: str):
+    """(words, keep) over sorted tagged keys (word << 1) | tag with tag 1
+    for a-rows and 0 for b-rows: b-rows come first among equal words, so
+    "the key before me holds my word" tells an a-row that its word is in
+    b.  Which rows an operation keeps:
+      union    the first row of each word (b may hold duplicates)
+      remove   (alias diff) a-rows that start their word's run: a minus b
+               (b may hold duplicates and sentinels; duplicates in a drop)
+      inter    a-rows with a row of their word before them (no duplicates)
+      symdiff  rows alone in their word's run (no duplicates)"""
+    word = s >> 1
+    first = _first_of_run(word)
+    is_a = (s & 1) == 1
+    if op == "union":
+        keep = first
+    elif op in ("remove", "diff"):
+        keep = is_a & first
+    elif op == "inter":
+        keep = is_a & ~first
+    elif op == "symdiff":
+        keep = first.clone()
+        keep[:-1] &= first[1:]
+    else:
+        raise ValueError(f"unknown set operation {op!r}")
+    return word, keep & _valid_mask(s)
+
+
 def _setop_sort_kernel_packed(a: torch.Tensor, b: torch.Tensor, op: str,
                               out_cap: int):
-    """A binary set operation as one tagged sort, adjacency marks and a
-    compaction sort (`cbl_tpu`'s kernel of the same name).  a-rows get tag
-    bit 1, so b-rows sort first among equal words and "the key before me
-    holds my word" tells an a-row that its word is in b.  Only "remove"
-    (alias "diff": a minus b, b may hold duplicates and sentinels) is
-    ported; the other operations come with set algebra."""
-    if op not in ("remove", "diff"):
-        raise NotImplementedError(
-            f"set operation {op!r}: only 'remove' is ported (set algebra is "
-            "ROADMAP slice 4)"
-        )
+    """A binary set operation (`_setop_keep`) as one tagged sort,
+    adjacency marks and a compaction sort (`cbl_tpu`'s kernel of the same
+    name): (keys [out_cap], kept count).  Neither side needs to be sorted
+    or contiguous.  (`cbl_tpu` also has an unpacked variant with a tag
+    column for words that fill their uint32 limbs, K=13; an int64 key
+    always has the spare bit, so the port has no caller for it.)"""
     s = sort_keys(torch.cat([_shift_tag(a, 1), _shift_tag(b, 0)]))
-    word = s >> 1
-    keep = _valid_mask(s) & ((s & 1) == 1) & _first_of_run(word)
-    return _compact_marked(word, keep, out_cap)
+    return _compact_marked(*_setop_keep(s, op), out_cap)
+
+
+def _union_merge_kernel(a: torch.Tensor, b: torch.Tensor):
+    """Union of two sorted, contiguous operands in ONE merge, duplicate
+    keys kept (a `_dups` state): (merged keys, distinct count)."""
+    s = merge_sorted_pair(a, b)
+    return s, _distinct_count(s)
+
+
+def _setop_merge_kernel(a: torch.Tensor, b: torch.Tensor, op: str):
+    """inter / diff / symdiff of two sorted, contiguous operands in ONE
+    merge of the tagged runs (shifted keys stay sorted) and adjacency
+    marks; rows that are not kept become SENTINEL where they stand, so
+    the result has holes and no compaction sort is paid:
+    (keys [|a| + |b|], kept count)."""
+    s = merge_sorted_pair(_shift_tag(b, 0), _shift_tag(a, 1))
+    word, keep = _setop_keep(s, op)
+    return torch.where(keep, word, SENTINEL), keep.sum()
+
+
+def _merge_sortmark_kernel(data: torch.Tensor, batch: torch.Tensor):
+    """Union of an index with holes and a batch in ONE sort: duplicates
+    become SENTINEL where they stand, which leaves holes again:
+    (keys [|data| + |batch|], distinct count)."""
+    s = sort_keys(torch.cat([data, batch]))
+    keep = _valid_mask(s) & _first_of_run(s)
+    return torch.where(keep, s, SENTINEL), keep.sum()
+
+
+def _count_hits_kernel_packed(data: torch.Tensor, queries: torch.Tensor):
+    """Hits of `queries` in `data` by one tagged sort of both: the join
+    for an index with holes (or in any order)."""
+    s = sort_keys(torch.cat([_shift_tag(data, 1), _shift_tag(queries, 0)]))
+    return _packed_join_count(s)
 
 
 def _contains_kernel(data: torch.Tensor, queries: torch.Tensor):
@@ -313,12 +383,18 @@ def _query_cols(queries: torch.Tensor):
     return queries, torch.full_like(queries, _QUERY_SEQTAG)
 
 
+def _count_hits_log_kernel(data, pending, tags, queries):
+    """Hits of `queries` against `data` and the pending log WITHOUT
+    folding: one sort of all three by (word, seqtag).  `data` may hold
+    holes."""
+    return _log_join_count(*sort_keys(cat_cols(
+        _index_cols(data), (pending, tags), _query_cols(queries))))
+
+
 def _count_hits_log_merge_kernel(data, pending, tags, queries):
-    """Hits of `queries` against sorted, contiguous `data` and the pending
-    log WITHOUT folding: sort log and queries by (word, seqtag), then one
-    merge with the index (B3 on two columns).  (`cbl_tpu`'s
-    `_count_hits_log_kernel`, one sort of all three, serves an index with
-    holes and comes with that state: ROADMAP slice 4.)"""
+    """`_count_hits_log_kernel` for sorted, contiguous `data`: sort log
+    and queries by (word, seqtag), then one merge with the index (two
+    columns)."""
     return _log_join_count(*merge_with_unsorted(
         _index_cols(data), cat_cols((pending, tags), _query_cols(queries))))
 
@@ -470,10 +546,9 @@ class DeviceWordSet:
         self._n_upper = 0  # host upper bound on valid rows of `data`
         self.capacity = MIN_CAP
         # `data` is sorted and contiguous (valid keys, then sentinels); with
-        # `_dups` it may hold duplicate keys.  `_holes` (sentinel rows
-        # between valid ones) is what set algebra leaves behind in
-        # `cbl_tpu`; nothing ported sets it yet, and the paths that would
-        # have to handle it raise
+        # `_dups` it may hold duplicate keys.  With `_holes`, sentinel rows
+        # may stand between the valid keys (still ascending and unique) and
+        # the whole tensor is live; `_compact()` makes it contiguous again
         self._dups = False
         self._holes = False
         # the pending log: appended words, their (seq << 1) | op tags, the
@@ -510,13 +585,6 @@ class DeviceWordSet:
                 self._n_upper = self._n_host
         return self._n_host
 
-    def _no_holes(self, what: str) -> None:
-        if self._holes:
-            raise NotImplementedError(
-                f"{what} on an index with holes: the holes state comes "
-                "with set algebra (ROADMAP slice 4)"
-            )
-
     def _live(self) -> torch.Tensor:
         """The prefix of `data` that can hold every valid key."""
         if self._holes:
@@ -526,17 +594,27 @@ class DeviceWordSet:
 
     def _live_cap(self) -> int:
         """The capacity a compacted index of `_n_upper` keys gets."""
-        return max(_next_pow2(max(self._n_upper, 1)), MIN_CAP)
+        return _out_cap(self._n_upper)
+
+    def _compact(self) -> None:
+        """Make an index with holes contiguous again (one sort)."""
+        if not self._holes:
+            return
+        out_cap = self._live_cap()
+        self.data, n_dev = _compact_sort_kernel(self.data, out_cap)
+        self.capacity = out_cap
+        self._holes = False
+        self._set_count(n_dev)
 
     def _dedup(self) -> None:
-        """Drop the duplicate keys a bulk build left behind (one sort).
-        Set algebra calls it on both operands (ROADMAP slice 4); until
-        then only the tests do."""
+        """Drop the duplicate keys a bulk build or a union by merge left
+        behind (one sort).  Intersection and symmetric difference need it
+        of both operands: their adjacency marks count rows."""
         if not self._dups:
             return
         self.flush()
         n = self.n  # one sync: the exact count sizes the result
-        out_cap = max(_next_pow2(max(n, 1)), MIN_CAP)
+        out_cap = _out_cap(n)
         self.data, n_dev = _dedup_sorted_kernel(self._live(), out_cap)
         self.capacity = out_cap
         self._dups = False
@@ -619,13 +697,15 @@ class DeviceWordSet:
         if not had_rm:
             self._merge_into(rows, n_new_upper=n_pend)
             return
-        # inserts and removes: one last-write-wins fold (duplicate keys in
-        # `data` are tolerated, everything is sorted again)
-        out_cap = max(_next_pow2(self._n_upper + n_pend), MIN_CAP)
+        # inserts and removes: one last-write-wins fold (holes and
+        # duplicate keys in `data` are tolerated, everything is sorted
+        # again)
+        out_cap = _out_cap(self._n_upper + n_pend)
         if self._n_upper == 0 and not self._holes:
             fold, data = _fold_log_kernel, self.data[:0]
+        elif self._holes:
+            fold, data = _fold_log_kernel, self.data
         else:
-            self._no_holes("a fold of the pending log")
             fold, data = _fold_log_merge_kernel, self._live()
         self.data, n_dev = fold(data, rows, tags, out_cap)
         self.capacity = out_cap
@@ -638,7 +718,7 @@ class DeviceWordSet:
                     batch_sorted: bool = False) -> None:
         """Fold a batch of words into `data`; `batch_sorted` skips the
         batch's sort."""
-        out_cap = max(_next_pow2(self._n_upper + n_new_upper), MIN_CAP)
+        out_cap = _out_cap(self._n_upper + n_new_upper)
         if self._n_upper == 0 and not self._holes:
             # fresh index: one sort of the batch, duplicates kept
             if batch_sorted:
@@ -648,7 +728,11 @@ class DeviceWordSet:
             self.capacity = self.data.shape[0]
             self._dups = True
         elif self._holes:
-            self._no_holes("an insert")
+            # not monotone: one sort of index and batch, duplicates marked
+            # where they stand (holes again)
+            self.data, n_dev = _merge_sortmark_kernel(self.data, rows)
+            self.capacity = self.data.shape[0]
+            self._dups = False
         elif self._live().shape[0] + rows.shape[0] <= 2 * out_cap:
             # sort only the batch and merge; duplicates are kept, so the
             # tensor stays monotone
@@ -719,7 +803,8 @@ class DeviceWordSet:
         """Stored words among `words` (SENTINEL rows ignored), as an
         unsynced int64 0-d tensor: a merge join with the index, with index
         and pending log (last write wins), or with an active slog; a query
-        never folds a log, except the slog when both logs are active.
+        never folds a log, except the slog when both logs are active, and
+        never compacts an index with holes (it joins by a sort instead).
         `words_sorted` skips the sort of the query side where the join has
         one to skip."""
         if self._slog is not None:
@@ -727,10 +812,12 @@ class DeviceWordSet:
                 return _slog_join_count(self._slog, words, words_sorted)
             self._fold_slog()  # rare: rounds and separate calls mixed
         if self.n_pending > 0:
-            self._no_holes("a query with a pending log")
-            return _count_hits_log_merge_kernel(
-                self._live(), *self._pending_prefix(), words)
-        self._no_holes("a query")
+            log_join = (_count_hits_log_kernel if self._holes
+                        else _count_hits_log_merge_kernel)
+            return log_join(self._live(), *self._pending_prefix(), words)
+        if self._holes:
+            # one tagged sort of index and queries, sorted or not
+            return _count_hits_kernel_packed(self.data, words)
         if words_sorted:
             return _count_hits_merge_sorted_kernel(self._live(), words)
         return _count_hits_merge_kernel(self._live(), words)
@@ -748,12 +835,11 @@ class DeviceWordSet:
         return torch.where(has, present, base) & _valid_mask(words)
 
     def _contains_base(self, words: torch.Tensor) -> torch.Tensor:
-        self._no_holes("a membership query")
+        self._compact()  # the binary search needs a contiguous index
         return _contains_kernel(self._live(), words)
 
     def _remove_now(self, words: torch.Tensor) -> None:
         """Remove a batch at once (batches larger than the log)."""
-        self._no_holes("a remove")
         out_cap = self._live_cap()
         self.data, n_dev = _setop_sort_kernel_packed(
             self._live(), words, "remove", out_cap)
@@ -788,3 +874,129 @@ class DeviceWordSet:
 
     def is_empty(self) -> bool:
         return self.count() == 0
+
+    # --- set algebra ---
+    #
+    # Operands survive every operation.  `cbl_tpu` copies an operand
+    # before a kernel that donates its buffer; no kernel of the port
+    # writes into a tensor it was given (B3, B6 and B7 only read their
+    # inputs, and the marks go through `torch.where` into a new tensor),
+    # so the operands' `data` is passed as it is.
+
+    def _new(self) -> "DeviceWordSet":
+        return DeviceWordSet(self.cfg, self.device, self.pending_cap)
+
+    def _merge_setop_ready(self, other: "DeviceWordSet") -> bool:
+        """True under a merge kernel, after making both operands
+        contiguous: the operation then runs as ONE merge and adjacency
+        marks in place of a tagged sort of both."""
+        if not use_merge_combine():
+            return False
+        self._compact()
+        other._compact()
+        return True
+
+    def union(self, other: "DeviceWordSet") -> "DeviceWordSet":
+        self.flush()
+        other.flush()
+        out = self._new()
+        if self._merge_setop_ready(other):
+            data, n_dev = _union_merge_kernel(self._live(), other._live())
+            out.data, out.capacity = data, data.shape[0]
+            out._n_upper = data.shape[0]
+            out._dups = True  # both copies of a shared key stay
+        else:
+            cap = _out_cap(self.n + other.n)
+            data, n_dev = _merge_sortcompact_kernel(self._live(),
+                                                    other._live(), cap)
+            out.data, out.capacity = data, cap
+            out._n_upper = cap
+        out._set_count(n_dev)
+        return out
+
+    def _marking_setop(self, other: "DeviceWordSet", op: str,
+                       cap_bound: int) -> "DeviceWordSet":
+        out = self._new()
+        # `cbl_tpu` takes the merge only where the tag bit fits the word's
+        # uint32 limbs (not at K=13); the same rule here keeps the states
+        # of the two packages equal
+        cfg = self.cfg
+        if (cfg.n_bits <= 32 * cfg.word_limbs - 2
+                and self._merge_setop_ready(other)):
+            data, n_dev = _setop_merge_kernel(self._live(), other._live(), op)
+            out.data, out.capacity = data, data.shape[0]
+            out._n_upper = min(cap_bound, data.shape[0])
+            out._holes = True  # compacted when something needs it
+        else:
+            cap = _out_cap(cap_bound)
+            data, n_dev = _setop_sort_kernel_packed(self._live(),
+                                                    other._live(), op, cap)
+            out.data, out.capacity = data, cap
+            out._n_upper = cap
+        out._set_count(n_dev)
+        return out
+
+    def intersection(self, other: "DeviceWordSet") -> "DeviceWordSet":
+        self.flush()
+        other.flush()
+        self._dedup()
+        other._dedup()
+        return self._marking_setop(other, "inter", min(self.n, other.n))
+
+    def difference(self, other: "DeviceWordSet") -> "DeviceWordSet":
+        self.flush()
+        other.flush()
+        return self._marking_setop(other, "diff", self.n)
+
+    def symmetric_difference(self, other: "DeviceWordSet") -> "DeviceWordSet":
+        self.flush()
+        other.flush()
+        self._dedup()
+        other._dedup()
+        return self._marking_setop(other, "symdiff", self.n + other.n)
+
+    @staticmethod
+    def merge_many(sets: list) -> "DeviceWordSet":
+        """Union of every set in ONE sort of all their keys, duplicates
+        marked, and a compaction sort."""
+        if not sets:
+            raise ValueError("merge_many needs at least one set")
+        if len(sets) == 1:
+            return sets[0].copy()
+        for s in sets:
+            s.flush()
+        cap = _out_cap(sum(s.n for s in sets))
+        cat = torch.cat([s._live() for s in sets])
+        out = sets[0]._new()
+        out.data, n_dev = _merge_sortcompact_kernel(cat, cat[:0], cap)
+        out.capacity = cap
+        out._n_upper = cap
+        out._set_count(n_dev)
+        return out
+
+    @staticmethod
+    def intersect_many(sets: list) -> "DeviceWordSet":
+        """Intersection of every set, pair by pair from the left."""
+        if not sets:
+            raise ValueError("intersect_many needs at least one set")
+        if len(sets) == 1:
+            return sets[0].copy()
+        out = sets[0].intersection(sets[1])
+        for s in sets[2:]:
+            out = out.intersection(s)
+        return out
+
+    def copy(self) -> "DeviceWordSet":
+        """A set of the same keys (the pending log folded first).  It
+        shares the live tensor with this one: nothing updates `data` in
+        place."""
+        self.flush()
+        out = self._new()
+        out.data = self._live()
+        out.capacity = out.data.shape[0]
+        out._holes = self._holes
+        out._dups = self._dups
+        n = self.n
+        out._n_dev, out._n_host = self._n_dev, n
+        out._n_upper = max(n, self._n_upper if self._dups else 0)
+        return out

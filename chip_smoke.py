@@ -1,21 +1,22 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's static, dynamic-round and separate-call paths
-on one NVIDIA GPU.
+"""Drive the PyTorch port's static, dynamic-round, separate-call and
+set-algebra paths on one NVIDIA GPU.
 
 Run from the repository root, on a machine with one CUDA card, `nvcc` and
 `g++`:
 
-    python3 chip_smoke.py            # every phase, ~2 minutes
+    python3 chip_smoke.py            # every phase, ~3 minutes
     python3 chip_smoke.py --profile  # only a `torch.profiler` table of
                                      # the separate-calls workload
+    python3 chip_smoke.py --profile-algebra  # the same of the set algebra
 
 Phases (any failure raises and the script exits non-zero):
-1. print the card, its power limit and the versions; build the five CUDA
+1. print the card, its power limit and the versions; build the seven CUDA
    kernels of `cbl_tpu_torch` from `cbl_tpu_torch/csrc/` (one nvcc per
    source, in parallel);
 2. hold each kernel against its plain PyTorch version on the card at the
-   main paths' shapes (exact equality; B5 also against `torch.sort`), time
-   both with CUDA events, time the one PyTorch call that computes the
+   main paths' shapes (exact equality; B5, B6 and B7 also against
+   `torch.sort`), time both with CUDA events, time the one PyTorch call that computes the
    same function where there is one, and work out each kernel's bound
    (the larger of bytes over the HBM peak and integer operations over
    the INT32 peak);
@@ -46,9 +47,24 @@ Phases (any failure raises and the script exits non-zero):
    operations against a Python oracle with no fold in between, and a
    round over a two-slab stream (the fallback) against the same three
    calls on a second index;
-7. require every kernel of each path to have been launched in that
-   path's timed run, and print the timings;
-8. print the kernels' JSON line and, last, the device JSON line.
+7. run set algebra as `bench.py --mode algebra` does (BASELINE config 4
+   without its serde round-trip): `a` from the first 16 Mbp, `b` from the
+   second, then `a | b`, `a & b`, `a - b`, `a ^ b`, each followed by
+   `count()`, one warm-up and one counted pass, under three pairs of
+   (merge mode, sort mode): ("bitonic", "bitonic") (merges on kernel B7,
+   sorts on B6), ("sort", "bitonic") (no merge kernel, every tagged and
+   compaction sort on B6) and the defaults (B3, `torch.sort`); the three
+   must give equal keys, the counts must obey the set identities and
+   equal a build of both halves as two records, the operands must keep
+   their counts and the launches must equal the numbers derived from the
+   code; then, on two overlapping 5 Mbp windows of phase 4's 8 Mbp (and a
+   third), all eight operators, `CBL.merge` and `CBL.intersect` key for
+   key against numpy's set functions over phase 4's oracle words, and the
+   calls that follow on results with holes (query, insert, remove, log
+   join, fold, `contains_kmers`) against the same sets;
+8. require every kernel of each path to have been launched in that
+   path's counted run, print the timings, the kernels' JSON line and,
+   last, the device JSON line.
 
 The script imports no JAX.  The kernels and the baseline are built into
 `cbl_tpu_torch/_build/`.
@@ -72,7 +88,9 @@ SEGS = 8  # dynamic rounds (bench.py SEGS, bench/baseline.cpp run_dynamic)
 DEVICE = "cuda"
 STATIC_KERNELS = ("necklace", "blank", "merge")
 ROUND_KERNELS = STATIC_KERNELS + ("slog_scan",)  # the dynamic rounds'
-KERNELS = ROUND_KERNELS + ("sort",)
+ALGEBRA_KERNELS = ("necklace", "blank", "bitonic_sort", "bitonic_merge")
+KERNELS = ROUND_KERNELS + ("sort", "bitonic_sort", "bitonic_merge")
+NO_LAUNCHES = dict.fromkeys(KERNELS, 0)
 # Peaks of one H100 SXM (NVIDIA's data sheet): HBM3 at 3.35 TB/s; 67
 # TFLOP/s of float32 outside the tensor cores counts a fused multiply-add
 # as two, so its 128 float32 lanes an SM issue 33.5e12 operations a
@@ -368,6 +386,7 @@ def check_kernels(card: str) -> dict:
         two_col_ms=ms2, two_col_library_ms=lib2, fold_ms=ms3,
         fold_library_ms=lib3, **bound(2 * 8 * SLAB, SLAB * 25 * 2))
     del x1, x2, x3, x4
+    results.update(check_bitonic(rng, results["merge"]["ms"]))
 
     for name, r in results.items():
         lib = r["library_ms"]
@@ -378,6 +397,156 @@ def check_kernels(card: str) -> dict:
             raise AssertionError(f"kernel {name} disagrees with its plain "
                                  f"version (max abs err {r['err']})")
     return results
+
+
+def check_bitonic(rng, b3_ms: float) -> dict:
+    """B6 and B7 against their plain versions and against `torch.sort`,
+    exact, at the shapes the set-algebra path gives them; `b3_ms` is
+    kernel B3's time for 2^25 + 2^25 keys, printed beside B7's."""
+    import torch
+
+    from cbl_tpu_torch.ops import LAUNCHES, bitonic, merge, sort
+
+    dev = torch.device(DEVICE)
+    pad = (1 << 63) - 1
+
+    def rand_keys(n, hi, sent_frac=0.01):
+        v = rng.integers(0, hi, size=n)
+        v[rng.random(n) < sent_frac] = pad
+        return torch.from_numpy(v).to(dev)
+
+    # B6: 2^24 keys (a `_dedup` of one operand, a build's sort) and 2^25
+    # (a tagged sort of both operands, the compaction of a result with
+    # holes), the latter with three quarters sentinels too; 2^22 + 2^21
+    # (word, seqtag) rows (a log join); one row; a length that is neither
+    # a power of two nor a multiple of the tile; constant keys
+    def sort_case(label, keys, plain=True):
+        before = [c.clone() for c in merge.as_cols(keys)]
+        got = bitonic.bitonic_sort(keys)
+        torch.cuda.synchronize()
+        want = merge.sort_cols_plain(merge.as_cols(keys))
+        err = cols_equal(merge.as_cols(got), want)
+        if plain:
+            err = max(err, cols_equal(
+                merge.as_cols(bitonic.bitonic_sort_plain(keys)), want))
+            torch.cuda.synchronize()
+        err = max(err, cols_equal(merge.as_cols(keys), before))
+        log(f"B6 bitonic sort {label}: kernel == plain == torch.sort, input "
+            f"kept: {err == 0}")
+        return err
+
+    n_join = (1 << 22) + (1 << 21)
+    x24, x25 = rand_keys(1 << 24, 1 << 57), rand_keys(SLAB, 1 << 57)
+    x2 = (rand_keys(n_join, 1 << 56, 0.02), rand_keys(n_join, 1 << 23, 0))
+    n0 = LAUNCHES["bitonic_sort"]
+    errs = [
+        sort_case(f"n={1 << 24} one column", x24),
+        sort_case(f"n={SLAB} one column", x25),
+        sort_case(f"n={SLAB} one column, 75 % sentinels",
+                  rand_keys(SLAB, 1 << 57, 0.75), plain=False),
+        sort_case(f"n={n_join} two columns", x2),
+        sort_case(f"n={n_join} two columns, 50 words",
+                  (rand_keys(n_join, 50, 0.02), x2[1]), plain=False),
+        sort_case(f"n={(1 << 24) - 4097}",
+                  x24[: (1 << 24) - 4097].contiguous(), plain=False),
+        sort_case("n=1000003", x24[:1_000_003].contiguous()),
+        sort_case("n=4097, two columns",
+                  (x2[0][:4097].contiguous(), x2[1][:4097].contiguous())),
+        sort_case("n=1", x24[:1].contiguous()),
+        sort_case(f"n={1 << 22} constant", torch.full_like(x24[: 1 << 22], 7)),
+    ]
+    assert LAUNCHES["bitonic_sort"] == n0 + len(errs) - 1  # one row: none
+    with sort.use_sort_mode("bitonic"):
+        assert torch.equal(sort.sort_keys(x24), torch.sort(x24).values)
+    assert LAUNCHES["bitonic_sort"] == n0 + len(errs)
+    ms24 = time_ms(lambda: bitonic.bitonic_sort(x24), 3)
+    lib24 = time_ms(lambda: torch.sort(x24), 5)
+    ms = time_ms(lambda: bitonic.bitonic_sort(x25), 3)
+    plain_ms = time_ms(lambda: bitonic.bitonic_sort_plain(x25), 1)
+    library_ms = time_ms(lambda: torch.sort(x25), 5)
+    ms2 = time_ms(lambda: bitonic.bitonic_sort(x2), 3)
+    lib2 = time_ms(lambda: merge.sort_cols_plain(x2), 5)
+    log(f"B6 bitonic sort, one column, {1 << 24}: {ms24:.4f} ms, torch.sort "
+        f"{lib24:.4f} ms, bound {bound(2 * 8 * (1 << 24), 0)['bound_ms']:.4f}"
+        f" ms")
+    log(f"B6 bitonic sort, two columns, {n_join}: {ms2:.4f} ms, two stable "
+        f"torch.sort passes {lib2:.4f} ms, bound "
+        f"{bound(2 * 16 * n_join, 0)['bound_ms']:.4f} ms")
+    # every key read once and written once; n log2 n 64-bit compares
+    out = {"bitonic_sort": dict(
+        err=max(errs), ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+        ms_2_24=ms24, library_ms_2_24=lib24, two_col_ms=ms2,
+        two_col_library_ms=lib2, **bound(2 * 8 * SLAB, SLAB * 25 * 2))}
+    del x2, x25
+
+    # B7: 2^24 + 2^24 (a set operation of the two operands), 2^25 + 2^24
+    # (a chained operation on a union), 2^24 + 1000, an empty side, one
+    # row, 2^25 + 2^21 (word, seqtag) rows (a fold over an index)
+    def sorted_keys(n, hi, sent_frac=0.01):
+        return torch.sort(rand_keys(n, hi, sent_frac)).values
+
+    def sorted_rows(n, hi):
+        return merge.sort_cols_plain((rand_keys(n, hi, 0.02),
+                                      rand_keys(n, 1 << 23, 0)))
+
+    def merge_case(label, a, b, plain=True):
+        got = bitonic.bitonic_merge(a, b)
+        torch.cuda.synchronize()
+        want = merge.sort_cols_plain(tuple(
+            torch.cat([x, y])
+            for x, y in zip(merge.as_cols(a), merge.as_cols(b))))
+        err = cols_equal(merge.as_cols(got), want)
+        if plain:
+            err = max(err, cols_equal(
+                merge.as_cols(bitonic.bitonic_merge_plain(a, b)), want))
+            torch.cuda.synchronize()
+        log(f"B7 bitonic merge {label}: kernel == plain == torch.sort of "
+            f"both: {err == 0}")
+        return err
+
+    half = 1 << 24
+    a24, b24 = sorted_keys(half, 1 << 57), sorted_keys(half, 1 << 57)
+    a25 = sorted_keys(SLAB, 1 << 57)
+    empty = a24[:0]
+    n0 = LAUNCHES["bitonic_merge"]
+    errs = [
+        merge_case(f"{half} + {half}", a24, b24),
+        merge_case(f"{SLAB} + {half}", a25, b24),
+        merge_case(f"{half} + {SLAB}", b24, a25, plain=False),
+        merge_case(f"{half} + 1000", a24, b24[:1000].contiguous()),
+        merge_case(f"{half} + 0", a24, empty),
+        merge_case(f"0 + {half}", empty, a24, plain=False),
+        merge_case("1 + 0", a24[:1].contiguous(), empty),
+        merge_case("12345 + 777, keys < 5", sorted_keys(12_345, 5, 0.1),
+                   sorted_keys(777, 5, 0.1)),
+        merge_case(f"{half} + {half}, heavy duplicates",
+                   sorted_keys(half, 1 << 12, 0.05),
+                   sorted_keys(half, 1 << 12, 0.05), plain=False),
+        merge_case(f"{SLAB} + {1 << 21}, two columns",
+                   sorted_rows(SLAB, 1 << 56), sorted_rows(1 << 21, 1 << 56)),
+        merge_case("3000 + 5000, two columns, 3 words",
+                   sorted_rows(3000, 3), sorted_rows(5000, 3)),
+    ]
+    assert LAUNCHES["bitonic_merge"] == n0 + len(errs)
+    ms = time_ms(lambda: bitonic.bitonic_merge(a24, b24), 5)
+    plain_ms = time_ms(lambda: bitonic.bitonic_merge_plain(a24, b24), 2)
+    cat = torch.cat([a24, b24])
+    library_ms = time_ms(lambda: torch.sort(cat), 5)
+    b3_here = time_ms(lambda: merge.merge_sorted(a24, b24), 10)
+    ms3 = time_ms(lambda: bitonic.bitonic_merge(a25, b24), 5)
+    b3_3 = time_ms(lambda: merge.merge_sorted(a25, b24), 10)
+    log(f"B7 bitonic merge {half} + {half}: {ms:.4f} ms, torch.sort of both "
+        f"{library_ms:.4f} ms, kernel B3 {b3_here:.4f} ms (B3 at {SLAB} + "
+        f"{SLAB}: {b3_ms:.4f} ms)")
+    log(f"B7 bitonic merge {SLAB} + {half}: {ms3:.4f} ms, kernel B3 "
+        f"{b3_3:.4f} ms, bound "
+        f"{bound(2 * 8 * (SLAB + half), 0)['bound_ms']:.4f} ms")
+    # every key read once and written once; a 64-bit compare an output
+    out["bitonic_merge"] = dict(
+        err=max(errs), ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+        b3_ms=b3_here, ms_2_25_2_24=ms3, b3_ms_2_25_2_24=b3_3,
+        **bound(2 * 8 * 2 * half, 2 * half * 2))
+    return out
 
 
 def slog_keys(rng, n: int):
@@ -591,8 +760,8 @@ def separate_launches(sort_mode: str, log_at_query: bool) -> dict:
     default mode does the same sorts with `torch.sort`."""
     later = SEGS - 1
     sorts = 1 + later * (5 if log_at_query else 3) + 2
-    return {"necklace": 2 * SEGS, "blank": 2 * SEGS,
-            "merge": 1 + later * 3 + 1, "slog_scan": 0,
+    return {**NO_LAUNCHES, "necklace": 2 * SEGS, "blank": 2 * SEGS,
+            "merge": 1 + later * 3 + 1,
             "sort": sorts if sort_mode == "mergepath" else 0}
 
 
@@ -662,6 +831,282 @@ def multi_slab_round_check(codes: np.ndarray) -> str:
             f"positive) {got} == the separate calls, count {a.count()}")
 
 
+# --- phase 7: set algebra ---------------------------------------------------------
+
+ALGEBRA_OPS = (("union", lambda a, b: a | b), ("inter", lambda a, b: a & b),
+               ("diff", lambda a, b: a - b), ("symdiff", lambda a, b: a ^ b))
+ALGEBRA_MODES = (("bitonic", "bitonic"), ("sort", "bitonic"),
+                 ("mergepath", "library"))  # (merge mode, sort mode)
+
+
+def algebra_run(codes: np.ndarray, merge_mode: str, sort_mode: str):
+    """`bench.py --mode algebra` on the port without its serde round-trip,
+    under one (merge mode, sort mode) pair: `a` from the first half of
+    `codes`, `b` from the second (one record each), then `a | b`,
+    `a & b`, `a - b`, `a ^ b`, each followed by `count()`.  The operands
+    are built anew, so the run pays what a first pass pays (two dedup
+    sorts at `a & b`).  The launch counters are set to 0 before the
+    builds and read after the last count; the device events and the host
+    clock bracket the four operations.
+    -> ((a, b), {name: result index}, result dict)."""
+    import torch
+
+    from cbl_tpu_torch import CBL
+    from cbl_tpu_torch.ops import LAUNCHES
+    from cbl_tpu_torch.ops.sort import use_merge_mode, use_sort_mode
+
+    half = len(codes) // 2
+    torch.cuda.synchronize()
+    with use_merge_mode(merge_mode), use_sort_mode(sort_mode):
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+        a, b = CBL(k=K, device=DEVICE), CBL(k=K, device=DEVICE)
+        a.insert_codes_stream(codes[:half], np.array([0, half]))
+        b.insert_codes_stream(codes[half:], np.array([0, len(codes) - half]))
+        counts = {"a": a.count(), "b": b.count()}
+        ev = [torch.cuda.Event(enable_timing=True)
+              for _ in range(len(ALGEBRA_OPS) + 1)]
+        out, host_ms = {}, {}
+        ev[0].record()
+        for i, (name, op) in enumerate(ALGEBRA_OPS):
+            t0 = time.perf_counter()
+            out[name] = op(a, b)
+            counts[name] = out[name].count()
+            host_ms[name] = (time.perf_counter() - t0) * 1e3
+            ev[i + 1].record()
+        torch.cuda.synchronize()
+        launches = dict(LAUNCHES)
+        counts["a after"], counts["b after"] = a.count(), b.count()
+    return (a, b), out, dict(
+        modes=(merge_mode, sort_mode), counts=counts, host_ms=host_ms,
+        device_ms={name: ev[i].elapsed_time(ev[i + 1])
+                   for i, (name, _) in enumerate(ALGEBRA_OPS)},
+        ops_ms=ev[0].elapsed_time(ev[-1]), launches=launches,
+        holes={n: r.wordset._holes for n, r in out.items()},
+        rows={n: r.wordset.data.shape[0] for n, r in out.items()})
+
+
+def algebra_launches(merge_mode: str, sort_mode: str) -> dict:
+    """The launches of one `algebra_run`, derived from the code.
+
+    The two builds run the word pipeline once each (B1, B2) and sort
+    their slab.  Under a merge kernel each operation is one merge of the
+    two operands, and `a & b` first sorts each operand once to drop its
+    duplicates (`a ^ b` finds them gone).  In the "sort" merge mode there
+    is no merge: the union is a sort of both and a compaction sort, each
+    marking operation a tagged sort of both and a compaction sort, and
+    `a & b` pays the same two dedup sorts."""
+    merges = len(ALGEBRA_OPS) if merge_mode != "sort" else 0
+    sorts = 2 + 2 + (0 if merges else 2 * len(ALGEBRA_OPS))
+    return {**NO_LAUNCHES, "necklace": 2, "blank": 2,
+            "merge": merges if merge_mode == "mergepath" else 0,
+            "bitonic_merge": merges if merge_mode == "bitonic" else 0,
+            "sort": sorts if sort_mode == "mergepath" else 0,
+            "bitonic_sort": sorts if sort_mode == "bitonic" else 0}
+
+
+def index_keys(idx):
+    """The keys of an index, ascending, as a tensor on the card (the
+    index is compacted and its duplicates dropped first)."""
+    ws = idx.wordset
+    ws.flush()
+    ws._compact()
+    ws._dedup()
+    return ws.data[: ws.n]
+
+
+def algebra_check(codes: np.ndarray) -> dict:
+    """Phase 7's full-size runs: one warm-up and one counted pass of
+    `algebra_run` per mode pair; exact checks across the pairs."""
+    import torch
+
+    from cbl_tpu_torch import CBL
+    from cbl_tpu_torch.ops.sort import use_merge_mode, use_sort_mode
+
+    runs, keys = {}, {}
+    for modes in ALGEBRA_MODES:
+        algebra_run(codes, *modes)  # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        (a, b), out, r = algebra_run(codes, *modes)
+        r["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        log(f"set algebra {modes}: {r}")
+        want = algebra_launches(*modes)
+        assert r["launches"] == want, (r["launches"], want)
+        c = r["counts"]
+        assert (c["a"], c["b"]) == (c["a after"], c["b after"]), c
+        assert c["union"] + c["inter"] == c["a"] + c["b"], c
+        assert c["diff"] == c["a"] - c["inter"], c
+        assert c["symdiff"] == c["union"] - c["inter"], c
+        merged = modes[0] != "sort"
+        assert r["holes"] == {"union": False, "inter": merged,
+                              "diff": merged, "symdiff": merged}, r["holes"]
+        with use_merge_mode(modes[0]), use_sort_mode(modes[1]):
+            keys[modes] = {n: index_keys(x) for n, x in out.items()}
+        for n, k in keys[modes].items():
+            assert k.shape[0] == c[n], (n, k.shape, c[n])
+        runs[modes] = r
+        del a, b, out
+    first = ALGEBRA_MODES[0]
+    for modes in ALGEBRA_MODES[1:]:
+        assert runs[modes]["counts"] == runs[first]["counts"]
+        for n, k in keys[modes].items():
+            assert torch.equal(k, keys[first][n]), (modes, n)
+    del keys
+    # the union's count against one build of both halves as two records
+    both = CBL(k=K, device=DEVICE)
+    both.insert_codes_stream(
+        codes, np.array([0, len(codes) // 2, len(codes)], dtype=np.int64))
+    assert both.count() == runs[first]["counts"]["union"], (
+        both.count(), runs[first]["counts"])
+    log(f"set algebra: three mode pairs give equal keys; counts "
+        f"{runs[first]['counts']}; union == a build of both halves as two "
+        f"records")
+    return runs
+
+
+def algebra_overlap_check(codes: np.ndarray, words: np.ndarray) -> str:
+    """Set algebra with real overlap, key for key against numpy: three
+    windows of `codes` (one record; `words` are its necklace words, word
+    j of the k-mer at base j) as indexes a = [0, 5M), b = [3M, 8M),
+    c = [2M, 6M); all eight operators, `CBL.merge` and `CBL.intersect`
+    under the ("bitonic", "bitonic") modes; then the calls that follow on
+    results with holes."""
+    import torch
+
+    from cbl_tpu_torch import CBL
+    from cbl_tpu_torch.ops import LAUNCHES
+    from cbl_tpu_torch.ops.sort import use_merge_mode, use_sort_mode
+
+    M = len(codes) // 8  # 1 Mbp on phase 4's 8 Mbp
+    assert len(words) == len(codes) - K + 1
+
+    def window(lo, hi):
+        """(stream, its words) of bases [lo, hi) as one record."""
+        return ((codes[lo:hi], np.array([0, hi - lo], dtype=np.int64)),
+                words[lo:hi - K + 1])
+
+    def build(lo, hi):
+        stream, w = window(lo, hi)
+        idx = CBL(k=K, device=DEVICE)
+        idx.insert_codes_stream(*stream)
+        return idx, np.unique(w)
+
+    def same(idx, want, what):
+        got = index_keys(idx).cpu().numpy().astype(np.uint64)
+        assert np.array_equal(got, want), (
+            f"{what}: {len(got)} keys, the oracle has {len(want)}")
+        assert idx.count() == len(want) > 0, what
+
+    n0 = {n: LAUNCHES[n] for n in ("bitonic_sort", "bitonic_merge")}
+    with use_merge_mode("bitonic"), use_sort_mode("bitonic"):
+        (a, wa), (b, wb), (c, wc) = (build(0, 5 * M), build(3 * M, 8 * M),
+                                     build(2 * M, 6 * M))
+        u1 = lambda x, y: np.union1d(x, y)
+        i1 = lambda x, y: np.intersect1d(x, y, assume_unique=True)
+        d1 = lambda x, y: np.setdiff1d(x, y, assume_unique=True)
+        x1 = lambda x, y: np.setxor1d(x, y, assume_unique=True)
+        same(a | b, u1(wa, wb), "a | b")
+        same(a & b, i1(wa, wb), "a & b")
+        same(a - b, d1(wa, wb), "a - b")
+        same(a ^ b, x1(wa, wb), "a ^ b")
+        t, wt = a | c, u1(wa, wc)
+        t &= b
+        wt = i1(wt, wb)
+        same(t, wt, "t &= b")
+        t ^= a
+        wt = x1(wt, wa)
+        same(t, wt, "t ^= a")
+        t -= c
+        wt = d1(wt, wc)
+        same(t, wt, "t -= c")
+        t |= b
+        wt = u1(wt, wb)
+        same(t, wt, "t |= b")
+        same(CBL.merge([a, b, c]), u1(u1(wa, wb), wc), "merge([a, b, c])")
+        same(CBL.intersect([a, b, c]), i1(i1(wa, wb), wc),
+             "intersect([a, b, c])")
+        for idx, w in ((a, wa), (b, wb), (c, wc)):
+            assert idx.count() == len(w)  # the operands survive
+
+        # what a caller does with a result that has holes
+        h, wh = a & b, i1(wa, wb)
+        assert h.wordset._holes
+        q, wq = window(2 * M, 6 * M)
+        assert h.query_codes_stream(*q) == (len(wq), int(np.isin(wq, wh).sum()))
+        assert h.wordset._holes  # joined by one sort, not compacted
+        ins, wi = window(6 * M, 7 * M)
+        h.insert_codes_stream(*ins)  # fits the log
+        h.flush()  # one sort of index and log, duplicates marked
+        wh = u1(wh, wi)
+        assert h.wordset._holes and h.count() == len(wh)
+        rm, wr = window(3 * M + M // 2, 4 * M)
+        h.remove_codes_stream(*rm)  # stays in the log
+        wh = d1(wh, np.unique(wr))
+        assert h.wordset.n_pending > 0 and h.wordset._holes
+        # index with holes + log: one sort of all three
+        assert h.query_codes_stream(*q) == (len(wq), int(np.isin(wq, wh).sum()))
+        assert h.wordset.n_pending > 0 and h.wordset._holes
+        h.flush()
+        assert not h.wordset._holes
+        same(h, wh, "a & b after insert, remove and folds")
+        g, wg = a - b, d1(wa, wb)
+        assert g.wordset._holes
+        rng = np.random.default_rng(11)
+        pos = rng.integers(0, len(words), size=4000)
+        probe = [int(v) for v in np_kmers(codes)[pos]]
+        got = g.contains_kmers(probe)  # compacts first
+        assert not g.wordset._holes
+        assert got.tolist() == np.isin(words[pos], wg).tolist()
+        assert 0 < int(got.sum()) < len(probe)
+        same(g, wg, "a - b after contains_kmers")
+    launched = {n: LAUNCHES[n] - n0[n] for n in n0}
+    assert all(v > 0 for v in launched.values()), launched
+    return (f"set algebra with overlap: |a| {len(wa)} |b| {len(wb)} |c| "
+            f"{len(wc)} |a & b| {len(i1(wa, wb))} |a ^ b| {len(x1(wa, wb))}: "
+            f"eight operators, merge and intersect == numpy key for key; "
+            f"query, insert, remove, log join, folds and contains_kmers on "
+            f"results with holes == numpy; launches {launched}")
+
+
+def profile_algebra() -> int:
+    """`--profile-algebra`: the set-algebra runs under `torch.profiler`
+    in the ("bitonic", "bitonic") and the default modes; prints the
+    device time by kernel name and the device's idle share of the four
+    operations."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    card = card_line()
+    codes = np.random.default_rng(0).integers(0, 4, size=MAIN_BASES,
+                                              dtype=np.uint8)
+    for modes in (ALGEBRA_MODES[0], ALGEBRA_MODES[2]):
+        algebra_run(codes, *modes)  # warm-up
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _, _, r = algebra_run(codes, *modes)
+        print_profile(prof, f"[{card}] set algebra {modes}: builds and four "
+                      f"operations; the operations alone {r['ops_ms']:.2f} ms "
+                      f"by device events under the profiler")
+    return 0
+
+
+def print_profile(prof, title: str, span_ms: float | None = None) -> None:
+    """Device time by kernel name of a `torch.profiler` run, largest
+    first; with `span_ms`, the device's idle share of that span."""
+    import torch
+
+    rows = [(e.self_device_time_total / 1e3, e.count, e.key)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    rows.sort(reverse=True)
+    busy = sum(t for t, _, _ in rows)
+    idle = "" if span_ms is None else f", idle {1 - busy / span_ms:.1%}"
+    print(f"{title}, kernels {busy:.2f} ms{idle}")
+    for t, count, key in rows[:14]:
+        print(f"  {t:9.3f} ms  {count:5d} x  {key[:90]}")
+
+
 def profile_separate() -> int:
     """`--profile`: the separate-calls workload (runs A and B) under
     `torch.profiler` in both sort modes; prints the device time by
@@ -679,18 +1124,10 @@ def profile_separate() -> int:
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
                 _, _, r = separate_run(codes[:n], mode, log_at_query)
-            rows = [(e.self_device_time_total / 1e3, e.count, e.key)
-                    for e in prof.key_averages()
-                    if e.device_type == torch.autograd.DeviceType.CUDA
-                    and e.self_device_time_total > 0]
-            rows.sort(reverse=True)
-            busy = sum(t for t, _, _ in rows)
-            print(f"[{card}] run {label} {mode}: calls {r['calls_ms']:.2f} ms"
-                  f" by device events under the profiler, kernels "
-                  f"{busy:.2f} ms, idle {1 - busy / r['calls_ms']:.1%}, "
-                  f"stage {r['stage_s'] * 1e3:.1f} ms")
-            for t, count, key in rows[:14]:
-                print(f"  {t:9.3f} ms  {count:5d} x  {key[:90]}")
+            print_profile(
+                prof, f"[{card}] run {label} {mode}: calls "
+                f"{r['calls_ms']:.2f} ms by device events under the "
+                f"profiler, stage {r['stage_s'] * 1e3:.1f} ms", r["calls_ms"])
     return 0
 
 
@@ -738,8 +1175,11 @@ def main() -> int:
 
     if sys.argv[1:] == ["--profile"]:
         return profile_separate()
+    if sys.argv[1:] == ["--profile-algebra"]:
+        return profile_algebra()
     if sys.argv[1:]:
-        print(f"usage: {sys.argv[0]} [--profile]", file=sys.stderr)
+        print(f"usage: {sys.argv[0]} [--profile | --profile-algebra]",
+              file=sys.stderr)
         return 2
 
     # phase 1
@@ -822,7 +1262,7 @@ def main() -> int:
         f"{want_pos} ({time.perf_counter() - t_o:.1f} s)")
     assert (total, positive) == (len(q_words), want_pos)
     assert 0 < positive < total
-    del q_idx
+    del q_idx, q_words
 
     codes2 = np.random.default_rng(3).integers(
         0, 4, size=SLAB + SLAB // 32 + K - 1, dtype=np.uint8)
@@ -916,7 +1356,21 @@ def main() -> int:
         del idx
     log(multi_slab_round_check(codes))
 
-    # phase 7
+    # phase 7: set algebra at full size under three mode pairs, then with
+    # real overlap against numpy over phase 4's oracle words
+    alg = algebra_check(codes)
+    alg_launches = alg[ALGEBRA_MODES[0]]["launches"]
+    for name in ALGEBRA_KERNELS:
+        assert alg_launches[name] >= 1, (
+            f"kernel {name} never launched on the set-algebra path")
+    assert alg[ALGEBRA_MODES[1]]["launches"]["bitonic_sort"] >= 1
+    default = alg[ALGEBRA_MODES[2]]["launches"]
+    assert default["bitonic_sort"] == default["bitonic_merge"] == 0
+    assert default["merge"] >= 1
+    log(algebra_overlap_check(quarter, i_words))
+    del i_words
+
+    # phase 8
     for name in STATIC_KERNELS:
         assert main_launches[name] >= 1, name
     for label, (r, base) in runs.items():
@@ -948,8 +1402,18 @@ def main() -> int:
             f"{r['ops'] / r['wall_s']:.4g} ops/s (stage "
             f"{r['stage_s'] * 1e3:.1f} ms); peak device memory "
             f"{r['peak_gib']:.2f} GiB; launches {r['launches']}")
+    n_rows = sum(alg[ALGEBRA_MODES[0]]["counts"][n] for n in ("a", "b"))
+    for modes, r in alg.items():
+        per_op = ", ".join(
+            f"{n} {r['device_ms'][n]:.2f} ms (host {r['host_ms'][n]:.2f})"
+            for n, _ in ALGEBRA_OPS)
+        log(f"[{card}] K={K} set algebra, 2 x {MAIN_BASES / 2e6:.0f} Mbp, "
+            f"merge mode {modes[0]}, sort mode {modes[1]}, operands built "
+            f"anew: four operations with their counts {r['ops_ms']:.2f} ms "
+            f"by device events = {4 * n_rows / r['ops_ms'] * 1e3:.4g} operand "
+            f"rows/s; {per_op}; peak device memory {r['peak_gib']:.2f} GiB; "
+            f"launches {r['launches']}")
 
-    # phase 8
     src = {
         "necklace": ("cbl_tpu_torch/csrc/necklace.cu",
                      "cbl_tpu/ops/necklace_pallas.py:102"),
@@ -961,12 +1425,18 @@ def main() -> int:
                       "cbl_tpu/ops/scan_pallas.py:202"),
         "sort": ("cbl_tpu_torch/csrc/sort.cu",
                  "cbl_tpu/ops/merge_pallas.py:426"),
+        "bitonic_sort": ("cbl_tpu_torch/csrc/bitonic_sort.cu",
+                         "cbl_tpu/ops/sort_pallas.py:269"),
+        "bitonic_merge": ("cbl_tpu_torch/csrc/bitonic_merge.cu",
+                          "cbl_tpu/ops/sort_pallas.py:302"),
     }
-    # launches: the timed runs of the static path (plain), the dynamic
-    # rounds and the separate calls (runs A and B under "mergepath"), each
+    # launches: the counted runs of the static path (plain), the dynamic
+    # rounds, the separate calls (runs A and B under "mergepath") and set
+    # algebra (under ("bitonic", "bitonic") and ("sort", "bitonic")), each
     # counted from 0
     paths = (main_launches, dyn_launches, sep["A"]["launches"],
-             sep["B"]["launches"])
+             sep["B"]["launches"], alg_launches,
+             alg[ALGEBRA_MODES[1]]["launches"])
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src[name][0],
          "replaces": src[name][1],

@@ -135,8 +135,9 @@ def test_jax_index_carried_across(k, canonical):
     assert idx.query_codes_stream(q, qoff) == want[2]
     np.testing.assert_array_equal(_port_rows(idx),
                                   _valid_rows(jidx.wordset.data))
-    words, n = state.wordset_to_arrays(ws)
+    words, n, flags = state.wordset_to_arrays(ws)
     assert n == want[0]
+    assert flags == dict(holes=False, dups=True, n_upper=ws._n_upper)
     np.testing.assert_array_equal(_valid_rows(words),
                                   _valid_rows(jidx.wordset.data))
 

@@ -1,4 +1,4 @@
-"""Kernels B1-B5 against their plain versions on a CUDA card.
+"""Kernels B1-B7 against their plain versions on a CUDA card.
 
 Marked `gpu`: every test needs a CUDA device and `nvcc`, and skips where
 `torch.cuda.is_available()` is False (decided inside the `cuda` fixture).
@@ -10,8 +10,9 @@ JAX test harness:
 The cases are the kernels' edges (sizes around their tiles, one-element
 and empty sides, duplicates, sentinels, negative keys, a word run over
 many tiles), the static slice on CUDA against the slice on the CPU, and
-dynamic rounds and the separate insert / query / remove calls (in both
-sort modes) on CUDA against a Python-set oracle.  Inputs come from
+dynamic rounds, the separate insert / query / remove calls (in every
+sort mode) and set algebra (in three pairs of merge and sort modes) on
+CUDA against a Python-set oracle.  Inputs come from
 numpy.random.default_rng; every comparison is exact integer equality.
 """
 
@@ -22,7 +23,7 @@ import torch
 from cbl_tpu_torch import CBL, LAUNCHES
 from cbl_tpu_torch import wordset as tws
 from cbl_tpu_torch.limbs import SENTINEL
-from cbl_tpu_torch.ops import merge, necklace, scan, sort
+from cbl_tpu_torch.ops import bitonic, merge, necklace, scan, sort
 
 pytestmark = pytest.mark.gpu
 
@@ -135,6 +136,84 @@ def test_sort_kernel_matches_plain(cuda, n, two, hi):
         assert torch.equal(g, w) and torch.equal(p, w)
     for c, b in zip(merge.as_cols(keys), before):
         assert torch.equal(c, b)  # the caller's tensors are not written
+
+
+@pytest.mark.parametrize("n", [
+    0, 1, 2, 3, 4095, 4096, 4097, 8192, 3 * 4096 + 5, 100_003,
+    (1 << 20) - 4097, (1 << 20) + 1,
+])
+@pytest.mark.parametrize("two", [False, True])
+@pytest.mark.parametrize("hi", [1, 3, 1 << 40])
+def test_bitonic_sort_kernel_matches_plain(cuda, n, two, hi):
+    """B6 at sizes around its tile and the powers of two it pads to:
+    constant keys, heavy duplicates, wide keys with negative values, half
+    sentinels."""
+    rng = np.random.default_rng(n + two + hi % 997)
+    v = rng.integers(-hi, hi, size=n)
+    v[rng.random(n) < 0.5 * (hi == 3)] = SENTINEL
+    keys = torch.from_numpy(v).to(cuda)
+    if two:
+        keys = (keys, torch.from_numpy(
+            rng.integers(0, 1 << 23, size=n)).to(cuda))
+    before = [c.clone() for c in merge.as_cols(keys)]
+    n0 = LAUNCHES["bitonic_sort"]
+    with sort.use_sort_mode("bitonic"):
+        got = sort.sort_keys(keys)
+    torch.cuda.synchronize()
+    assert LAUNCHES["bitonic_sort"] == n0 + (n > 1)  # else no launch
+    want = merge.sort_cols_plain(merge.as_cols(keys))
+    for g, w, p in zip(merge.as_cols(got), want,
+                       merge.as_cols(bitonic.bitonic_sort_plain(keys)),
+                       strict=True):
+        assert torch.equal(g, w) and torch.equal(p, w)
+    for c, b in zip(merge.as_cols(keys), before):
+        assert torch.equal(c, b)  # the caller's tensors are not written
+
+
+@pytest.mark.parametrize("na,nb", [
+    (0, 0), (0, 1), (1, 0), (1, 1), (2047, 1), (2048, 2048), (2048, 2049),
+    (4096, 4096), (5000, 3), (3, 5000), (100_000, 77_777),
+    ((1 << 20) + 1, 4097),
+])
+@pytest.mark.parametrize("two", [False, True])
+@pytest.mark.parametrize("hi", [3, 1 << 40])
+def test_bitonic_merge_kernel_matches_plain(cuda, na, nb, two, hi):
+    """B7 around the one-block size (2 M <= 4096 rows) and above it, with
+    unequal, empty and one-row sides."""
+    rng = np.random.default_rng(na * 7 + nb + two + hi % 1000)
+
+    def side(n):
+        v = rng.integers(-hi, hi, size=n)
+        v[rng.random(n) < 0.05] = SENTINEL
+        cols = (torch.from_numpy(v).to(cuda),
+                torch.from_numpy(rng.integers(0, 1 << 23, size=n)).to(cuda))
+        cols = merge.sort_cols_plain(cols if two else cols[:1])
+        return cols if two else cols[0]
+
+    a, b = side(na), side(nb)
+    before = [c.clone() for c in merge.as_cols(a) + merge.as_cols(b)]
+    n0 = LAUNCHES["bitonic_merge"]
+    with sort.use_merge_mode("bitonic"):
+        got = sort.merge_sorted_pair(a, b)
+    torch.cuda.synchronize()
+    assert LAUNCHES["bitonic_merge"] == n0 + (na + nb > 0)
+    for g, w, p in zip(merge.as_cols(got),
+                       merge.as_cols(merge.merge_sorted_plain(a, b)),
+                       merge.as_cols(bitonic.bitonic_merge_plain(a, b)),
+                       strict=True):
+        assert torch.equal(g, w) and torch.equal(p, w)
+    for c, x in zip(merge.as_cols(a) + merge.as_cols(b), before):
+        assert torch.equal(c, x)
+
+
+def test_sort_merge_mode_launches_no_merge_kernel(cuda):
+    a = torch.arange(0, 10_000, 2, device=cuda)
+    b = torch.arange(1, 10_000, 2, device=cuda)
+    n0 = dict(LAUNCHES)
+    with sort.use_merge_mode("sort"):
+        got = sort.merge_sorted_pair(a, b)
+    assert torch.equal(got, torch.arange(10_000, device=cuda))
+    assert dict(LAUNCHES) == n0
 
 
 def test_library_mode_never_launches_the_sort_kernel(cuda):
@@ -331,3 +410,67 @@ def test_separate_calls_on_cuda_match_set_oracle(cuda, monkeypatch, mode):
     assert (LAUNCHES["sort"] > 0) == (mode == "mergepath"), dict(LAUNCHES)
     assert all(LAUNCHES[n] > 0 for n in ("necklace", "blank", "merge"))
     assert LAUNCHES["slog_scan"] == 0
+
+
+@pytest.mark.parametrize("merge_mode,sort_mode", [
+    ("bitonic", "bitonic"), ("sort", "bitonic"), ("mergepath", "library"),
+])
+def test_set_algebra_on_cuda_matches_set_oracle(cuda, monkeypatch,
+                                                merge_mode, sort_mode):
+    """The eight operators, `merge`, `intersect` and the calls that follow
+    on a result with holes, against Python sets of k-mers."""
+    rng = np.random.default_rng(10)
+    pool = rng.integers(0, 4, size=9_000, dtype=np.uint8)
+    one = lambda c: (c, np.array([0, len(c)], dtype=np.int64))
+    windows = {"a": pool[:5_000], "b": pool[3_000:8_000],
+               "c": pool[2_000:6_000]}
+    for name in LAUNCHES:
+        monkeypatch.setitem(LAUNCHES, name, 0)
+    with sort.use_merge_mode(merge_mode), sort.use_sort_mode(sort_mode):
+        idx, sets = {}, {}
+        for name, codes in windows.items():
+            idx[name] = CBL(k=25, device=cuda, pending_cap=8192)
+            idx[name].insert_codes_stream(*one(codes))
+            sets[name] = set(_np_kmers(codes))
+        a, b, c = (idx[n] for n in "abc")
+        sa, sb, sc = (sets[n] for n in "abc")
+
+        def same(x, want):
+            assert x.count() == len(want)
+            km = _np_kmers(pool)
+            assert x.query_codes_stream(*one(pool)) == (
+                len(km), sum(v in want for v in km))
+
+        same(a | b, sa | sb)
+        same(a & b, sa & sb)
+        same(a - b, sa - sb)
+        same(a ^ b, sa ^ sb)
+        t, st = a | c, sa | sc
+        t &= b
+        t ^= a
+        t -= c
+        t |= b
+        same(t, ((((st & sb) ^ sa) - sc) | sb))
+        same(CBL.merge([a, b, c]), sa | sb | sc)
+        same(CBL.intersect([a, b, c]), sa & sb & sc)
+        assert (a.count(), b.count()) == (len(sa), len(sb))
+        # a result (with holes under a merge kernel): log join, insert
+        # over holes, fold with removes, membership
+        h, sh = a ^ b, sa ^ sb
+        assert h.wordset._holes == (merge_mode != "sort")
+        h.insert_codes_stream(*one(pool[8_000:]))
+        h.remove_codes_stream(*one(pool[:1_000]))
+        sh = (sh | set(_np_kmers(pool[8_000:]))) - set(_np_kmers(pool[:1_000]))
+        assert h.wordset.n_pending > 0
+        same(h, sh)  # the query joins index and log; count() folds
+        g, sg = a - c, sa - sc
+        probe = _np_kmers(pool[:6_000])[::7]
+        assert g.contains_kmers(probe).tolist() == [v in sg for v in probe]
+        assert not g.wordset._holes
+        g.insert_codes_stream(*one(pool[6_000:]))
+        same(g, sg | set(_np_kmers(pool[6_000:])))
+    launched = dict(LAUNCHES)
+    assert (launched["bitonic_merge"] > 0) == (merge_mode == "bitonic")
+    assert (launched["bitonic_sort"] > 0) == (sort_mode == "bitonic")
+    assert (launched["merge"] > 0) == (merge_mode == "mergepath")
+    assert launched["sort"] == launched["slog_scan"] == 0

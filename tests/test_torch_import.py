@@ -19,7 +19,7 @@ import pytest
 import torch
 
 from cbl_tpu_torch import CBL, LAUNCHES
-from cbl_tpu_torch.ops import _build, merge, necklace, scan, sort
+from cbl_tpu_torch.ops import _build, bitonic, merge, necklace, scan, sort
 
 torch.set_num_threads(2)
 
@@ -37,7 +37,7 @@ def test_imports_without_jax():
         "sys.modules['jax'] = None\n"
         "sys.modules['cbl_tpu'] = None\n"
         "import cbl_tpu_torch, cbl_tpu_torch.state, cbl_tpu_torch.cbl\n"
-        "import cbl_tpu_torch.ops.sort\n"
+        "import cbl_tpu_torch.ops.sort, cbl_tpu_torch.ops.bitonic\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'cbl_tpu') and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"
@@ -88,8 +88,19 @@ def test_cpu_path_never_counts_launches(monkeypatch):
         idx.remove_codes_stream(codes[3000:], np.array([0, 3000]))
         assert idx.count() == 3_000 - 24
         assert idx.contains_kmers([0, 1]).tolist() == [False, False]
+    other = CBL(k=25, device="cpu")
+    other.insert_codes_stream(codes[:3000], np.array([0, 3000]))
+    for merge_mode, sort_mode in (("bitonic", "bitonic"),  # B7 and B6's
+                                  ("sort", "bitonic"),
+                                  ("mergepath", "library")):
+        with sort.use_merge_mode(merge_mode), sort.use_sort_mode(sort_mode):
+            both = idx & other
+            assert both.count() == (idx | other).count() == 3_000 - 24
+            assert (idx - other).count() == (idx ^ other).count() == 0
+            assert both.query_codes_stream(ps)[1] == 3_000 - 24
+            assert both.contains_kmers([0]).tolist() == [False]
     assert LAUNCHES == {"necklace": 0, "blank": 0, "merge": 0, "slog_scan": 0,
-                        "sort": 0}
+                        "sort": 0, "bitonic_sort": 0, "bitonic_merge": 0}
 
 
 def test_wrappers_check_inputs():
@@ -111,6 +122,16 @@ def test_wrappers_check_inputs():
         merge.sort_mergepath(x32)
     with pytest.raises(ValueError):
         merge.sort_mergepath((x64, x64[:4]))
+    with pytest.raises(ValueError):
+        bitonic.bitonic_sort(x32)
+    with pytest.raises(ValueError):
+        bitonic.bitonic_sort((x64, x64[:4]))
+    with pytest.raises(ValueError):
+        bitonic.bitonic_sort(x64.reshape(2, 4))
+    with pytest.raises(ValueError):
+        bitonic.bitonic_merge(x64, x32)
+    with pytest.raises(ValueError):
+        bitonic.bitonic_merge((x64, x64), x64)
     with pytest.raises(ValueError):
         _build.check_cuda(x64)  # a CPU tensor never reaches a kernel
 

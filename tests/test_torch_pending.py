@@ -264,21 +264,68 @@ def test_merge_into_ladder(sort_mode):
 
 
 def test_holes_branches_raise():
-    """Nothing ported sets `_holes`; the branches that would have to
-    handle it raise until set algebra arrives."""
-    tw = CBL(k=25, device="cpu", pending_cap=64).wordset
-    tw.insert_words(torch.arange(10, dtype=torch.int64))
-    tw.flush()
-    tw._holes = True
-    words = torch.arange(5, dtype=torch.int64)
-    for call in (lambda: tw._merge_into(words, 5),
-                 lambda: tw.count_hits_device(words),
-                 lambda: tw.contains_words(words),
-                 lambda: tw._remove_now(words)):
-        with pytest.raises(NotImplementedError, match="slice 4"):
-            call()
-    with pytest.raises(NotImplementedError, match="only 'remove'"):
-        tws._setop_sort_kernel_packed(words, words, "inter", 4096)
+    """The branches that handle an index with holes (sentinel rows between
+    the valid keys, as a set operation by merge leaves them), each next to
+    `cbl_tpu`'s on the same hand-made state: an insert (one sort, holes
+    again), a query by one tagged sort, a query against index and log, a
+    membership query (compacts first), a remove at once.  Nothing raises
+    any more; an unknown operation does."""
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(17)
+    cfg = CBL(k=25, device="cpu").cfg
+    keys = np.sort(rng.choice(1 << 40, size=3000, replace=False))
+    data = np.full(4096, SENTINEL)
+    data[:3000] = keys
+    data[rng.random(4096) < 0.3] = SENTINEL  # holes where they fall
+    n = int((data != SENTINEL).sum())
+    words = np.concatenate([keys[::3], rng.integers(0, 1 << 40, size=500)])
+    words[::11] = SENTINEL
+
+    def holes_pair():
+        jidx, tidx = _pair(pending_cap=64)
+        jw, tw = jidx.wordset, tidx.wordset
+        jw.data = jnp.asarray(to_limbs(data, cfg.word_limbs))
+        tw.data = torch.from_numpy(data.copy())
+        for ws, count in ((jw, jnp.int32(n)), (tw, torch.tensor(n))):
+            ws._holes, ws._n_upper, ws.capacity = True, 3000, 4096
+            ws._set_count(count)
+        _assert_same_state(jidx, tidx)
+        return jidx, tidx
+
+    for call in ("merge", "hits", "log hits", "contains", "remove"):
+        jidx, tidx = holes_pair()
+        if call == "merge":
+            jidx.wordset._merge_into(
+                jnp.asarray(to_limbs(words, cfg.word_limbs)), len(words))
+            tidx.wordset._merge_into(torch.from_numpy(words), len(words))
+            assert tidx.wordset._holes and not tidx.wordset._dups
+        elif call == "remove":
+            _both_words(jidx, tidx, "_remove_now", words)
+            assert not tidx.wordset._holes
+        elif call == "contains":
+            got_j, got_t = _both_words(jidx, tidx, "contains_words", words)
+            np.testing.assert_array_equal(got_t.numpy(), np.asarray(got_j))
+            present = set(data.tolist()) - {SENTINEL}
+            assert got_t.tolist() == [int(w) in present for w in words]
+            assert not tidx.wordset._holes  # compacted for the search
+        else:
+            if call == "log hits":
+                _both_words(jidx, tidx, "insert_words", words[:40])
+                _both_words(jidx, tidx, "remove_words", words[100:120])
+            got_j, got_t = _both_words(jidx, tidx, "count_hits_device",
+                                       words)
+            assert int(got_t) == int(got_j) > 0
+            assert tidx.wordset._holes  # a query never compacts
+        _assert_same_state(jidx, tidx)
+        assert tidx.count() == jidx.count()
+    got, n_got = tws._setop_sort_kernel_packed(
+        torch.from_numpy(data), torch.from_numpy(words), "inter", 4096)
+    want = np.intersect1d(data, words[words != SENTINEL])
+    assert int(n_got) == len(want) > 0
+    np.testing.assert_array_equal(got[:len(want)].numpy(), want)
+    with pytest.raises(ValueError, match="unknown set operation"):
+        tws._setop_sort_kernel_packed(got, got, "nand", 4096)
 
 
 def _kmers(rng, k, n):

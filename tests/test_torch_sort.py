@@ -137,6 +137,8 @@ def test_sort_mode_selection(monkeypatch):
         assert sort.sort_mode() == "library"
     assert sort.sort_mode() == "mergepath"
     monkeypatch.setenv(sort.SORT_ENV, "bitonic")
+    assert sort.sort_mode() == "bitonic"
+    monkeypatch.setenv(sort.SORT_ENV, "pallas")
     with pytest.raises(ValueError, match="CBL_TORCH_SORT"):
         sort.sort_mode()
     with pytest.raises(ValueError, match="use_sort_mode"):

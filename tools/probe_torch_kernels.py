@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Compare the merge and sort kernels (B3, B5) of several versions of
+"""Compare the merge and sort kernels (B3, B5, B6, B7) of several versions of
 `cbl_tpu_torch` on one CUDA card, in one run.
 
     python3 tools/probe_torch_kernels.py PATH [PATH ...]
@@ -11,9 +11,10 @@ process of its own, so `old new new old` brackets the change.  Per
 version it prints
 - B3's time for 2^25 + 2^25 and 2^25 + 2^22 one-column keys (CUDA events,
   three means of 20 launches);
-- where the version has B5: device time by kernel name for one sort of
-  2^25 one-column keys and of 2^22 + 2^21 two-column rows
-  (`torch.profiler`, mean of 5);
+- where the version has B5, and where it has B6: device time by kernel
+  name for one sort of 2^25 one-column keys and of 2^22 + 2^21
+  two-column rows (`torch.profiler`, mean of 5); where it has B7: the
+  same for one merge of 2^24 + 2^24 one-column keys;
 - registers of, and the count of load, store and barrier operations in
   the machine code of, the merge and sort kernels (`nvcc`'s log and
   `cuobjdump -sass`).
@@ -54,25 +55,39 @@ def probe(path: str) -> None:
         ms = [round(time_ms(lambda: merge.merge_sorted(a, b), 20), 4)
               for _ in range(3)]
         print(f"{path}: B3 {na} + {nb} ms: {ms}")
+    n = (1 << 22) + (1 << 21)
+    sort_inputs = (("one column 2^25", (keys(1 << 25),)),
+                   ("two columns 2^22 + 2^21",
+                    ((keys(n, 1 << 56), keys(n, 1 << 32)),)))
+    half = torch.sort(keys(1 << 24)).values
+    cases = []  # (kernel, function, ((label, arguments), ...))
     if hasattr(merge, "sort_mergepath"):
-        n = (1 << 22) + (1 << 21)
-        for label, x in (("one column 2^25", keys(1 << 25)),
-                         ("two columns 2^22 + 2^21",
-                          (keys(n, 1 << 56), keys(n, 1 << 32)))):
-            merge.sort_mergepath(x)
+        cases.append(("B5", merge.sort_mergepath, sort_inputs))
+    try:
+        from cbl_tpu_torch.ops import bitonic
+    except ImportError:  # a version from before B6 and B7
+        pass
+    else:
+        cases.append(("B6", bitonic.bitonic_sort, sort_inputs))
+        cases.append(("B7", bitonic.bitonic_merge,
+                      (("2^24 + 2^24", (half, half + 1)),)))
+    for kernel, fn, inputs in cases:
+        for label, args in inputs:
+            fn(*args)
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 for _ in range(5):
-                    merge.sort_mergepath(x)
+                    fn(*args)
                 torch.cuda.synchronize()
             for e in prof.key_averages():
                 if e.self_device_time_total > 0:
-                    print(f"{path}: B5 {label}: "
-                          f"{e.self_device_time_total / 5:9.1f} us a sort, "
+                    print(f"{path}: {kernel} {label}: "
+                          f"{e.self_device_time_total / 5:9.1f} us a call, "
                           f"{e.count // 5:3d} x {e.key[:70]}")
 
     so, _ = _build.build()
-    wanted = ("merge_tiles", "partition", "tile_sort")
+    wanted = ("merge_tiles", "partition", "tile_sort", "cross_pass",
+              "intile_pass", "first_pass")
     name = None
     for line in so.with_suffix(".log").read_text().splitlines():
         if "Compiling entry function" in line:
