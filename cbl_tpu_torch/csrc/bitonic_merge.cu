@@ -15,14 +15,17 @@
 // its run.
 //   2 M <= tile: `merge_small`, one block, every step in shared memory.
 //   otherwise:   `first_pass` (the step M) writes the work buffer of 2 M
-//                rows, one `cross_pass` per stride M / 2 ... tile follows in
-//                place, and one `intile_pass` writes the first na + nb rows
-//                to the output, skipping the tiles that hold only pads.
+//                rows, `cross_fused` passes of up to kFuseLog strides each
+//                run the strides M / 2 ... tile in place, and one
+//                `intile_pass` writes the first na + nb rows to the output,
+//                skipping the tiles that hold only pads.
 // A and B are only read.
 //
-// What bounds it on the H100: device memory traffic, 1 + log2(2 M / tile)
-// passes over 2 M rows where one read and one write of na + nb rows is the
-// least (the merge-path kernel B3 makes that one pass), see bitonic.cuh.
+// What bounds it on the H100: device memory traffic,
+// 2 + ceil(log2(M / tile) / kFuseLog) passes over 2 M rows (4 at 2^24 +
+// 2^24 one-column keys) where one read and one write of na + nb rows is
+// the least (the merge-path kernel B3 makes that one pass), see
+// bitonic.cuh.
 
 #include "bitonic.cuh"
 
@@ -44,19 +47,23 @@ __device__ __forceinline__ void sequence_row(const Keys<C>& a, long long na,
 }
 
 template <int C>
-__global__ void merge_small(Keys<C> a, long long na, Keys<C> b, long long nb,
-                            int M, MutKeys<C> out) {
+__global__ void __launch_bounds__(kBitonicThreads)
+merge_small(Keys<C> a, long long na, Keys<C> b, long long nb,
+                            int m_log, MutKeys<C> out) {
   extern __shared__ long long tile_s[];
+  const int M = 1 << m_log;
   for (int r = threadIdx.x; r < 2 * M; r += kBitonicThreads) {
     long long row[C];
     sequence_row<C>(a, na, b, nb, M, r, row);
 #pragma unroll
-    for (int c = 0; c < C; ++c) tile_s[c * kBitonicTile + r] = row[c];
+    for (int c = 0; c < C; ++c) tile_s[c * kColSlots<C> + phys(r)] = row[c];
   }
   __syncthreads();
-  shared_steps<C>(tile_s, 2 * M, M, true);
+  shared_steps<C>(tile_s, 2 * M, m_log, 0, 0, -1);
   store_tile<C>(tile_s, out, na + nb);
 }
+
+constexpr int kFirstThreads = 256;
 
 // The step M: pair (t, t + M) for t < M, into the work buffer.
 template <int C>
@@ -78,7 +85,8 @@ __global__ void first_pass(Keys<C> a, long long na, Keys<C> b, long long nb,
 template <int C>
 int bitonic_merge(const void* const* a_in, long long na,
                   const void* const* b_in, long long nb, void* const* out,
-                  void* const* work, long long work_rows, cudaStream_t s) {
+                  void* const* work, long long work_rows, cudaStream_t s,
+                  int* passes) {
   Keys<C> a, b;
   MutKeys<C> dst, w;
   for (int c = 0; c < C; ++c) {
@@ -91,26 +99,25 @@ int bitonic_merge(const void* const* a_in, long long na,
   int m_log = 0;
   while ((1LL << m_log) < longer) ++m_log;
   const long long M = 1LL << m_log;
-  if (2 * M <= kBitonicTile) {
+  *passes = 1;
+  if (2 * M <= kTileRows<C>) {
     cudaError_t err = allow_tile_smem(merge_small<C>, tile_smem_bytes<C>());
     if (err != cudaSuccess) return (int)err;
     merge_small<C><<<1, kBitonicThreads, tile_smem_bytes<C>(), s>>>(
-        a, na, b, nb, (int)M, dst);
+        a, na, b, nb, m_log, dst);
     return (int)cudaGetLastError();
   }
   if (work_rows < 2 * M) return (int)cudaErrorInvalidValue;
-  const long long blocks = (M + kCrossThreads - 1) / kCrossThreads;
+  const long long blocks = (M + kFirstThreads - 1) / kFirstThreads;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  first_pass<C><<<(unsigned)blocks, kCrossThreads, 0, s>>>(a, na, b, nb, M, w);
+  first_pass<C><<<(unsigned)blocks, kFirstThreads, 0, s>>>(a, na, b, nb, M, w);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  for (int j_log = m_log - 1; j_log >= kBitonicTileLog; --j_log) {
-    err = launch_cross<C>(w, 2 * M, 1LL << j_log, -1, s);
-    if (err != cudaSuccess) return (int)err;
-  }
+  err = launch_cross<C>(w, 2 * M, m_log - 1, -1, s, passes);
+  if (err != cudaSuccess) return (int)err;
   const long long n = na + nb;
-  const long long out_tiles = (n + kBitonicTile - 1) / kBitonicTile;
-  return (int)launch_intile<C>(w, 2 * M, dst, n, out_tiles, -1, s);
+  const long long out_tiles = (n + kTileRows<C> - 1) / kTileRows<C>;
+  return (int)launch_intile<C>(w, 2 * M, dst, n, out_tiles, -1, s, passes);
 }
 
 }  // namespace
@@ -119,12 +126,13 @@ int bitonic_merge(const void* const* a_in, long long na,
 // a0/b0/out0/work0 are column 0; a1/b1/out1/work1 column 1, or all four
 // null for one-column rows.  na + nb >= 1.  `work` is scratch of
 // `work_rows` rows a column, at least twice the next power of two of
-// max(na, nb) when that exceeds 4096 (else unused).
+// max(na, nb) when that exceeds one tile (else unused).  `*passes` receives
+// the number of kernels launched that read and write every row.
 extern "C" int cbl_bitonic_merge(const void* a0, const void* a1, long long na,
                                  const void* b0, const void* b1, long long nb,
                                  void* out0, void* out1, void* work0,
                                  void* work1, long long work_rows,
-                                 void* stream) {
+                                 int* passes, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const void* a[2] = {a0, a1};
   const void* b[2] = {b0, b1};
@@ -132,6 +140,8 @@ extern "C" int cbl_bitonic_merge(const void* a0, const void* a1, long long na,
   void* work[2] = {work0, work1};
   if (na < 0 || nb < 0 || na + nb < 1) return (int)cudaErrorInvalidValue;
   if (out1 == nullptr)
-    return cbl::bitonic_merge<1>(a, na, b, nb, out, work, work_rows, s);
-  return cbl::bitonic_merge<2>(a, na, b, nb, out, work, work_rows, s);
+    return cbl::bitonic_merge<1>(a, na, b, nb, out, work, work_rows, s,
+                                 passes);
+  return cbl::bitonic_merge<2>(a, na, b, nb, out, work, work_rows, s,
+                                 passes);
 }

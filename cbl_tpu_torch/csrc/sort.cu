@@ -7,108 +7,170 @@
 // rows are identical.
 //
 // What bounds it on the H100: device memory.  The least traffic is one read
-// and one write of every row; this design moves 1 + ceil(log2(n / kTile))
-// times that (one tile sort, then one pass per doubling of the run
-// length), so it is a simple, exact sort and not yet a fast one.
-//   1. `tile_sort`: each block loads kTile rows into shared memory (a
-//      short last tile is padded with INT64_MAX rows, which sort last and
-//      are not written back), sorts them with a bitonic network and
+// and one write of every row; this design moves
+// 1 + ceil(ceil(log2(n / sort tile)) / 2) times that: one tile sort, then
+// one pass per FOUR-fold growth of the run length (7 passes at 2^25
+// one-column keys, where a pass per doubling over tiles of 2048 rows made
+// 15).
+//   1. `tile_sort`: each block loads one sort tile (2^13 rows of one
+//      column, 2^12 of two; a short last tile is padded with INT64_MAX
+//      rows, which sort last and are not written back) into shared memory;
+//      each thread sorts its own eight rows in registers with a fixed
+//      network of 19 exchanges, then the block merges the threads' runs in
+//      shared memory, doubling the run each round, by the same co-rank
+//      rule and the same step as the merge passes (merge_path.cuh), and
 //      writes the tile back ascending.  The TPU kernel's [H, 128] vector
 //      layout, its roll-based compare-exchange and its bitmask select are
-//      not copied: one thread owns one compare-exchange of a stage.
-//   2. For run = kTile, 2 kTile, ... while run < n: one merge-path pass
-//      (merge_path.cuh, shared with kernel B3) merges every pair of
-//      neighbouring runs from one buffer into the other.  The co-rank of
-//      every output tile is searched inside its own pair, with A before B
-//      on ties, as `_coranks_runs` does; a short or missing last run needs
-//      no padding.
+//      not copied; nor is its bitonic network, which kernel B6's tile sort
+//      runs over the same tile in 1.04 ms for 2^25 keys where this one
+//      takes 0.88 (0.50 against 0.25 ms for 2^22 + 2^21 two-column rows;
+//      NVIDIA H100 80GB HBM3, 700 W).
+//   2. With L = ceil(log2(number of sort tiles)) levels of the merge tree
+//      to go: if L is odd, one two-way merge-path pass (merge_path.cuh,
+//      shared with kernel B3) merges every pair of neighbouring runs; then
+//      L / 2 four-way passes (`quad_pass`) each merge every four
+//      neighbouring runs, two levels a pass.  Every co-rank is searched
+//      inside its own pair or quad, ties in run order, as `_coranks_runs`
+//      does; a short or missing last run needs no padding.
 // The input is only read; the passes ping-pong between `out` and `tmp`,
 // starting so that the last pass writes `out`.
 
 #include "merge_path.cuh"
 
+namespace cbl {
 namespace {
 
-using cbl::kThreads;
-using cbl::kTile;
+constexpr long long kPadRow = 0x7fffffffffffffffLL;  // sorts last
 
-constexpr long long kPad = 0x7fffffffffffffffLL;
-
-// s[i] > s[j], lexicographic over the C columns of the shared tile.
+// The sort tile: a block of kSortRows / kItems threads, eight rows a
+// thread.  = ops/merge.py SORT_TILES
 template <int C>
-__device__ __forceinline__ bool gt(long long (*s)[kTile], int i, int j) {
+constexpr int kSortRows = C == 1 ? 1 << 13 : 1 << 12;
+template <int C>
+constexpr int kSortThreads = kSortRows<C> / kItems;
+// padded as `merge_quads` pads its tile, and one slot more
+template <int C>
+constexpr int kSortSlots = kSortRows<C> + kSortRows<C> / 8 + 1;
+template <int C>
+constexpr int kSortSmemBytes = C * kSortSlots<C> * (int)sizeof(long long);
+
+// Order two rows held in registers.
+template <int C>
+__device__ __forceinline__ void exchange(long long (&x)[C],
+                                         long long (&y)[C]) {
+  const bool swap = !le_rows<C>(x, y);
 #pragma unroll
-  for (int c = 0; c < C - 1; ++c) {
-    const long long x = s[c][i], y = s[c][j];
-    if (x != y) return x > y;
+  for (int c = 0; c < C; ++c) {
+    const long long lo = swap ? y[c] : x[c];
+    y[c] = swap ? x[c] : y[c];
+    x[c] = lo;
   }
-  return s[C - 1][i] > s[C - 1][j];
 }
 
 template <int C>
-__global__ void tile_sort(cbl::Cols<C> in, cbl::MutCols<C> out, long long n) {
-  __shared__ long long s[C][kTile];
-  const long long base = (long long)blockIdx.x * kTile;
-  const int cnt = (int)(n - base < kTile ? n - base : kTile);
+__global__ void __launch_bounds__(kSortThreads<C>)
+tile_sort(Cols<C> in, long long n, MutCols<C> out) {
+  extern __shared__ long long sort_smem[];
+  constexpr int T = kSortRows<C>;
+  long long(*tile_s)[kSortSlots<C>] =
+      reinterpret_cast<long long(*)[kSortSlots<C>]>(sort_smem);
+  const long long base = (long long)blockIdx.x * T;
 #pragma unroll
   for (int c = 0; c < C; ++c)
-    for (int j = threadIdx.x; j < kTile; j += kThreads)
-      s[c][j] = j < cnt ? in.p[c][base + j] : kPad;
-  __syncthreads();
-  for (int k = 2; k <= kTile; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int t = threadIdx.x; t < kTile / 2; t += kThreads) {
-        const int lo = ((t & ~(j - 1)) << 1) | (t & (j - 1));
-        const int hi = lo | j;
-        const bool ascending = (lo & k) == 0;
-        // the pair is out of order when its larger row sits on the side
-        // that should hold the smaller one
-        const bool swap = ascending ? gt<C>(s, lo, hi) : gt<C>(s, hi, lo);
-        if (swap) {
 #pragma unroll
-          for (int c = 0; c < C; ++c) {
-            const long long x = s[c][lo];
-            s[c][lo] = s[c][hi];
-            s[c][hi] = x;
-          }
-        }
-      }
-      __syncthreads();
+    for (int k = 0; k < kItems; ++k) {
+      const int r = threadIdx.x + k * kSortThreads<C>;
+      tile_s[c][slot<true>(r)] = base + r < n ? in.p[c][base + r] : kPadRow;
     }
+  __syncthreads();
+  // this thread's rows [di, di + kItems), by Batcher's network for eight
+  static_assert(kItems == 8, "the network below sorts eight rows");
+  const int di = threadIdx.x * kItems;
+  long long v[kItems][C];
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) load_row<C, true>(tile_s, di + k, v[k]);
+  constexpr int kNet[19][2] = {
+      {0, 1}, {2, 3}, {4, 5}, {6, 7}, {0, 2}, {1, 3}, {4, 6}, {5, 7}, {1, 2},
+      {5, 6}, {0, 4}, {1, 5}, {2, 6}, {3, 7}, {2, 4}, {3, 5}, {1, 2}, {3, 4},
+      {5, 6}};
+#pragma unroll
+  for (int e = 0; e < 19; ++e) exchange<C>(v[kNet[e][0]], v[kNet[e][1]]);
+  // (no barrier before the store: a thread reads and writes its own rows)
+  for (int run = kItems;; run <<= 1) {
+#pragma unroll
+    for (int k = 0; k < kItems; ++k)
+#pragma unroll
+      for (int c = 0; c < C; ++c) tile_s[c][slot<true>(di + k)] = v[k][c];
+    __syncthreads();
+    if (run == T) break;
+    // merge the runs [first, first + run) and [first + run, first + 2 run)
+    const int first = di & ~(2 * run - 1);
+    int pa = first, pb = first + run;
+    const int ea = pb, eb = pb + run;
+    const int ia = corank_shared<C, true>(tile_s, pa, run, pb, run,
+                                          di - first);
+    pb += di - first - ia;
+    pa += ia;
+    long long xa[C], xb[C];
+    load_row<C, true>(tile_s, pa, xa);
+    load_row<C, true>(tile_s, pb, xb);
+#pragma unroll
+    for (int k = 0; k < kItems; ++k)
+      merge_step<C, true>(tile_s, pa, ea, pb, eb, xa, xb, v[k]);
+    __syncthreads();
   }
 #pragma unroll
   for (int c = 0; c < C; ++c)
-    for (int j = threadIdx.x; j < cnt; j += kThreads)
-      out.p[c][base + j] = s[c][j];
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+      const int r = threadIdx.x + k * kSortThreads<C>;
+      if (base + r < n) out.p[c][base + r] = tile_s[c][slot<true>(r)];
+    }
 }
 
 template <int C>
 int sort_keys(const void* const* in, void* const* out, void* const* tmp,
-              long long n, void* coranks, cudaStream_t s) {
+              long long n, void* scratch, cudaStream_t s, int* passes) {
+  constexpr long long kSortTile = kSortRows<C>;
+  static_assert(kSortTile % kTile == 0, "runs are whole merge tiles");
   const long long n_tiles = (n + kTile - 1) / kTile;
+  const long long sort_tiles = (n + kSortTile - 1) / kSortTile;
   if (n_tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  int passes = 0;
-  for (long long run = kTile; run < n; run *= 2) ++passes;
-  cbl::Cols<C> src;
-  cbl::MutCols<C> cur, other;
+  int levels = 0;
+  while ((kSortTile << levels) < n) ++levels;
+  const int merges = (levels + 1) / 2;
+  Cols<C> src;
+  MutCols<C> cur, other;
   for (int c = 0; c < C; ++c) {
     src.p[c] = (const long long*)in[c];
-    cur.p[c] = (long long*)(passes % 2 == 0 ? out[c] : tmp[c]);
-    other.p[c] = (long long*)(passes % 2 == 0 ? tmp[c] : out[c]);
+    cur.p[c] = (long long*)(merges % 2 == 0 ? out[c] : tmp[c]);
+    other.p[c] = (long long*)(merges % 2 == 0 ? tmp[c] : out[c]);
   }
-  tile_sort<C><<<(unsigned)n_tiles, kThreads, 0, s>>>(src, cur, n);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = cudaFuncSetAttribute(
+      tile_sort<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSortSmemBytes<C>);
   if (err != cudaSuccess) return (int)err;
-  for (long long run = kTile; run < n; run *= 2) {
-    cbl::Cols<C> a, b;
-    for (int c = 0; c < C; ++c) {
-      a.p[c] = cur.p[c];
-      b.p[c] = cur.p[c] + run;
+  tile_sort<C><<<(unsigned)sort_tiles, kSortThreads<C>, kSortSmemBytes<C>,
+                 s>>>(src, n, cur);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  *passes = 1;
+  long long run = kSortTile;
+  while (run < n) {
+    Cols<C> a;
+    for (int c = 0; c < C; ++c) a.p[c] = cur.p[c];
+    if (levels % 2 == 1 && run == kSortTile) {
+      const Pairs ps{run, n, 0, 0};
+      err = merge_pass<C>(a, offset<C>(a, run), ps, n_tiles,
+                          (long long*)scratch, other, s);
+      run *= 2;
+    } else {
+      err = quad_pass<C>(a, run, n, n_tiles, (long long*)scratch, other, s);
+      run *= 4;
     }
-    const cbl::Pairs ps{run, n, 0, 0};
-    err = cbl::merge_pass<C>(a, b, ps, n_tiles, (long long*)coranks, other, s);
     if (err != cudaSuccess) return (int)err;
-    const cbl::MutCols<C> done = other;
+    ++*passes;
+    const MutCols<C> done = other;
     other = cur;
     cur = done;
   }
@@ -116,17 +178,21 @@ int sort_keys(const void* const* in, void* const* out, void* const* tmp,
 }
 
 }  // namespace
+}  // namespace cbl
 
 // in0/out0/tmp0 are column 0; in1/out1/tmp1 column 1, or all three null
 // for one-column rows.  n >= 1.  `tmp` is scratch of the input's size
-// (unused when n <= 2048), `coranks` scratch for one int64 per 2048 rows.
+// (unused when n fits one sort tile), `scratch` holds four int64 per 2048
+// rows.  `*passes` receives the number of kernels launched that read and
+// write every row (the partition kernels do not).
 extern "C" int cbl_sort_keys(const void* in0, const void* in1, void* out0,
                              void* out1, void* tmp0, void* tmp1, long long n,
-                             void* coranks, void* stream) {
+                             void* scratch, int* passes, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const void* in[2] = {in0, in1};
   void* out[2] = {out0, out1};
   void* tmp[2] = {tmp0, tmp1};
-  if (out1 == nullptr) return sort_keys<1>(in, out, tmp, n, coranks, s);
-  return sort_keys<2>(in, out, tmp, n, coranks, s);
+  if (out1 == nullptr)
+    return cbl::sort_keys<1>(in, out, tmp, n, scratch, s, passes);
+  return cbl::sort_keys<2>(in, out, tmp, n, scratch, s, passes);
 }

@@ -40,6 +40,10 @@ NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 LAUNCHES = {"necklace": 0, "blank": 0, "merge": 0, "slog_scan": 0,
             "sort": 0, "bitonic_sort": 0, "bitonic_merge": 0}
 
+# passes over device memory (kernels that read and write every row) that the
+# last launch of each network or sort reported
+PASSES = {"sort": 0, "bitonic_sort": 0, "bitonic_merge": 0}
+
 _P = ctypes.c_void_p
 _N = ctypes.c_longlong
 _I = ctypes.c_int
@@ -52,16 +56,17 @@ _SIGNATURES = {
     # co-rank scratch, stream); the col 1 pointers are null for one column
     "cbl_merge_sorted": [_P, _P, _N, _P, _P, _N, _P, _P, _P, _P],
     # (in col 0, in col 1, out col 0, out col 1, scratch col 0, scratch
-    # col 1, n, co-rank scratch, stream)
-    "cbl_sort_keys": [_P, _P, _P, _P, _P, _P, _N, _P, _P],
+    # col 1, n, co-rank scratch, passes out, stream)
+    "cbl_sort_keys": [_P, _P, _P, _P, _P, _P, _N, _P, _P, _P],
     # (keys, n, qtag, (hits, live) out, tile max scratch, stream)
     "cbl_slog_scan_counts": [_P, _N, _I, _P, _P, _P],
     # (in col 0, in col 1, out col 0, out col 1, work col 0, work col 1,
-    # rows of work, n, stream)
-    "cbl_bitonic_sort": [_P, _P, _P, _P, _P, _P, _N, _N, _P],
+    # rows of work, n, passes out, stream)
+    "cbl_bitonic_sort": [_P, _P, _P, _P, _P, _P, _N, _N, _P, _P],
     # (a col 0, a col 1, na, b col 0, b col 1, nb, out col 0, out col 1,
-    # work col 0, work col 1, rows of work, stream)
-    "cbl_bitonic_merge": [_P, _P, _N, _P, _P, _N, _P, _P, _P, _P, _N, _P],
+    # work col 0, work col 1, rows of work, passes out, stream)
+    "cbl_bitonic_merge": [_P, _P, _N, _P, _P, _N, _P, _P, _P, _P, _N, _P,
+                          _P],
 }
 
 
@@ -160,3 +165,13 @@ def stream_handle(device: torch.device) -> ctypes.c_void_p:
 def check_error(err: int, kernel: str) -> None:
     if err != 0:
         raise RuntimeError(f"CUDA kernel {kernel!r} failed: cudaError {err}")
+
+
+def check_passes(launched: int, planned: list, kernel: str) -> None:
+    """A C entry point reports how many passes over device memory it
+    launched; the Python schedule its plain version walks must have as
+    many, so that the two cannot drift apart unseen."""
+    if launched != len(planned):
+        raise RuntimeError(
+            f"CUDA kernel {kernel!r} launched {launched} passes, the "
+            f"schedule has {len(planned)}: {planned}")

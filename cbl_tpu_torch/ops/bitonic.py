@@ -18,11 +18,18 @@ the next power of two of the longer run, [A, pads to M | B reversed, pads
 in front] is one bitonic sequence of 2 M rows, and the steps M, ..., 1
 with every pair ascending sort it.
 
-`bitonic_sort` and `bitonic_merge` take the plain version (the same
-network walked step by step with tensor operations, never a library sort)
-for CPU tensors and launch the CUDA kernel (`csrc/bitonic_sort.cu`,
-`csrc/bitonic_merge.cu`, both on `csrc/bitonic.cuh`) for CUDA tensors,
-whatever the size.
+The kernels carry many steps of the network through one pass over device
+memory: `network_passes` lists the passes (a tile sort, fused cross
+passes of up to `fuse_log(tile)` strides, in-tile passes) and
+`bitonic_sort_passes_plain` / `bitonic_merge_passes_plain` walk that
+list, gathering each block's rows by the index map the kernel uses.
+`bitonic_sort_plain` / `bitonic_merge_plain` walk the network one step at
+a time and are its reference.
+
+`bitonic_sort` and `bitonic_merge` take the list-walking plain version
+(tensor operations, never a library sort) for CPU tensors and launch the
+CUDA kernel (`csrc/bitonic_sort.cu`, `csrc/bitonic_merge.cu`, both on
+`csrc/bitonic.cuh`) for CUDA tensors, whatever the size.
 """
 
 from __future__ import annotations
@@ -34,7 +41,14 @@ import torch
 from . import _build
 from .merge import _PAD, _col_ptrs, _like, as_cols
 
-TILE = 4096  # rows per tile of csrc/bitonic.cuh (kBitonicTile)
+# rows per tile by number of columns (csrc/bitonic.cuh kTileRows)
+TILES = {1: 8192, 2: 4096}
+
+
+def fuse_log(tile: int) -> int:
+    """The most strides one cross pass fuses for a tile (csrc/bitonic.cuh
+    kFuseLog): its 2^f slices keep 2^4 contiguous rows."""
+    return tile.bit_length() - 1 - 4
 
 
 def _next_pow2(n: int) -> int:
@@ -75,6 +89,97 @@ def _padded(cols: tuple, rows: int) -> tuple:
     return tuple(torch.cat([c, pad]) for c in cols)
 
 
+# --- the passes --------------------------------------------------------------
+
+
+def network_passes(rows: int, tile: int, fuse: int,
+                   merge: bool = False) -> list:
+    """The passes over device memory of B6 (a sort of `rows` padded rows)
+    or, with `merge`, of B7 (a bitonic sequence of `rows` = 2 M rows), as
+    (kind, dir_bit, hi_log, lo_log): the steps with strides 2^hi_log ...
+    2^lo_log of the stage whose pairs are ascending iff bit `dir_bit` of
+    the row index is clear (None: every pair ascending).
+    - "tile": every stage k <= tile inside each tile (`dir_bit` is the last
+      stage's);
+    - "cross": up to `fuse` strides >= tile of one stage in one pass; a
+      stage's shorter pass comes first;
+    - "intile": the strides tile / 2 ... 1 of one stage;
+    - "first": B7's step M, read straight from the two runs; "small": all
+      of B7's steps in one block (2 M <= tile)."""
+    t_log, p_log = tile.bit_length() - 1, rows.bit_length() - 1
+    assert rows == 1 << p_log and tile == 1 << t_log and fuse >= 1
+
+    def cross(dir_bit, hi_log):
+        out, left = [], hi_log - t_log + 1
+        while left > 0:
+            f = left % fuse or fuse
+            out.append(("cross", dir_bit, t_log + left - 1,
+                        t_log + left - f))
+            left -= f
+        return out
+
+    if merge:
+        if rows <= tile:
+            return [("small", None, p_log - 1, 0)]
+        return ([("first", None, p_log - 1, p_log - 1)]
+                + cross(None, p_log - 2) + [("intile", None, t_log - 1, 0)])
+    assert rows >= tile
+    passes = [("tile", t_log, t_log - 1, 0)]
+    for k_log in range(t_log + 1, p_log + 1):
+        passes += cross(k_log, k_log - 1)
+        passes.append(("intile", k_log, t_log - 1, 0))
+    return passes
+
+
+def _directions(first: torch.Tensor, dir_bit):
+    """`_step`'s `asc` for groups whose first rows are `first`."""
+    if dir_bit is None:
+        return True
+    return (((first >> dir_bit) & 1) == 0).unsqueeze(1)
+
+
+def _walk_pass(cols: tuple, tile: int, pas: tuple) -> tuple:
+    """One pass of `network_passes` over columns of P rows."""
+    kind, dir_bit, hi_log, lo_log = pas
+    rows, dev = cols[0].shape[0], cols[0].device
+    t_log = tile.bit_length() - 1
+    if kind != "cross":  # contiguous rows: "tile", "intile", "first", "small"
+        stages = [(dir_bit, hi_log, lo_log)]
+        if kind == "tile":
+            stages = [(k_log, k_log - 1, 0) for k_log in range(1, t_log + 1)]
+        for bit, hi, lo in stages:
+            for j_log in range(hi, lo - 1, -1):
+                first = torch.arange(0, rows, 2 << j_log, device=dev)
+                cols = _step(cols, 1 << j_log, _directions(first, bit))
+        return cols
+    first, idx = cross_block_rows(rows, tile, lo_log, hi_log - lo_log + 1)
+    first, idx = first.to(dev), idx.to(dev).reshape(-1)
+    blocks = tuple(x[idx] for x in cols)
+    for j_log in range(t_log - 1, t_log - (hi_log - lo_log + 1) - 1, -1):
+        j = 1 << j_log  # the stride inside the tile
+        asc = _directions(first.repeat_interleave(tile // (2 * j)), dir_bit)
+        blocks = _step(blocks, j, asc)
+    return tuple(torch.empty_like(x).index_copy_(0, idx, y)
+                 for x, y in zip(cols, blocks))
+
+
+def cross_block_rows(rows: int, tile: int, a_log: int, f: int) -> tuple:
+    """The rows a block of `cross_fused` owns in a pass over the strides
+    2^(a_log+f-1) ... 2^a_log, by the kernel's own index map: block
+    b = (hi << (a_log - c)) | mid holds 2^f slices of 2^c rows, c =
+    log2(tile) - f, slice q at first + (q << a_log) with first =
+    (hi << (a_log + f)) | (mid << c), and row r of its tile is slice
+    r >> c, offset r & (2^c - 1).  -> (first [blocks], rows [blocks, tile])"""
+    t_log = tile.bit_length() - 1
+    c = t_log - f
+    b = torch.arange(rows >> t_log)
+    mid, hi = b & ((1 << (a_log - c)) - 1), b >> (a_log - c)
+    first = (hi << (a_log + f)) | (mid << c)
+    r = torch.arange(tile)
+    within = ((r >> c) << a_log) + (r & ((1 << c) - 1))
+    return first, first.unsqueeze(1) + within.unsqueeze(0)
+
+
 # --- B6 ----------------------------------------------------------------------
 
 
@@ -99,29 +204,53 @@ def bitonic_sort_plain(keys):
     return _like(keys, tuple(c[:n] for c in cols))
 
 
+def bitonic_sort_passes_plain(keys, tile: int | None = None,
+                              fuse: int | None = None):
+    """Kernel B6's plain version: the network as the kernel schedules it,
+    one `_walk_pass` per pass of `network_passes` over the rows padded to
+    max(tile, the next power of two)."""
+    cols = as_cols(keys)
+    n = cols[0].shape[0]
+    if n <= 1:
+        return _like(keys, tuple(c.clone() for c in cols))
+    tile = TILES[len(cols)] if tile is None else tile
+    fuse = fuse_log(tile) if fuse is None else fuse
+    rows = max(tile, _next_pow2(n))
+    cols = _padded(cols, rows)
+    for pas in network_passes(rows, tile, fuse):
+        cols = _walk_pass(cols, tile, pas)
+    return _like(keys, tuple(c[:n] for c in cols))
+
+
 def bitonic_sort(keys):
-    """`bitonic_sort_plain` on the CPU; on CUDA, kernel B6.  Empty and
-    one-row inputs return without a launch; the caller's tensors are only
-    read."""
+    """`bitonic_sort_passes_plain` on the CPU; on CUDA, kernel B6.  Empty
+    and one-row inputs return without a launch; the caller's tensors are
+    only read."""
     cols = as_cols(keys)
     if cols[0].device.type == "cpu":
-        return bitonic_sort_plain(keys)
+        return bitonic_sort_passes_plain(keys)
     _build.check_cuda(*cols)
     n = cols[0].shape[0]
     if n <= 1:
         return _like(keys, tuple(c.clone() for c in cols))
+    tile = TILES[len(cols)]
+    rows = max(tile, _next_pow2(n))
+    planned = network_passes(rows, tile, fuse_log(tile))
     out = tuple(torch.empty_like(c) for c in cols)
     # the network runs in a scratch of the padded length; one tile needs none
-    work_rows = _next_pow2(n) if n > TILE else 0
+    work_rows = rows if rows > tile else 0
     work = tuple(c.new_empty(work_rows) if work_rows else None for c in cols)
+    passes = ctypes.c_int(0)
     lib = _build.library()
     err = lib.cbl_bitonic_sort(
         *_col_ptrs(cols), *_col_ptrs(out), *_col_ptrs(work),
         ctypes.c_longlong(work_rows), ctypes.c_longlong(n),
-        _build.stream_handle(cols[0].device),
+        ctypes.byref(passes), _build.stream_handle(cols[0].device),
     )
     _build.check_error(err, "bitonic_sort")
+    _build.check_passes(passes.value, planned, "bitonic_sort")
     _build.LAUNCHES["bitonic_sort"] += 1
+    _build.PASSES["bitonic_sort"] = passes.value
     return _like(keys, out)
 
 
@@ -144,8 +273,7 @@ def bitonic_merge_plain(a, b):
     if na + nb == 0:
         return _like(a, tuple(c.clone() for c in ca))
     m = _next_pow2(max(na, nb))
-    cols = tuple(torch.cat([x, torch.flip(y, dims=(0,))])
-                 for x, y in zip(_padded(ca, m), _padded(cb, m)))
+    cols = _bitonic_sequence(ca, cb, m)
     j = m
     while j >= 1:
         cols = _step(cols, j, True)
@@ -153,12 +281,35 @@ def bitonic_merge_plain(a, b):
     return _like(a, tuple(c[:na + nb] for c in cols))
 
 
+def _bitonic_sequence(ca: tuple, cb: tuple, m: int) -> tuple:
+    """[A, pads to m | B reversed, pads in front]: 2 m rows."""
+    return tuple(torch.cat([x, torch.flip(y, dims=(0,))])
+                 for x, y in zip(_padded(ca, m), _padded(cb, m)))
+
+
+def bitonic_merge_passes_plain(a, b, tile: int | None = None,
+                               fuse: int | None = None):
+    """Kernel B7's plain version: the bitonic sequence of 2 M rows, then
+    one `_walk_pass` per pass of `network_passes(merge=True)`."""
+    ca, cb = _run_pair(a, b)
+    na, nb = ca[0].shape[0], cb[0].shape[0]
+    if na + nb == 0:
+        return _like(a, tuple(c.clone() for c in ca))
+    tile = TILES[len(ca)] if tile is None else tile
+    fuse = fuse_log(tile) if fuse is None else fuse
+    cols = _bitonic_sequence(ca, cb, _next_pow2(max(na, nb)))
+    for pas in network_passes(cols[0].shape[0], tile, fuse, merge=True):
+        cols = _walk_pass(cols, tile, pas)
+    return _like(a, tuple(c[:na + nb] for c in cols))
+
+
 def bitonic_merge(a, b):
-    """`bitonic_merge_plain` on the CPU; on CUDA, kernel B7.  Two empty
-    runs return without a launch; the caller's tensors are only read."""
+    """`bitonic_merge_passes_plain` on the CPU; on CUDA, kernel B7.  Two
+    empty runs return without a launch; the caller's tensors are only
+    read."""
     ca, cb = _run_pair(a, b)
     if ca[0].device.type == "cpu" and cb[0].device.type == "cpu":
-        return bitonic_merge_plain(a, b)
+        return bitonic_merge_passes_plain(a, b)
     _build.check_cuda(*ca, *cb)
     na, nb = ca[0].shape[0], cb[0].shape[0]
     dev = ca[0].device
@@ -167,17 +318,22 @@ def bitonic_merge(a, b):
     if na + nb == 0:
         return _like(a, out)
     # the steps above the tile run in a scratch of 2 M rows
+    tile = TILES[len(ca)]
     rows = 2 * _next_pow2(max(na, nb))
-    work_rows = rows if rows > TILE else 0
+    planned = network_passes(rows, tile, fuse_log(tile), merge=True)
+    work_rows = rows if rows > tile else 0
     work = tuple(out[0].new_empty(work_rows) if work_rows else None
                  for _ in ca)
+    passes = ctypes.c_int(0)
     lib = _build.library()
     err = lib.cbl_bitonic_merge(
         *_col_ptrs(ca), ctypes.c_longlong(na),
         *_col_ptrs(cb), ctypes.c_longlong(nb),
         *_col_ptrs(out), *_col_ptrs(work), ctypes.c_longlong(work_rows),
-        _build.stream_handle(dev),
+        ctypes.byref(passes), _build.stream_handle(dev),
     )
     _build.check_error(err, "bitonic_merge")
+    _build.check_passes(passes.value, planned, "bitonic_merge")
     _build.LAUNCHES["bitonic_merge"] += 1
+    _build.PASSES["bitonic_merge"] = passes.value
     return _like(a, out)

@@ -16,7 +16,9 @@ Phases (any failure raises and the script exits non-zero):
    source, in parallel);
 2. hold each kernel against its plain PyTorch version on the card at the
    main paths' shapes (exact equality; B5, B6 and B7 also against
-   `torch.sort`), time both with CUDA events, time the one PyTorch call that computes the
+   `torch.sort`, their inputs unchanged, and the number of passes over
+   device memory that B5 and B6 launch against the Python schedule's),
+   time both with CUDA events, time the one PyTorch call that computes the
    same function where there is one, and work out each kernel's bound
    (the larger of bytes over the HBM peak and integer operations over
    the INT32 peak);
@@ -166,7 +168,8 @@ def check_kernels(card: str) -> dict:
     import torch
 
     from cbl_tpu_torch import cbl as cmod
-    from cbl_tpu_torch.ops import LAUNCHES, merge, necklace, scan, sort
+    from cbl_tpu_torch.ops import (LAUNCHES, _build, merge, necklace, scan,
+                                   sort)
 
     dev = torch.device(DEVICE)
     rng = np.random.default_rng(1)
@@ -322,16 +325,21 @@ def check_kernels(card: str) -> dict:
     # the separate calls: a fold's merged index and log); 2^21 + 2^21
     # (word, seqtag) rows (a log join's sort of log and queries) and
     # 2^22 + 2^21; 2^25 - 4097 rows, one row, a constant column, half
-    # sentinels.  Against its plain version and against the library sort,
-    # exact
+    # sentinels; last quads of one, two, three and four runs with a short
+    # last run (4 to 7 sort tiles + 123 rows), 2^25 keys of one value and
+    # 2^24 keys of three.  Against its plain version and against the
+    # library sort, exact, the input kept
     def sort_case(label, keys, plain=True):
+        before = [c.clone() for c in merge.as_cols(keys)]
         got = merge.sort_mergepath(keys)
         want = merge.sort_cols_plain(merge.as_cols(keys))
         err = cols_equal(merge.as_cols(got), want)
         if plain:
             err = max(err, cols_equal(
                 merge.as_cols(merge.sort_mergepath_plain(keys)), want))
-        log(f"B5 sort {label}: kernel == plain == torch.sort: {err == 0}")
+        err = max(err, cols_equal(merge.as_cols(keys), before))
+        log(f"B5 sort {label}: kernel == plain == torch.sort, input kept: "
+            f"{err == 0}")
         return err
 
     def rand_keys(n, hi, sent_frac=0.01):
@@ -357,7 +365,24 @@ def check_kernels(card: str) -> dict:
         sort_case(f"n={1 << 24} constant", torch.full_like(x1[: 1 << 24], 7)),
         sort_case(f"n={1 << 24} half sentinels",
                   rand_keys(1 << 24, 1 << 57, 0.5)),
+        sort_case(f"n={SLAB} of one value", torch.full_like(x1, 7),
+                  plain=False),
+        sort_case(f"n={1 << 24} of three values", rand_keys(1 << 24, 3, 0)),
     ]
+    for c, tile in merge.SORT_TILES.items():
+        for tiles in (4, 5, 6, 7):
+            n = tiles * tile + 123
+            keys = rand_keys(n, 1 << 20, 0.1)
+            if c == 2:
+                keys = (keys, rand_keys(n, 3, 0))
+            errs.append(sort_case(
+                f"n={n} ({tiles} tiles + 123), {c} column(s)", keys))
+    merge.sort_mergepath(x1)
+    planned = len(merge.mergepath_passes(SLAB, merge.SORT_TILES[1]))
+    b5_passes = _build.PASSES["sort"]
+    log(f"B5 sort n={SLAB} one column: {b5_passes} passes over device "
+        f"memory launched, the Python schedule has {planned}")
+    assert b5_passes == planned <= 9
     n_sort = LAUNCHES["sort"]
     with sort.use_sort_mode("library"):
         assert torch.equal(sort.sort_keys(x1), torch.sort(x1).values)
@@ -365,28 +390,32 @@ def check_kernels(card: str) -> dict:
     ms = time_ms(lambda: merge.sort_mergepath(x1), 5)
     plain_ms = time_ms(lambda: merge.sort_mergepath_plain(x1), 2)
     library_ms = time_ms(lambda: torch.sort(x1), 5)
+    log(f"B5 sort, one column, {SLAB}: {ms:.4f} ms, torch.sort "
+        f"{library_ms:.4f} ms, bound "
+        f"{bound(2 * 8 * SLAB, 0)['bound_ms']:.4f} ms [{card}]")
     ms2 = time_ms(lambda: merge.sort_mergepath(x2), 5)
     lib2 = time_ms(lambda: merge.sort_cols_plain(x2), 5)
     log(f"B5 sort, two columns, {n_join}: {ms2:.4f} ms, two stable "
         f"torch.sort passes {lib2:.4f} ms, bound "
-        f"{bound(2 * 16 * n_join, 0)['bound_ms']:.4f} ms")
+        f"{bound(2 * 16 * n_join, 0)['bound_ms']:.4f} ms [{card}]")
     ms3 = time_ms(lambda: merge.sort_mergepath(x3), 3)
     lib3 = time_ms(lambda: torch.sort(x3), 3)
     log(f"B5 sort, one column, {n_fold} (75 % sentinels): {ms3:.4f} ms, "
         f"torch.sort {lib3:.4f} ms, bound "
-        f"{bound(2 * 8 * n_fold, 0)['bound_ms']:.4f} ms")
+        f"{bound(2 * 8 * n_fold, 0)['bound_ms']:.4f} ms [{card}]")
     ms4 = time_ms(lambda: merge.sort_mergepath(x4), 5)
     lib4 = time_ms(lambda: merge.sort_cols_plain(x4), 5)
     log(f"B5 sort, two columns, {1 << 22}: {ms4:.4f} ms, two stable "
         f"torch.sort passes {lib4:.4f} ms, bound "
-        f"{bound(2 * 16 * (1 << 22), 0)['bound_ms']:.4f} ms")
+        f"{bound(2 * 16 * (1 << 22), 0)['bound_ms']:.4f} ms [{card}]")
     # every key read once and written once; n log2 n 64-bit compares
     results["sort"] = dict(
         err=max(errs), ms=ms, plain_ms=plain_ms, library_ms=library_ms,
         two_col_ms=ms2, two_col_library_ms=lib2, fold_ms=ms3,
-        fold_library_ms=lib3, **bound(2 * 8 * SLAB, SLAB * 25 * 2))
+        fold_library_ms=lib3, passes=b5_passes,
+        **bound(2 * 8 * SLAB, SLAB * 25 * 2))
     del x1, x2, x3, x4
-    results.update(check_bitonic(rng, results["merge"]["ms"]))
+    results.update(check_bitonic(rng, results["merge"]["ms"], card))
 
     for name, r in results.items():
         lib = r["library_ms"]
@@ -399,13 +428,13 @@ def check_kernels(card: str) -> dict:
     return results
 
 
-def check_bitonic(rng, b3_ms: float) -> dict:
+def check_bitonic(rng, b3_ms: float, card: str) -> dict:
     """B6 and B7 against their plain versions and against `torch.sort`,
     exact, at the shapes the set-algebra path gives them; `b3_ms` is
     kernel B3's time for 2^25 + 2^25 keys, printed beside B7's."""
     import torch
 
-    from cbl_tpu_torch.ops import LAUNCHES, bitonic, merge, sort
+    from cbl_tpu_torch.ops import LAUNCHES, _build, bitonic, merge, sort
 
     dev = torch.device(DEVICE)
     pad = (1 << 63) - 1
@@ -419,7 +448,9 @@ def check_bitonic(rng, b3_ms: float) -> dict:
     # (a tagged sort of both operands, the compaction of a result with
     # holes), the latter with three quarters sentinels too; 2^22 + 2^21
     # (word, seqtag) rows (a log join); one row; a length that is neither
-    # a power of two nor a multiple of the tile; constant keys
+    # a power of two nor a multiple of the tile; constant keys; P / 2 + 1
+    # and P - 1 rows for P = 2^24; one row more than a tile.  The plain
+    # versions are the pass-by-pass one and the step-by-step network
     def sort_case(label, keys, plain=True):
         before = [c.clone() for c in merge.as_cols(keys)]
         got = bitonic.bitonic_sort(keys)
@@ -427,8 +458,9 @@ def check_bitonic(rng, b3_ms: float) -> dict:
         want = merge.sort_cols_plain(merge.as_cols(keys))
         err = cols_equal(merge.as_cols(got), want)
         if plain:
-            err = max(err, cols_equal(
-                merge.as_cols(bitonic.bitonic_sort_plain(keys)), want))
+            for fn in (bitonic.bitonic_sort_passes_plain,
+                       bitonic.bitonic_sort_plain):
+                err = max(err, cols_equal(merge.as_cols(fn(keys)), want))
             torch.cuda.synchronize()
         err = max(err, cols_equal(merge.as_cols(keys), before))
         log(f"B6 bitonic sort {label}: kernel == plain == torch.sort, input "
@@ -454,7 +486,27 @@ def check_bitonic(rng, b3_ms: float) -> dict:
                   (x2[0][:4097].contiguous(), x2[1][:4097].contiguous())),
         sort_case("n=1", x24[:1].contiguous()),
         sort_case(f"n={1 << 22} constant", torch.full_like(x24[: 1 << 22], 7)),
+        sort_case(f"n={(1 << 23) + 1} (P / 2 + 1)",
+                  x24[: (1 << 23) + 1].contiguous()),
+        sort_case(f"n={(1 << 24) - 1} (P - 1)",
+                  x24[: (1 << 24) - 1].contiguous(), plain=False),
+        sort_case(f"n={(1 << 22) + 1}, two columns (P / 2 + 1)",
+                  (x2[0][: (1 << 22) + 1].contiguous(),
+                   x2[1][: (1 << 22) + 1].contiguous()), plain=False),
+        sort_case(f"n={bitonic.TILES[1] + 1} (a tile + 1)",
+                  x24[: bitonic.TILES[1] + 1].contiguous()),
+        sort_case(f"n={bitonic.TILES[2] + 1}, two columns (a tile + 1)",
+                  (x2[0][: bitonic.TILES[2] + 1].contiguous(),
+                   x2[1][: bitonic.TILES[2] + 1].contiguous())),
     ]
+    bitonic.bitonic_sort(x25)
+    n0 += 1
+    planned = len(bitonic.network_passes(
+        SLAB, bitonic.TILES[1], bitonic.fuse_log(bitonic.TILES[1])))
+    b6_passes = _build.PASSES["bitonic_sort"]
+    log(f"B6 bitonic sort n={SLAB} one column: {b6_passes} passes over "
+        f"device memory launched, the Python schedule has {planned}")
+    assert b6_passes == planned <= 32
     assert LAUNCHES["bitonic_sort"] == n0 + len(errs) - 1  # one row: none
     with sort.use_sort_mode("bitonic"):
         assert torch.equal(sort.sort_keys(x24), torch.sort(x24).values)
@@ -462,21 +514,25 @@ def check_bitonic(rng, b3_ms: float) -> dict:
     ms24 = time_ms(lambda: bitonic.bitonic_sort(x24), 3)
     lib24 = time_ms(lambda: torch.sort(x24), 5)
     ms = time_ms(lambda: bitonic.bitonic_sort(x25), 3)
-    plain_ms = time_ms(lambda: bitonic.bitonic_sort_plain(x25), 1)
+    plain_ms = time_ms(lambda: bitonic.bitonic_sort_passes_plain(x25), 1)
     library_ms = time_ms(lambda: torch.sort(x25), 5)
     ms2 = time_ms(lambda: bitonic.bitonic_sort(x2), 3)
     lib2 = time_ms(lambda: merge.sort_cols_plain(x2), 5)
+    log(f"B6 bitonic sort, one column, {SLAB}: {ms:.4f} ms, torch.sort "
+        f"{library_ms:.4f} ms, bound "
+        f"{bound(2 * 8 * SLAB, 0)['bound_ms']:.4f} ms [{card}]")
     log(f"B6 bitonic sort, one column, {1 << 24}: {ms24:.4f} ms, torch.sort "
         f"{lib24:.4f} ms, bound {bound(2 * 8 * (1 << 24), 0)['bound_ms']:.4f}"
-        f" ms")
+        f" ms [{card}]")
     log(f"B6 bitonic sort, two columns, {n_join}: {ms2:.4f} ms, two stable "
         f"torch.sort passes {lib2:.4f} ms, bound "
-        f"{bound(2 * 16 * n_join, 0)['bound_ms']:.4f} ms")
+        f"{bound(2 * 16 * n_join, 0)['bound_ms']:.4f} ms [{card}]")
     # every key read once and written once; n log2 n 64-bit compares
     out = {"bitonic_sort": dict(
         err=max(errs), ms=ms, plain_ms=plain_ms, library_ms=library_ms,
         ms_2_24=ms24, library_ms_2_24=lib24, two_col_ms=ms2,
-        two_col_library_ms=lib2, **bound(2 * 8 * SLAB, SLAB * 25 * 2))}
+        two_col_library_ms=lib2, passes=b6_passes,
+        **bound(2 * 8 * SLAB, SLAB * 25 * 2))}
     del x2, x25
 
     # B7: 2^24 + 2^24 (a set operation of the two operands), 2^25 + 2^24
@@ -497,8 +553,9 @@ def check_bitonic(rng, b3_ms: float) -> dict:
             for x, y in zip(merge.as_cols(a), merge.as_cols(b))))
         err = cols_equal(merge.as_cols(got), want)
         if plain:
-            err = max(err, cols_equal(
-                merge.as_cols(bitonic.bitonic_merge_plain(a, b)), want))
+            for fn in (bitonic.bitonic_merge_passes_plain,
+                       bitonic.bitonic_merge_plain):
+                err = max(err, cols_equal(merge.as_cols(fn(a, b)), want))
             torch.cuda.synchronize()
         log(f"B7 bitonic merge {label}: kernel == plain == torch.sort of "
             f"both: {err == 0}")
@@ -529,7 +586,8 @@ def check_bitonic(rng, b3_ms: float) -> dict:
     ]
     assert LAUNCHES["bitonic_merge"] == n0 + len(errs)
     ms = time_ms(lambda: bitonic.bitonic_merge(a24, b24), 5)
-    plain_ms = time_ms(lambda: bitonic.bitonic_merge_plain(a24, b24), 2)
+    plain_ms = time_ms(
+        lambda: bitonic.bitonic_merge_passes_plain(a24, b24), 2)
     cat = torch.cat([a24, b24])
     library_ms = time_ms(lambda: torch.sort(cat), 5)
     b3_here = time_ms(lambda: merge.merge_sorted(a24, b24), 10)
@@ -537,10 +595,10 @@ def check_bitonic(rng, b3_ms: float) -> dict:
     b3_3 = time_ms(lambda: merge.merge_sorted(a25, b24), 10)
     log(f"B7 bitonic merge {half} + {half}: {ms:.4f} ms, torch.sort of both "
         f"{library_ms:.4f} ms, kernel B3 {b3_here:.4f} ms (B3 at {SLAB} + "
-        f"{SLAB}: {b3_ms:.4f} ms)")
+        f"{SLAB}: {b3_ms:.4f} ms) [{card}]")
     log(f"B7 bitonic merge {SLAB} + {half}: {ms3:.4f} ms, kernel B3 "
         f"{b3_3:.4f} ms, bound "
-        f"{bound(2 * 8 * (SLAB + half), 0)['bound_ms']:.4f} ms")
+        f"{bound(2 * 8 * (SLAB + half), 0)['bound_ms']:.4f} ms [{card}]")
     # every key read once and written once; a 64-bit compare an output
     out["bitonic_merge"] = dict(
         err=max(errs), ms=ms, plain_ms=plain_ms, library_ms=library_ms,
@@ -1105,6 +1163,10 @@ def print_profile(prof, title: str, span_ms: float | None = None) -> None:
     print(f"{title}, kernels {busy:.2f} ms{idle}")
     for t, count, key in rows[:14]:
         print(f"  {t:9.3f} ms  {count:5d} x  {key[:90]}")
+    # the sort and merge kernels (namespace cbl) that the list above cut
+    for t, count, key in rows[14:]:
+        if "cbl::" in key:
+            print(f"  {t:9.3f} ms  {count:5d} x  {key[:90]}")
 
 
 def profile_separate() -> int:
@@ -1445,7 +1507,9 @@ def main() -> int:
          "plain_ms": kern[name]["plain_ms"],
          "bound_ms": kern[name]["bound_ms"],
          "bound_by": kern[name]["bound_by"],
-         "library_ms": kern[name]["library_ms"]}
+         "library_ms": kern[name]["library_ms"],
+         **({"passes": kern[name]["passes"]} if "passes" in kern[name]
+            else {})}
         for name in KERNELS
     ]}))
     print(json.dumps({"ok": True, "device": {

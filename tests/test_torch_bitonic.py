@@ -2,8 +2,11 @@
 `cbl_tpu`.
 
 `cbl_tpu_torch.ops.bitonic.bitonic_sort_plain` and `bitonic_merge_plain`
-(the network walked step by step with tensor operations), the CPU
-dispatch of `bitonic_sort` / `bitonic_merge` and the seam's dispatchers
+(the network walked step by step with tensor operations),
+`bitonic_sort_passes_plain` and `bitonic_merge_passes_plain` (the same
+network walked pass by pass as the kernels schedule it: `network_passes`,
+`cross_block_rows`), the CPU dispatch of `bitonic_sort` /
+`bitonic_merge` and the seam's dispatchers
 (`ops.sort.sort_keys`, `merge_sorted_pair`, `merge_with_unsorted`) under
 every merge and sort mode, against `torch.sort`, a numpy lexsort and the
 Pallas kernels `cbl_tpu.ops.sort_pallas.sort_cols_pallas` and
@@ -92,6 +95,8 @@ def test_plain_sort_matches_pallas(n_log, t_log, two, hi):
     _assert_cols_equal(_lexsorted(keys), want)
     _assert_cols_equal(bitonic.bitonic_sort_plain(keys), want)
     _assert_cols_equal(bitonic.bitonic_sort(keys), want)
+    _assert_cols_equal(bitonic.bitonic_sort_passes_plain(keys, 1 << 6, 2),
+                       want)
     _assert_cols_equal(merge.sort_cols_plain(merge.as_cols(keys)), want)
     assert (want[0] == SENTINEL).any()
 
@@ -114,7 +119,132 @@ def test_plain_merge_matches_pallas(na_log, nb_log, t_log, two, hi):
     _assert_cols_equal(bitonic.bitonic_merge_plain(a, b), want)
     _assert_cols_equal(bitonic.bitonic_merge(a, b), want)
     _assert_cols_equal(bitonic.bitonic_merge_plain(b, a), want)
+    _assert_cols_equal(bitonic.bitonic_merge_passes_plain(a, b, 1 << 6, 2),
+                       want)
     assert (want[0] == SENTINEL).any()
+
+
+def _n_sort_passes(p_log, t_log, fuse):
+    """1 tile sort + per stage ceil(d / fuse) cross passes + 1 in-tile."""
+    return 1 + sum(-(-d // fuse) + 1 for d in range(1, p_log - t_log + 1))
+
+
+@pytest.mark.parametrize("p_log,t_log,fuse,want", [
+    (25, 12, 8, 32), (25, 13, 9, 28), (25, 12, 1, 105), (24, 13, 9, 25),
+    (23, 12, 8, 26), (13, 13, 9, 1), (14, 13, 9, 3), (20, 10, 3, None),
+    (16, 6, 2, None), (12, 4, 1, None),
+])
+def test_sort_pass_list_length(p_log, t_log, fuse, want):
+    """The schedule's length is the formula's: 28 passes at 2^25 rows with
+    the one-column tile (2^13, nine strides fused), 32 with 2^12 and eight,
+    105 with one stride a pass.  Every stride of every stage appears once,
+    in descending order inside its stage."""
+    passes = bitonic.network_passes(1 << p_log, 1 << t_log, fuse)
+    assert len(passes) == _n_sort_passes(p_log, t_log, fuse)
+    if want is not None:
+        assert len(passes) == want
+    assert passes[0] == ("tile", t_log, t_log - 1, 0)
+    strides = {}
+    for kind, k_log, hi_log, lo_log in passes[1:]:
+        assert kind in ("cross", "intile") and hi_log - lo_log < max(
+            fuse, t_log)
+        assert (kind == "cross") == (lo_log >= t_log)
+        strides.setdefault(k_log, []).extend(range(hi_log, lo_log - 1, -1))
+    assert strides == {k: list(range(k - 1, -1, -1))
+                       for k in range(t_log + 1, p_log + 1)}
+
+
+@pytest.mark.parametrize("rows_log,t_log,fuse,want", [
+    (25, 13, 9, 4), (26, 13, 9, 4), (25, 12, 8, 4), (13, 13, 9, 1),
+    (1, 13, 9, 1), (14, 13, 9, 2), (24, 12, 8, 4), (25, 12, 1, 14),
+    (12, 4, 3, 5),
+])
+def test_merge_pass_list_length(rows_log, t_log, fuse, want):
+    """B7: one block when 2 M <= tile, else the first step, ceil(d / fuse)
+    cross passes and one in-tile pass (4 passes at 2^24 + 2^24 keys)."""
+    passes = bitonic.network_passes(1 << rows_log, 1 << t_log, fuse,
+                                    merge=True)
+    assert len(passes) == want
+    got = [j for _, _, hi, lo in passes for j in range(hi, lo - 1, -1)]
+    assert got == list(range(rows_log - 1, -1, -1))
+    assert all(dir_bit is None for _, dir_bit, _, _ in passes)
+
+
+@pytest.mark.parametrize("p_log,t_log,fuse", [
+    (20, 6, 2), (20, 8, 4), (18, 5, 1), (16, 4, 3), (14, 13, 9),
+])
+def test_cross_blocks_own_disjoint_closed_rows(p_log, t_log, fuse):
+    """In every cross pass each row belongs to exactly one block, and a
+    block's rows are closed under the pass's strides (an in-place pass is
+    safe only then); slices are contiguous runs of 2^c rows."""
+    rows, tile = 1 << p_log, 1 << t_log
+    seen = set()
+    for kind, _, hi_log, lo_log in bitonic.network_passes(rows, tile, fuse):
+        if kind != "cross" or (hi_log, lo_log) in seen:
+            continue
+        seen.add((hi_log, lo_log))
+        f = hi_log - lo_log + 1
+        first, idx = bitonic.cross_block_rows(rows, tile, lo_log, f)
+        assert idx.shape == (rows // tile, tile)
+        assert torch.equal(torch.sort(idx.reshape(-1)).values,
+                           torch.arange(rows))
+        assert torch.equal(idx[:, 0], first)
+        for j_log in range(lo_log, hi_log + 1):
+            partner = torch.sort(idx ^ (1 << j_log), dim=1).values
+            assert torch.equal(partner, torch.sort(idx, dim=1).values)
+        c = t_log - f
+        runs = idx.view(-1, 1 << c)
+        assert torch.equal(runs - runs[:, :1],
+                           torch.arange(1 << c).expand_as(runs))
+    assert seen
+
+
+@pytest.mark.parametrize("n", [2, 3, 100, 1000, 4097, 40_000])
+@pytest.mark.parametrize("tile,fuse", [(16, 1), (16, 2), (64, 3), (256, 4),
+                                       (1024, 6)])
+@pytest.mark.parametrize("two", [False, True], ids=["one-col", "two-col"])
+def test_passes_plain_sort_equals_the_network(n, tile, fuse, two):
+    """The pass-by-pass plain B6 at small tiles against the step-by-step
+    network, `torch.sort` and a lexsort: duplicates, 20 % sentinels, any
+    length; the caller's tensors are kept."""
+    cols = _limb_cols(n, n + tile + two, 3 if two else 2, 9, 0.2)
+    keys = _port_keys(cols, two)
+    before = [c.copy() for c in _as_numpy(keys)]
+    got = bitonic.bitonic_sort_passes_plain(keys, tile, fuse)
+    assert isinstance(got, tuple) == two
+    _assert_cols_equal(got, _as_numpy(bitonic.bitonic_sort_plain(keys)))
+    _assert_cols_equal(got, _lexsorted(keys))
+    _assert_cols_equal(keys, before)
+    if not two:
+        assert torch.equal(got, torch.sort(keys).values)
+
+
+@pytest.mark.parametrize("na,nb", [(0, 1), (1, 1), (7, 100), (1000, 37),
+                                   (4097, 5000), (3, 40_000)])
+@pytest.mark.parametrize("tile,fuse", [(16, 1), (64, 3), (1024, 6)])
+@pytest.mark.parametrize("two", [False, True], ids=["one-col", "two-col"])
+def test_passes_plain_merge_equals_the_network(na, nb, tile, fuse, two):
+    """The pass-by-pass plain B7 against the step-by-step network and a
+    lexsort of both runs."""
+    n_cols = 3 if two else 2
+    a = _port_keys(_limb_cols(na, na + 1, n_cols, 9, 0.1, True), two)
+    b = _port_keys(_limb_cols(nb, nb + 2, n_cols, 9, 0.1, True), two)
+    got = bitonic.bitonic_merge_passes_plain(a, b, tile, fuse)
+    _assert_cols_equal(got, _as_numpy(bitonic.bitonic_merge_plain(a, b)))
+    _assert_cols_equal(got, _lexsorted(
+        sort.cat_cols(merge.as_cols(a), merge.as_cols(b))))
+
+
+def test_default_tiles_follow_the_sources():
+    """`TILES` and `fuse_log` are the constants of csrc/bitonic.cuh."""
+    src = (bitonic._build.SRC_DIR / "bitonic.cuh").read_text()
+    assert "kTileLog = C == 1 ? 13 : 12;" in src
+    assert "kFuseLog = kTileLog<C> - 4;" in src
+    assert bitonic.TILES == {1: 1 << 13, 2: 1 << 12}
+    assert [bitonic.fuse_log(t) for t in (1 << 13, 1 << 12)] == [9, 8]
+    # one sort of 2^25 one-column keys: 28 passes (105 with one stride a
+    # pass over tiles of 2^12 rows)
+    assert len(bitonic.network_passes(1 << 25, 1 << 13, 9)) == 28
 
 
 def test_merge_payload_is_the_tie_break_column():
@@ -217,15 +347,22 @@ def test_merge_mode_selection(monkeypatch):
 
 
 def test_bitonic_modes_walk_the_network(monkeypatch):
-    """On the CPU the bitonic modes run the plain networks and never a
-    library sort; the "sort" merge mode runs no merge at all."""
+    """On the CPU the bitonic modes run the plain networks, pass by pass
+    as the kernels schedule them, and never a library sort; the "sort"
+    merge mode runs no merge at all."""
     calls = []
-    for name in ("bitonic_sort_plain", "bitonic_merge_plain"):
+    for name in ("bitonic_sort_passes_plain", "bitonic_merge_passes_plain"):
         real = getattr(bitonic, name)
         monkeypatch.setattr(
             bitonic, name,
             lambda *keys, real=real, name=name: calls.append(name)
             or real(*keys))
+    walked = []
+    real_walk = bitonic._walk_pass
+    monkeypatch.setattr(
+        bitonic, "_walk_pass",
+        lambda cols, tile, pas: walked.append(pas[0])
+        or real_walk(cols, tile, pas))
     rng = np.random.default_rng(4)
     x = torch.from_numpy(rng.integers(0, 99, size=5000))
     want = torch.sort(x).values
@@ -241,9 +378,15 @@ def test_bitonic_modes_walk_the_network(monkeypatch):
         merged = sort.merge_with_unsorted(got, x)
         pair = sort.merge_sorted_pair(got, got)
         two = sort.merge_sorted_pair((got, got), (got, got))
-    assert calls == ["bitonic_sort_plain", "bitonic_sort_plain",
-                     "bitonic_merge_plain", "bitonic_merge_plain",
-                     "bitonic_merge_plain"]
+    assert calls == ["bitonic_sort_passes_plain", "bitonic_sort_passes_plain",
+                     "bitonic_merge_passes_plain",
+                     "bitonic_merge_passes_plain",
+                     "bitonic_merge_passes_plain"]
+    # 5000 rows fit one tile of 8192; two runs of 5000 make 2^14 rows: the
+    # first step and one in-tile pass, and with two columns (tile 4096) one
+    # cross pass between them
+    assert walked == ["tile", "tile", "first", "intile", "first", "intile",
+                      "first", "cross", "intile"]
     assert torch.equal(got, want) and torch.equal(merged, want2)
     assert torch.equal(pair, want2) and torch.equal(two[1], want2)
     calls.clear()

@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from cbl_tpu_torch import CBL, LAUNCHES
+from cbl_tpu_torch.ops._build import PASSES
 from cbl_tpu_torch import wordset as tws
 from cbl_tpu_torch.limbs import SENTINEL
 from cbl_tpu_torch.ops import bitonic, merge, necklace, scan, sort
@@ -109,7 +110,7 @@ def test_two_column_merge_kernel_matches_plain(cuda, na, nb, hi):
 
 @pytest.mark.parametrize("n", [
     0, 1, 2, 2047, 2048, 2049, 4096, 4097, 3 * 2048 + 5, 100_003,
-    (1 << 20) - 4097,
+    (1 << 20) - 4097, 8192, 8193, 5 * 8192 + 123,
 ])
 @pytest.mark.parametrize("two", [False, True])
 @pytest.mark.parametrize("hi", [1, 3, 1 << 40])
@@ -140,7 +141,7 @@ def test_sort_kernel_matches_plain(cuda, n, two, hi):
 
 @pytest.mark.parametrize("n", [
     0, 1, 2, 3, 4095, 4096, 4097, 8192, 3 * 4096 + 5, 100_003,
-    (1 << 20) - 4097, (1 << 20) + 1,
+    (1 << 20) - 4097, (1 << 20) + 1, 8193, 3 * 8192 + 5,
 ])
 @pytest.mark.parametrize("two", [False, True])
 @pytest.mark.parametrize("hi", [1, 3, 1 << 40])
@@ -170,6 +171,97 @@ def test_bitonic_sort_kernel_matches_plain(cuda, n, two, hi):
         assert torch.equal(c, b)  # the caller's tensors are not written
 
 
+def _edge_keys(cuda, n, two, hi, seed):
+    rng = np.random.default_rng(seed)
+    v = rng.integers(-hi, hi, size=n)
+    v[rng.random(n) < 0.5 * (hi == 3)] = SENTINEL
+    keys = torch.from_numpy(v).to(cuda)
+    if two:
+        keys = (keys, torch.from_numpy(
+            rng.integers(0, 1 << 23, size=n)).to(cuda))
+    return keys
+
+
+@pytest.mark.parametrize("tiles,extra", [
+    (1, 0), (1, 1), (2, 0), (3, 5), (4, 0), (4, 1), (5, 123), (6, 123),
+    (7, 123), (8, 0), (9, 1), (16, 0), (17, 4095), (33, 7),
+])
+@pytest.mark.parametrize("two", [False, True])
+@pytest.mark.parametrize("hi", [1, 3, 1 << 40])
+def test_sort_kernel_quads(cuda, tiles, extra, two, hi):
+    """B5 where the last quad holds one, two or three runs and a short
+    last run, at one and at several four-way passes: constant keys, three
+    values with half sentinels, wide keys.  The kernel's count of passes
+    over device memory equals the Python schedule's."""
+    tile = merge.SORT_TILES[2 if two else 1]
+    n = tiles * tile + extra
+    keys = _edge_keys(cuda, n, two, hi, tiles * 100 + extra + two)
+    before = [c.clone() for c in merge.as_cols(keys)]
+    got = merge.sort_mergepath(keys)
+    torch.cuda.synchronize()
+    assert PASSES["sort"] == len(merge.mergepath_passes(n, tile))
+    want = merge.sort_cols_plain(merge.as_cols(keys))
+    for g, w, p in zip(merge.as_cols(got), want,
+                       merge.as_cols(merge.sort_mergepath_plain(keys)),
+                       strict=True):
+        assert torch.equal(g, w) and torch.equal(p, w)
+    for c, b in zip(merge.as_cols(keys), before):
+        assert torch.equal(c, b)
+
+
+@pytest.mark.parametrize("n", [
+    8191, 8192, 8193, 2 * 8192 + 1, (1 << 17) + 1, (1 << 18) - 1,
+    (1 << 21) + 1, (1 << 22) - 1,
+])
+@pytest.mark.parametrize("two", [False, True])
+@pytest.mark.parametrize("hi", [3, 1 << 40])
+def test_bitonic_sort_kernel_fused_passes(cuda, n, two, hi):
+    """B6 just above one tile and at P / 2 + 1 and P - 1 rows, where the
+    fused cross passes are one and several a stage; against both plain
+    versions, with the kernel's pass count held to the schedule's."""
+    keys = _edge_keys(cuda, n, two, hi, n + two)
+    before = [c.clone() for c in merge.as_cols(keys)]
+    got = bitonic.bitonic_sort(keys)
+    torch.cuda.synchronize()
+    tile = bitonic.TILES[2 if two else 1]
+    rows = max(tile, 1 << (n - 1).bit_length())
+    assert PASSES["bitonic_sort"] == len(
+        bitonic.network_passes(rows, tile, bitonic.fuse_log(tile)))
+    want = merge.sort_cols_plain(merge.as_cols(keys))
+    plains = [bitonic.bitonic_sort_passes_plain(keys)]
+    if n < (1 << 20):
+        plains.append(bitonic.bitonic_sort_plain(keys))
+    for p in plains:
+        for g, w, q in zip(merge.as_cols(got), want, merge.as_cols(p),
+                           strict=True):
+            assert torch.equal(g, w) and torch.equal(q, w)
+    for c, b in zip(merge.as_cols(keys), before):
+        assert torch.equal(c, b)
+
+
+@pytest.mark.parametrize("na,nb", [(4096, 4096), (4097, 4096),
+                                   (1 << 16, 3), ((1 << 20) + 1, 1 << 19)])
+@pytest.mark.parametrize("two", [False, True])
+def test_bitonic_merge_kernel_pass_count(cuda, na, nb, two):
+    """B7 on the fused cross passes: the result, and the kernel's pass
+    count against the schedule's."""
+    a = merge.sort_cols_plain(merge.as_cols(_edge_keys(cuda, na, two, 50, 1)))
+    b = merge.sort_cols_plain(merge.as_cols(_edge_keys(cuda, nb, two, 50, 2)))
+    if not two:
+        a, b = a[0], b[0]
+    got = bitonic.bitonic_merge(a, b)
+    torch.cuda.synchronize()
+    tile = bitonic.TILES[2 if two else 1]
+    rows = 2 << (max(na, nb) - 1).bit_length()
+    assert PASSES["bitonic_merge"] == len(bitonic.network_passes(
+        rows, tile, bitonic.fuse_log(tile), merge=True))
+    for g, w, p in zip(merge.as_cols(got),
+                       merge.as_cols(merge.merge_sorted_plain(a, b)),
+                       merge.as_cols(bitonic.bitonic_merge_passes_plain(a, b)),
+                       strict=True):
+        assert torch.equal(g, w) and torch.equal(p, w)
+
+
 @pytest.mark.parametrize("na,nb", [
     (0, 0), (0, 1), (1, 0), (1, 1), (2047, 1), (2048, 2048), (2048, 2049),
     (4096, 4096), (5000, 3), (3, 5000), (100_000, 77_777),
@@ -178,7 +270,7 @@ def test_bitonic_sort_kernel_matches_plain(cuda, n, two, hi):
 @pytest.mark.parametrize("two", [False, True])
 @pytest.mark.parametrize("hi", [3, 1 << 40])
 def test_bitonic_merge_kernel_matches_plain(cuda, na, nb, two, hi):
-    """B7 around the one-block size (2 M <= 4096 rows) and above it, with
+    """B7 around the one-block size (2 M <= one tile) and above it, with
     unequal, empty and one-row sides."""
     rng = np.random.default_rng(na * 7 + nb + two + hi % 1000)
 

@@ -1,7 +1,9 @@
 """Parity of the port's merge-path sort (kernel B5's module) with `cbl_tpu`.
 
-`cbl_tpu_torch.ops.merge.sort_mergepath_plain`, the CPU dispatch of
-`sort_mergepath` and `ops.sort.sort_keys` under both sort modes, against
+`cbl_tpu_torch.ops.merge.sort_mergepath_plain` (two-way and four-way
+passes, `mergepath_passes`), the plain four-run partition
+`quad_split_plain` against numpy, the CPU dispatch of `sort_mergepath`
+and `ops.sort.sort_keys` under both sort modes, against
 `torch.sort`, a numpy lexsort and the Pallas kernel
 `cbl_tpu.ops.merge_pallas.sort_cols_mergepath` in interpret mode; and the
 two-column plain merge against `merge_sorted_cols` in interpret mode with
@@ -87,8 +89,115 @@ def test_plain_sort_matches_pallas(n_log, t_log, two, hi):
     _assert_cols_equal(_lexsorted(keys), want)
     _assert_cols_equal(merge.sort_mergepath_plain(keys, tile=1 << t_log),
                        want)
+    _assert_cols_equal(
+        merge.sort_mergepath_plain(keys, tile=1 << t_log, ways=2), want)
     _assert_cols_equal(merge.sort_cols_plain(merge.as_cols(keys)), want)
     assert (want[0] == SENTINEL).any()
+
+
+@pytest.mark.parametrize("n,tile,ways,want", [
+    (1 << 25, 2048, 2, 15), (1 << 25, 4096, 4, 8), (1 << 25, 8192, 4, 7),
+    ((1 << 26) + (1 << 21), 8192, 4, 8), ((1 << 22) + (1 << 21), 4096, 4, 7),
+    (8192, 8192, 4, 1), (8193, 8192, 4, 2), (1, 8192, 4, 1),
+    (5 * 8192 + 123, 8192, 4, 3), (1 << 20, 64, 2, 15), (1 << 20, 64, 4, 8),
+])
+def test_pass_list_length(n, tile, ways, want):
+    """1 tile sort + one pass a level (two-way) or a pass for every two
+    levels after one two-way pass when their number is odd (four-way): 7
+    passes at 2^25 one-column keys, where 2048-row tiles and two-way
+    passes made 15."""
+    passes = merge.mergepath_passes(n, tile, ways)
+    levels = (-(-n // tile) - 1).bit_length()
+    assert len(passes) == want == 1 + (levels if ways == 2
+                                       else (levels + 1) // 2)
+    assert passes[0] == ("tile_sort", tile)
+    run = tile
+    for i, (kind, at, fan) in enumerate(passes[1:]):
+        assert kind == "merge" and at == run
+        assert fan == 2 if ways == 2 or (levels % 2 and i == 0) else fan == 4
+        run *= fan
+    assert run >= n and (len(passes) == 1 or run // passes[-1][2] < n)
+    with pytest.raises(ValueError, match="ways"):
+        merge.mergepath_passes(n, tile, 3)
+
+
+def _sorted_runs(rng, lens, hi, two):
+    runs = []
+    for n in lens:
+        cols = [torch.from_numpy(rng.integers(0, hi, size=n))
+                for _ in range(2 if two else 1)]
+        cols = merge.sort_cols_plain(tuple(cols))
+        runs.append(cols if two else cols[0])
+    return runs
+
+
+@pytest.mark.parametrize("hi", [1, 3, 1000], ids=["constant", "3-valued",
+                                                 "random"])
+@pytest.mark.parametrize("lens", [
+    (40,), (40, 40), (40, 40, 40), (40, 40, 40, 40), (40, 40, 40, 7),
+    (40, 13), (40, 40, 1), (0, 40, 0, 40), (5, 0, 0, 0),
+])
+@pytest.mark.parametrize("two", [False, True], ids=["one-col", "two-col"])
+def test_quad_split_matches_numpy(hi, lens, two):
+    """The nested co-rank at every diagonal of one to four runs (a short
+    or empty last run too) against a stable numpy sort of the runs laid
+    end to end: ties go A before B before C before D.  A tile merged
+    from two such splits is that stretch of the sorted quad."""
+    rng = np.random.default_rng(hi + sum(lens) + two)
+    runs = _sorted_runs(rng, lens, hi, two)
+    cols = [np.concatenate([_as_numpy(r)[c] for r in runs])
+            for c in range(2 if two else 1)]
+    src = np.concatenate([np.full(n, i) for i, n in enumerate(lens)])
+    order = np.lexsort((src,) + tuple(cols[::-1]))  # stable in run order
+    n = len(src)
+    for d in range(n + 1):
+        want = np.bincount(src[order[:d]], minlength=4)[:4]
+        assert merge.quad_split_plain(runs, d) == tuple(want), d
+    if not two:
+        # every run gives all of its rows below the d-th key and none above
+        flat = np.sort(cols[0])
+        for d in {1, max(n // 3, 1), n}:
+            for r, got in zip(runs, merge.quad_split_plain(runs, d)):
+                r = _as_numpy(r)[0]
+                assert (np.searchsorted(r, flat[d - 1], "left") <= got
+                        <= np.searchsorted(r, flat[d - 1], "right"))
+    tiles = [merge.merge_quad_tile_plain(runs, d0, min(d0 + 16, n))
+             for d0 in range(0, n, 16)]
+    got = [np.concatenate([_as_numpy(t)[c] for t in tiles])
+           for c in range(len(cols))]
+    _assert_cols_equal(got, [c[order] for c in cols])
+
+
+@pytest.mark.parametrize("n", [2, 1000, 5 * 64 + 23, 6 * 64 + 23,
+                               7 * 64 + 23, 4097, 12_345])
+@pytest.mark.parametrize("tile", [16, 64, 1024])
+@pytest.mark.parametrize("two", [False, True], ids=["one-col", "two-col"])
+def test_four_way_passes_equal_two_way(n, tile, two):
+    """`sort_mergepath_plain(ways=4)` equals `ways=2`, `torch.sort` and a
+    lexsort: last quads of one, two and three runs with a short last run,
+    duplicates and 10 % sentinels."""
+    cols = _limb_cols(n, n + tile + two, 3 if two else 2, 9, 0.1)
+    keys = _port_keys(cols, two)
+    got = merge.sort_mergepath_plain(keys, tile=tile, ways=4)
+    assert isinstance(got, tuple) == two
+    _assert_cols_equal(got, _as_numpy(
+        merge.sort_mergepath_plain(keys, tile=tile, ways=2)))
+    _assert_cols_equal(got, _lexsorted(keys))
+    if not two:
+        assert torch.equal(got, torch.sort(keys).values)
+
+
+def test_default_tiles_follow_the_sources():
+    """`SORT_TILES` and `MERGE_TILE` are the constants of the sources; the
+    runs a tile sort leaves are whole merge tiles."""
+    src = merge._build.SRC_DIR
+    assert "kSortRows = C == 1 ? 1 << 13 : 1 << 12;" in (
+        src / "sort.cu").read_text()
+    assert "kTile = kThreads * kItems;  // 2048" in (
+        src / "merge_path.cuh").read_text()
+    assert merge.SORT_TILES == {1: 1 << 13, 2: 1 << 12}
+    assert all(t % merge.MERGE_TILE == 0 for t in merge.SORT_TILES.values())
+    assert len(merge.mergepath_passes(1 << 25, merge.SORT_TILES[1])) == 7
 
 
 def test_plain_sort_equal_prefix_runs():
@@ -148,16 +257,27 @@ def test_sort_mode_selection(monkeypatch):
 
 def test_mergepath_mode_walks_the_passes(monkeypatch):
     """On the CPU the mergepath mode runs B5's plain version, never a
-    whole-array `torch.sort`."""
-    calls = []
+    whole-array `torch.sort`: 20_000 rows are 3 tiles of 8192, so a tile
+    sort and one four-way pass (a sort of the pairs, then of the quad)."""
+    calls, sorted_shapes = [], []
     real = merge.sort_mergepath_plain
     monkeypatch.setattr(merge, "sort_mergepath_plain",
                         lambda keys: calls.append(1) or real(keys))
-    x = torch.from_numpy(np.random.default_rng(4).integers(0, 99, size=5000))
+    real_sort = merge.sort_cols_plain
+    monkeypatch.setattr(
+        merge, "sort_cols_plain",
+        lambda cols, dim=0: sorted_shapes.append(tuple(cols[0].shape))
+        or real_sort(cols, dim))
+    x = torch.from_numpy(
+        np.random.default_rng(4).integers(0, 99, size=20_000))
     with sort.use_sort_mode("mergepath"):
         got = sort.sort_keys(x)
+    assert sorted_shapes == [(4, 8192), (2, 16384), (1, 32768)]
+    with sort.use_sort_mode("mergepath"):
         merged = sort.merge_with_unsorted(got, x)
     assert len(calls) == 2
+    assert merge.mergepath_passes(20_000, 8192) == [
+        ("tile_sort", 8192), ("merge", 8192, 4)]
     assert torch.equal(got, torch.sort(x).values)
     assert torch.equal(merged, torch.sort(torch.cat([x, x])).values)
 

@@ -9,12 +9,14 @@ this checkout, or a copy of another commit's package unpacked under a
 git-ignored directory).  The versions run in the order given, each in a
 process of its own, so `old new new old` brackets the change.  Per
 version it prints
-- B3's time for 2^25 + 2^25 and 2^25 + 2^22 one-column keys (CUDA events,
-  three means of 20 launches);
-- where the version has B5, and where it has B6: device time by kernel
-  name for one sort of 2^25 one-column keys and of 2^22 + 2^21
-  two-column rows (`torch.profiler`, mean of 5); where it has B7: the
-  same for one merge of 2^24 + 2^24 one-column keys;
+- B3's time for 2^25 + 2^25, 2^24 + 2^24 and 2^25 + 2^22 one-column keys
+  (CUDA events, three means of 20 launches);
+- where the version has B5, and where it has B6: the time of one sort
+  (CUDA events, mean of 5) and the device time by kernel name
+  (`torch.profiler`, mean of 5) for 2^25 and 2^24 one-column keys, a
+  fold's 2^26 + 2^21 keys with 75 % sentinels and 2^22 + 2^21 two-column
+  rows, and `torch.sort`'s time for the same inputs; where it has B7:
+  the same for one merge of 2^24 + 2^24 one-column keys;
 - registers of, and the count of load, store and barrier operations in
   the machine code of, the merge and sort kernels (`nvcc`'s log and
   `cuobjdump -sass`).
@@ -50,15 +52,24 @@ def probe(path: str) -> None:
     def keys(n, hi=1 << 57):
         return torch.from_numpy(rng.integers(0, hi, size=n)).to(dev)
 
-    for na, nb in ((1 << 25, 1 << 25), (1 << 25, 1 << 22)):
+    for na, nb in ((1 << 25, 1 << 25), (1 << 24, 1 << 24),
+                   (1 << 25, 1 << 22)):
         a, b = torch.sort(keys(na)).values, torch.sort(keys(nb)).values
         ms = [round(time_ms(lambda: merge.merge_sorted(a, b), 20), 4)
               for _ in range(3)]
         print(f"{path}: B3 {na} + {nb} ms: {ms}")
     n = (1 << 22) + (1 << 21)
+    fold = keys((1 << 26) + (1 << 21))
+    fold[torch.from_numpy(rng.random(fold.shape[0]) < 0.75).to(dev)] = (
+        (1 << 63) - 1)
     sort_inputs = (("one column 2^25", (keys(1 << 25),)),
+                   ("one column 2^24", (keys(1 << 24),)),
+                   ("one column 2^26 + 2^21, 75 % sentinels", (fold,)),
                    ("two columns 2^22 + 2^21",
                     ((keys(n, 1 << 56), keys(n, 1 << 32)),)))
+    for label, (x,) in sort_inputs:
+        ms = time_ms(lambda: merge.sort_cols_plain(merge.as_cols(x)), 5)
+        print(f"{path}: torch.sort {label}: {ms:.4f} ms")
     half = torch.sort(keys(1 << 24)).values
     cases = []  # (kernel, function, ((label, arguments), ...))
     if hasattr(merge, "sort_mergepath"):
@@ -73,8 +84,8 @@ def probe(path: str) -> None:
                       (("2^24 + 2^24", (half, half + 1)),)))
     for kernel, fn, inputs in cases:
         for label, args in inputs:
-            fn(*args)
-            torch.cuda.synchronize()
+            ms = time_ms(lambda: fn(*args), 5)
+            print(f"{path}: {kernel} {label}: {ms:.4f} ms")
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 for _ in range(5):
                     fn(*args)
@@ -86,8 +97,8 @@ def probe(path: str) -> None:
                           f"{e.count // 5:3d} x {e.key[:70]}")
 
     so, _ = _build.build()
-    wanted = ("merge_tiles", "partition", "tile_sort", "cross_pass",
-              "intile_pass", "first_pass")
+    wanted = ("merge_tiles", "merge_quads", "partition", "tile_sort",
+              "cross_pass", "cross_fused", "intile_pass", "first_pass")
     name = None
     for line in so.with_suffix(".log").read_text().splitlines():
         if "Compiling entry function" in line:
