@@ -1,6 +1,6 @@
 // Kernel B4: the liveness scan of a sorted log -> (hits, live).
 //
-// Replaces the TPU kernel cbl_tpu/ops/scan_pallas.py
+// Replaces the TPU kernel cbl_tpu/ops/scan_pallas.py:202
 // `slog_scan_counts_pallas` (`_scan_call`).  The input is the port's slog:
 // int64 keys sorted ascending, `key >> 8` a word's run, `key & 0xFF` the
 // row's tag (seq << 2) | typ (1 insert, 2 query, 3 remove), sentinel rows
@@ -11,214 +11,241 @@
 //   out[0] hits = live non-sentinel rows whose tag == qtag;
 //   out[1] live = live non-sentinel rows that end their run.
 //
-// What bounds it on the H100: device memory, 8 bytes read per row twice
-// (the slog reaches ~84M rows in a full dynamic workload).  The TPU kernel
-// ran its grid in order and carried the running max, the previous word
-// and the last row's liveness between steps in SMEM; blocks on the H100
-// run in no order.  A block reads row i - 1 and row i + 1 straight from
-// device memory, so only the running max crosses tiles, in three launches
-// on one stream (the shape of kernel B2 in scan.cu):
-//   1. slog_tile_max: each block takes the max marker of its tile;
-//   2. slog_scan_tiles: one block turns those into exclusive prefix maxima
-//      in place, and zeroes the two counters;
-//   3. slog_count: each block rescans its tile from its prefix and adds
-//      its hits and live rows to the counters.
-// Tiles go through padded shared memory so global loads stay coalesced
-// while each thread scans 16 consecutive rows.
+// What bounds it on the H100: device memory, 8 bytes read a row (the slog
+// reaches ~84M rows in a full dynamic workload).  The TPU kernel ran its
+// grid in order and carried the running max between steps in SMEM.  Blocks
+// on the H100 run in no order, and the version before this one carried
+// the max in three launches (tile maxima, one block of 1024 threads
+// scanning them, a rescan): every row was read twice.  This one is ONE
+// launch that reads every row once; the carry crosses tiles by decoupled
+// look-back (Merrill and Garland, "Single-pass Parallel Prefix Scan with
+// Decoupled Look-back", 2016):
+// - markers grow strictly with the row index, so the running max at a row
+//   is the marker of the last marked row at or before it, and a row is
+//   live when that row is an insert entry.  One bit crosses tiles: the
+//   liveness left by the last marker before the tile;
+// - a block takes its tile from an atomic ticket, so it only ever waits on
+//   tiles that started before it;
+// - a tile that holds a marker knows its inclusive state at once (its
+//   last marker's) and publishes it before anything else; a tile without
+//   one publishes "no marker";
+// - a tile whose first row is no marker (its first run began earlier)
+//   looks back: warp 0 reads the status words of the 32 tiles before it,
+//   nearest first, waits while any is unpublished, passes over "no
+//   marker" tiles and takes the nearest inclusive state, 32 tiles a step.
+//   A tile without a marker then publishes that state as its own;
+// - a tile whose first row is a sentinel holds only sentinels (the keys
+//   are sorted), counts nothing and is never looked back at: it stops
+//   after that one load (the bound still counts every row).
+// A status is one 32-bit word read or written in one access (release
+// stores, acquire loads).  The C entry point clears the statuses, the
+// ticket and the counters with one memset on the call's stream, so no call
+// reads a status that another left.  Tiles go through padded shared
+// memory with 16-byte loads, each thread scans 16 consecutive rows into
+// four bit masks, and the counts are per-block sums with one atomicAdd
+// each.  A look-back of 128 statuses a step (four loads a lane) measured
+// 1.04x slower here at 2^26 rows (and 1.3x for B2, csrc/scan.cu).
 
 #include <climits>
+#include <cstdint>
+#include <cuda/atomic>
 #include <cuda_runtime.h>
 
+namespace cbl {
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kItems = 16;
-constexpr int kTile = kThreads * kItems;  // 4096, = ops/scan.py SCAN_TILE
-constexpr int kScanThreads = 1024;
+constexpr int kTile = kThreads * kItems;  // 4096, = ops/scan.py SLOG_TILE
+constexpr int kWarps = kThreads / 32;
 constexpr long long kSentinel = LLONG_MAX;
-constexpr long long kNone = LLONG_MIN;  // identity of max; never live
+// status words: 0 = not published yet
+constexpr unsigned kNoMarker = 1;   // look further back
+constexpr unsigned kInclusive = 2;  // | the live bit at the tile's end
 
 // one pad slot per 16 int64: a warp reading rows t * 16 + k hits distinct
 // banks
-__device__ __forceinline__ int pad(int i) { return i + (i >> 4); }
+__host__ __device__ constexpr int pad(int i) { return i + (i >> 4); }
 
-__device__ __forceinline__ long long row_marker(long long key, long long prev,
-                                                bool first, long long i) {
-  const bool run_start = first || (key >> 8) != (prev >> 8);
-  const int tag = (int)(key & 0xFF);
-  const int typ = tag & 3;
-  const bool entry =
-      (typ == 1 || typ == 3) && tag != 0xFF && key != kSentinel;
-  if (!(run_start || entry)) return -1;
-  return (i << 2) | (entry ? (2 | (typ == 1 ? 1 : 0)) : 0);
+using StatusRef = cuda::atomic_ref<unsigned, cuda::thread_scope_device>;
+
+__device__ __forceinline__ void store_status(unsigned* p, unsigned v) {
+  StatusRef(*p).store(v, cuda::std::memory_order_release);
 }
 
-__device__ __forceinline__ long long lmax(long long a, long long b) {
-  return a > b ? a : b;
+// The live bit left by the last marker before tile t >= 1, by warp 0.
+__device__ unsigned look_back(unsigned* status, int t) {
+  const int lane = threadIdx.x & 31;
+  for (int hi = t - 1;; hi -= 32) {
+    const int i = hi - lane;
+    unsigned s;
+    do {
+      // tile 0 always holds a marker (row 0 starts a run): i < 0 is past it
+      s = i >= 0 ? StatusRef(status[i]).load(cuda::std::memory_order_acquire)
+                 : kInclusive;
+    } while (__any_sync(0xffffffffu, s == 0));
+    const unsigned incl = __ballot_sync(0xffffffffu, s >= kInclusive);
+    if (incl) return __shfl_sync(0xffffffffu, s, __ffs(incl) - 1) & 1u;
+  }
 }
 
-// Exclusive block-wide max of one value per thread (kNone for thread 0).
-template <int NT>
-__device__ long long block_exclusive_max(long long v) {
-  __shared__ long long warp_max[NT / 32];
+__global__ void __launch_bounds__(kThreads)
+    slog_lookback(const long long* __restrict__ keys, long long n, int qtag,
+                  unsigned long long* __restrict__ out,
+                  unsigned* __restrict__ ticket,
+                  unsigned* __restrict__ status) {
+  // slot pad(j) holds row base + j
+  __shared__ long long tile[pad(kTile - 1) + 1];
+  __shared__ long long s_prev, s_next;
+  __shared__ int s_t, s_need, s_warp[kWarps], s_hits[kWarps], s_live[kWarps];
+  __shared__ unsigned s_carry;
   const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-  long long incl = v;
+  if (threadIdx.x == 0) {
+    const int t = (int)atomicAdd(ticket, 1u);
+    const long long base = (long long)t * kTile;
+    s_t = t;
+    s_carry = 0;
+    if (base < n) {
+      s_prev = base > 0 ? keys[base - 1] : 0;
+      tile[pad(0)] = keys[base];
+      s_next = base + kTile < n ? keys[base + kTile] : kSentinel;
+    }
+  }
+  __syncthreads();
+  const int t = s_t;
+  const long long base = (long long)t * kTile;
+  if (base >= n || tile[pad(0)] == kSentinel) return;
+
+  const long long rows = n - base < kTile ? n - base : kTile;
+  if (rows == kTile && (reinterpret_cast<uintptr_t>(keys) & 15) == 0) {
+    const longlong2* src = reinterpret_cast<const longlong2*>(keys + base);
+#pragma unroll
+    for (int k = 0; k < kItems / 2; ++k) {
+      const int p = k * kThreads + threadIdx.x;
+      const longlong2 v = src[p];
+      tile[pad(2 * p)] = v.x;
+      tile[pad(2 * p + 1)] = v.y;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+      const int j = k * kThreads + threadIdx.x;
+      tile[pad(j)] = j < rows ? keys[base + j] : kSentinel;
+    }
+  }
+  __syncthreads();
+
+  // bit k of each mask describes row base + j0 + k: M a marker, E an
+  // insert entry, H a hit if live, R a run end if live
+  const int j0 = threadIdx.x * kItems;
+  unsigned M = 0, E = 0, H = 0, R = 0;
+  long long prev = j0 > 0 ? tile[pad(j0 - 1)] : s_prev;
+  long long key = tile[pad(j0)];
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) {
+    const long long next = j0 + k + 1 < kTile ? tile[pad(j0 + k + 1)] : s_next;
+    const long long i = base + j0 + k;
+    if (i < n) {
+      const bool sent = key == kSentinel;
+      const bool run_start =
+          i == 0 || ((unsigned long long)(key ^ prev) >> 8) != 0;
+      const bool run_end =
+          i == n - 1 || ((unsigned long long)(key ^ next) >> 8) != 0;
+      const int tag = (int)(key & 0xFF);
+      const bool entry = (tag & 1) && tag != 0xFF && !sent;  // typ 1 or 3
+      M |= (unsigned)(run_start || entry) << k;
+      E |= (unsigned)(entry && (tag & 3) == 1) << k;
+      H |= (unsigned)(!sent && tag == qtag) << k;
+      R |= (unsigned)(!sent && run_end) << k;
+    }
+    prev = key;
+    key = next;
+  }
+
+  // exclusive scan of "the live bit of the last marker" over the block's
+  // threads; -1 = no marker yet
+  const int own = M ? (int)((E >> (31 - __clz(M))) & 1u) : -1;
+  int incl = own;
 #pragma unroll
   for (int o = 1; o < 32; o <<= 1) {
-    long long t = __shfl_up_sync(0xffffffffu, incl, o);
-    if (lane >= o) incl = lmax(incl, t);
+    const int u = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o && incl < 0) incl = u;
   }
-  long long before = __shfl_up_sync(0xffffffffu, incl, 1);
-  if (lane == 0) before = kNone;
-  if (lane == 31) warp_max[wid] = incl;
+  int excl = __shfl_up_sync(0xffffffffu, incl, 1);
+  if (lane == 0) excl = -1;
+  if (lane == 31) s_warp[wid] = incl;
+  if (threadIdx.x == 0) s_need = !(M & 1u);
   __syncthreads();
-  if (wid == 0) {
-    long long w = lane < NT / 32 ? warp_max[lane] : kNone;
+  int before = -1, tile_state = -1;
 #pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      long long t = __shfl_up_sync(0xffffffffu, w, o);
-      if (lane >= o) w = lmax(w, t);
+  for (int w = 0; w < kWarps; ++w) {
+    const int v = s_warp[w];
+    if (v >= 0) {
+      tile_state = v;
+      if (w < wid) before = v;
     }
-    if (lane < NT / 32) warp_max[lane] = w;  // inclusive over warps
+  }
+  if (excl < 0) excl = before;
+  if (threadIdx.x == 0)
+    store_status(status + t, tile_state >= 0 ? kInclusive | tile_state
+                                             : kNoMarker);
+  if (s_need && wid == 0) {  // then t >= 1: row 0 is always a marker
+    const unsigned c = look_back(status, t);
+    if (lane == 0) {
+      s_carry = c;
+      if (tile_state < 0) store_status(status + t, kInclusive | c);
+    }
   }
   __syncthreads();
-  const long long out = lmax(wid > 0 ? warp_max[wid - 1] : kNone, before);
-  __syncthreads();  // the shared slots may be reused by the caller
-  return out;
-}
 
-// Block-wide sum to thread 0 (other threads get garbage).
-template <int NT>
-__device__ long long block_sum(long long v) {
-  __shared__ long long warp_sum[NT / 32];
-  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  if (lane == 0) warp_sum[wid] = v;
-  __syncthreads();
-  v = 0;
-  if (wid == 0) {
-    v = lane < NT / 32 ? warp_sum[lane] : 0;
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  }
-  __syncthreads();
-  return v;
-}
-
-__global__ void slog_tile_max(const long long* __restrict__ keys,
-                              long long* __restrict__ tile_max, long long n) {
-  const long long base = (long long)blockIdx.x * kTile;
-  long long m = kNone;
+  unsigned cur = excl >= 0 ? (unsigned)excl : s_carry;
+  int hits = 0, live = 0;
 #pragma unroll
   for (int k = 0; k < kItems; ++k) {
-    const long long i = base + k * kThreads + threadIdx.x;
-    if (i < n) {
-      const long long prev = i > 0 ? keys[i - 1] : 0;
-      m = lmax(m, row_marker(keys[i], prev, i == 0, i));
-    }
+    if ((M >> k) & 1u) cur = (E >> k) & 1u;
+    hits += cur & (H >> k);
+    live += cur & (R >> k);
   }
-  // the inclusive max of the last thread is the tile's max
-  m = lmax(m, block_exclusive_max<kThreads>(m));
-  __shared__ long long tile_m;
-  if (threadIdx.x == kThreads - 1) tile_m = m;
+  hits = __reduce_add_sync(0xffffffffu, hits);
+  live = __reduce_add_sync(0xffffffffu, live);
+  if (lane == 0) {
+    s_hits[wid] = hits;
+    s_live[wid] = live;
+  }
   __syncthreads();
-  if (threadIdx.x == 0) tile_max[blockIdx.x] = tile_m;
-}
-
-__global__ void slog_scan_tiles(long long* __restrict__ tile_max, int n_tiles,
-                                unsigned long long* __restrict__ out) {
   if (threadIdx.x == 0) {
-    out[0] = 0;
-    out[1] = 0;
-  }
-  const int chunk = (n_tiles + kScanThreads - 1) / kScanThreads;
-  const int lo = threadIdx.x * chunk;
-  const int hi = min(lo + chunk, n_tiles);
-  long long m = kNone;
-  for (int i = lo; i < hi; ++i) m = lmax(m, tile_max[i]);
-  long long run = block_exclusive_max<kScanThreads>(m);
-  for (int i = lo; i < hi; ++i) {
-    const long long v = tile_max[i];
-    tile_max[i] = run;
-    run = lmax(run, v);
-  }
-}
-
-__global__ void slog_count(const long long* __restrict__ keys,
-                           const long long* __restrict__ prefix, long long n,
-                           int qtag, unsigned long long* __restrict__ out) {
-  // slot pad(j + 1) holds row base + j, for j in [-1, kTile]
-  __shared__ long long tile[kTile + 2 + (kTile + 2) / 16 + 1];
-  const long long base = (long long)blockIdx.x * kTile;
+    long long h = 0, l = 0;
 #pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    const int j = k * kThreads + threadIdx.x;
-    const long long i = base + j;
-    tile[pad(j + 1)] = i < n ? keys[i] : kSentinel;
-  }
-  if (threadIdx.x == 0) tile[pad(0)] = base > 0 ? keys[base - 1] : 0;
-  if (threadIdx.x == 1) {
-    const long long i = base + kTile;
-    tile[pad(kTile + 1)] = i < n ? keys[i] : kSentinel;
-  }
-  __syncthreads();
-  const int j0 = threadIdx.x * kItems;
-  long long mk[kItems];
-  long long local = kNone;
-#pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    const long long i = base + j0 + k;
-    mk[k] = i < n ? row_marker(tile[pad(j0 + k + 1)], tile[pad(j0 + k)],
-                               i == 0, i)
-                  : kNone;
-    local = lmax(local, mk[k]);
-  }
-  long long run =
-      lmax(prefix[blockIdx.x], block_exclusive_max<kThreads>(local));
-  long long hits = 0, live = 0;
-#pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    const long long i = base + j0 + k;
-    if (i < n) {
-      run = lmax(run, mk[k]);
-      const long long key = tile[pad(j0 + k + 1)];
-      const long long next = tile[pad(j0 + k + 2)];
-      const bool live_here = (run & 3) == 3 && key != kSentinel;
-      const bool run_end = i == n - 1 || (next >> 8) != (key >> 8);
-      hits += live_here && (int)(key & 0xFF) == qtag;
-      live += live_here && run_end;
+    for (int w = 0; w < kWarps; ++w) {
+      h += s_hits[w];
+      l += s_live[w];
     }
-  }
-  hits = block_sum<kThreads>(hits);
-  live = block_sum<kThreads>(live);
-  if (threadIdx.x == 0) {
-    if (hits) atomicAdd(&out[0], (unsigned long long)hits);
-    if (live) atomicAdd(&out[1], (unsigned long long)live);
+    if (h) atomicAdd(&out[0], (unsigned long long)h);
+    if (l) atomicAdd(&out[1], (unsigned long long)l);
   }
 }
 
 }  // namespace
+}  // namespace cbl
 
+// scratch: 8-byte aligned, 24 + 4 * ceil(n / 4096) bytes: (hits, live)
+// as two int64, the tile ticket, then one 32-bit status word a tile; all
+// of it is cleared here.  `*launches` receives the number of kernels
+// launched: one, for any n (a single block that exits at once for n == 0).
 extern "C" int cbl_slog_scan_counts(const void* keys, long long n, int qtag,
-                                    void* out, void* tile_scratch,
+                                    void* scratch, int* launches,
                                     void* stream) {
+  *launches = 0;
   cudaStream_t s = (cudaStream_t)stream;
-  const long long n_tiles = (n + kTile - 1) / kTile;
+  const long long n_tiles = (n + cbl::kTile - 1) / cbl::kTile;
   if (n < 0 || n_tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  if (n_tiles > 0) {
-    slog_tile_max<<<(unsigned)n_tiles, kThreads, 0, s>>>(
-        (const long long*)keys, (long long*)tile_scratch, n);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  // always launched: it zeroes the counters, also for n == 0
-  slog_scan_tiles<<<1, kScanThreads, 0, s>>>(
-      (long long*)tile_scratch, (int)n_tiles, (unsigned long long*)out);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || n_tiles == 0) return (int)err;
-  slog_count<<<(unsigned)n_tiles, kThreads, 0, s>>>(
-      (const long long*)keys, (const long long*)tile_scratch, n, qtag,
-      (unsigned long long*)out);
+  unsigned long long* out = (unsigned long long*)scratch;
+  unsigned* ticket = (unsigned*)(out + 2);
+  cudaError_t err = cudaMemsetAsync(scratch, 0, 24 + 4 * n_tiles, s);
+  if (err != cudaSuccess) return (int)err;
+  cbl::slog_lookback<<<(unsigned)(n_tiles > 0 ? n_tiles : 1), cbl::kThreads,
+                       0, s>>>((const long long*)keys, n, qtag, out, ticket,
+                               ticket + 2);
+  ++*launches;
   return (int)cudaGetLastError();
 }

@@ -41,8 +41,9 @@ LAUNCHES = {"necklace": 0, "blank": 0, "merge": 0, "slog_scan": 0,
             "sort": 0, "bitonic_sort": 0, "bitonic_merge": 0}
 
 # passes over device memory (kernels that read and write every row) that the
-# last launch of each network or sort reported
-PASSES = {"sort": 0, "bitonic_sort": 0, "bitonic_merge": 0}
+# last launch of each network, sort or scan reported
+PASSES = {"sort": 0, "bitonic_sort": 0, "bitonic_merge": 0, "blank": 0,
+          "slog_scan": 0}
 
 _P = ctypes.c_void_p
 _N = ctypes.c_longlong
@@ -50,15 +51,17 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # (in, necklace out, pos out, n, W, stream)
     "cbl_necklace_pos": [_P, _P, _P, _N, _I, _P],
-    # (delta, mask out, n_valid out, block sums scratch, n, stream)
-    "cbl_blank_mask": [_P, _P, _P, _P, _N, _P],
+    # (delta, mask out, n, scratch: n_valid out + ticket + tile statuses,
+    # launches out, stream)
+    "cbl_blank_mask": [_P, _P, _N, _P, _P, _P],
     # (a col 0, a col 1, na, b col 0, b col 1, nb, out col 0, out col 1,
     # co-rank scratch, stream); the col 1 pointers are null for one column
     "cbl_merge_sorted": [_P, _P, _N, _P, _P, _N, _P, _P, _P, _P],
     # (in col 0, in col 1, out col 0, out col 1, scratch col 0, scratch
     # col 1, n, co-rank scratch, passes out, stream)
     "cbl_sort_keys": [_P, _P, _P, _P, _P, _P, _N, _P, _P, _P],
-    # (keys, n, qtag, (hits, live) out, tile max scratch, stream)
+    # (keys, n, qtag, scratch: (hits, live) out + ticket + tile statuses,
+    # launches out, stream)
     "cbl_slog_scan_counts": [_P, _N, _I, _P, _P, _P],
     # (in col 0, in col 1, out col 0, out col 1, work col 0, work col 1,
     # rows of work, n, passes out, stream)

@@ -200,33 +200,56 @@ def check_kernels(card: str) -> dict:
     results["necklace"] = dict(
         err=max(errs), ms=ms, plain_ms=plain_ms, library_ms=None, **b1)
 
-    # B2: the delta array of a 2^25 slab with many records and a short
-    # trailing record
-    lens = rng.integers(K, 4096, size=SLAB // 4096)
-    # fill the first slab, then end on a short trailing record (< K)
-    lens = np.append(lens, [max(SLAB + 5000 - int(lens.sum()), K), 10])
-    offsets = np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
-    codes = rng.integers(0, 4, size=int(offsets[-1]), dtype=np.uint8)
+    # B2: the delta arrays of a 2^25 slab (the static path's) and of a 2^22
+    # slab (the dynamic rounds' and separate calls' 4 Mbp segments, 32 of
+    # B2's 35 launches on the default paths), each with many records and a
+    # short trailing record, and of one 4 Mbp record as the rounds give it
     idx = cmod.CBL(k=K, device=dev)
-    ps = idx.pack_stream(codes, offsets)
-    nk_pad, _, s_arr, e_arr, _ = ps.slabs[0]
-    assert nk_pad == SLAB, nk_pad
-    delta = cmod.blank_delta(s_arr, e_arr, nk_pad)
-    got = scan.blank_mask(delta)
-    want = scan.blank_mask_plain(delta)
-    err = max(max_abs_err(got[0], want[0]), max_abs_err(got[1], want[1]))
-    n_blank = int(want[0].sum())
-    log(f"B2 blank n={nk_pad} records={len(lens)} blanked={n_blank} "
-        f"n_valid={int(want[1])}: kernel == plain: {err == 0}")
-    assert 0 < n_blank < nk_pad
-    ms = time_ms(lambda: scan.blank_mask(delta), 20)
-    plain_ms = time_ms(lambda: scan.blank_mask_plain(delta), 5)
-    # 4 bytes read and 1 written a row; an add and a compare a row.  The
+
+    def blank_case(nk, one_record):
+        if one_record:
+            lens = np.array([MAIN_BASES // SEGS])
+        else:
+            lens = rng.integers(K, 4096, size=nk // 4096)
+            # fill the slab, then end on a short trailing record (< K): at
+            # 2^25 the stream runs 5000 positions on into a second slab,
+            # below 2^25 it stops 5000 short, or the slab would be 2 nk
+            fill = nk + 5000 if nk == SLAB else nk - 5000
+            lens = np.append(lens, [max(fill - int(lens.sum()), K), 10])
+        offsets = np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
+        codes = rng.integers(0, 4, size=int(offsets[-1]), dtype=np.uint8)
+        nk_pad, _, s_arr, e_arr, _ = idx.pack_stream(codes, offsets).slabs[0]
+        assert nk_pad == nk, (nk_pad, nk)
+        delta = cmod.blank_delta(s_arr, e_arr, nk_pad)
+        got = scan.blank_mask(delta)
+        want = scan.blank_mask_plain(delta)
+        err = max(max_abs_err(got[0], want[0]), max_abs_err(got[1], want[1]))
+        n_blank = int(want[0].sum())
+        log(f"B2 blank n={nk_pad} records={len(lens)} blanked={n_blank} "
+            f"n_valid={int(want[1])}: kernel == plain: {err == 0}")
+        assert 0 < n_blank < nk_pad
+        return delta, err
+
+    # 4 bytes read and 4 written a row (the mask is int32, as
+    # `blank_mask_pallas` writes it); an add and a compare a row.  The
     # library's way to the same function is `torch.cumsum`, a compare and
     # a sum: the plain version itself
+    delta22, err22 = blank_case(1 << 22, True)
+    _, err22m = blank_case(1 << 22, False)
+    ms22 = time_ms(lambda: scan.blank_mask(delta22), 50)
+    plain22 = time_ms(lambda: scan.blank_mask_plain(delta22), 10)
+    b22 = bound((1 << 22) * 8 + 4, (1 << 22) * 2)
+    log(f"B2 blank n={1 << 22} (a round's slab): {ms22:.4f} ms, plain "
+        f"{plain22:.4f} ms, bound {b22['bound_ms']:.4f} ms by "
+        f"{b22['bound_by']} [{card}]")
+    delta, err = blank_case(SLAB, False)
+    ms = time_ms(lambda: scan.blank_mask(delta), 20)
+    plain_ms = time_ms(lambda: scan.blank_mask_plain(delta), 5)
     results["blank"] = dict(
-        err=err, ms=ms, plain_ms=plain_ms, library_ms=plain_ms,
-        **bound(nk_pad * 5 + 4, nk_pad * 2))
+        err=max(err, err22, err22m), ms=ms, plain_ms=plain_ms,
+        library_ms=plain_ms, ms_2_22=ms22, plain_ms_2_22=plain22,
+        bound_ms_2_22=b22["bound_ms"], **bound(SLAB * 8 + 4, SLAB * 2))
+    del delta, delta22
 
     # B3: 2^25 + 2^25 (the self-query join), skewed sides, an empty side;
     # heavy duplicates and sentinel keys
@@ -298,27 +321,37 @@ def check_kernels(card: str) -> dict:
 
     # B4: a synthetic slog of 2^26 rows (runs of ~16 rows across every
     # tile boundary and one run of 2^20 rows, a 10 % sentinel tail), at a
-    # round's query tag and the join's 0xFF; also 2^26 - 4097 rows and one
+    # round's query tag and the join's 0xFF; also 2^26 - 4097 rows and one,
+    # 2^23 rows and the 83,886,080 rows that the dynamic rounds' log
+    # reaches, and 2^24 rows whose long run is 2^22 rows of queries after
+    # one insert (about 1000 tiles in a row that hold no marker)
     errs = []
     round_qtag = (5 << 2) | 2
-    for n in (2 * SLAB, 2 * SLAB - 4097, 1):
-        keys = slog_keys(rng, n)
+    for n, query_run in ((2 * SLAB, 0), (2 * SLAB - 4097, 0), (1, 0),
+                         (1 << 23, 0), (83_886_080, 0), (1 << 24, 1 << 22)):
+        keys = slog_keys(rng, n, query_run)
+        label = f"n={n}" + (f", a {query_run}-row query run" if query_run
+                            else "")
         for qtag in (round_qtag, 0xFF):
             got = scan.slog_scan_counts(keys, qtag)
             want = scan.slog_scan_counts_plain(keys, qtag)
             errs.append(max(max_abs_err(g, w) for g, w in zip(got, want)))
-            log(f"B4 slog_scan n={n} qtag={qtag:#x}: hits {int(want[0])} "
+            log(f"B4 slog_scan {label} qtag={qtag:#x}: hits {int(want[0])} "
                 f"live {int(want[1])}: kernel == plain: {errs[-1] == 0}")
             assert n == 1 or int(want[0]) > 0 < int(want[1])
         if n == 2 * SLAB:
             ms = time_ms(lambda: scan.slog_scan_counts(keys, round_qtag), 20)
             plain_ms = time_ms(
                 lambda: scan.slog_scan_counts_plain(keys, round_qtag), 3)
-    # one 8-byte read a row, two counters written; a few compares a row
+        elif n > 1 << 22:
+            t = time_ms(lambda: scan.slog_scan_counts(keys, round_qtag), 20)
+            # one 8-byte read a row, two counters written; a few compares
+            log(f"B4 slog_scan {label}: {t:.4f} ms, bound "
+                f"{bound(n * 8 + 16, n * 6)['bound_ms']:.4f} ms [{card}]")
+        del keys
     results["slog_scan"] = dict(
         err=max(errs), ms=ms, plain_ms=plain_ms, library_ms=None,
         **bound(2 * SLAB * 8 + 16, 2 * SLAB * 6))
-    del keys
 
     # B5: 2^25 keys in one column (the static build's sort); 2^26 + 2^21
     # keys, three quarters of them sentinels (the largest compaction of
@@ -607,11 +640,14 @@ def check_bitonic(rng, b3_ms: float, card: str) -> dict:
     return out
 
 
-def slog_keys(rng, n: int):
+def slog_keys(rng, n: int, query_run: int = 0):
     """Sorted slog keys (`cbl_tpu_torch.wordset.slog_key`) on the card:
     words of runs of ~16 rows and one run of min(n / 64, 2^20) rows, tags
     (seq << 2) | typ of seqs 0-7 (insert twice as often as query or
-    remove), 5 % 0xFF join queries, a 10 % sentinel tail."""
+    remove), 5 % 0xFF join queries, a 10 % sentinel tail.  With
+    `query_run`, the long run has `query_run` rows instead: one insert,
+    then queries only, so that no row after its first is a marker and the
+    liveness must cross query_run / SLOG_TILE tiles unchanged."""
     import torch
 
     from cbl_tpu_torch.limbs import SENTINEL
@@ -619,9 +655,13 @@ def slog_keys(rng, n: int):
 
     dev = torch.device(DEVICE)
     words = rng.integers(0, max(n // 16, 1), size=n) * 977 + (1 << 40)
-    words[: min(n // 64, 1 << 20)] = 12345
+    words[: query_run or min(n // 64, 1 << 20)] = 12345
     tags = (rng.integers(0, 8, size=n) << 2) | rng.choice([1, 1, 2, 3], n)
     tags[rng.random(n) < 0.05] = 0xFF
+    if query_run:
+        tags[:query_run] = np.where(tags[:query_run] == 0xFF, 0xFF,
+                                    (tags[:query_run] & ~3) | 2)
+        tags[0] = 1  # seq 0's insert sorts first in the run
     keys = slog_key(torch.from_numpy(words).to(dev),
                     torch.from_numpy(tags).to(dev))
     keys[n - n // 10:] = SENTINEL

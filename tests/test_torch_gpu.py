@@ -394,6 +394,144 @@ def test_slog_scan_kernel_matches_plain(cuda, case):
     assert LAUNCHES["slog_scan"] == n0 + 3
 
 
+T = scan.SLOG_TILE
+B = scan.BLANK_TILE
+
+
+def _tile_delta(rng, n, kind):
+    """Interval deltas of n rows: random intervals, or intervals from one
+    tile edge to another, so that the running sum returns to 0 exactly at
+    tile edges."""
+    delta = np.zeros(n + 1, dtype=np.int32)
+    if kind == "intervals":
+        starts = rng.integers(0, n, size=50)
+        ends = np.minimum(starts + rng.integers(0, max(n // 20, 2), 50), n)
+    else:
+        edges = np.arange(0, n + 1, B)
+        starts = rng.choice(edges, size=min(len(edges), 40))
+        ends = np.minimum(starts + B * rng.integers(1, 4, size=len(starts)),
+                          n)
+    np.add.at(delta, starts, 1)
+    np.add.at(delta, ends, -1)
+    return delta[:n]
+
+
+@pytest.mark.parametrize("kind", ["intervals", "zero at tile edges"])
+@pytest.mark.parametrize("n", [1, 2 * B - 1, 2 * B, 2 * B + 1, 300 * B - 1,
+                               300 * B, 300 * B + 1])
+def test_blank_kernel_lookback(cuda, n, kind):
+    """One launch at the edge lengths of the real tile, over chains of
+    hundreds of tiles that publish their sums before their prefixes."""
+    delta = torch.from_numpy(_tile_delta(np.random.default_rng(n), n,
+                                         kind)).to(cuda)
+    PASSES["blank"] = 0
+    mask, n_valid = scan.blank_mask(delta)
+    want_mask, want_valid = scan.blank_mask_plain(delta)
+    torch.cuda.synchronize()
+    assert torch.equal(mask, want_mask)
+    assert int(n_valid) == int(want_valid)
+    assert PASSES["blank"] == 1
+
+
+def test_blank_kernel_repeat_and_side_stream(cuda):
+    """A call never reads the statuses of the one before it (same sizes,
+    so the allocator hands the second the first's scratch), and a call on
+    another stream gives the same result."""
+    n = 300 * B + 5
+    blanked = torch.zeros(n, dtype=torch.int32, device=cuda)
+    blanked[0] = 1
+    zeros = torch.zeros_like(blanked)
+    for delta, want_valid in ((blanked, 0), (zeros, n), (blanked, 0)):
+        mask, n_valid = scan.blank_mask(delta)
+        assert int(n_valid) == want_valid
+        assert bool((mask == (want_valid == 0)).all())
+    delta = torch.from_numpy(_tile_delta(np.random.default_rng(3), n,
+                                         "intervals")).to(cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        mask, n_valid = scan.blank_mask(delta)
+    side.synchronize()
+    want_mask, want_valid = scan.blank_mask_plain(delta)
+    assert torch.equal(mask, want_mask)
+    assert int(n_valid) == int(want_valid)
+
+
+def _run_keys(rng, n, run, first_typ=1, sent_from=None):
+    """Sorted slog keys of n rows whose rows 0..run-1 are one word's run:
+    an entry of typ `first_typ`, then queries only (typ 2 and 0xFF), so
+    the run's tiles after its first hold no marker; the other rows are
+    runs of ~16 rows; sentinels from row `sent_from` on."""
+    words = rng.integers(0, max(n // 16, 1), size=n) * 977 + (1 << 40)
+    tags = (rng.integers(0, 8, size=n) << 2) | rng.choice([1, 1, 2, 3], n)
+    tags[rng.random(n) < 0.05] = 0xFF
+    words[:run] = 12345
+    tags[:run] = np.where(tags[:run] == 0xFF, 0xFF, (tags[:run] & ~3) | 2)
+    tags[0] = first_typ
+    keys = tws.slog_key(torch.from_numpy(words), torch.from_numpy(tags))
+    if sent_from is not None:
+        keys[sent_from:] = SENTINEL
+    return torch.sort(keys).values
+
+
+def _tile_runs(rng, n):
+    """Each tile one word's run (every run ends exactly at a tile edge)."""
+    words = (np.arange(n) // T) * 977 + (1 << 40)
+    tags = np.sort((rng.integers(0, 8, size=n) << 2)
+                   | rng.choice([1, 2, 2, 3], n))
+    return tws.slog_key(torch.from_numpy(words), torch.from_numpy(tags))
+
+
+@pytest.mark.parametrize("case", [
+    "query run", "tile-edge runs", "sentinels from a tile edge",
+    "k*tile-1", "k*tile", "k*tile+1", "two",
+])
+def test_slog_scan_kernel_lookback(cuda, case):
+    """One launch at the edge lengths of the real tile; a run of queries
+    over 300 tiles that hold no marker (the longest look-back)."""
+    rng = np.random.default_rng(len(case))
+    keys = {
+        "query run": lambda: _run_keys(rng, 302 * T, 300 * T + 7),
+        "tile-edge runs": lambda: _tile_runs(rng, 40 * T),
+        "sentinels from a tile edge": lambda: _run_keys(
+            rng, 40 * T, 10 * T, sent_from=20 * T),
+        "k*tile-1": lambda: _slog_keys(rng, 37 * T - 1, 3000),
+        "k*tile": lambda: _slog_keys(rng, 37 * T, 30),
+        "k*tile+1": lambda: _slog_keys(rng, 37 * T + 1, 3000, sent_frac=0),
+        "two": lambda: _slog_keys(rng, 2, 1, sent_frac=0),
+    }[case]().to(cuda)
+    for qtag in ((3 << 2) | 2, (1 << 2) | 2, 0xFF):
+        PASSES["slog_scan"] = 0
+        got = scan.slog_scan_counts(keys, qtag)
+        want = scan.slog_scan_counts_plain(keys, qtag)
+        torch.cuda.synchronize()
+        assert [int(x) for x in got] == [int(x) for x in want]
+        assert PASSES["slog_scan"] == 1
+
+
+def test_slog_scan_kernel_repeat_and_side_stream(cuda):
+    """A call never reads the statuses of the one before it: one query
+    run live throughout, then the same run dead (its first entry a
+    remove), same sizes; then a call on another stream."""
+    rng = np.random.default_rng(11)
+    n, run = 302 * T, 300 * T + 7
+    live = _run_keys(rng, n, run).to(cuda)
+    dead = _run_keys(np.random.default_rng(11), n, run, first_typ=3).to(cuda)
+    for keys in (live, dead, live, dead):
+        got = scan.slog_scan_counts(keys, 0xFF)
+        want = scan.slog_scan_counts_plain(keys, 0xFF)
+        assert [int(x) for x in got] == [int(x) for x in want]
+    assert int(scan.slog_scan_counts(live, 0xFF)[0]) > int(
+        scan.slog_scan_counts(dead, 0xFF)[0])
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got = scan.slog_scan_counts(live, (2 << 2) | 2)
+    side.synchronize()
+    want = scan.slog_scan_counts_plain(live, (2 << 2) | 2)
+    assert [int(x) for x in got] == [int(x) for x in want]
+
+
 def _np_words(codes, k=25):
     """The packed necklace words of every k-mer of one record (uint64
     numpy, independent of the port): min rotation << pos_bits | pos."""

@@ -90,3 +90,67 @@ def test_device_words_matches_jax(monkeypatch, k, canonical, case):
     np.testing.assert_array_equal(words.numpy(), want_words)
     assert int(n_valid) == want_nv
     assert 0 < want_nv < nk_pad
+
+
+def _tile_edge_delta(rng, n, tile, kind):
+    """Interval deltas of n rows: random intervals, or intervals from one
+    tile edge to another (the running sum returns to 0 exactly there)."""
+    delta = np.zeros(n + 1, np.int32)
+    if n == 0:
+        return delta[:0]
+    if kind == "intervals":
+        starts = rng.integers(0, n, size=max(n // 40, 1))
+        ends = np.minimum(starts + rng.integers(1, 3 * tile, len(starts)), n)
+    else:
+        edges = np.arange(0, n + 1, tile)
+        starts = rng.choice(edges, size=max(len(edges) // 4, 1))
+        ends = np.minimum(starts + tile * rng.integers(1, 4, len(starts)), n)
+    np.add.at(delta, starts, 1)
+    np.add.at(delta, ends, -1)
+    return delta[:n]
+
+
+@pytest.mark.parametrize("kind", ["intervals", "zero at tile edges"])
+@pytest.mark.parametrize("tile", [4, 16, 64])
+def test_blank_tiled_matches_plain_at_tile_edges(tile, kind):
+    """Kernel B2's tile protocol (`blank_mask_tiled`) against the plain
+    version and numpy at n = k * tile - 1, k * tile, k * tile + 1, 1 and 0,
+    over chains of hundreds of tiles that all publish their sums before
+    any looks back (the longest walks), and in waves of 5 tiles."""
+    rng = np.random.default_rng(tile)
+    k = 300 if tile < 64 else 40
+    for n in (k * tile - 1, k * tile, k * tile + 1, 1, 0):
+        delta = _tile_edge_delta(rng, n, tile, kind)
+        want = np.cumsum(delta) > 0
+        t = torch.from_numpy(delta)
+        plain = scan.blank_mask_plain(t)
+        for wave in (None, 5):
+            mask, nv = scan.blank_mask_tiled(t, tile, wave)
+            assert mask.dtype == torch.int32 and nv.dtype == torch.int32
+            np.testing.assert_array_equal(mask.numpy(), want.astype(np.int32))
+            assert torch.equal(mask, plain[0])
+            assert int(nv) == int((~want).sum()) == int(plain[1])
+
+
+@pytest.mark.parametrize("tile", [4, 32, 64])
+def test_blank_tiled_matches_pallas(tile):
+    n = 2048
+    delta = _random_delta(n, seed=tile)
+    mask_p, nv_p = blank_mask_pallas(jnp.asarray(delta), interpret=True)
+    mask, nv = scan.blank_mask_tiled(torch.from_numpy(delta), tile)
+    np.testing.assert_array_equal(mask.numpy(), np.asarray(mask_p))
+    assert int(nv) == int(nv_p)
+
+
+def test_scan_tile_constants_match_sources():
+    """`BLANK_TILE` and `SLOG_TILE` are the tiles of the kernels' sources,
+    and `LOOKBACK_WINDOW` the statuses their look-back reads a step."""
+    b2 = (scan._build.SRC_DIR / "scan.cu").read_text()
+    b4 = (scan._build.SRC_DIR / "slog_scan.cu").read_text()
+    assert "kTile = kWarps * kWarpRows;  // 8192, = ops/scan.py BLANK_TILE" in b2
+    assert "kTile = kThreads * kItems;  // 4096, = ops/scan.py SLOG_TILE" in b4
+    assert (scan.BLANK_TILE, scan.SLOG_TILE) == (8192, 4096)
+    for src in (b2, b4):
+        assert "for (int hi = t - 1;; hi -= 32) {" in src
+        assert "const int i = hi - lane;" in src
+    assert scan.LOOKBACK_WINDOW == 32

@@ -66,6 +66,11 @@ def _make_slog(rng, n, L, n_words):
     tags[rng.random(n) < 0.05] = 0xFF
     sent = np.zeros(n, dtype=bool)
     sent[n - n // 10:] = True
+    return _sorted_slog(words, tags, sent, L)
+
+
+def _sorted_slog(words, tags, sent, L):
+    """(cbl_tpu columns, port keys) of (word, tag) rows, both sorted."""
     cols = _jax_cols(words, tags, sent, L)
     order = np.lexsort(cols[::-1])
     cols = [jnp.asarray(c[order]) for c in cols]
@@ -206,3 +211,68 @@ def test_slog_scan_wrapper_checks_and_counts_no_cpu_launch(monkeypatch):
     assert idx.dynamic_round((codes, off), (codes, off), (codes[:300], off // 2)) \
         == (576, 576)
     assert LAUNCHES["slog_scan"] == 0
+
+
+def _tile_case(rng, case, tile):
+    """(words, tags, sent) of a slog at a tile-protocol edge, unsorted."""
+    k = 300 if tile < 64 else 40
+    n = {"k*tile-1": k * tile - 1, "k*tile": k * tile, "k*tile+1": k * tile + 1,
+         "one": 1}.get(case, k * tile)
+    words = rng.integers(0, max(n // 16, 1), size=n).astype(np.uint64) * 977
+    typ = rng.choice([1, 1, 2, 3], size=n).astype(np.uint64)
+    tags = (rng.integers(0, 8, size=n).astype(np.uint64) << np.uint64(2)) | typ
+    tags[rng.random(n) < 0.05] = 0xFF
+    sent = np.zeros(n, dtype=bool)
+    if case == "query run":  # one insert, then queries over k - 2 tiles
+        run = (k - 2) * tile + 3
+        words[:run] = 5
+        tags[:run] = np.where(tags[:run] == 0xFF, 0xFF,
+                              (tags[:run] & ~np.uint64(3)) | np.uint64(2))
+        tags[0] = 1
+    elif case == "tile-edge runs":  # every run ends on a tile edge
+        words = (np.arange(n) // tile).astype(np.uint64) * 977
+    elif case == "sentinels from a tile edge":
+        words[: 3 * tile] = 5  # and a run over the first three tiles
+        sent[(k // 2) * tile:] = True
+    elif case != "one":
+        words[: n // 3] = 5
+        sent[n - n // 10:] = True
+    return words, tags, sent
+
+
+TILE_CASES = ["query run", "tile-edge runs", "sentinels from a tile edge",
+              "k*tile-1", "k*tile", "k*tile+1", "one"]
+
+
+@pytest.mark.parametrize("case", TILE_CASES)
+@pytest.mark.parametrize("tile", [4, 8, 64])
+def test_slog_tiled_matches_plain_and_jax(tile, case):
+    """Kernel B4's tile protocol (`slog_scan_tiled`) against the plain
+    version and `cbl_tpu.wordset._slog_scan`, exactly, with every tile
+    publishing before any looks back (the longest walks) and in waves of
+    5 tiles: a query run over hundreds of tiles that hold no marker, runs
+    that end on tile edges, an all-sentinel tail from a tile edge, and
+    n = k * tile - 1, k * tile, k * tile + 1 and 1."""
+    rng = np.random.default_rng(tile * 100 + len(case))
+    cols, keys = _sorted_slog(*_tile_case(rng, case, tile), L=2)
+    for qtag in (ROUND_QTAG, 0xFF):
+        want = _jax_oracle(cols, 2, np.uint32(qtag))
+        assert tuple(int(x) for x in
+                     scan.slog_scan_counts_plain(keys, qtag)) == want
+        for wave in (None, 5):
+            got = scan.slog_scan_tiled(keys, qtag, tile, wave)
+            assert tuple(int(x) for x in got) == want
+        if case == "query run":  # the run is live throughout
+            assert want[0] > len(keys) // 40
+    assert scan.slog_scan_tiled(keys[:0], 0xFF, tile) == (0, 0)
+
+
+@pytest.mark.parametrize("tile", [4, 16, 64])
+def test_slog_tiled_matches_pallas(tile):
+    rng = np.random.default_rng(tile)
+    cols, keys = _make_slog(rng, 4096, 2, n_words=300)
+    for qtag in (ROUND_QTAG, 0xFF):
+        h, lv = slog_scan_counts_pallas(tuple(cols), np.uint32(qtag),
+                                        pack=True, interpret=True)
+        got = scan.slog_scan_tiled(keys, qtag, tile)
+        assert (int(got[0]), int(got[1])) == (int(h), int(lv))

@@ -1,14 +1,22 @@
 #!/usr/bin/env python3
-"""Compare the merge and sort kernels (B3, B5, B6, B7) of several versions of
-`cbl_tpu_torch` on one CUDA card, in one run.
+"""Compare the scan, merge and sort kernels (B2, B3, B4, B5, B6, B7) of
+several versions of `cbl_tpu_torch` on one CUDA card, in one run.
 
-    python3 tools/probe_torch_kernels.py PATH [PATH ...]
+    python3 tools/probe_torch_kernels.py [--scans] PATH [PATH ...]
 
 Each PATH is a directory that holds a `cbl_tpu_torch/` package (`.` for
 this checkout, or a copy of another commit's package unpacked under a
 git-ignored directory).  The versions run in the order given, each in a
 process of its own, so `old new new old` brackets the change.  Per
 version it prints
+- B2's time for a 2^25 delta array of many records (the static path's
+  slab) and a 2^22 one of one record (a dynamic round's), and B4's for
+  slogs of 2^26, 2^23 and 83,886,080 rows (`chip_smoke.slog_keys`) and
+  of 2^24 rows with a 2^22-row query run (about 1000 tiles that hold no
+  marker): CUDA events, three means of 20 launches, and the device time
+  by kernel name (`torch.profiler`, mean of 5); then twice the device
+  time of `chip_smoke.py`'s phase 5 (32 Mbp, 8 dynamic rounds, staging
+  included) under the profiler: every kernel, and B2 and B4 alone;
 - B3's time for 2^25 + 2^25, 2^24 + 2^24 and 2^25 + 2^22 one-column keys
   (CUDA events, three means of 20 launches);
 - where the version has B5, and where it has B6: the time of one sort
@@ -20,6 +28,7 @@ version it prints
 - registers of, and the count of load, store and barrier operations in
   the machine code of, the merge and sort kernels (`nvcc`'s log and
   `cuobjdump -sass`).
+With `--scans` it runs only the B2 and B4 cases and their kernels' lines.
 Last it prints the card's name and power limit.
 """
 
@@ -33,7 +42,16 @@ import sys
 from pathlib import Path
 
 
-def probe(path: str) -> None:
+SCAN_KERNELS = ("lookback", "tile_sums", "apply", "slog_tile_max",
+                "slog_count")
+# B2 and B4 in the profiler's kernel names, old and new
+SCAN_NAMES = ("::apply(", "tile_sums(", "slog_tile_max(", "slog_scan_tiles(",
+              "slog_count(", "_lookback(")
+SORT_KERNELS = ("merge_tiles", "merge_quads", "partition", "tile_sort",
+                "cross_pass", "cross_fused", "intile_pass", "first_pass")
+
+
+def probe(path: str, scans_only: bool) -> None:
     sys.path.insert(0, path)
     # `time_ms` is chip_smoke.py's, at the root of this checkout
     here = os.path.dirname(os.path.abspath(__file__))
@@ -42,12 +60,72 @@ def probe(path: str) -> None:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from chip_smoke import time_ms
+    from chip_smoke import MAIN_BASES, dynamic_run, slog_keys, time_ms
 
-    from cbl_tpu_torch.ops import _build, merge
+    from cbl_tpu_torch.ops import _build, merge, scan
 
     rng = np.random.default_rng(1)
     dev = torch.device("cuda")
+
+    def device_us(fn, label):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            if e.self_device_time_total > 0:
+                print(f"{path}: {label}: {e.self_device_time_total / 5:9.1f}"
+                      f" us a call, {e.count // 5:3d} x {e.key[:70]}")
+
+    def blank_delta(n, n_records):
+        """+1 / -1 interval deltas: `n_records` blanked halos of 24 rows,
+        then the padded tail from row n - n / 32 on."""
+        d = np.zeros(n + 1, dtype=np.int32)
+        starts = np.sort(rng.choice(n - n // 32 - 24, n_records - 1,
+                                    replace=False))
+        np.add.at(d, starts, 1)
+        np.add.at(d, starts + 24, -1)
+        d[n - n // 32] += 1
+        return torch.from_numpy(d[:n]).to(dev)
+
+    scan_inputs = [
+        ("B2 2^25, 8192 records", scan.blank_mask,
+         (blank_delta(1 << 25, 8192),)),
+        ("B2 2^22, one record", scan.blank_mask, (blank_delta(1 << 22, 1),)),
+    ]
+    for n, run in ((1 << 26, 0), (1 << 23, 0), (83_886_080, 0),
+                   (1 << 24, 1 << 22)):
+        scan_inputs.append((
+            f"B4 {n}" + (f", a {run}-row query run" if run else ""),
+            scan.slog_scan_counts, (slog_keys(rng, n, run), (5 << 2) | 2)))
+    for label, fn, args in scan_inputs:
+        ms = [round(time_ms(lambda: fn(*args), 20), 4) for _ in range(3)]
+        print(f"{path}: {label} ms: {ms}")
+        device_us(lambda: fn(*args), label)
+    del scan_inputs
+    # chip_smoke.py's main-path codes (default_rng(0)) in the 8 rounds
+    codes = np.random.default_rng(0).integers(0, 4, size=MAIN_BASES,
+                                              dtype=np.uint8)
+    dynamic_run(codes, timed=False)  # warm-up
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            dynamic_run(codes, timed=False)
+            torch.cuda.synchronize()
+        kernels = scans = 0.0
+        for e in prof.key_averages():
+            us = e.self_device_time_total
+            if us > 0 and not e.key.startswith("Memcpy"):
+                kernels += us
+                scan = any(w in e.key for w in SCAN_NAMES)
+                scans += us if scan else 0.0
+                if scan or e.key.startswith("Memset"):
+                    print(f"{path}: dynamic rounds: {us:9.1f} us, "
+                          f"{e.count:3d} x {e.key[:60]}")
+        print(f"{path}: dynamic rounds, 32 Mbp: kernels {kernels / 1e3:.3f}"
+              f" ms, of which B2 and B4 {scans / 1e3:.3f} ms")
+    if scans_only:
+        print_kernels(path, SCAN_KERNELS)
+        return
 
     def keys(n, hi=1 << 57):
         return torch.from_numpy(rng.integers(0, hi, size=n)).to(dev)
@@ -86,19 +164,16 @@ def probe(path: str) -> None:
         for label, args in inputs:
             ms = time_ms(lambda: fn(*args), 5)
             print(f"{path}: {kernel} {label}: {ms:.4f} ms")
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(5):
-                    fn(*args)
-                torch.cuda.synchronize()
-            for e in prof.key_averages():
-                if e.self_device_time_total > 0:
-                    print(f"{path}: {kernel} {label}: "
-                          f"{e.self_device_time_total / 5:9.1f} us a call, "
-                          f"{e.count // 5:3d} x {e.key[:70]}")
+            device_us(lambda: fn(*args), f"{kernel} {label}")
+    print_kernels(path, SCAN_KERNELS + SORT_KERNELS)
+
+
+def print_kernels(path: str, wanted: tuple) -> None:
+    """Registers (`nvcc`'s log) and load, store and barrier counts (the
+    machine code) of the kernels whose names hold one of `wanted`."""
+    from cbl_tpu_torch.ops import _build
 
     so, _ = _build.build()
-    wanted = ("merge_tiles", "merge_quads", "partition", "tile_sort",
-              "cross_pass", "cross_fused", "intile_pass", "first_pass")
     name = None
     for line in so.with_suffix(".log").read_text().splitlines():
         if "Compiling entry function" in line:
@@ -130,14 +205,18 @@ def probe(path: str) -> None:
 
 
 def main() -> int:
-    if len(sys.argv) == 3 and sys.argv[1] == "--one":
-        probe(sys.argv[2])
+    args = sys.argv[1:]
+    if args[:1] == ["--one"]:
+        probe(args[-1], scans_only="--scans" in args)
         return 0
-    if len(sys.argv) < 2:
+    scans = args[:1] == ["--scans"]
+    paths = args[1:] if scans else args
+    if not paths:
         print(__doc__, file=sys.stderr)
         return 2
-    for path in sys.argv[1:]:
-        subprocess.run([sys.executable, __file__, "--one", path], check=True)
+    for path in paths:
+        subprocess.run([sys.executable, __file__, "--one",
+                        *(["--scans"] if scans else []), path], check=True)
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
