@@ -1,6 +1,7 @@
 // The bitonic compare-exchange network over rows of one or two int64 key
-// columns, shared by kernel B6 (csrc/bitonic_sort.cu, a full sort) and
-// kernel B7 (csrc/bitonic_merge.cu, the merge of two sorted runs).
+// columns, shared by kernel B6 (csrc/bitonic_sort.cu, a full sort, every
+// piece below) and kernel B7 (csrc/bitonic_merge.cu, the merge of two
+// sorted runs: one tile in shared memory a block, `shared_steps`).
 //
 // Rows compare lexicographically, column 0 major; equal rows are identical,
 // so the result of either kernel equals a stable library sort.  A network
@@ -118,17 +119,18 @@ __device__ __forceinline__ bool ascending(long long row, int dir_bit) {
 }
 
 // The R consecutive steps with strides 2^(s+R-1) ... 2^s over the first
-// `rows` rows of the shared tile (a power of two >= 2^R).  Group g is the
-// 2^R rows whose index is g with R zero bits inserted at bit s, plus
-// q << s for q < 2^R; a thread loads a group into registers, runs the R
-// steps there and stores it.  The group's direction is that of global row
-// `row0` + its first row.  No barrier inside.
-template <int C, int R>
+// `rows` rows of the shared tile (a power of two >= 2^R), whose columns
+// are S slots apart, by a block of N threads.  Group g is the 2^R rows
+// whose index is g with R zero bits inserted at bit s, plus q << s for
+// q < 2^R; a thread loads a group into registers, runs the R steps there
+// and stores it.  The group's direction is that of global row `row0` + its
+// first row.  No barrier inside.
+template <int C, int R, int N = kBitonicThreads, int S = kColSlots<C>>
 __device__ __forceinline__ void shared_round(long long* s_tile, int rows,
                                              int s, long long row0,
                                              int dir_bit) {
   constexpr int G = 1 << R;
-  for (int g = threadIdx.x; g < (rows >> R); g += kBitonicThreads) {
+  for (int g = threadIdx.x; g < (rows >> R); g += N) {
     const int first = ((g >> s) << (s + R)) | (g & ((1 << s) - 1));
     const bool asc = ascending(row0 + first, dir_bit);
     long long v[G][C];
@@ -136,7 +138,7 @@ __device__ __forceinline__ void shared_round(long long* s_tile, int rows,
     for (int q = 0; q < G; ++q)
 #pragma unroll
       for (int c = 0; c < C; ++c)
-        v[q][c] = s_tile[c * kColSlots<C> + phys(first + (q << s))];
+        v[q][c] = s_tile[c * S + phys(first + (q << s))];
 #pragma unroll
     for (int b = R - 1; b >= 0; --b) {
 #pragma unroll
@@ -157,29 +159,29 @@ __device__ __forceinline__ void shared_round(long long* s_tile, int rows,
     for (int q = 0; q < G; ++q)
 #pragma unroll
       for (int c = 0; c < C; ++c)
-        s_tile[c * kColSlots<C> + phys(first + (q << s))] = v[q][c];
+        s_tile[c * S + phys(first + (q << s))] = v[q][c];
   }
 }
 
 // The steps with strides 2^hi_log ... 2^lo_log over the first `rows` rows of
-// the shared tile, kRoundLog strides a round; a shorter round comes first,
-// so that the last round ends on stride 2^lo_log.  A barrier after every
-// round.
-template <int C>
+// the shared tile (`shared_round`'s N and S), kRoundLog strides a round; a
+// shorter round comes first, so that the last round ends on stride
+// 2^lo_log.  A barrier after every round.
+template <int C, int N = kBitonicThreads, int S = kColSlots<C>>
 __device__ __forceinline__ void shared_steps(long long* s_tile, int rows,
                                              int hi_log, int lo_log,
                                              long long row0, int dir_bit) {
   static_assert(kRoundLog == 3, "the short rounds below are written for 3");
   const int first = (hi_log - lo_log + 1) % kRoundLog;
   if (first == 1) {
-    shared_round<C, 1>(s_tile, rows, hi_log, row0, dir_bit);
+    shared_round<C, 1, N, S>(s_tile, rows, hi_log, row0, dir_bit);
     __syncthreads();
   } else if (first == 2) {
-    shared_round<C, 2>(s_tile, rows, hi_log - 1, row0, dir_bit);
+    shared_round<C, 2, N, S>(s_tile, rows, hi_log - 1, row0, dir_bit);
     __syncthreads();
   }
   for (int s = hi_log - first - (kRoundLog - 1); s >= lo_log; s -= kRoundLog) {
-    shared_round<C, kRoundLog>(s_tile, rows, s, row0, dir_bit);
+    shared_round<C, kRoundLog, N, S>(s_tile, rows, s, row0, dir_bit);
     __syncthreads();
   }
 }

@@ -1,147 +1,191 @@
 // Kernel B7: merge of two sorted runs of int64 key rows by the bitonic
-// network.
+// network, in one pass over device memory.
 //
-// Replaces the TPU kernel cbl_tpu/ops/sort_pallas.py `merge_cols_pallas`.
-// A (na rows) and B (nb rows), each sorted ascending (lexicographic, column
-// 0 major), become one sorted run of na + nb rows, equal to a sort of
-// their concatenation.
+// Replaces the TPU kernel cbl_tpu/ops/sort_pallas.py `merge_cols_pallas`,
+// with the tiling of cbl_tpu/ops/merge_pallas.py `merge_sorted_cols`
+// (`_coranks`, `_merge_call`).  A (na rows) and B (nb rows), each sorted
+// ascending (lexicographic, column 0 major), become one sorted run of
+// na + nb rows, equal to a sort of their concatenation.
 //
-// With M = the next power of two of max(na, nb), the 2 M rows
-// [A, pads to M | B reversed, pads in front] form one bitonic sequence;
-// the steps M, M / 2, ..., 1, every pair ascending, sort it, and the pads
-// (INT64_MAX rows) end behind the na + nb real rows.  No padded, reversed
-// or concatenated copy is made: the first step reads row i < M as A[i] and
-// row i >= M as B[2 M - 1 - i], or as a pad where that index lies outside
-// its run.
-//   2 M <= tile: `merge_small`, one block, every step in shared memory.
-//   otherwise:   `first_pass` (the step M) writes the work buffer of 2 M
-//                rows, `cross_fused` passes of up to kFuseLog strides each
-//                run the strides M / 2 ... tile in place, and one
-//                `intile_pass` writes the first na + nb rows to the output,
-//                skipping the tiles that hold only pads.
-// A and B are only read.
+// The output is cut into tiles of T = kMergeRows rows; tile g holds the
+// outputs [g T, min((g + 1) T, na + nb)).  The co-rank i(d) of a tile edge
+// d is the smallest i with A[i] > B[d - i - 1] (`corank`, merge_path.cuh,
+// the rule of kernel B3: A before B on ties), and tile g's rows are exactly
+// A[i(d0), i(d1)) and B[d0 - i(d0), d1 - i(d1)): after the strides of a
+// bitonic merge that cross tiles, each tile holds precisely the rows of its
+// rank range, and the co-ranks find that set without moving it through
+// memory.  Rows that compare equal are equal in every column, so which run
+// supplies them changes no bit of the output.
+//   1. `tile_coranks`: one thread a tile edge, all binary searches in
+//      flight at once (a chain of ~log2(na) dependent loads each).
+//   2. `merge_tile`: block g loads A's slice ascending to the front of its
+//      shared tile and B's slice reversed to the back, 16 bytes a load
+//      where the address allows, with INT64_MAX pad rows between (they
+//      sort behind every output, and fill the last tile): one bitonic
+//      sequence of T rows.  The strides T / 2 ... 1, every pair ascending,
+//      run in shared memory and registers (`shared_steps`, bitonic.cuh,
+//      three strides a round), and the tile's outputs are stored, 16 bytes
+//      a store.
+// No padded, reversed or concatenated copy is ever made in device memory,
+// and nothing is padded beyond one tile.  A and B are only read.
 //
-// What bounds it on the H100: device memory traffic,
-// 2 + ceil(log2(M / tile) / kFuseLog) passes over 2 M rows (4 at 2^24 +
-// 2^24 one-column keys) where one read and one write of na + nb rows is
-// the least (the merge-path kernel B3 makes that one pass), see
-// bitonic.cuh.
+// What bounds it on the H100: device memory, one read and one write of
+// every row; the co-rank launch reads O(tiles log n) rows more, but its
+// searches are chains of dependent loads.  The network, T / 2 log2 T
+// compare-exchanges a tile (1.8e8 at 2^25 one-column rows), runs in
+// shared memory between the load and the store.  A block cannot overlap
+// its own load, network and store, so many small blocks an SM do it for
+// each other: tiles of 2^11 rows and 128 threads measured 1.24x faster
+// than tiles of 2^13 rows and 512 threads, which their registers held to
+// two blocks an SM (NVIDIA H100 80GB HBM3, 700 W).
+
+#include <stdint.h>
 
 #include "bitonic.cuh"
+#include "merge_path.cuh"
 
 namespace cbl {
 namespace {
 
-// Row i of the bitonic sequence, read from A or B.
+constexpr int kEdgeThreads = 256;
+
+// The output tile and its block: 2^11 rows of one column or 2^10 of two
+// (18 KB of padded shared memory), 128 threads.  = ops/bitonic.py
+// MERGE_TILES
+constexpr int kMergeThreads = 128;
 template <int C>
-__device__ __forceinline__ void sequence_row(const Keys<C>& a, long long na,
-                                             const Keys<C>& b, long long nb,
-                                             long long M, long long i,
-                                             long long (&row)[C]) {
-  const bool from_a = i < M;
-  const long long at = from_a ? i : 2 * M - 1 - i;
-  const bool real = at < (from_a ? na : nb);
-#pragma unroll
-  for (int c = 0; c < C; ++c)
-    row[c] = real ? (from_a ? a.p[c][at] : b.p[c][at]) : kBitonicPad;
+constexpr int kMergeTileLog = C == 1 ? 11 : 10;
+template <int C>
+constexpr int kMergeRows = 1 << kMergeTileLog<C>;
+template <int C>
+constexpr int kMergeSlots = kMergeRows<C> + kMergeRows<C> / 8;
+
+// coranks[g] = the co-rank of tile edge min(g T, na + nb), g <= tiles.
+template <int C>
+__global__ void tile_coranks(Cols<C> a, long long na, Cols<C> b,
+                             long long nb, long long tiles,
+                             long long* __restrict__ coranks) {
+  const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (g > tiles) return;
+  const long long n = na + nb;
+  const long long d = g * kMergeRows<C> < n ? g * kMergeRows<C> : n;
+  coranks[g] = corank<C>(a, na, b, nb, d);
 }
 
-template <int C>
-__global__ void __launch_bounds__(kBitonicThreads)
-merge_small(Keys<C> a, long long na, Keys<C> b, long long nb,
-                            int m_log, MutKeys<C> out) {
-  extern __shared__ long long tile_s[];
-  const int M = 1 << m_log;
-  for (int r = threadIdx.x; r < 2 * M; r += kBitonicThreads) {
-    long long row[C];
-    sequence_row<C>(a, na, b, nb, M, r, row);
-#pragma unroll
-    for (int c = 0; c < C; ++c) tile_s[c * kColSlots<C> + phys(r)] = row[c];
+// f(j, src[j]) for every j < len, strided over the block: two rows (16
+// bytes) a load, after one lone row where src is not 16-byte aligned and
+// before one where the rest is odd.
+template <class F>
+__device__ __forceinline__ void load_run(const long long* src, int len,
+                                         F f) {
+  const int head = len > 0 && (reinterpret_cast<uintptr_t>(src) & 8) ? 1 : 0;
+  const int pairs = (len - head) >> 1;
+  const longlong2* p = reinterpret_cast<const longlong2*>(src + head);
+#pragma unroll 4
+  for (int u = threadIdx.x; u < pairs; u += kMergeThreads) {
+    const longlong2 x = p[u];
+    f(head + 2 * u, x.x);
+    f(head + 2 * u + 1, x.y);
   }
-  __syncthreads();
-  shared_steps<C>(tile_s, 2 * M, m_log, 0, 0, -1);
-  store_tile<C>(tile_s, out, na + nb);
+  if (threadIdx.x == 0 && head) f(0, src[0]);
+  if (threadIdx.x == kMergeThreads - 1 && ((len - head) & 1))
+    f(len - 1, src[len - 1]);
 }
 
-constexpr int kFirstThreads = 256;
+// dst[j] = row(j) for every j < len, 16 bytes a store as `load_run` reads.
+template <class G>
+__device__ __forceinline__ void store_run(long long* dst, int len, G row) {
+  const int head = len > 0 && (reinterpret_cast<uintptr_t>(dst) & 8) ? 1 : 0;
+  const int pairs = (len - head) >> 1;
+  longlong2* p = reinterpret_cast<longlong2*>(dst + head);
+#pragma unroll 4
+  for (int u = threadIdx.x; u < pairs; u += kMergeThreads)
+    p[u] = make_longlong2(row(head + 2 * u), row(head + 2 * u + 1));
+  if (threadIdx.x == 0 && head) dst[0] = row(0);
+  if (threadIdx.x == kMergeThreads - 1 && ((len - head) & 1))
+    dst[len - 1] = row(len - 1);
+}
 
-// The step M: pair (t, t + M) for t < M, into the work buffer.
+// Output tile `blockIdx.x`: its slices of A and B as one bitonic sequence
+// of T rows in shared memory, [A's slice, pads, B's slice reversed], the
+// merge network over it, its rows to `out`.
 template <int C>
-__global__ void first_pass(Keys<C> a, long long na, Keys<C> b, long long nb,
-                           long long M, MutKeys<C> w) {
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= M) return;
-  long long x[C], y[C];
-  sequence_row<C>(a, na, b, nb, M, t, x);
-  sequence_row<C>(a, na, b, nb, M, t + M, y);
-  const bool swap = row_gt<C>(x, y);
+__global__ void __launch_bounds__(kMergeThreads)
+merge_tile(Cols<C> a, long long na, Cols<C> b, long long nb,
+           const long long* __restrict__ coranks, MutCols<C> out) {
+  constexpr int T = kMergeRows<C>;
+  constexpr int S = kMergeSlots<C>;
+  __shared__ long long tile_s[C * S];
+  const long long d0 = (long long)blockIdx.x * T;
+  const long long left = na + nb - d0;
+  const int total = left < T ? (int)left : T;
+  const long long a0 = coranks[blockIdx.x];
+  const long long b0 = d0 - a0;
+  const int la = (int)(coranks[blockIdx.x + 1] - a0);
+  const int lb = total - la;
 #pragma unroll
   for (int c = 0; c < C; ++c) {
-    w.p[c][t] = swap ? y[c] : x[c];
-    w.p[c][t + M] = swap ? x[c] : y[c];
+    long long* col = tile_s + c * S;
+    load_run(a.p[c] + a0, la,
+             [&](int j, long long v) { col[phys(j)] = v; });
+    load_run(b.p[c] + b0, lb,
+             [&](int j, long long v) { col[phys(T - 1 - j)] = v; });
+    for (int r = la + threadIdx.x; r < T - lb; r += kMergeThreads)
+      col[phys(r)] = kBitonicPad;
+  }
+  __syncthreads();
+  shared_steps<C, kMergeThreads, S>(tile_s, T, kMergeTileLog<C> - 1, 0, 0,
+                                    -1);
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const long long* col = tile_s + c * S;
+    store_run(out.p[c] + d0, total, [&](int j) { return col[phys(j)]; });
   }
 }
 
 template <int C>
 int bitonic_merge(const void* const* a_in, long long na,
                   const void* const* b_in, long long nb, void* const* out,
-                  void* const* work, long long work_rows, cudaStream_t s,
-                  int* passes) {
-  Keys<C> a, b;
-  MutKeys<C> dst, w;
+                  long long* coranks, cudaStream_t s, int* passes) {
+  Cols<C> a, b;
+  MutCols<C> dst;
   for (int c = 0; c < C; ++c) {
     a.p[c] = (const long long*)a_in[c];
     b.p[c] = (const long long*)b_in[c];
     dst.p[c] = (long long*)out[c];
-    w.p[c] = (long long*)work[c];
   }
-  const long long longer = na > nb ? na : nb;
-  int m_log = 0;
-  while ((1LL << m_log) < longer) ++m_log;
-  const long long M = 1LL << m_log;
+  const long long tiles = (na + nb + kMergeRows<C> - 1) / kMergeRows<C>;
+  if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const long long blocks = (tiles + kEdgeThreads) / kEdgeThreads;
+  tile_coranks<C><<<(unsigned)blocks, kEdgeThreads, 0, s>>>(a, na, b, nb,
+                                                            tiles, coranks);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  merge_tile<C><<<(unsigned)tiles, kMergeThreads, 0, s>>>(a, na, b, nb,
+                                                          coranks, dst);
   *passes = 1;
-  if (2 * M <= kTileRows<C>) {
-    cudaError_t err = allow_tile_smem(merge_small<C>, tile_smem_bytes<C>());
-    if (err != cudaSuccess) return (int)err;
-    merge_small<C><<<1, kBitonicThreads, tile_smem_bytes<C>(), s>>>(
-        a, na, b, nb, m_log, dst);
-    return (int)cudaGetLastError();
-  }
-  if (work_rows < 2 * M) return (int)cudaErrorInvalidValue;
-  const long long blocks = (M + kFirstThreads - 1) / kFirstThreads;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  first_pass<C><<<(unsigned)blocks, kFirstThreads, 0, s>>>(a, na, b, nb, M, w);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  err = launch_cross<C>(w, 2 * M, m_log - 1, -1, s, passes);
-  if (err != cudaSuccess) return (int)err;
-  const long long n = na + nb;
-  const long long out_tiles = (n + kTileRows<C> - 1) / kTileRows<C>;
-  return (int)launch_intile<C>(w, 2 * M, dst, n, out_tiles, -1, s, passes);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 }  // namespace cbl
 
-// a0/b0/out0/work0 are column 0; a1/b1/out1/work1 column 1, or all four
-// null for one-column rows.  na + nb >= 1.  `work` is scratch of
-// `work_rows` rows a column, at least twice the next power of two of
-// max(na, nb) when that exceeds one tile (else unused).  `*passes` receives
-// the number of kernels launched that read and write every row.
+// a0/b0/out0 are column 0; a1/b1/out1 column 1, or all three null for
+// one-column rows.  na + nb >= 1.  `coranks` is scratch for one int64 a
+// tile edge: ceil((na + nb) / tile) + 1 values.  `*passes` receives the
+// number of kernels launched that read and write every row (one).
 extern "C" int cbl_bitonic_merge(const void* a0, const void* a1, long long na,
                                  const void* b0, const void* b1, long long nb,
-                                 void* out0, void* out1, void* work0,
-                                 void* work1, long long work_rows,
+                                 void* out0, void* out1, void* coranks,
                                  int* passes, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const void* a[2] = {a0, a1};
   const void* b[2] = {b0, b1};
   void* out[2] = {out0, out1};
-  void* work[2] = {work0, work1};
   if (na < 0 || nb < 0 || na + nb < 1) return (int)cudaErrorInvalidValue;
   if (out1 == nullptr)
-    return cbl::bitonic_merge<1>(a, na, b, nb, out, work, work_rows, s,
+    return cbl::bitonic_merge<1>(a, na, b, nb, out, (long long*)coranks, s,
                                  passes);
-  return cbl::bitonic_merge<2>(a, na, b, nb, out, work, work_rows, s,
-                                 passes);
+  return cbl::bitonic_merge<2>(a, na, b, nb, out, (long long*)coranks, s,
+                               passes);
 }

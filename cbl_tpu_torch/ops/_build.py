@@ -67,9 +67,8 @@ _SIGNATURES = {
     # rows of work, n, passes out, stream)
     "cbl_bitonic_sort": [_P, _P, _P, _P, _P, _P, _N, _N, _P, _P],
     # (a col 0, a col 1, na, b col 0, b col 1, nb, out col 0, out col 1,
-    # work col 0, work col 1, rows of work, passes out, stream)
-    "cbl_bitonic_merge": [_P, _P, _N, _P, _P, _N, _P, _P, _P, _P, _N, _P,
-                          _P],
+    # co-rank scratch, passes out, stream)
+    "cbl_bitonic_merge": [_P, _P, _N, _P, _P, _N, _P, _P, _P, _P, _P],
 }
 
 

@@ -16,20 +16,29 @@ B7 replaces `cbl_tpu/ops/sort_pallas.py` `merge_cols_pallas`: two sorted
 runs A and B become one, equal to a sort of their concatenation.  With M
 the next power of two of the longer run, [A, pads to M | B reversed, pads
 in front] is one bitonic sequence of 2 M rows, and the steps M, ..., 1
-with every pair ascending sort it.
+with every pair ascending sort it (`bitonic_merge_plain`).  The kernel
+does the same work in one pass over device memory, tiled as
+`cbl_tpu/ops/merge_pallas.py` `merge_sorted_cols` is: the output is cut
+into tiles of `tile` rows, the co-rank of each tile edge (`tile_coranks`)
+gives the tile's slices of A and B, which are exactly the rows the strides
+that cross tiles would have brought there, and each tile runs the strides
+tile / 2, ..., 1 on [A's slice, pads, B's slice reversed] (`merge_passes`,
+`bitonic_merge_tiled_plain`).
 
-The kernels carry many steps of the network through one pass over device
+B6 carries many steps of the network through one pass over device
 memory: `network_passes` lists the passes (a tile sort, fused cross
 passes of up to `fuse_log(tile)` strides, in-tile passes) and
-`bitonic_sort_passes_plain` / `bitonic_merge_passes_plain` walk that
-list, gathering each block's rows by the index map the kernel uses.
-`bitonic_sort_plain` / `bitonic_merge_plain` walk the network one step at
-a time and are its reference.
+`bitonic_sort_passes_plain` walks that list, gathering each block's rows
+by the index map the kernel uses.  `bitonic_sort_plain` /
+`bitonic_merge_plain` walk the networks one step at a time and are their
+reference.
 
-`bitonic_sort` and `bitonic_merge` take the list-walking plain version
-(tensor operations, never a library sort) for CPU tensors and launch the
-CUDA kernel (`csrc/bitonic_sort.cu`, `csrc/bitonic_merge.cu`, both on
-`csrc/bitonic.cuh`) for CUDA tensors, whatever the size.
+`bitonic_sort` and `bitonic_merge` take the plain version that walks the
+kernel's structure (`bitonic_sort_passes_plain`,
+`bitonic_merge_tiled_plain`: tensor operations, never a library sort) for
+CPU tensors and launch the CUDA kernel (`csrc/bitonic_sort.cu`,
+`csrc/bitonic_merge.cu`, both on `csrc/bitonic.cuh`) for CUDA tensors,
+whatever the size.
 """
 
 from __future__ import annotations
@@ -39,10 +48,12 @@ import ctypes
 import torch
 
 from . import _build
-from .merge import _PAD, _col_ptrs, _like, as_cols
+from .merge import _PAD, _col_ptrs, _like, _ptr, as_cols
 
-# rows per tile by number of columns (csrc/bitonic.cuh kTileRows)
+# rows per tile by number of columns: B6's (csrc/bitonic.cuh kTileRows) and
+# B7's output tiles (csrc/bitonic_merge.cu kMergeRows)
 TILES = {1: 8192, 2: 4096}
+MERGE_TILES = {1: 2048, 2: 1024}
 
 
 def fuse_log(tile: int) -> int:
@@ -92,20 +103,16 @@ def _padded(cols: tuple, rows: int) -> tuple:
 # --- the passes --------------------------------------------------------------
 
 
-def network_passes(rows: int, tile: int, fuse: int,
-                   merge: bool = False) -> list:
-    """The passes over device memory of B6 (a sort of `rows` padded rows)
-    or, with `merge`, of B7 (a bitonic sequence of `rows` = 2 M rows), as
-    (kind, dir_bit, hi_log, lo_log): the steps with strides 2^hi_log ...
-    2^lo_log of the stage whose pairs are ascending iff bit `dir_bit` of
-    the row index is clear (None: every pair ascending).
+def network_passes(rows: int, tile: int, fuse: int) -> list:
+    """The passes over device memory of B6, a sort of `rows` padded rows,
+    as (kind, dir_bit, hi_log, lo_log): the steps with strides 2^hi_log
+    ... 2^lo_log of the stage whose pairs are ascending iff bit `dir_bit`
+    of the row index is clear.
     - "tile": every stage k <= tile inside each tile (`dir_bit` is the last
       stage's);
     - "cross": up to `fuse` strides >= tile of one stage in one pass; a
       stage's shorter pass comes first;
-    - "intile": the strides tile / 2 ... 1 of one stage;
-    - "first": B7's step M, read straight from the two runs; "small": all
-      of B7's steps in one block (2 M <= tile)."""
+    - "intile": the strides tile / 2 ... 1 of one stage."""
     t_log, p_log = tile.bit_length() - 1, rows.bit_length() - 1
     assert rows == 1 << p_log and tile == 1 << t_log and fuse >= 1
 
@@ -118,11 +125,6 @@ def network_passes(rows: int, tile: int, fuse: int,
             left -= f
         return out
 
-    if merge:
-        if rows <= tile:
-            return [("small", None, p_log - 1, 0)]
-        return ([("first", None, p_log - 1, p_log - 1)]
-                + cross(None, p_log - 2) + [("intile", None, t_log - 1, 0)])
     assert rows >= tile
     passes = [("tile", t_log, t_log - 1, 0)]
     for k_log in range(t_log + 1, p_log + 1):
@@ -131,10 +133,8 @@ def network_passes(rows: int, tile: int, fuse: int,
     return passes
 
 
-def _directions(first: torch.Tensor, dir_bit):
+def _directions(first: torch.Tensor, dir_bit: int):
     """`_step`'s `asc` for groups whose first rows are `first`."""
-    if dir_bit is None:
-        return True
     return (((first >> dir_bit) & 1) == 0).unsqueeze(1)
 
 
@@ -143,7 +143,7 @@ def _walk_pass(cols: tuple, tile: int, pas: tuple) -> tuple:
     kind, dir_bit, hi_log, lo_log = pas
     rows, dev = cols[0].shape[0], cols[0].device
     t_log = tile.bit_length() - 1
-    if kind != "cross":  # contiguous rows: "tile", "intile", "first", "small"
+    if kind != "cross":  # contiguous rows: "tile", "intile"
         stages = [(dir_bit, hi_log, lo_log)]
         if kind == "tile":
             stages = [(k_log, k_log - 1, 0) for k_log in range(1, t_log + 1)]
@@ -287,29 +287,85 @@ def _bitonic_sequence(ca: tuple, cb: tuple, m: int) -> tuple:
                  for x, y in zip(_padded(ca, m), _padded(cb, m)))
 
 
-def bitonic_merge_passes_plain(a, b, tile: int | None = None,
-                               fuse: int | None = None):
-    """Kernel B7's plain version: the bitonic sequence of 2 M rows, then
-    one `_walk_pass` per pass of `network_passes(merge=True)`."""
+def merge_passes(n: int, tile: int) -> list:
+    """The passes over device memory of B7 for a merge of n = na + nb >= 1
+    rows: one, ("tiles", tiles), over `tiles` output tiles of `tile` rows
+    (pads fill the last tile's network).  (`tile_coranks`'s launch reads
+    O(tiles log n) rows and is not a pass.)"""
+    assert n >= 1 and tile >= 1 and tile & (tile - 1) == 0
+    return [("tiles", -(-n // tile))]
+
+
+def tile_coranks(a, b, tile: int) -> torch.Tensor:
+    """The co-rank of every tile edge d = min(g * tile, na + nb), g <=
+    tiles: the smallest i in [max(0, d - nb), min(d, na)] with A[i] >
+    B[d - i - 1], else min(d, na) (A before B on ties; csrc/merge_path.cuh
+    `corank`).  All edges' binary searches run together, each step a
+    gather of both runs.  -> int64 [tiles + 1] on the runs' device."""
     ca, cb = _run_pair(a, b)
     na, nb = ca[0].shape[0], cb[0].shape[0]
-    if na + nb == 0:
+    dev = ca[0].device
+    tiles = -(-(na + nb) // tile)
+    d = torch.clamp(torch.arange(tiles + 1, device=dev) * tile, max=na + nb)
+    lo = torch.clamp(d - nb, min=0)
+    hi = torch.clamp(d, max=na)
+    if na == 0 or nb == 0:  # lo == hi at every edge
+        return lo
+    for _ in range(max(na, nb).bit_length() + 1):
+        mid = (lo + hi) >> 1
+        x = tuple(c[torch.clamp(mid, max=na - 1)] for c in ca)
+        y = tuple(c[torch.clamp(d - mid - 1, 0, nb - 1)] for c in cb)
+        le = ~_lex_gt(x, y)
+        active = lo < hi
+        lo = torch.where(active & le, mid + 1, lo)
+        hi = torch.where(active & ~le, mid, hi)
+    return lo
+
+
+def bitonic_merge_tiled_plain(a, b, tile: int | None = None):
+    """Kernel B7's plain version: the pass of `merge_passes` as the kernel
+    runs it, vectorised over tiles.  The co-ranks of the tile edges
+    (`tile_coranks`) give each tile its slices of A and B; a `[tiles,
+    tile]` gather lays out each tile's bitonic sequence, A's slice
+    ascending at the front, B's reversed at the back and pads between; the
+    strides tile / 2 ... 1, every pair ascending, run as reshaped
+    compare-exchanges; each tile's first rows are its outputs."""
+    ca, cb = _run_pair(a, b)
+    na, nb = ca[0].shape[0], cb[0].shape[0]
+    n = na + nb
+    if n == 0:
         return _like(a, tuple(c.clone() for c in ca))
-    tile = TILES[len(ca)] if tile is None else tile
-    fuse = fuse_log(tile) if fuse is None else fuse
-    cols = _bitonic_sequence(ca, cb, _next_pow2(max(na, nb)))
-    for pas in network_passes(cols[0].shape[0], tile, fuse, merge=True):
-        cols = _walk_pass(cols, tile, pas)
-    return _like(a, tuple(c[:na + nb] for c in cols))
+    tile = MERGE_TILES[len(ca)] if tile is None else tile
+    ((_, tiles),) = merge_passes(n, tile)
+    dev = ca[0].device
+    ia = tile_coranks(ca, cb, tile)
+    ib = torch.clamp(torch.arange(tiles + 1, device=dev) * tile, max=n) - ia
+    a0, b0 = ia[:-1].unsqueeze(1), ib[:-1].unsqueeze(1)
+    la, lb = ia[1:].unsqueeze(1) - a0, ib[1:].unsqueeze(1) - b0
+    r = torch.arange(tile, device=dev).unsqueeze(0)
+    from_a = r < la
+    # row na of A and nb of B: a pad
+    at_a = torch.where(from_a, a0 + r, na)
+    at_b = torch.where(r >= tile - lb, b0 + (tile - 1 - r), nb)
+    pad = ca[0].new_full((1,), _PAD)
+    seq = tuple(
+        torch.where(from_a, torch.cat([x, pad])[at_a],
+                    torch.cat([y, pad])[at_b]).reshape(-1)
+        for x, y in zip(ca, cb))
+    j = tile // 2
+    while j >= 1:
+        seq = _step(seq, j, True)
+        j //= 2
+    return _like(a, tuple(c[:n] for c in seq))
 
 
 def bitonic_merge(a, b):
-    """`bitonic_merge_passes_plain` on the CPU; on CUDA, kernel B7.  Two
+    """`bitonic_merge_tiled_plain` on the CPU; on CUDA, kernel B7.  Two
     empty runs return without a launch; the caller's tensors are only
     read."""
     ca, cb = _run_pair(a, b)
     if ca[0].device.type == "cpu" and cb[0].device.type == "cpu":
-        return bitonic_merge_passes_plain(a, b)
+        return bitonic_merge_tiled_plain(a, b)
     _build.check_cuda(*ca, *cb)
     na, nb = ca[0].shape[0], cb[0].shape[0]
     dev = ca[0].device
@@ -317,19 +373,14 @@ def bitonic_merge(a, b):
                 for _ in ca)
     if na + nb == 0:
         return _like(a, out)
-    # the steps above the tile run in a scratch of 2 M rows
-    tile = TILES[len(ca)]
-    rows = 2 * _next_pow2(max(na, nb))
-    planned = network_passes(rows, tile, fuse_log(tile), merge=True)
-    work_rows = rows if rows > tile else 0
-    work = tuple(out[0].new_empty(work_rows) if work_rows else None
-                 for _ in ca)
+    planned = merge_passes(na + nb, MERGE_TILES[len(ca)])
+    coranks = torch.empty(planned[0][1] + 1, dtype=torch.int64, device=dev)
     passes = ctypes.c_int(0)
     lib = _build.library()
     err = lib.cbl_bitonic_merge(
         *_col_ptrs(ca), ctypes.c_longlong(na),
         *_col_ptrs(cb), ctypes.c_longlong(nb),
-        *_col_ptrs(out), *_col_ptrs(work), ctypes.c_longlong(work_rows),
+        *_col_ptrs(out), _ptr(coranks),
         ctypes.byref(passes), _build.stream_handle(dev),
     )
     _build.check_error(err, "bitonic_merge")

@@ -17,7 +17,9 @@ Phases (any failure raises and the script exits non-zero):
 2. hold each kernel against its plain PyTorch version on the card at the
    main paths' shapes (exact equality; B5, B6 and B7 also against
    `torch.sort`, their inputs unchanged, and the number of passes over
-   device memory that B5 and B6 launch against the Python schedule's),
+   device memory that B5, B6 and B7 launch against the Python
+   schedule's; B7 also at B3's shapes of a fold and a log join, timed
+   beside B3),
    time both with CUDA events, time the one PyTorch call that computes the
    same function where there is one, and work out each kernel's bound
    (the larger of bytes over the HBM peak and integer operations over
@@ -35,7 +37,9 @@ Phases (any failure raises and the script exits non-zero):
    segs[max(i-1, 0)], halves[i])`, one warm-up and one timed run;
    `distinct` and the summed `positive` must equal `bench/baseline.cpp
    dynamic`'s; then a query of the active log must equal the same query
-   after `flush()`;
+   after `flush()`; then the same rounds under merge mode "bitonic",
+   every merge on kernel B7 (23 launches, none of B3), with the same
+   counts;
 6. run the separate calls (`dynamic_round`'s fallback: per round
    `insert_codes_stream`, `query_codes_stream(lazy=True)`,
    `remove_codes_stream`, then `count_device()` and one sync) under the
@@ -312,12 +316,17 @@ def check_kernels(card: str) -> dict:
     a, b = sorted_keys(SLAB, 1 << 57), sorted_keys(SLAB, 1 << 57)
     ms = time_ms(lambda: merge.merge_sorted(a, b), 10)
     plain_ms = time_ms(lambda: merge.merge_sorted_plain(a, b), 3)
+    # the library's way to the same function: `torch.sort` of both runs
+    cat = torch.cat([a, b])
+    library_ms = time_ms(lambda: torch.sort(cat), 5)
+    log(f"B3 merge {SLAB} + {SLAB}: {ms:.4f} ms, torch.sort of both "
+        f"{library_ms:.4f} ms [{card}]")
     # every key read once and written once; a 64-bit compare an output
     results["merge"] = dict(
-        err=max(errs), ms=ms, plain_ms=plain_ms, library_ms=None,
+        err=max(errs), ms=ms, plain_ms=plain_ms, library_ms=library_ms,
         two_col_ms=ms2, fold_ms=ms_fold,
         **bound(2 * 8 * 2 * SLAB, 2 * SLAB * 2))
-    del a, b
+    del a, b, cat
 
     # B4: a synthetic slog of 2^26 rows (runs of ~16 rows across every
     # tile boundary and one run of 2^20 rows, a 10 % sentinel tail), at a
@@ -570,7 +579,10 @@ def check_bitonic(rng, b3_ms: float, card: str) -> dict:
 
     # B7: 2^24 + 2^24 (a set operation of the two operands), 2^25 + 2^24
     # (a chained operation on a union), 2^24 + 1000, an empty side, one
-    # row, 2^25 + 2^21 (word, seqtag) rows (a fold over an index)
+    # row, 2^25 + 2^21 (word, seqtag) rows (a fold over an index), and B3's
+    # shapes of the largest fold (2^26 + 2^21 rows, 75 % sentinels) and of
+    # a log join (2^22 + 2^21 rows).  The plain versions are the tiled one
+    # (always) and the step-by-step network over 2 M rows (with `plain`)
     def sorted_keys(n, hi, sent_frac=0.01):
         return torch.sort(rand_keys(n, hi, sent_frac)).values
 
@@ -579,25 +591,37 @@ def check_bitonic(rng, b3_ms: float, card: str) -> dict:
                                       rand_keys(n, 1 << 23, 0)))
 
     def merge_case(label, a, b, plain=True):
+        before = [c.clone() for c in merge.as_cols(a) + merge.as_cols(b)]
         got = bitonic.bitonic_merge(a, b)
         torch.cuda.synchronize()
         want = merge.sort_cols_plain(tuple(
             torch.cat([x, y])
             for x, y in zip(merge.as_cols(a), merge.as_cols(b))))
         err = cols_equal(merge.as_cols(got), want)
-        if plain:
-            for fn in (bitonic.bitonic_merge_passes_plain,
-                       bitonic.bitonic_merge_plain):
-                err = max(err, cols_equal(merge.as_cols(fn(a, b)), want))
-            torch.cuda.synchronize()
+        fns = (bitonic.bitonic_merge_tiled_plain,) + (
+            (bitonic.bitonic_merge_plain,) if plain else ())
+        for fn in fns:
+            err = max(err, cols_equal(merge.as_cols(fn(a, b)), want))
+        torch.cuda.synchronize()
+        err = max(err, cols_equal(merge.as_cols(a) + merge.as_cols(b),
+                                  before))
         log(f"B7 bitonic merge {label}: kernel == plain == torch.sort of "
-            f"both: {err == 0}")
+            f"both, inputs kept: {err == 0}")
         return err
 
     half = 1 << 24
     a24, b24 = sorted_keys(half, 1 << 57), sorted_keys(half, 1 << 57)
     a25 = sorted_keys(SLAB, 1 << 57)
     empty = a24[:0]
+    # the fold: an index of 2^26 rows, three quarters the sentinel tail,
+    # every seqtag 1, against a sorted log of 2^21 (word, seqtag) rows
+    w = rand_keys(2 * SLAB, 1 << 56, 0)
+    w[SLAB // 2:] = pad
+    w = torch.sort(w).values
+    fold = ((w, torch.ones_like(w)), sorted_rows(1 << 21, 1 << 56))
+    join = (sorted_rows(1 << 22, 1 << 56), sorted_rows(1 << 21, 1 << 56))
+    del w
+    tile = bitonic.MERGE_TILES[1]
     n0 = LAUNCHES["bitonic_merge"]
     errs = [
         merge_case(f"{half} + {half}", a24, b24),
@@ -616,11 +640,24 @@ def check_bitonic(rng, b3_ms: float, card: str) -> dict:
                    sorted_rows(SLAB, 1 << 56), sorted_rows(1 << 21, 1 << 56)),
         merge_case("3000 + 5000, two columns, 3 words",
                    sorted_rows(3000, 3), sorted_rows(5000, 3)),
+        merge_case(f"{2 * SLAB} + {1 << 21}, two columns (a fold: 75 % "
+                   f"sentinel tail)", *fold, plain=False),
+        merge_case(f"{1 << 22} + {1 << 21}, two columns (a log join)",
+                   *join),
+        merge_case(f"{tile * 3 + 1} + {tile - 2}, keys < 3 (tile edges)",
+                   sorted_keys(tile * 3 + 1, 3, 0.3),
+                   sorted_keys(tile - 2, 3, 0.3)),
     ]
     assert LAUNCHES["bitonic_merge"] == n0 + len(errs)
+    bitonic.bitonic_merge(a24, b24)
+    b7_passes = _build.PASSES["bitonic_merge"]
+    planned = len(bitonic.merge_passes(2 * half, tile))
+    log(f"B7 bitonic merge {half} + {half}: {b7_passes} pass over device "
+        f"memory launched, the Python schedule has {planned}")
+    assert b7_passes == planned == 1
     ms = time_ms(lambda: bitonic.bitonic_merge(a24, b24), 5)
     plain_ms = time_ms(
-        lambda: bitonic.bitonic_merge_passes_plain(a24, b24), 2)
+        lambda: bitonic.bitonic_merge_tiled_plain(a24, b24), 2)
     cat = torch.cat([a24, b24])
     library_ms = time_ms(lambda: torch.sort(cat), 5)
     b3_here = time_ms(lambda: merge.merge_sorted(a24, b24), 10)
@@ -632,11 +669,23 @@ def check_bitonic(rng, b3_ms: float, card: str) -> dict:
     log(f"B7 bitonic merge {SLAB} + {half}: {ms3:.4f} ms, kernel B3 "
         f"{b3_3:.4f} ms, bound "
         f"{bound(2 * 8 * (SLAB + half), 0)['bound_ms']:.4f} ms [{card}]")
+    extra = {}
+    for label, (a, b) in (("fold", fold), ("join", join)):
+        n = a[0].shape[0] + b[0].shape[0]
+        extra[f"{label}_ms"] = time_ms(lambda: bitonic.bitonic_merge(a, b),
+                                       5)
+        extra[f"{label}_b3_ms"] = time_ms(lambda: merge.merge_sorted(a, b),
+                                          5)
+        extra[f"{label}_bound_ms"] = bound(2 * 16 * n, 0)["bound_ms"]
+        log(f"B7 bitonic merge, two columns, {a[0].shape[0]} + "
+            f"{b[0].shape[0]} ({label}): {extra[f'{label}_ms']:.4f} ms, "
+            f"kernel B3 {extra[f'{label}_b3_ms']:.4f} ms, bound "
+            f"{extra[f'{label}_bound_ms']:.4f} ms [{card}]")
     # every key read once and written once; a 64-bit compare an output
     out["bitonic_merge"] = dict(
         err=max(errs), ms=ms, plain_ms=plain_ms, library_ms=library_ms,
         b3_ms=b3_here, ms_2_25_2_24=ms3, b3_ms_2_25_2_24=b3_3,
-        **bound(2 * 8 * 2 * half, 2 * half * 2))
+        passes=b7_passes, **extra, **bound(2 * 8 * 2 * half, 2 * half * 2))
     return out
 
 
@@ -1273,7 +1322,7 @@ def main() -> int:
     sys.path.insert(0, REPO)
     from cbl_tpu_torch import CBL
     from cbl_tpu_torch.ops import LAUNCHES, _build
-    from cbl_tpu_torch.ops.sort import use_sort_mode
+    from cbl_tpu_torch.ops.sort import use_merge_mode, use_sort_mode
 
     if sys.argv[1:] == ["--profile"]:
         return profile_separate()
@@ -1419,6 +1468,19 @@ def main() -> int:
     assert 0 < joined[1] < joined[0]
     assert folded_n == dyn["distinct"]
     del idx, segs
+    # the same rounds with every merge on kernel B7
+    with use_merge_mode("bitonic"):
+        dynamic_run(codes, timed=False)  # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        _, _, dyn_b7 = dynamic_run(codes, timed=True)
+    dyn_b7["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    log(f"dynamic path, merge mode bitonic: {dyn_b7}")
+    assert dyn_b7["distinct"] == base_dyn["distinct"], (dyn_b7, base_dyn)
+    assert dyn_b7["positive"] == base_dyn["positive"], (dyn_b7, base_dyn)
+    b7_launches = dyn_b7["launches"]
+    assert b7_launches["bitonic_merge"] == 3 * SEGS - 1, b7_launches
+    assert b7_launches["merge"] == 0, b7_launches
+    assert b7_launches["slog_scan"] == SEGS, b7_launches
 
     # phase 6: the separate calls, every sort through B5 ("mergepath"),
     # then run A once more in the default mode
@@ -1493,6 +1555,12 @@ def main() -> int:
         f"memory {dyn['peak_gib']:.2f} GiB; final log {dyn['log_rows']} rows "
         f"({dyn['log_real']} real bound, seq {dyn['seq']}); baseline.cpp "
         f"1 core {base_dyn['ops_per_s']:.4g} ops/s")
+    log(f"[{card}] K={K} {MAIN_BASES / 1e6:.0f} Mbp dynamic, merge mode "
+        f"bitonic (B7): device rounds {dyn_b7['rounds_s'] * 1e3:.2f} ms "
+        f"({dyn_b7['rounds_ms']:.2f} ms by device events; default mode "
+        f"{dyn['rounds_ms']:.2f}); peak device memory "
+        f"{dyn_b7['peak_gib']:.2f} GiB (default mode "
+        f"{dyn['peak_gib']:.2f})")
 
     for label, r in sep.items():
         log(f"[{card}] K={K} separate calls run {label} "
@@ -1533,10 +1601,10 @@ def main() -> int:
                           "cbl_tpu/ops/sort_pallas.py:302"),
     }
     # launches: the counted runs of the static path (plain), the dynamic
-    # rounds, the separate calls (runs A and B under "mergepath") and set
-    # algebra (under ("bitonic", "bitonic") and ("sort", "bitonic")), each
-    # counted from 0
-    paths = (main_launches, dyn_launches, sep["A"]["launches"],
+    # rounds (in the default mode and under "bitonic"), the separate calls
+    # (runs A and B under "mergepath") and set algebra (under ("bitonic",
+    # "bitonic") and ("sort", "bitonic")), each counted from 0
+    paths = (main_launches, dyn_launches, b7_launches, sep["A"]["launches"],
              sep["B"]["launches"], alg_launches,
              alg[ALGEBRA_MODES[1]]["launches"])
     print(json.dumps({"kernels": [

@@ -2,11 +2,12 @@
 `cbl_tpu`.
 
 `cbl_tpu_torch.ops.bitonic.bitonic_sort_plain` and `bitonic_merge_plain`
-(the network walked step by step with tensor operations),
-`bitonic_sort_passes_plain` and `bitonic_merge_passes_plain` (the same
-network walked pass by pass as the kernels schedule it: `network_passes`,
-`cross_block_rows`), the CPU dispatch of `bitonic_sort` /
-`bitonic_merge` and the seam's dispatchers
+(the networks walked step by step with tensor operations),
+`bitonic_sort_passes_plain` (the sort network walked pass by pass as the
+kernel schedules it: `network_passes`, `cross_block_rows`) and
+`bitonic_merge_tiled_plain` (the merge as its kernel tiles it:
+`merge_passes`, `tile_coranks`, tiles of 4 to 1024 rows), the CPU
+dispatch of `bitonic_sort` / `bitonic_merge` and the seam's dispatchers
 (`ops.sort.sort_keys`, `merge_sorted_pair`, `merge_with_unsorted`) under
 every merge and sort mode, against `torch.sort`, a numpy lexsort and the
 Pallas kernels `cbl_tpu.ops.sort_pallas.sort_cols_pallas` and
@@ -119,7 +120,9 @@ def test_plain_merge_matches_pallas(na_log, nb_log, t_log, two, hi):
     _assert_cols_equal(bitonic.bitonic_merge_plain(a, b), want)
     _assert_cols_equal(bitonic.bitonic_merge(a, b), want)
     _assert_cols_equal(bitonic.bitonic_merge_plain(b, a), want)
-    _assert_cols_equal(bitonic.bitonic_merge_passes_plain(a, b, 1 << 6, 2),
+    _assert_cols_equal(bitonic.bitonic_merge_tiled_plain(a, b, 1 << 6),
+                       want)
+    _assert_cols_equal(bitonic.bitonic_merge_tiled_plain(b, a, 1 << 2),
                        want)
     assert (want[0] == SENTINEL).any()
 
@@ -154,20 +157,25 @@ def test_sort_pass_list_length(p_log, t_log, fuse, want):
                        for k in range(t_log + 1, p_log + 1)}
 
 
-@pytest.mark.parametrize("rows_log,t_log,fuse,want", [
-    (25, 13, 9, 4), (26, 13, 9, 4), (25, 12, 8, 4), (13, 13, 9, 1),
-    (1, 13, 9, 1), (14, 13, 9, 2), (24, 12, 8, 4), (25, 12, 1, 14),
-    (12, 4, 3, 5),
+@pytest.mark.parametrize("rows_log,t_log,extra,tiles", [
+    (25, 13, 0, 4096), (26, 13, 0, 8192), (25, 12, 0, 8192), (13, 13, 0, 1),
+    (1, 13, 0, 1), (14, 13, 0, 2), (24, 12, 0, 4096), (25, 12, -1, 8192),
+    (12, 4, 1, 257),
 ])
-def test_merge_pass_list_length(rows_log, t_log, fuse, want):
-    """B7: one block when 2 M <= tile, else the first step, ceil(d / fuse)
-    cross passes and one in-tile pass (4 passes at 2^24 + 2^24 keys)."""
-    passes = bitonic.network_passes(1 << rows_log, 1 << t_log, fuse,
-                                    merge=True)
-    assert len(passes) == want
-    got = [j for _, _, hi, lo in passes for j in range(hi, lo - 1, -1)]
-    assert got == list(range(rows_log - 1, -1, -1))
-    assert all(dir_bit is None for _, dir_bit, _, _ in passes)
+def test_merge_pass_list_length(rows_log, t_log, extra, tiles):
+    """B7: one pass at every size (2^24 + 2^24 keys: 4096 output tiles of
+    2^13 rows), its tiles cover the 2^rows_log + extra outputs, the last
+    one holding 1 to `tile` of them; with two interleaved runs of equal
+    length the tile edges' co-ranks are half the edge, rounded up."""
+    n, tile = (1 << rows_log) + extra, 1 << t_log
+    assert bitonic.merge_passes(n, tile) == [("tiles", tiles)]
+    assert 1 <= n - (tiles - 1) * tile <= tile
+    if n <= 1 << 14:
+        na = n // 2
+        a, b = torch.arange(0, 2 * na, 2), torch.arange(1, 2 * (n - na), 2)
+        edges = torch.clamp(torch.arange(tiles + 1) * tile, max=n)
+        assert torch.equal(bitonic.tile_coranks(a, b, tile),
+                           torch.clamp((edges + 1) // 2, max=na))
 
 
 @pytest.mark.parametrize("p_log,t_log,fuse", [
@@ -221,15 +229,15 @@ def test_passes_plain_sort_equals_the_network(n, tile, fuse, two):
 
 @pytest.mark.parametrize("na,nb", [(0, 1), (1, 1), (7, 100), (1000, 37),
                                    (4097, 5000), (3, 40_000)])
-@pytest.mark.parametrize("tile,fuse", [(16, 1), (64, 3), (1024, 6)])
+@pytest.mark.parametrize("tile", [16, 64, 1024])
 @pytest.mark.parametrize("two", [False, True], ids=["one-col", "two-col"])
-def test_passes_plain_merge_equals_the_network(na, nb, tile, fuse, two):
-    """The pass-by-pass plain B7 against the step-by-step network and a
-    lexsort of both runs."""
+def test_passes_plain_merge_equals_the_network(na, nb, tile, two):
+    """The tiled plain B7 against the step-by-step network and a lexsort
+    of both runs."""
     n_cols = 3 if two else 2
     a = _port_keys(_limb_cols(na, na + 1, n_cols, 9, 0.1, True), two)
     b = _port_keys(_limb_cols(nb, nb + 2, n_cols, 9, 0.1, True), two)
-    got = bitonic.bitonic_merge_passes_plain(a, b, tile, fuse)
+    got = bitonic.bitonic_merge_tiled_plain(a, b, tile)
     _assert_cols_equal(got, _as_numpy(bitonic.bitonic_merge_plain(a, b)))
     _assert_cols_equal(got, _lexsorted(
         sort.cat_cols(merge.as_cols(a), merge.as_cols(b))))
@@ -245,6 +253,121 @@ def test_default_tiles_follow_the_sources():
     # one sort of 2^25 one-column keys: 28 passes (105 with one stride a
     # pass over tiles of 2^12 rows)
     assert len(bitonic.network_passes(1 << 25, 1 << 13, 9)) == 28
+
+
+def test_merge_tiles_follow_the_source():
+    """B7's output tiles are csrc/bitonic_merge.cu's `kMergeRows`, which
+    `MERGE_TILES` mirrors, and its co-rank rule is B3's `corank`."""
+    src = (bitonic._build.SRC_DIR / "bitonic_merge.cu").read_text()
+    assert "template <int C>\nconstexpr int kMergeTileLog = C == 1 ? 11 : 10;" \
+        in src
+    assert ("const long long tiles = (na + nb + kMergeRows<C> - 1) / "
+            "kMergeRows<C>;") in src
+    assert "const long long d0 = (long long)blockIdx.x * T;" in src
+    assert "constexpr int T = kMergeRows<C>;" in src
+    assert "coranks[g] = corank<C>(a, na, b, nb, d);" in src
+    assert bitonic.MERGE_TILES == {1: 1 << 11, 2: 1 << 10}
+    assert bitonic.merge_passes(2 << 24, bitonic.MERGE_TILES[1]) == [
+        ("tiles", 1 << 14)]
+
+
+# (na, nb): na + nb = k * 64 - 1, k * 64 and k * 64 + 1, so an edge of
+# every tile from 4 to 64 rows; an empty side; one row
+_EDGE_LENGTHS = [(0, 1), (1, 0), (1, 1), (127, 0), (64, 63), (100, 28),
+                 (100, 29), (200, 55)]
+
+
+def _edge_runs(na, nb, kind, two, seed):
+    """Two sorted runs of port keys: "dups" (keys < 3, runs of equal rows
+    across every tile edge and co-rank split; with `two`, column 0 < 2 and
+    a minor column < 3), "one value" (every row of both runs equal), or
+    "sentinels" (keys < 40 and a sentinel tail of 30 %); with `two` and
+    "sentinels", column 0 < 3 ties across the splits and the minor column
+    decides."""
+    n_cols = 3 if two else 2
+    hi = {"dups": 3, "one value": 1, "sentinels": 40}[kind]
+    sent = 0.3 if kind == "sentinels" else 0.0
+
+    def run(n, s):
+        cols = _limb_cols(n, s, n_cols, hi, sent)
+        if two:
+            cols[0][cols[0] != 0xFFFFFFFF] = 0
+            cols[1][cols[1] != 0xFFFFFFFF] %= 2 if kind != "sentinels" else 3
+            if kind == "sentinels":
+                r = np.random.default_rng(s + 7)
+                wide = r.integers(0, 1 << 30, size=n).astype(np.uint32)
+                cols[2] = np.where(cols[2] == 0xFFFFFFFF, cols[2], wide)
+        order = np.lexsort(tuple(cols[::-1]))
+        return [c[order] for c in cols]
+
+    return run(na, seed), run(nb, seed + 1)
+
+
+@pytest.mark.parametrize("na,nb", _EDGE_LENGTHS)
+@pytest.mark.parametrize("kind", ["dups", "one value", "sentinels"])
+@pytest.mark.parametrize("two", [False, True], ids=["one-col", "two-col"])
+def test_tiled_merge_at_tile_edges(na, nb, kind, two):
+    """The tiled plain B7 at tiles of 4, 8, 16 and 64 rows, in both orders
+    of the runs, against the step-by-step network and a lexsort: lengths
+    on and beside the tile edges, an empty side, one row, runs of equal
+    rows across tile edges and co-rank splits, sentinel tails."""
+    ca, cb = _edge_runs(na, nb, kind, two, na * 3 + nb + two)
+    a, b = _port_keys(ca, two), _port_keys(cb, two)
+    want = _lexsorted(sort.cat_cols(merge.as_cols(a), merge.as_cols(b)))
+    _assert_cols_equal(bitonic.bitonic_merge_plain(a, b), want)
+    before = [c.copy() for c in _as_numpy(a) + _as_numpy(b)]
+    for tile in (4, 8, 16, 64):
+        _assert_cols_equal(bitonic.bitonic_merge_tiled_plain(a, b, tile),
+                           want)
+        _assert_cols_equal(bitonic.bitonic_merge_tiled_plain(b, a, tile),
+                           want)
+    _assert_cols_equal(bitonic.bitonic_merge(a, b), want)
+    _assert_cols_equal(_as_numpy(a) + _as_numpy(b), before)
+
+
+@pytest.mark.parametrize("kind", ["dups", "one value", "sentinels"])
+@pytest.mark.parametrize("two", [False, True], ids=["one-col", "two-col"])
+def test_tiled_merge_matches_pallas_at_tile_edges(kind, two):
+    """The tiled plain B7 at tiles of 4 to 64 rows against the
+    interpret-mode `merge_cols_pallas`, on 100 + 29 rows (one past an
+    edge of every tile) of the edge runs."""
+    ca, cb = _edge_runs(100, 29, kind, two, 11 + two)
+    a, b = _port_keys(ca, two), _port_keys(cb, two)
+    got = sort_pallas.merge_cols_pallas(_jnp(ca), _jnp(cb), t_log=10,
+                                        interpret=True)
+    want = _as_numpy(_port_keys([np.asarray(c) for c in got], two))
+    for tile in (4, 8, 16, 64):
+        _assert_cols_equal(bitonic.bitonic_merge_tiled_plain(a, b, tile),
+                           want)
+    _assert_cols_equal(bitonic.bitonic_merge_plain(a, b), want)
+
+
+def _rank_rows(*runs):
+    """Each run's rows as dense lexicographic ranks over all the runs."""
+    rows = np.concatenate([np.stack(r, axis=1) for r in runs])
+    _, ranks = np.unique(rows, axis=0, return_inverse=True)
+    ranks = ranks.reshape(-1)
+    ends = np.cumsum([len(r[0]) for r in runs])
+    return np.split(ranks, ends[:-1])
+
+
+@pytest.mark.parametrize("na,nb", [(0, 5), (5, 0), (1, 1), (100, 29),
+                                   (64, 63), (300, 300)])
+@pytest.mark.parametrize("tile", [4, 64])
+@pytest.mark.parametrize("two", [False, True], ids=["one-col", "two-col"])
+def test_tile_coranks_match_searchsorted(na, nb, tile, two):
+    """`tile_coranks` against a numpy oracle: A's rows land at i +
+    searchsorted(B, A[i], "left") (A before B on ties), and the co-rank
+    of edge d is how many of those positions lie below d."""
+    ca, cb = _edge_runs(na, nb, "dups", two, na + 5 * nb + tile + two)
+    a, b = _port_keys(ca, two), _port_keys(cb, two)
+    ra, rb = _rank_rows(_as_numpy(a), _as_numpy(b))
+    pos = np.arange(na) + np.searchsorted(rb, ra, side="left")
+    tiles = -(-(na + nb) // tile)
+    edges = np.minimum(np.arange(tiles + 1) * tile, na + nb)
+    want = np.searchsorted(pos, edges, side="left")
+    np.testing.assert_array_equal(
+        bitonic.tile_coranks(a, b, tile).numpy(), want)
 
 
 def test_merge_payload_is_the_tie_break_column():
@@ -347,11 +470,12 @@ def test_merge_mode_selection(monkeypatch):
 
 
 def test_bitonic_modes_walk_the_network(monkeypatch):
-    """On the CPU the bitonic modes run the plain networks, pass by pass
-    as the kernels schedule them, and never a library sort; the "sort"
-    merge mode runs no merge at all."""
+    """On the CPU the bitonic modes run the plain networks as the kernels
+    schedule them (the sort pass by pass, the merge in one tiled pass),
+    and never a library sort; the "sort" merge mode runs no merge at
+    all."""
     calls = []
-    for name in ("bitonic_sort_passes_plain", "bitonic_merge_passes_plain"):
+    for name in ("bitonic_sort_passes_plain", "bitonic_merge_tiled_plain"):
         real = getattr(bitonic, name)
         monkeypatch.setattr(
             bitonic, name,
@@ -363,6 +487,11 @@ def test_bitonic_modes_walk_the_network(monkeypatch):
         bitonic, "_walk_pass",
         lambda cols, tile, pas: walked.append(pas[0])
         or real_walk(cols, tile, pas))
+    real_merge_passes = bitonic.merge_passes
+    monkeypatch.setattr(
+        bitonic, "merge_passes",
+        lambda n, tile: walked.extend(real_merge_passes(n, tile))
+        or real_merge_passes(n, tile))
     rng = np.random.default_rng(4)
     x = torch.from_numpy(rng.integers(0, 99, size=5000))
     want = torch.sort(x).values
@@ -379,14 +508,14 @@ def test_bitonic_modes_walk_the_network(monkeypatch):
         pair = sort.merge_sorted_pair(got, got)
         two = sort.merge_sorted_pair((got, got), (got, got))
     assert calls == ["bitonic_sort_passes_plain", "bitonic_sort_passes_plain",
-                     "bitonic_merge_passes_plain",
-                     "bitonic_merge_passes_plain",
-                     "bitonic_merge_passes_plain"]
-    # 5000 rows fit one tile of 8192; two runs of 5000 make 2^14 rows: the
-    # first step and one in-tile pass, and with two columns (tile 4096) one
-    # cross pass between them
-    assert walked == ["tile", "tile", "first", "intile", "first", "intile",
-                      "first", "cross", "intile"]
+                     "bitonic_merge_tiled_plain",
+                     "bitonic_merge_tiled_plain",
+                     "bitonic_merge_tiled_plain"]
+    # 5000 rows fit one sort tile of 8192; two runs of 5000 make 10,000
+    # rows: one merge pass over five output tiles of 2048 (ten of 1024
+    # with two columns)
+    assert walked == ["tile", "tile", ("tiles", 5), ("tiles", 5),
+                      ("tiles", 10)]
     assert torch.equal(got, want) and torch.equal(merged, want2)
     assert torch.equal(pair, want2) and torch.equal(two[1], want2)
     calls.clear()

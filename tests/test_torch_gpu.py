@@ -243,21 +243,21 @@ def test_bitonic_sort_kernel_fused_passes(cuda, n, two, hi):
                                    (1 << 16, 3), ((1 << 20) + 1, 1 << 19)])
 @pytest.mark.parametrize("two", [False, True])
 def test_bitonic_merge_kernel_pass_count(cuda, na, nb, two):
-    """B7 on the fused cross passes: the result, and the kernel's pass
-    count against the schedule's."""
+    """B7 in one pass over device memory at every size: the result, and
+    the kernel's pass count (1) against the schedule's."""
     a = merge.sort_cols_plain(merge.as_cols(_edge_keys(cuda, na, two, 50, 1)))
     b = merge.sort_cols_plain(merge.as_cols(_edge_keys(cuda, nb, two, 50, 2)))
     if not two:
         a, b = a[0], b[0]
+    PASSES["bitonic_merge"] = 0
     got = bitonic.bitonic_merge(a, b)
     torch.cuda.synchronize()
-    tile = bitonic.TILES[2 if two else 1]
-    rows = 2 << (max(na, nb) - 1).bit_length()
-    assert PASSES["bitonic_merge"] == len(bitonic.network_passes(
-        rows, tile, bitonic.fuse_log(tile), merge=True))
+    tile = bitonic.MERGE_TILES[2 if two else 1]
+    assert PASSES["bitonic_merge"] == len(
+        bitonic.merge_passes(na + nb, tile)) == 1
     for g, w, p in zip(merge.as_cols(got),
                        merge.as_cols(merge.merge_sorted_plain(a, b)),
-                       merge.as_cols(bitonic.bitonic_merge_passes_plain(a, b)),
+                       merge.as_cols(bitonic.bitonic_merge_tiled_plain(a, b)),
                        strict=True):
         assert torch.equal(g, w) and torch.equal(p, w)
 
@@ -289,13 +289,107 @@ def test_bitonic_merge_kernel_matches_plain(cuda, na, nb, two, hi):
         got = sort.merge_sorted_pair(a, b)
     torch.cuda.synchronize()
     assert LAUNCHES["bitonic_merge"] == n0 + (na + nb > 0)
-    for g, w, p in zip(merge.as_cols(got),
-                       merge.as_cols(merge.merge_sorted_plain(a, b)),
-                       merge.as_cols(bitonic.bitonic_merge_plain(a, b)),
-                       strict=True):
-        assert torch.equal(g, w) and torch.equal(p, w)
+    for g, w, p, q in zip(
+            merge.as_cols(got),
+            merge.as_cols(merge.merge_sorted_plain(a, b)),
+            merge.as_cols(bitonic.bitonic_merge_plain(a, b)),
+            merge.as_cols(bitonic.bitonic_merge_tiled_plain(a, b)),
+            strict=True):
+        assert torch.equal(g, w) and torch.equal(p, w) and torch.equal(q, w)
     for c, x in zip(merge.as_cols(a) + merge.as_cols(b), before):
         assert torch.equal(c, x)
+
+
+def _sorted_side(cuda, n, two, hi, seed, offset=0):
+    """Sorted keys of n rows (`_edge_keys`), as a contiguous view that
+    starts `offset` rows into its storage (an odd offset leaves the first
+    row off a 16-byte boundary)."""
+    cols = merge.sort_cols_plain(merge.as_cols(
+        _edge_keys(cuda, n + offset, two, hi, seed)))
+    cols = tuple(c[offset:] for c in cols) if offset else cols
+    return cols if two else cols[0]
+
+
+@pytest.mark.parametrize("k,delta", [(1, -1), (1, 0), (1, 1), (2, -1),
+                                     (2, 0), (3, 1), (65, -1), (65, 0),
+                                     (65, 1)])
+@pytest.mark.parametrize("two", [False, True])
+@pytest.mark.parametrize("hi", [1, 3, 1 << 40])
+def test_bitonic_merge_kernel_tile_edges(cuda, k, delta, two, hi):
+    """B7 with na + nb = k T - 1, k T and k T + 1 at the real tiles (T =
+    `MERGE_TILES`: 2048 rows of one column, 1024 of two): keys of two
+    values and of six with half sentinels (runs of equal rows across
+    every tile edge and co-rank split; with two columns, column 0 ties
+    across the splits and the minor column decides) and wide keys; the
+    runs split a third to two thirds, A a view at an odd offset; against
+    both plain versions and `torch.sort` of both runs, the inputs kept,
+    one pass."""
+    tile = bitonic.MERGE_TILES[2 if two else 1]
+    n = k * tile + delta
+    na = n // 3
+    a = _sorted_side(cuda, na, two, hi, n + 1, offset=1)
+    b = _sorted_side(cuda, n - na, two, hi, n + 2)
+    before = [c.clone() for c in merge.as_cols(a) + merge.as_cols(b)]
+    PASSES["bitonic_merge"] = 0
+    got = bitonic.bitonic_merge(a, b)
+    torch.cuda.synchronize()
+    assert PASSES["bitonic_merge"] == 1
+    want = merge.merge_sorted_plain(a, b)
+    plains = [bitonic.bitonic_merge_tiled_plain(a, b),
+              bitonic.bitonic_merge_tiled_plain(b, a)]
+    if n < 1 << 17:
+        plains.append(bitonic.bitonic_merge_plain(a, b))
+    for p in [got] + plains:
+        for x, w in zip(merge.as_cols(p), merge.as_cols(want), strict=True):
+            assert torch.equal(x, w)
+    for c, x in zip(merge.as_cols(a) + merge.as_cols(b), before):
+        assert torch.equal(c, x)
+
+
+@pytest.mark.parametrize("two", [False, True])
+def test_bitonic_merge_kernel_on_a_side_stream(cuda, two):
+    """B7 launched on a stream other than the default one (co-ranks and
+    tiles in order on that stream)."""
+    a = _sorted_side(cuda, 300_001, two, 3, 5)
+    b = _sorted_side(cuda, 77_777, two, 3, 6)
+    want = merge.merge_sorted_plain(a, b)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got = bitonic.bitonic_merge(a, b)
+    side.synchronize()
+    for x, w in zip(merge.as_cols(got), merge.as_cols(want), strict=True):
+        assert torch.equal(x, w)
+
+
+def test_bitonic_merge_kernel_fold_shape(cuda):
+    """B7 at the largest fold's shape: an index of 2^26 (word, seqtag)
+    rows, three quarters of them the sentinel tail, every seqtag 1,
+    against a sorted log of 2^21 rows; exact against both references,
+    and the call allocates only its output and the tile edges' co-ranks
+    (no work buffer)."""
+    rng = np.random.default_rng(26)
+    w = rng.integers(0, 1 << 56, size=1 << 26)
+    w[1 << 24:] = SENTINEL
+    words = torch.sort(torch.from_numpy(w).to(cuda)).values
+    a = (words, torch.ones_like(words))
+    b = merge.sort_cols_plain((
+        torch.from_numpy(rng.integers(0, 1 << 56, size=1 << 21)).to(cuda),
+        torch.from_numpy(rng.integers(2, 1 << 23, size=1 << 21)).to(cuda)))
+    n = (1 << 26) + (1 << 21)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = bitonic.bitonic_merge(a, b)
+    torch.cuda.synchronize()
+    grown = torch.cuda.max_memory_allocated() - before
+    tiles = -(-n // bitonic.MERGE_TILES[2])
+    assert grown <= 2 * 8 * n + 8 * (tiles + 1) + (2 << 20), grown
+    assert PASSES["bitonic_merge"] == 1
+    want = merge.merge_sorted_plain(a, b)
+    tiled = bitonic.bitonic_merge_tiled_plain(a, b)
+    for x, w, t in zip(got, want, tiled, strict=True):
+        assert torch.equal(x, w) and torch.equal(t, w)
 
 
 def test_sort_merge_mode_launches_no_merge_kernel(cuda):

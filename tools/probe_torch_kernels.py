@@ -2,7 +2,7 @@
 """Compare the scan, merge and sort kernels (B2, B3, B4, B5, B6, B7) of
 several versions of `cbl_tpu_torch` on one CUDA card, in one run.
 
-    python3 tools/probe_torch_kernels.py [--scans] PATH [PATH ...]
+    python3 tools/probe_torch_kernels.py [--scans | --merges] PATH [PATH ...]
 
 Each PATH is a directory that holds a `cbl_tpu_torch/` package (`.` for
 this checkout, or a copy of another commit's package unpacked under a
@@ -29,6 +29,13 @@ version it prints
   the machine code of, the merge and sort kernels (`nvcc`'s log and
   `cuobjdump -sass`).
 With `--scans` it runs only the B2 and B4 cases and their kernels' lines.
+With `--merges` it runs only the merges of two sorted runs: B3 and B7 on
+2^24 + 2^24 and 2^25 + 2^24 one-column keys, on a fold's 2^26 + 2^21
+(word, seqtag) rows (three quarters of the index a sentinel tail) and on
+2^22 + 2^21 (word, seqtag) rows (a log join), and `torch.sort` of both
+runs at 2^25 + 2^25 and 2^24 + 2^24: CUDA events, three means of 20
+launches, B7 held equal to B3, and B7's device time by kernel name
+(`torch.profiler`, mean of 5); then the merge kernels' lines.
 Last it prints the card's name and power limit.
 """
 
@@ -49,9 +56,11 @@ SCAN_NAMES = ("::apply(", "tile_sums(", "slog_tile_max(", "slog_scan_tiles(",
               "slog_count(", "_lookback(")
 SORT_KERNELS = ("merge_tiles", "merge_quads", "partition", "tile_sort",
                 "cross_pass", "cross_fused", "intile_pass", "first_pass")
+MERGE_KERNELS = ("merge_tiles", "partition", "cross_fused", "intile_pass",
+                 "first_pass", "merge_small", "merge_tile", "tile_coranks")
 
 
-def probe(path: str, scans_only: bool) -> None:
+def probe(path: str, only: str | None) -> None:
     sys.path.insert(0, path)
     # `time_ms` is chip_smoke.py's, at the root of this checkout
     here = os.path.dirname(os.path.abspath(__file__))
@@ -76,6 +85,11 @@ def probe(path: str, scans_only: bool) -> None:
             if e.self_device_time_total > 0:
                 print(f"{path}: {label}: {e.self_device_time_total / 5:9.1f}"
                       f" us a call, {e.count // 5:3d} x {e.key[:70]}")
+
+    if only == "--merges":
+        probe_merges(path, rng, device_us)
+        print_kernels(path, MERGE_KERNELS)
+        return
 
     def blank_delta(n, n_records):
         """+1 / -1 interval deltas: `n_records` blanked halos of 24 rows,
@@ -123,7 +137,7 @@ def probe(path: str, scans_only: bool) -> None:
                           f"{e.count:3d} x {e.key[:60]}")
         print(f"{path}: dynamic rounds, 32 Mbp: kernels {kernels / 1e3:.3f}"
               f" ms, of which B2 and B4 {scans / 1e3:.3f} ms")
-    if scans_only:
+    if only == "--scans":
         print_kernels(path, SCAN_KERNELS)
         return
 
@@ -168,9 +182,59 @@ def probe(path: str, scans_only: bool) -> None:
     print_kernels(path, SCAN_KERNELS + SORT_KERNELS)
 
 
+def probe_merges(path: str, rng, device_us) -> None:
+    """B3 and B7 at the merge shapes of `--merges`."""
+    import torch
+
+    from chip_smoke import time_ms
+
+    from cbl_tpu_torch.ops import bitonic, merge
+
+    dev = torch.device("cuda")
+    pad = (1 << 63) - 1
+
+    def keys(n, hi=1 << 57):
+        return torch.from_numpy(rng.integers(0, hi, size=n)).to(dev)
+
+    def rows(n):
+        return merge.sort_cols_plain((keys(n, 1 << 56), keys(n, 1 << 23)))
+
+    for n in (1 << 25, 1 << 24):
+        cat = keys(2 * n)
+        ms = [round(time_ms(lambda: torch.sort(cat), 20), 4)
+              for _ in range(3)]
+        print(f"{path}: torch.sort of both runs, {n} + {n} ms: {ms}")
+    del cat
+    words = keys(1 << 26, 1 << 56)
+    words[1 << 24:] = pad
+    words = torch.sort(words).values
+    cases = (
+        ("2^24 + 2^24", torch.sort(keys(1 << 24)).values,
+         torch.sort(keys(1 << 24)).values),
+        ("2^25 + 2^24", torch.sort(keys(1 << 25)).values,
+         torch.sort(keys(1 << 24)).values),
+        ("two columns 2^26 + 2^21, a fold",
+         (words, torch.ones_like(words)), rows(1 << 21)),
+        ("two columns 2^22 + 2^21, a log join", rows(1 << 22),
+         rows(1 << 21)),
+    )
+    del words
+    for label, a, b in cases:
+        same = all(torch.equal(x, y) for x, y in zip(
+            merge.as_cols(bitonic.bitonic_merge(a, b)),
+            merge.as_cols(merge.merge_sorted(a, b)), strict=True))
+        for kernel, fn in (("B3", merge.merge_sorted),
+                           ("B7", bitonic.bitonic_merge)):
+            ms = [round(time_ms(lambda: fn(a, b), 20), 4) for _ in range(3)]
+            print(f"{path}: {kernel} {label} ms: {ms}")
+        print(f"{path}: B7 {label} == B3: {same}")
+        device_us(lambda: bitonic.bitonic_merge(a, b), f"B7 {label}")
+
+
 def print_kernels(path: str, wanted: tuple) -> None:
-    """Registers (`nvcc`'s log) and load, store and barrier counts (the
-    machine code) of the kernels whose names hold one of `wanted`."""
+    """Registers and spills (`nvcc`'s log) and load, store and barrier
+    counts (the machine code) of the kernels whose names hold one of
+    `wanted`."""
     from cbl_tpu_torch.ops import _build
 
     so, _ = _build.build()
@@ -178,7 +242,8 @@ def print_kernels(path: str, wanted: tuple) -> None:
     for line in so.with_suffix(".log").read_text().splitlines():
         if "Compiling entry function" in line:
             name = line.split("'")[1]
-        elif "registers" in line and name and any(w in name for w in wanted):
+        elif (("registers" in line or "spill" in line) and name
+              and any(w in name for w in wanted)):
             print(f"{path}: {name[-50:]}: {line.strip()}")
     # cuobjdump lies beside the nvcc that built the library
     cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
@@ -207,16 +272,16 @@ def print_kernels(path: str, wanted: tuple) -> None:
 def main() -> int:
     args = sys.argv[1:]
     if args[:1] == ["--one"]:
-        probe(args[-1], scans_only="--scans" in args)
+        probe(args[-1], only=args[1] if len(args) == 3 else None)
         return 0
-    scans = args[:1] == ["--scans"]
-    paths = args[1:] if scans else args
+    only = args[:1] if args[:1] in (["--scans"], ["--merges"]) else []
+    paths = args[len(only):]
     if not paths:
         print(__doc__, file=sys.stderr)
         return 2
     for path in paths:
-        subprocess.run([sys.executable, __file__, "--one",
-                        *(["--scans"] if scans else []), path], check=True)
+        subprocess.run([sys.executable, __file__, "--one", *only, path],
+                       check=True)
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
