@@ -2,12 +2,16 @@
 
 A port of `cbl_tpu` (JAX, TPU) to PyTorch and CUDA for an NVIDIA H100:
 the static build+query path, the interleaved dynamic rounds over a sorted
-log, and the separate insert / query / remove calls and point operations
-over a pending log (see `cbl`).  It imports neither JAX nor `cbl_tpu`;
-`cbl_tpu` stays the reference the port is tested against.  Words are one
-int64 key each (odd K <= 27, see `limbs`).  The five kernels of these
-paths are CUDA C++ for sm_90a under `csrc/`, built at first use by
-`ops._build`.
+log, the separate insert / query / remove calls and point operations
+over a pending log, set algebra with its holes state, and the sequence
+calls with ordered membership (`insert_seq(s)`, `remove_seq(s)`,
+`contains_seq(s)`, `contains_codes_stream`, `contains_all`; see `cbl`).
+It imports neither JAX nor `cbl_tpu`; `cbl_tpu` stays the reference the
+port is tested against.  Words are one int64 key each (odd K <= 27, see
+`limbs`).  The seven kernels of these paths (B1 necklace, B2 blanking
+scan, B3 merge, B4 slog scan, B5 merge-path sort, B6 bitonic sort, B7
+bitonic merge) are CUDA C++ for sm_90a under `csrc/`, built at first use
+by `ops._build`.
 """
 
 from .cbl import CBL, PackedStream

@@ -1,4 +1,4 @@
-"""CBL: the k-mer set facade for the stream and point operations.
+"""CBL: the k-mer set facade for the stream, sequence and point operations.
 
 Counterpart of `cbl_tpu/cbl.py`.  A record stream is packed on the host
 (16 bases per uint32) and staged on the device once (`pack_stream`).  On
@@ -15,6 +15,17 @@ then:
   streams into the sorted log (B3) and scans it once (kernel B4) for the
   round's query hits and the distinct count; `flush()` folds the log.
   Streams of several slabs (or none) take the separate calls instead.
+- sequences: `insert_seq(s)` / `remove_seq(s)` run a second, chunked
+  pipeline (`_pipeline_words`: chunks of up to `chunk_size` k-mers,
+  validity packed one bit a k-mer on the host, B1, no blanking scan) and
+  hand each chunk's words to the pending log, as `cbl_tpu` does, so the
+  log fills and folds where its does;
+- ordered membership: `contains_seq(s)` / `contains_codes_stream` flush,
+  then answer a mask per record in sequence order: from 2^17 k-mers each
+  slab runs B1, B2 and a sort-join with the index (`_fused_contains`,
+  B3 by default; an index with holes is joined by one sort and not
+  compacted), below that the chunked pipeline and `contains_words`; the
+  masks cross to the host once.  `contains_all` is a counting query;
 - point operations (`insert`, `remove`, `contains`, `*_kmers`) take
   k-mers as packed integers and run on the same pending log;
 - set algebra: `a | b`, `a & b`, `a - b`, `a ^ b`, their in-place forms,
@@ -32,10 +43,8 @@ Differences from `cbl_tpu.CBL`:
   raises, and `device="cpu"` runs the plain tensor versions of the
   kernels.
 - Each call runs as eager PyTorch, not as one compiled program.
-- Not ported yet: `insert_seq(s)` / `remove_seq(s)` / `contains_seq(s)` /
-  `contains_codes_stream` / `contains_all` (the chunked word pipeline and
-  ordered membership, ROADMAP slice 5), export and serialisation,
-  dynamic rounds at K=27 and K >= 29 (slice 6).
+- Not ported yet: export, decoding and serialisation (ROADMAP slice 5b),
+  the CLI and `io` (5c), dynamic rounds at K=27 and K >= 29 (slice 6).
 """
 
 from __future__ import annotations
@@ -49,10 +58,12 @@ from .config import CBLConfig, get_config
 from .limbs import SENTINEL
 from .ops.scan import blank_mask, slog_scan_counts
 from .ops.sort import merge_sorted_pair
+from . import wordset as wordset_mod
 from .wordset import (
     _SLOG_SEQ_MAX,
     DEFAULT_PENDING_CAP,
     DeviceWordSet,
+    _contains_sortjoin_kernel,
     _distinct_count,
     _next_pow2,
     _quantize_cap,
@@ -61,6 +72,7 @@ from .wordset import (
     sort_rows,
 )
 
+DEFAULT_CHUNK = 1 << 19  # k-mers per chunk of the sequence pipeline
 _FUSED_SLAB = 1 << 25  # max k-mers per slab
 
 
@@ -86,17 +98,46 @@ def blank_delta(starts, ends, nk_pad: int):
     return delta[:nk_pad]
 
 
+def _kmer_words(stream, n: int, cfg: CBLConfig, canonical: bool):
+    """Packed stream -> [n] int64 words of its first n k-mer starts:
+    extract, (canonicalize), necklace (kernel B1), pack."""
+    kmers = kmod.extract_kmers(stream, n, cfg)
+    if canonical:
+        kmers, _ = kmod.canonicalize(kmers, cfg)
+    best, pos = necklace.necklace_pos_auto(kmers, cfg)
+    return necklace.pack_word(best, pos, cfg)
+
+
 def _device_words(stream, starts, ends, nk_pad: int, cfg: CBLConfig,
                   canonical: bool):
     """Packed stream -> ([nk_pad] int64 words, blanked rows = SENTINEL;
     n_valid int32 0-d)."""
-    kmers = kmod.extract_kmers(stream, nk_pad, cfg)
-    if canonical:
-        kmers, _ = kmod.canonicalize(kmers, cfg)
-    best, pos = necklace.necklace_pos_auto(kmers, cfg)
-    words = necklace.pack_word(best, pos, cfg)
+    words = _kmer_words(stream, nk_pad, cfg, canonical)
     mask, n_valid = blank_mask(blank_delta(starts, ends, nk_pad))
     return torch.where(mask.bool(), SENTINEL, words), n_valid
+
+
+def _pipeline_words(stream, validbits, chunk: int, cfg: CBLConfig,
+                    canonical: bool):
+    """One chunk of the sequence pipeline (`cbl_tpu.cbl._pipeline_fn`):
+    packed stream [S/16] (int64 holding uint32 words) and validity bits
+    [chunk/8] uint8 (`np.packbits`, first k-mer in the top bit) ->
+    [chunk] int64 words, invalid rows SENTINEL.  Validity comes from the
+    host, so there is no blanking scan."""
+    words = _kmer_words(stream, chunk, cfg, canonical)
+    shifts = torch.arange(7, -1, -1, dtype=torch.uint8,
+                          device=validbits.device)
+    valid = ((validbits[:, None] >> shifts) & 1).bool().reshape(-1)
+    return torch.where(valid, words, SENTINEL)
+
+
+def _fused_contains(stream, starts, ends, nk_pad: int, cfg: CBLConfig,
+                    canonical: bool, data: torch.Tensor, holes: bool):
+    """[nk_pad] bool membership of a slab's k-mers in k-mer start order,
+    blanked rows False (`cbl_tpu.cbl._fused_contains_fn`): the word
+    pipeline (B1, B2), then a sort-join with the index (B3 by default)."""
+    words, _ = _device_words(stream, starts, ends, nk_pad, cfg, canonical)
+    return _contains_sortjoin_kernel(data, words, holes)
 
 
 def _fused_build(stream, starts, ends, nk_pad, cfg, canonical):
@@ -160,19 +201,26 @@ class PackedStream:
         self.slabs = slabs
         self._words: dict = {}
 
+    @property
+    def n_kmers(self) -> int:
+        return sum(s[4] for s in self.slabs)
+
 
 class CBL:
     """A dynamic, exact set of k-mers on one device.
 
-    `k` (odd, <= 27 in this port), `prefix_bits` and `pending_cap` (rows
-    of the pending log) as in `cbl_tpu.CBL`.
+    `k` (odd, <= 27 in this port), `prefix_bits`, `chunk_size` (k-mers
+    a chunk of the sequence pipeline at most) and `pending_cap` (rows of
+    the pending log) as in `cbl_tpu.CBL`.
     """
 
     def __init__(self, k: int = 25, prefix_bits: int = 24,
                  canonical: bool = False, device="cuda",
+                 chunk_size: int = DEFAULT_CHUNK,
                  pending_cap: int = DEFAULT_PENDING_CAP):
         self.cfg = get_config(k=k, prefix_bits=prefix_bits)
         self.canonical = canonical
+        self.chunk = chunk_size
         self.device = resolve_device(device)
         self.wordset = DeviceWordSet(self.cfg, self.device, pending_cap)
 
@@ -188,7 +236,7 @@ class CBL:
         """An index of this one's configuration over `wordset`."""
         out = CBL(k=self.cfg.k, prefix_bits=self.cfg.prefix_bits,
                   canonical=self.canonical, device=self.device,
-                  pending_cap=wordset.pending_cap)
+                  chunk_size=self.chunk, pending_cap=wordset.pending_cap)
         out.wordset = wordset
         return out
 
@@ -296,6 +344,94 @@ class CBL:
                 raise ValueError("PackedStream staged on another device")
             return codes
         return self.pack_stream(codes, offsets)
+
+    # --- the sequence pipeline: chunks with validity from the host ---
+
+    def _codes_of(self, seq) -> np.ndarray:
+        if isinstance(seq, np.ndarray) and seq.dtype == np.uint8:
+            return seq
+        return kmod.encode_seq(seq)
+
+    def _check_len(self, seq) -> None:
+        if len(seq) < self.cfg.k:
+            raise ValueError(
+                f"Sequence size ({len(seq)}) is smaller than K ({self.cfg.k})"
+            )
+
+    def _effective_chunk(self, total_kmers: int) -> int:
+        """The chunk for a stream of `total_kmers`: the next power of two,
+        at least 4096 and at most `chunk_size`, on a 16-base boundary."""
+        if total_kmers <= 0:
+            return min(self.chunk, 4096)
+        tier = 1 << max(total_kmers - 1, 1).bit_length()
+        eff = max(min(self.chunk, tier), 4096)
+        return (eff + 15) // 16 * 16
+
+    def _stream_chunks(self, codes: np.ndarray, valid: np.ndarray,
+                       chunk: int):
+        """Yield (stream [S/16] uint32, validbits [chunk/8] uint8,
+        n_kmers) a chunk, as numpy views.  The stream is packed once and
+        the validity once with `np.packbits` (one bit a k-mer, which is
+        what crosses to the device); chunk windows start on 16-base and
+        8-k-mer boundaries."""
+        S = _stream_len(chunk, self.cfg.k)
+        total = len(valid)
+        if total <= 0:
+            return
+        n_chunks = (total + chunk - 1) // chunk
+        cbuf = np.zeros((n_chunks - 1) * chunk + S, dtype=np.uint8)
+        cbuf[: len(codes)] = codes[: len(cbuf)]
+        packed = kmod.np_pack_stream(cbuf)
+        vfull = np.zeros(n_chunks * chunk, dtype=bool)
+        vfull[:total] = valid
+        vbits_all = np.packbits(vfull)
+        nw = S // 16
+        for i in range(n_chunks):
+            start = i * chunk
+            yield (
+                packed[start // 16 : start // 16 + nw],
+                vbits_all[start // 8 : start // 8 + chunk // 8],
+                min(chunk, total - start),
+            )
+
+    def _stream_valid(self, codes: np.ndarray,
+                      offsets: np.ndarray) -> np.ndarray:
+        """Valid-start mask of a concatenated record stream: a k-mer is
+        valid when it lies inside one record.  Each interior boundary b
+        blanks starts [b-k+1, b), a short trailing record blanks every
+        start inside it; the intervals add up as +1/-1 deltas."""
+        k = self.cfg.k
+        nk = max(len(codes) - k + 1, 0)
+        if nk == 0:
+            return np.zeros(0, dtype=bool)
+        starts, ends = self._blank_intervals(offsets, nk)
+        delta = np.zeros(nk + 1, dtype=np.int64)
+        np.add.at(delta, starts, 1)
+        np.add.at(delta, ends, -1)
+        return np.cumsum(delta[:nk]) == 0
+
+    def _stream_words(self, codes: np.ndarray, valid: np.ndarray):
+        """Yield ([chunk] words on the device, n_kmers) a chunk
+        (`_pipeline_words`)."""
+        chunk = self._effective_chunk(len(valid))
+        for stream, vbits, n in self._stream_chunks(codes, valid, chunk):
+            words = _pipeline_words(
+                self._to_device(stream, mask32=True),
+                torch.from_numpy(vbits).to(self.device), chunk, self.cfg,
+                self.canonical)
+            yield words, n
+
+    def _seqs_words(self, seqs):
+        """Concatenate sequences (records shorter than K dropped) into one
+        stream and yield its chunks' words; k-mers never span records."""
+        k = self.cfg.k
+        parts = [c for c in map(self._codes_of, seqs) if len(c) >= k]
+        if not parts:
+            return
+        codes = np.concatenate(parts)
+        offsets = np.cumsum([0] + [len(c) for c in parts], dtype=np.int64)
+        yield from self._stream_words(codes,
+                                      self._stream_valid(codes, offsets))
 
     # --- insert, remove and query of record streams ---
 
@@ -472,6 +608,99 @@ class CBL:
         raise TypeError(
             "dynamic_round takes PackedStreams or (codes, offsets) tuples"
         )
+
+    # --- sequence operations ---
+
+    def insert_seq(self, seq) -> None:
+        self._check_len(seq)
+        self.insert_seqs([seq])
+
+    def insert_seqs(self, seqs) -> None:
+        """Insert every k-mer of the sequences: each chunk's words,
+        sentinel rows included, go to the pending log."""
+        for words, _ in self._seqs_words(seqs):
+            self.wordset.insert_words(words)
+
+    def remove_seq(self, seq) -> None:
+        self._check_len(seq)
+        self.remove_seqs([seq])
+
+    def remove_seqs(self, seqs) -> None:
+        """Remove every k-mer of the sequences: the chunks' words as one
+        batch for the pending log."""
+        batches = [w for w, _ in self._seqs_words(seqs)]
+        if batches:
+            self.wordset.remove_words(torch.cat(batches))
+
+    def contains_seq(self, seq) -> np.ndarray:
+        """Membership of each k-mer of `seq`, in sequence order."""
+        self._check_len(seq)
+        return self.contains_seqs([seq])[0]
+
+    def contains_seqs(self, seqs) -> list:
+        """A membership mask for each sequence (`contains_codes_stream`)."""
+        for s in seqs:
+            self._check_len(s)
+        codes_list = [self._codes_of(s) for s in seqs]
+        offsets = np.cumsum([0] + [len(c) for c in codes_list],
+                            dtype=np.int64)
+        codes = (np.concatenate(codes_list) if codes_list
+                 else np.zeros(0, dtype=np.uint8))
+        return self.contains_codes_stream(codes, offsets)
+
+    def contains_codes_stream(self, codes: np.ndarray,
+                              offsets: np.ndarray) -> list:
+        """Per-record membership masks of a concatenated code stream:
+        record r gets a bool array of its max(len_r - K + 1, 0) k-mers in
+        sequence order."""
+        k = self.cfg.k
+        flat = self._contains_flat(codes, offsets)
+        out = []
+        for r in range(len(offsets) - 1):
+            lo = int(offsets[r])
+            hi = max(int(offsets[r + 1]) - k + 1, lo)
+            out.append(flat[lo:hi])
+        return out
+
+    def _contains_flat(self, codes: np.ndarray,
+                       offsets: np.ndarray) -> np.ndarray:
+        """[nk] bool over every k-mer start of the stream (starts that
+        span records are False), after `flush()`.  From
+        `_SORTJOIN_MIN_QUERIES` k-mers each slab of up to 2^25 runs the
+        word pipeline and a sort-join with the index (`_fused_contains`);
+        a smaller stream takes the chunked pipeline and `contains_words`.
+        The masks are joined on the device and copied to the host once."""
+        ws = self.wordset
+        nk = max(len(codes) - self.cfg.k + 1, 0)
+        ws.flush()
+        if nk == 0:
+            return np.zeros(0, dtype=bool)
+        if nk >= wordset_mod._SORTJOIN_MIN_QUERIES:
+            data = ws._live()
+            masks = [
+                _fused_contains(stream, s_arr, e_arr, nk_pad, self.cfg,
+                                self.canonical, data, ws._holes)[:n_here]
+                for nk_pad, stream, s_arr, e_arr, n_here
+                in self.pack_stream(codes, offsets).slabs
+            ]
+        else:
+            masks = [
+                ws.contains_words(words)[:n]
+                for words, n in self._stream_words(
+                    codes, self._stream_valid(codes, offsets))
+            ]
+        return torch.cat(masks).cpu().numpy()
+
+    def contains_all(self, seq) -> bool:
+        """True when every k-mer of `seq` is present (a counting query,
+        no mask)."""
+        self._check_len(seq)
+        codes = self._codes_of(seq)
+        if len(codes) < self.cfg.k:
+            return True
+        offsets = np.array([0, len(codes)], dtype=np.int64)
+        total, positive = self.query_codes_stream(codes, offsets)
+        return positive == total
 
     # --- point operations; k-mers are packed integers (2 bits a base) ---
 

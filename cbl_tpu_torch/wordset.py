@@ -34,12 +34,18 @@ keys (`_dups`), and a marking operation makes the rows it drops SENTINEL
 where they stand, which leaves the "holes" state (`_holes`: valid keys
 ascending and unique, sentinel rows between them) with no compaction
 sort.  Sort joins, folds and further merges take holes as they are; what
-needs a contiguous prefix (`_contains_base`, a merge join, a dynamic
-round) compacts first (`_compact`, one sort).  In the "sort" merge mode
-every operation is a tagged sort, adjacency marks and a compaction sort.
+needs a contiguous prefix (a merge join, a dynamic round, the binary
+search of a contains batch below `_SORTJOIN_MIN_QUERIES`) compacts first
+(`_compact`, one sort).  In the "sort" merge mode every operation is a
+tagged sort, adjacency marks and a compaction sort.
 
-Not ported yet: ordered membership of streams and export (ROADMAP slice
-5), and dynamic rounds at K=27 (slice 6).
+Ordered membership (`contains_words`) answers a batch of 2^17 queries or
+more by a sort-join with the query position as a second column
+(`_contains_sortjoin_kernel`), which takes holes as they are, and a
+smaller batch by `torch.searchsorted` on the compacted index.
+
+Not ported yet: export (ROADMAP slice 5b), and dynamic rounds at K=27
+(slice 6).
 """
 
 from __future__ import annotations
@@ -146,23 +152,31 @@ def _shift_tag(keys: torch.Tensor, tag: int) -> torch.Tensor:
     return torch.where(keys == SENTINEL, SENTINEL, (keys << 1) | tag)
 
 
+def _query_hits(run_start: torch.Tensor, valid: torch.Tensor,
+                is_data: torch.Tensor):
+    """(hit [n], run_id [n]) over sorted join rows: a valid query row hits
+    when its word's run holds a data row.
+
+    Runs get ids from a running sum of run starts (`_run_ids`); a
+    scatter-add counts the data rows of each run, and a query row hits
+    when its run's count is not zero.  (`cbl_tpu` takes running minima
+    and maxima of data run ids instead; `torch.cummin` on CUDA is a slow
+    scan: 197 ms of a 215 ms main path at 2^26 keys on an NVIDIA H100
+    80GB HBM3, 700 W.)"""
+    run_id = _run_ids(run_start, valid)
+    data_in_run = torch.zeros(run_start.shape[0], dtype=torch.int32,
+                              device=run_start.device)
+    data_in_run.index_add_(0, run_id, is_data.to(torch.int32))
+    return ~is_data & (data_in_run[run_id] > 0) & valid, run_id
+
+
 def _packed_join_count(s: torch.Tensor) -> torch.Tensor:
     """Hits over merged tagged keys: query rows (tag 0) whose word run holds
-    a data row (tag 1), as an int64 0-d tensor.
-
-    Runs get ids from a running sum of run starts; a scatter-add counts
-    the data rows of each run, and a query row hits when its run's count
-    is not zero.  (`cbl_tpu` takes a reverse running minimum of data run
-    ids instead; `torch.cummin` on CUDA is a slow scan: 197 ms of a
-    215 ms main path at 2^26 keys on an NVIDIA H100 80GB HBM3, 700 W.)
-    Sentinel keys are odd, so they count as data, but only in their own
-    runs (`_run_ids`), and are masked."""
-    is_data = (s & 1) == 1
-    valid = _valid_mask(s)
-    run_id = _run_ids(_first_of_run(s >> 1), valid)
-    data_in_run = torch.zeros(s.shape[0], dtype=torch.int32, device=s.device)
-    data_in_run.index_add_(0, run_id, is_data.to(torch.int32))
-    hits = ~is_data & (data_in_run[run_id] > 0) & valid
+    a data row (tag 1), as an int64 0-d tensor.  Sentinel keys are odd,
+    so they count as data, but only in their own runs (`_run_ids`), and
+    are masked."""
+    hits, _ = _query_hits(_first_of_run(s >> 1), _valid_mask(s),
+                          (s & 1) == 1)
     return hits.sum()
 
 
@@ -397,6 +411,52 @@ def _count_hits_log_merge_kernel(data, pending, tags, queries):
     columns)."""
     return _log_join_count(*merge_with_unsorted(
         _index_cols(data), cat_cols((pending, tags), _query_cols(queries))))
+
+
+# a contains batch of this many queries or more joins by a sort and
+# leaves an index with holes as it is; a smaller one compacts and searches
+# (`cbl_tpu`'s threshold, which decides when an index is compacted; read
+# at call time)
+_SORTJOIN_MIN_QUERIES = 1 << 17
+# data rows of the sort-join scatter their (false) answers over this many
+# spare slots past the queries, so that no slot takes millions of stores
+_SORTJOIN_SPILL = 1 << 16
+
+
+def _sortjoin_rows(data: torch.Tensor, queries: torch.Tensor,
+                   holes: bool):
+    """The sort-join's rows, sorted: (word, position) pairs, data rows at
+    position Q, query rows at their index, so that a word's data rows
+    sort after its queries.  For a contiguous index (`holes` False) the
+    queries are sorted and merged with it (B3, B7 under the "bitonic"
+    merge mode); else one sort of both sides."""
+    n_q = queries.shape[0]
+    d = (data, torch.full_like(data, n_q))
+    q = (queries, torch.arange(n_q, dtype=torch.int64, device=queries.device))
+    if holes:
+        return sort_keys(cat_cols(d, q))
+    return merge_with_unsorted(d, q)
+
+
+def _contains_sortjoin_kernel(data: torch.Tensor, queries: torch.Tensor,
+                              holes: bool) -> torch.Tensor:
+    """[Q] bool: which queries are keys of `data`, in query order;
+    SENTINEL queries are False.  Duplicate keys in `data` are tolerated,
+    and so are holes when `holes` is True; nothing is compacted.
+
+    A query row of the sorted rows (`_sortjoin_rows`) hits when its
+    word's run holds a data row (`_query_hits`), and a scatter by
+    position puts the answers back in query order, where `cbl_tpu` sorts
+    by position once more."""
+    n_q = queries.shape[0]
+    words, pos = _sortjoin_rows(data, queries, holes)
+    is_data = pos == n_q
+    hit, run_id = _query_hits(_first_of_run(words), _valid_mask(words),
+                              is_data)
+    dest = torch.where(is_data, n_q + (run_id & (_SORTJOIN_SPILL - 1)), pos)
+    out = torch.zeros(n_q + _SORTJOIN_SPILL, dtype=torch.bool,
+                      device=queries.device)
+    return out.scatter_(0, dest, hit)[:n_q]
 
 
 _QPOS_BITS = 31  # query positions ride below the seqtag in column 1
@@ -822,6 +882,10 @@ class DeviceWordSet:
             return _count_hits_merge_sorted_kernel(self._live(), words)
         return _count_hits_merge_kernel(self._live(), words)
 
+    def count_hits(self, words: torch.Tensor) -> int:
+        """`count_hits_device`, waited for."""
+        return int(self.count_hits_device(words))
+
     def contains_words(self, words: torch.Tensor) -> torch.Tensor:
         """[N] bool on the device; SENTINEL rows are False.  With a
         pending log, the log's last op per word overrides the index's
@@ -835,6 +899,9 @@ class DeviceWordSet:
         return torch.where(has, present, base) & _valid_mask(words)
 
     def _contains_base(self, words: torch.Tensor) -> torch.Tensor:
+        if words.shape[0] >= _SORTJOIN_MIN_QUERIES:
+            return _contains_sortjoin_kernel(self._live(), words,
+                                             self._holes)
         self._compact()  # the binary search needs a contiguous index
         return _contains_kernel(self._live(), words)
 

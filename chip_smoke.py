@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's static, dynamic-round, separate-call and
-set-algebra paths on one NVIDIA GPU.
+"""Drive the PyTorch port's static, dynamic-round, separate-call,
+set-algebra and ordered-membership paths on one NVIDIA GPU.
 
 Run from the repository root, on a machine with one CUDA card, `nvcc` and
 `g++`:
 
-    python3 chip_smoke.py            # every phase, ~3 minutes
+    python3 chip_smoke.py            # every phase, ~6 minutes
     python3 chip_smoke.py --profile  # only a `torch.profiler` table of
                                      # the separate-calls workload
     python3 chip_smoke.py --profile-algebra  # the same of the set algebra
@@ -19,7 +19,9 @@ Phases (any failure raises and the script exits non-zero):
    `torch.sort`, their inputs unchanged, and the number of passes over
    device memory that B5, B6 and B7 launch against the Python
    schedule's; B7 also at B3's shapes of a fold and a log join, timed
-   beside B3),
+   beside B3; B3, B6 and B7 also at the sort-join's shapes: 2^25 index
+   rows (word, 2^25) against 2^25 (word, position) queries, with
+   realistic words and with heavy duplicates),
    time both with CUDA events, time the one PyTorch call that computes the
    same function where there is one, and work out each kernel's bound
    (the larger of bytes over the HBM peak and integer operations over
@@ -68,7 +70,24 @@ Phases (any failure raises and the script exits non-zero):
    key against numpy's set functions over phase 4's oracle words, and the
    calls that follow on results with holes (query, insert, remove, log
    join, fold, `contains_kmers`) against the same sets;
-8. require every kernel of each path to have been launched in that
+8. ordered membership on a rebuild of phase 3's plain index:
+   `contains_codes_stream` of a 32 Mbp foreign stream of 17 records (one
+   2^25 slab against the 2^25-row index: B1, B2 and a sort-join on B3;
+   records copied from the index, fresh ones, and copies with a point
+   mutation every 20 to 40 bases, whose answers change every few
+   k-mers), masks element for element against numpy (`np.isin` of the
+   stream's necklace words at its valid starts), staging, the device
+   work and the mask's copy timed inside the counted call, the
+   self-query all True, then
+   the same masks under (merge, sort) modes ("bitonic", "bitonic") (B7,
+   B6), an index with holes (`a - b` of two overlapping 16 Mbp windows)
+   against numpy and against its answer after `_compact()`, without a
+   compaction before it, short records below the sort-join threshold
+   (`contains_seqs`, `contains_all`), the pieces of the call timed apart
+   (the word pipeline, the sort-join's sorted rows, the sort-join, with
+   its data rows' answers stored to one slot, and as one sort), and `insert_seqs` / `remove_seqs` of 8 Mbp in records of
+   mixed length against numpy and against the stream calls;
+9. require every kernel of each path to have been launched in that
    path's counted run, print the timings, the kernels' JSON line and,
    last, the device JSON line.
 
@@ -166,6 +185,29 @@ def cols_equal(got, want) -> float:
 
 
 # --- phase 2: each kernel against its plain version -------------------------
+
+
+def join_rows(rng, n: int, hi: int):
+    """The two sides of a full-size sort-join (`wordset._sortjoin_rows`)
+    as (index rows, query rows), two int64 columns each: the index's n
+    sorted words below `hi` with a 5 % sentinel tail, each at position n;
+    n query words at positions 0..n-1, unsorted, half of them drawn from
+    the index, 3 % sentinels (blanked starts)."""
+    import torch
+
+    dev = torch.device(DEVICE)
+    pad = (1 << 63) - 1
+    d = torch.from_numpy(rng.integers(0, hi, size=n)).to(dev)
+    d[n - n // 20:] = pad
+    d = torch.sort(d).values
+    q = rng.integers(0, hi, size=n)
+    half = rng.random(n) < 0.5
+    q[half] = d.cpu().numpy()[rng.integers(0, n - n // 20,
+                                           size=int(half.sum()))]
+    q[rng.random(n) < 0.03] = pad
+    return ((d, torch.full_like(d, n)),
+            (torch.from_numpy(q).to(dev),
+             torch.arange(n, dtype=torch.int64, device=dev)))
 
 
 def check_kernels(card: str) -> dict:
@@ -313,6 +355,23 @@ def check_kernels(card: str) -> dict:
     ms2 = time_ms(lambda: merge.merge_sorted(a, b), 10)
     log(f"B3 merge, two columns, {SLAB} + {1 << 21}: {ms2:.4f} ms, bound "
         f"{bound(2 * 16 * (SLAB + (1 << 21)), 0)['bound_ms']:.4f} ms")
+    # the sort-join's merge at full size: 2^25 index rows (word, 2^25)
+    # against 2^25 sorted (word, position) queries, words < 2^56 and with
+    # heavy duplicates (< 2^20: 32 rows a word on each side)
+    join_rng = np.random.default_rng(8)
+    joins = {hi: join_rows(join_rng, SLAB, hi) for hi in (1 << 56, 1 << 20)}
+    for hi, (d, q) in joins.items():
+        q_sorted = merge.sort_cols_plain(q)
+        errs.append(cols_equal(merge.merge_sorted(d, q_sorted),
+                               merge.merge_sorted_plain(d, q_sorted)))
+        log(f"B3 merge, two columns, {SLAB} + {SLAB} (the sort-join: words"
+            f" < 2^{hi.bit_length() - 1}): kernel == plain: {errs[-1] == 0}")
+    d, q_sorted = joins[1 << 56][0], merge.sort_cols_plain(joins[1 << 56][1])
+    ms_join = time_ms(lambda: merge.merge_sorted(d, q_sorted), 10)
+    log(f"B3 merge, two columns, {SLAB} + {SLAB} (the sort-join): "
+        f"{ms_join:.4f} ms, bound "
+        f"{bound(2 * 16 * 2 * SLAB, 0)['bound_ms']:.4f} ms [{card}]")
+    del d, q_sorted
     a, b = sorted_keys(SLAB, 1 << 57), sorted_keys(SLAB, 1 << 57)
     ms = time_ms(lambda: merge.merge_sorted(a, b), 10)
     plain_ms = time_ms(lambda: merge.merge_sorted_plain(a, b), 3)
@@ -324,7 +383,7 @@ def check_kernels(card: str) -> dict:
     # every key read once and written once; a 64-bit compare an output
     results["merge"] = dict(
         err=max(errs), ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-        two_col_ms=ms2, fold_ms=ms_fold,
+        two_col_ms=ms2, fold_ms=ms_fold, join_ms=ms_join,
         **bound(2 * 8 * 2 * SLAB, 2 * SLAB * 2))
     del a, b, cat
 
@@ -457,7 +516,8 @@ def check_kernels(card: str) -> dict:
         fold_library_ms=lib3, passes=b5_passes,
         **bound(2 * 8 * SLAB, SLAB * 25 * 2))
     del x1, x2, x3, x4
-    results.update(check_bitonic(rng, results["merge"]["ms"], card))
+    results.update(check_bitonic(rng, results["merge"]["ms"], card, joins))
+    del joins
 
     for name, r in results.items():
         lib = r["library_ms"]
@@ -470,10 +530,11 @@ def check_kernels(card: str) -> dict:
     return results
 
 
-def check_bitonic(rng, b3_ms: float, card: str) -> dict:
+def check_bitonic(rng, b3_ms: float, card: str, joins: dict) -> dict:
     """B6 and B7 against their plain versions and against `torch.sort`,
-    exact, at the shapes the set-algebra path gives them; `b3_ms` is
-    kernel B3's time for 2^25 + 2^25 keys, printed beside B7's."""
+    exact, at the shapes the set-algebra path and the sort-join give
+    them; `b3_ms` is kernel B3's time for 2^25 + 2^25 keys, printed
+    beside B7's; `joins` maps a word bound to `join_rows`' two sides."""
     import torch
 
     from cbl_tpu_torch.ops import LAUNCHES, _build, bitonic, merge, sort
@@ -540,6 +601,11 @@ def check_bitonic(rng, b3_ms: float, card: str) -> dict:
         sort_case(f"n={bitonic.TILES[2] + 1}, two columns (a tile + 1)",
                   (x2[0][: bitonic.TILES[2] + 1].contiguous(),
                    x2[1][: bitonic.TILES[2] + 1].contiguous())),
+        # the sort-join's queries: 2^25 (word, position) rows
+        sort_case(f"n={SLAB} two columns (the sort-join's queries, words "
+                  f"< 2^56)", joins[1 << 56][1], plain=False),
+        sort_case(f"n={SLAB} two columns (the sort-join's queries, words "
+                  f"< 2^20)", joins[1 << 20][1]),
     ]
     bitonic.bitonic_sort(x25)
     n0 += 1
@@ -569,12 +635,18 @@ def check_bitonic(rng, b3_ms: float, card: str) -> dict:
     log(f"B6 bitonic sort, two columns, {n_join}: {ms2:.4f} ms, two stable "
         f"torch.sort passes {lib2:.4f} ms, bound "
         f"{bound(2 * 16 * n_join, 0)['bound_ms']:.4f} ms [{card}]")
+    q = joins[1 << 56][1]
+    ms_join = time_ms(lambda: bitonic.bitonic_sort(q), 3)
+    lib_join = time_ms(lambda: merge.sort_cols_plain(q), 5)
+    log(f"B6 bitonic sort, two columns, {SLAB} (the sort-join's queries): "
+        f"{ms_join:.4f} ms, two stable torch.sort passes {lib_join:.4f} ms,"
+        f" bound {bound(2 * 16 * SLAB, 0)['bound_ms']:.4f} ms [{card}]")
     # every key read once and written once; n log2 n 64-bit compares
     out = {"bitonic_sort": dict(
         err=max(errs), ms=ms, plain_ms=plain_ms, library_ms=library_ms,
         ms_2_24=ms24, library_ms_2_24=lib24, two_col_ms=ms2,
-        two_col_library_ms=lib2, passes=b6_passes,
-        **bound(2 * 8 * SLAB, SLAB * 25 * 2))}
+        two_col_library_ms=lib2, join_ms=ms_join, join_library_ms=lib_join,
+        passes=b6_passes, **bound(2 * 8 * SLAB, SLAB * 25 * 2))}
     del x2, x25
 
     # B7: 2^24 + 2^24 (a set operation of the two operands), 2^25 + 2^24
@@ -648,6 +720,12 @@ def check_bitonic(rng, b3_ms: float, card: str) -> dict:
                    sorted_keys(tile * 3 + 1, 3, 0.3),
                    sorted_keys(tile - 2, 3, 0.3)),
     ]
+    # the sort-join's merge: 2^25 index rows against 2^25 sorted queries
+    for hi, (d, q) in joins.items():
+        errs.append(merge_case(
+            f"{SLAB} + {SLAB}, two columns (the sort-join: words < "
+            f"2^{hi.bit_length() - 1})", d, merge.sort_cols_plain(q),
+            plain=False))
     assert LAUNCHES["bitonic_merge"] == n0 + len(errs)
     bitonic.bitonic_merge(a24, b24)
     b7_passes = _build.PASSES["bitonic_merge"]
@@ -670,7 +748,9 @@ def check_bitonic(rng, b3_ms: float, card: str) -> dict:
         f"{b3_3:.4f} ms, bound "
         f"{bound(2 * 8 * (SLAB + half), 0)['bound_ms']:.4f} ms [{card}]")
     extra = {}
-    for label, (a, b) in (("fold", fold), ("join", join)):
+    sortjoin = (joins[1 << 56][0], merge.sort_cols_plain(joins[1 << 56][1]))
+    for label, (a, b) in (("fold", fold), ("join", join),
+                          ("sortjoin", sortjoin)):
         n = a[0].shape[0] + b[0].shape[0]
         extra[f"{label}_ms"] = time_ms(lambda: bitonic.bitonic_merge(a, b),
                                        5)
@@ -1215,6 +1295,285 @@ def algebra_overlap_check(codes: np.ndarray, words: np.ndarray) -> str:
             f"results with holes == numpy; launches {launched}")
 
 
+# --- phase 8: ordered membership -----------------------------------------------
+
+
+def foreign_stream(codes: np.ndarray, words: np.ndarray, seed: int):
+    """(codes, offsets, record words, mutated record numbers) of a
+    multi-record stream as long as `codes` (one record; `words` its
+    numpy words): 16 records, then an 11-base tail (shorter than K, no
+    k-mer).  Records 0, 2, 4, ... are copied from random places of
+    `codes` (their words are a slice of `words`), 1, 5, 9, 13 are fresh,
+    and 3, 7, 11, 15 are copies with a point mutation every 20 to 40
+    bases, so that their masks change between present and absent every
+    few k-mers."""
+    rng = np.random.default_rng(seed)
+    n = len(codes) // 16
+    parts, rec_words, mutated = [], [], []
+    for r in range(16):
+        if r % 4 == 1:
+            parts.append(rng.integers(0, 4, size=n, dtype=np.uint8))
+        else:
+            s = int(rng.integers(0, len(codes) - n))
+            parts.append(codes[s : s + n])
+        if r % 4 == 3:
+            at = np.cumsum(rng.integers(20, 41, size=n // 20))
+            at = at[at < n]
+            parts[-1] = parts[-1].copy()
+            parts[-1][at] = (parts[-1][at] + rng.integers(
+                1, 4, size=len(at), dtype=np.uint8)) % 4
+            mutated.append(r)
+        if r % 2 == 0:
+            rec_words.append(words[s : s + n - K + 1])
+        else:
+            rec_words.append(
+                np_stream_words(parts[-1], np.array([0, n]))[0])
+    parts.append(rng.integers(0, 4, size=11, dtype=np.uint8))
+    rec_words.append(words[:0])
+    return (np.concatenate(parts),
+            np.concatenate([[0], np.cumsum([len(p) for p in parts])]),
+            rec_words, mutated)
+
+
+def masks_equal(got: list, want: list, what: str) -> None:
+    assert len(got) == len(want), (what, len(got), len(want))
+    for r, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == np.bool_ and np.array_equal(g, w), (
+            f"{what}: record {r} has {int((g != w).sum())} wrong k-mers")
+
+
+def contains_run(idx, codes: np.ndarray, offsets: np.ndarray):
+    """One `contains_codes_stream` of a one-slab stream with the launch
+    counters set to 0 before it and read after it: (masks, result dict).
+    The host clock brackets the call.  Inside the same call the host
+    clock times staging (`pack_stream`, to a sync after it), CUDA events
+    the slab's word pipeline and sort-join (`_fused_contains`), and the
+    host clock what follows the device work (a sync after the events:
+    the mask's copy to the host and its split into records).  The syncs
+    wait for work that the call's own copy to the host waits for."""
+    import torch
+
+    from cbl_tpu_torch import cbl as cmod
+    from cbl_tpu_torch.ops import LAUNCHES
+
+    pack, fused = idx.pack_stream, cmod._fused_contains
+    marks = {"slabs": 0}
+
+    def timed_pack(*args):
+        t = time.perf_counter()
+        ps = pack(*args)
+        torch.cuda.synchronize()
+        marks["stage_s"] = time.perf_counter() - t
+        return ps
+
+    def timed_fused(*args):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        mask = fused(*args)
+        ev[1].record()
+        torch.cuda.synchronize()
+        marks.update(events=ev, done=time.perf_counter(),
+                     slabs=marks["slabs"] + 1)
+        return mask
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+    idx.pack_stream, cmod._fused_contains = timed_pack, timed_fused
+    try:
+        t0 = time.perf_counter()
+        masks = idx.contains_codes_stream(codes, offsets)
+        t1 = time.perf_counter()
+    finally:
+        del idx.pack_stream
+        cmod._fused_contains = fused
+    assert marks["slabs"] == 1, marks
+    ev = marks["events"]
+    return masks, dict(
+        wall_s=t1 - t0, stage_ms=marks["stage_s"] * 1e3,
+        device_ms=ev[0].elapsed_time(ev[1]),
+        copy_ms=(t1 - marks["done"]) * 1e3, launches=dict(LAUNCHES),
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+
+
+def contains_breakdown(idx, codes: np.ndarray, offsets: np.ndarray) -> dict:
+    """The pieces of `_contains_flat`'s slab path for a one-slab stream,
+    each timed alone by `time_ms` in the sort and merge modes in force:
+    the word pipeline (`_device_words`); the join's sorted rows
+    (`_sortjoin_rows`: a sort of the queries and a merge, the form for a
+    contiguous index); the whole sort-join (`_contains_sortjoin_kernel`);
+    the same with its data rows' answers all stored to one spare slot
+    (`_SORTJOIN_SPILL` at 1) in place of 2^16; and the whole join as one
+    sort of both sides (the form for an index with holes)."""
+    import torch
+
+    from cbl_tpu_torch import wordset as wmod
+    from cbl_tpu_torch.cbl import _device_words
+
+    ws = idx.wordset
+    ws.flush()
+    assert not ws._holes
+    data = ws._live()
+    ps = idx.pack_stream(codes, offsets)
+    assert len(ps.slabs) == 1
+    nk_pad, stream, s_arr, e_arr, _ = ps.slabs[0]
+    args = (stream, s_arr, e_arr, nk_pad, idx.cfg, idx.canonical)
+    words, _ = _device_words(*args)
+    join = wmod._contains_sortjoin_kernel(data, words, False)
+    spill = wmod._SORTJOIN_SPILL
+    wmod._SORTJOIN_SPILL = 1
+    try:
+        assert torch.equal(
+            wmod._contains_sortjoin_kernel(data, words, False), join)
+        one_slot_ms = time_ms(
+            lambda: wmod._contains_sortjoin_kernel(data, words, False), 5)
+    finally:
+        wmod._SORTJOIN_SPILL = spill
+    return dict(
+        data_rows=data.shape[0], queries=nk_pad,
+        pipeline_ms=time_ms(lambda: _device_words(*args), 5),
+        rows_ms=time_ms(lambda: wmod._sortjoin_rows(data, words, False), 5),
+        join_ms=time_ms(
+            lambda: wmod._contains_sortjoin_kernel(data, words, False), 5),
+        one_slot_ms=one_slot_ms,
+        one_sort_ms=time_ms(
+            lambda: wmod._contains_sortjoin_kernel(data, words, True), 5))
+
+
+def seq_pipeline_check(codes: np.ndarray, words: np.ndarray):
+    """The chunked pipeline at full chunk size: `insert_seqs` of the
+    first quarter of `codes` in records of mixed length (8 Mbp of the
+    32: 16 chunks of 2^19 k-mers, so the 2^21-row log folds), then
+    `remove_seqs` of every
+    third record, then `count()`; against numpy (`words`: the necklace
+    words of `codes` as one record) and against `insert_codes_stream` /
+    `remove_codes_stream` of the same records.  -> result dict with the
+    launches of the counted calls."""
+    import torch
+
+    from cbl_tpu_torch import CBL
+    from cbl_tpu_torch.ops import LAUNCHES
+
+    rng = np.random.default_rng(9)
+    n = len(codes) // 4
+    lens = list(rng.integers(1, n // 50, size=200)) + [5, K - 1, K, 3]
+    rng.shuffle(lens)
+    off = np.cumsum([0] + lens)
+    off = np.append(off[off < n], n)
+    recs = [codes[lo:hi] for lo, hi in zip(off[:-1], off[1:])]
+    rm = set(range(0, len(recs), 3))
+
+    def rec_words(which):
+        return np.concatenate([words[off[i]:off[i + 1] - K + 1]
+                               for i in which if off[i + 1] - off[i] >= K])
+
+    want = np.setdiff1d(np.unique(rec_words(range(len(recs)))),
+                        rec_words(sorted(rm)))
+    idx = CBL(k=K, device=DEVICE)
+    torch.cuda.synchronize()
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+    t0 = time.perf_counter()
+    idx.insert_seqs(recs)
+    n_pending = idx.wordset.n_pending
+    idx.remove_seqs([recs[i] for i in sorted(rm)])
+    count = idx.count()
+    wall_s = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    keys = index_keys(idx).cpu().numpy().astype(np.uint64)
+    assert count == len(want) and np.array_equal(keys, want), (
+        count, len(want))
+    other = CBL(k=K, device=DEVICE)
+    other.insert_codes_stream(codes[:n], off)
+    rm_recs = [recs[i] for i in sorted(rm)]
+    other.remove_codes_stream(
+        np.concatenate(rm_recs),
+        np.cumsum([0] + [len(r) for r in rm_recs]))
+    assert torch.equal(index_keys(other).cpu(), index_keys(idx).cpu())
+    n_kmers = sum(max(len(r) - K + 1, 0) for r in recs)
+    return dict(records=len(recs), removed=len(rm), kmers=n_kmers,
+                count=count, wall_s=wall_s, launches=launches,
+                n_pending_after_insert=n_pending)
+
+
+def ordered_membership_check(idx, codes: np.ndarray, offsets: np.ndarray,
+                             words: np.ndarray) -> dict:
+    """Phase 8 on `idx` (phase 3's plain 32 Mbp build of `codes`, one
+    record; `words` its numpy words).  Every check raises."""
+    import torch
+
+    from cbl_tpu_torch import CBL
+    from cbl_tpu_torch.ops.sort import use_merge_mode, use_sort_mode
+
+    t_o = time.perf_counter()
+    qcodes, qoff, qw, mutated = foreign_stream(codes, words, seed=4)
+    keys = np.unique(words)
+    want = [np_isin_sorted(w, keys) for w in qw]
+    oracle_s = time.perf_counter() - t_o
+    nk = len(qcodes) - K + 1
+    out = {"oracle_s": oracle_s, "kmers": nk}
+    for r in mutated:  # the answer changes every few k-mers
+        flips = int(np.count_nonzero(want[r][1:] != want[r][:-1]))
+        assert flips > len(want[r]) // 60, (r, flips)
+    out["mutated_flips"] = flips
+
+    idx.contains_codes_stream(qcodes, qoff)  # warm-up
+    masks, out["default"] = contains_run(idx, qcodes, qoff)
+    masks_equal(masks, want, "foreign stream")
+    n_pos = int(sum(m.sum() for m in masks))
+    assert 0 < n_pos < nk and len(masks[-1]) == 0
+    out["positive"] = n_pos
+    out["breakdown"] = contains_breakdown(idx, qcodes, qoff)
+    self_masks = idx.contains_codes_stream(codes, offsets)
+    assert len(self_masks) == 1 and len(self_masks[0]) == len(codes) - K + 1
+    assert self_masks[0].all()
+    with use_merge_mode("bitonic"), use_sort_mode("bitonic"):
+        idx.contains_codes_stream(qcodes, qoff)  # warm-up
+        masks_b, out["bitonic"] = contains_run(idx, qcodes, qoff)
+        out["bitonic_breakdown"] = contains_breakdown(idx, qcodes, qoff)
+    masks_equal(masks_b, want, "foreign stream, (bitonic, bitonic)")
+    del masks_b, self_masks
+
+    # an index with holes: a - b of two overlapping 16 Mbp windows
+    M = len(codes) // 4
+    a, b = CBL(k=K, device=DEVICE), CBL(k=K, device=DEVICE)
+    a.insert_codes_stream(codes[:2 * M], np.array([0, 2 * M]))
+    b.insert_codes_stream(codes[M:3 * M], np.array([0, 2 * M]))
+    h = a - b
+    del a, b
+    assert h.wordset._holes
+    diff = np.setdiff1d(words[:2 * M - K + 1], words[M:3 * M - K + 1])
+    want_h = [np_isin_sorted(w, diff) for w in qw]
+    got_h, out["holes"] = contains_run(h, qcodes, qoff)
+    assert h.wordset._holes, "the contains call compacted the index"
+    masks_equal(got_h, want_h, "index with holes")
+    h.wordset._compact()
+    masks_equal(h.contains_codes_stream(qcodes, qoff), got_h,
+                "after _compact()")
+    out["holes_positive"] = int(sum(m.sum() for m in got_h))
+    del h, got_h, want_h
+
+    # below the threshold: the chunked pipeline and the binary search
+    rng = np.random.default_rng(5)
+    fresh = rng.integers(0, 4, size=4_000, dtype=np.uint8)
+    p = len(codes) // 8
+    seqs = [codes[p:p + 4_000], fresh[:3_000],
+            np.concatenate([codes[2 * p:2 * p + 1_000], fresh[3_000:]]),
+            codes[3 * p:3 * p + K]]
+    got = idx.contains_seqs(seqs)
+    for g, s in zip(got, seqs):
+        w, _ = np_stream_words(s, np.array([0, len(s)]))
+        assert np.array_equal(g, np_isin_sorted(w, keys)), "contains_seqs"
+    assert got[0].all() and not got[1].any() and got[3].all()
+    assert 0 < got[2].sum() < len(got[2])
+    assert idx.contains_all(seqs[0]) and not idx.contains_all(seqs[2])
+    assert idx.contains_seq(codes[:100_000]).all()
+    del qw, want, masks
+    out["seqs"] = seq_pipeline_check(codes, words)
+    return out
+
+
 def profile_algebra() -> int:
     """`--profile-algebra`: the set-algebra runs under `torch.profiler`
     in the ("bitonic", "bitonic") and the default modes; prints the
@@ -1282,25 +1641,19 @@ def profile_separate() -> int:
     return 0
 
 
-def np_necklace_words(codes: np.ndarray, offsets: np.ndarray) -> np.ndarray:
-    """Host oracle: the packed necklace words of every k-mer that lies
-    inside one record (uint64 arithmetic, independent of the port)."""
+def _np_record_words(codes: np.ndarray) -> np.ndarray:
+    """The packed necklace words of every k-mer start of `codes` (uint64
+    arithmetic: min rotation << pos_bits | pos, independent of the
+    port)."""
     W, pos_bits = 2 * K, 6
     mask = np.uint64((1 << W) - 1)
     nk = len(codes) - K + 1
-    v = np.zeros(nk, dtype=np.uint64)
+    rot = np.zeros(nk, dtype=np.uint64)
     for j in range(K):
-        v = (v << np.uint64(2)) | codes[j : j + nk].astype(np.uint64)
-    valid = np.zeros(nk + 1, dtype=np.int64)
-    for r in range(len(offsets) - 1):
-        lo, hi = int(offsets[r]), int(offsets[r + 1]) - K + 1
-        if hi > lo:
-            valid[lo] += 1
-            valid[hi] -= 1
-    rot = v[np.cumsum(valid[:nk]) > 0]
+        rot = (rot << np.uint64(2)) | codes[j : j + nk].astype(np.uint64)
     best = rot.copy()
-    pos = np.zeros(len(rot), dtype=np.uint64)
-    hi, better = np.empty_like(rot), np.empty(len(rot), dtype=bool)
+    pos = np.zeros(nk, dtype=np.uint64)
+    hi, better = np.empty_like(rot), np.empty(nk, dtype=bool)
     for p in range(1, W):
         np.right_shift(rot, np.uint64(W - 1), out=hi)
         np.left_shift(rot, np.uint64(1), out=rot)
@@ -1310,6 +1663,56 @@ def np_necklace_words(codes: np.ndarray, offsets: np.ndarray) -> np.ndarray:
         np.copyto(best, rot, where=better)
         np.copyto(pos, np.uint64(p), where=better)
     return (best << np.uint64(pos_bits)) | pos
+
+
+def np_stream_words(codes: np.ndarray, offsets: np.ndarray):
+    """Host oracle: (words [nk] uint64 of every k-mer start of the
+    stream, valid [nk]: the k-mer lies inside one record), the words
+    computed in eight threads over pieces of the stream (numpy releases
+    the interpreter lock)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    nk = len(codes) - K + 1
+    valid = np.zeros(nk + 1, dtype=np.int64)
+    for r in range(len(offsets) - 1):
+        lo, hi = int(offsets[r]), int(offsets[r + 1]) - K + 1
+        if hi > lo:
+            valid[lo] += 1
+            valid[hi] -= 1
+    words = np.empty(nk, dtype=np.uint64)
+    edges = np.linspace(0, nk, 9).astype(np.int64)
+
+    def piece(i):
+        lo, hi = edges[i], edges[i + 1]
+        words[lo:hi] = _np_record_words(codes[lo : hi + K - 1])
+
+    with ThreadPoolExecutor(8) as ex:
+        list(ex.map(piece, range(8)))
+    return words, np.cumsum(valid[:nk]) > 0
+
+
+def np_necklace_words(codes: np.ndarray, offsets: np.ndarray) -> np.ndarray:
+    """The words of every k-mer that lies inside one record."""
+    words, valid = np_stream_words(codes, offsets)
+    return words[valid]
+
+
+def np_isin_sorted(x: np.ndarray, keys: np.ndarray) -> np.ndarray:
+    """`np.isin(x, keys)` for sorted unique `keys`, by binary search in
+    eight threads."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    out = np.empty(len(x), dtype=bool)
+    edges = np.linspace(0, len(x), 9).astype(np.int64)
+
+    def piece(i):
+        v = x[edges[i]:edges[i + 1]]
+        at = np.minimum(np.searchsorted(keys, v), max(len(keys) - 1, 0))
+        out[edges[i]:edges[i + 1]] = keys[at] == v if len(keys) else False
+
+    with ThreadPoolExecutor(8) as ex:
+        list(ex.map(piece, range(8)))
+    return out
 
 
 def main() -> int:
@@ -1534,7 +1937,23 @@ def main() -> int:
     log(algebra_overlap_check(quarter, i_words))
     del i_words
 
-    # phase 8
+    # phase 8: ordered membership against phase 3's plain build, rebuilt
+    words, _ = np_stream_words(codes, offsets)
+    om_idx = CBL(k=K, device=DEVICE)
+    om_idx.insert_codes_stream(codes, offsets)
+    om = ordered_membership_check(om_idx, codes, offsets, words)
+    del om_idx, words
+    log(f"ordered membership: {om}")
+    for name in STATIC_KERNELS:
+        assert om["default"]["launches"][name] == 1, om["default"]
+    b67 = om["bitonic"]["launches"]
+    assert b67["bitonic_sort"] >= 1 and b67["bitonic_merge"] == 1, b67
+    assert b67["merge"] == 0, b67
+    seq_launches = om["seqs"]["launches"]
+    assert seq_launches["necklace"] >= 16 and seq_launches["merge"] >= 1
+    assert seq_launches["blank"] == 0, seq_launches  # validity from the host
+
+    # phase 9
     for name in STATIC_KERNELS:
         assert main_launches[name] >= 1, name
     for label, (r, base) in runs.items():
@@ -1584,6 +2003,50 @@ def main() -> int:
             f"rows/s; {per_op}; peak device memory {r['peak_gib']:.2f} GiB; "
             f"launches {r['launches']}")
 
+    nk, bd, d = om["kmers"], om["breakdown"], om["default"]
+    b6, b7 = kern["bitonic_sort"], kern["bitonic_merge"]
+    log(f"[{card}] K={K} ordered membership, contains_codes_stream of a "
+        f"{len(codes) / 1e6:.0f} Mbp foreign stream of 17 records ({nk} "
+        f"k-mers, {om['positive']} present) against the "
+        f"{MAIN_BASES / 1e6:.0f} Mbp index ({bd['data_rows']} rows): wall "
+        f"{d['wall_s'] * 1e3:.2f} ms = {nk / d['wall_s']:.4g} k-mers/s; in "
+        f"the same call: staging {d['stage_ms']:.2f} ms (host clock), word "
+        f"pipeline + sort-join {d['device_ms']:.3f} ms by device events "
+        f"({nk / d['device_ms'] * 1e3:.4g} k-mers/s; the device idles at "
+        f"least {100 * (1 - d['device_ms'] / (d['wall_s'] * 1e3)):.1f} % "
+        f"of the wall), the mask's copy to the host and its split "
+        f"{d['copy_ms']:.3f} ms; peak device memory {d['peak_gib']:.2f} "
+        f"GiB; alone: word pipeline {bd['pipeline_ms']:.3f} ms, sort-join "
+        f"of {bd['queries']} queries {bd['join_ms']:.3f} ms (its sorted "
+        f"rows by a sort and a merge {bd['rows_ms']:.3f}; data rows' "
+        f"answers to one slot in place of 2^16: {bd['one_slot_ms']:.3f}), "
+        f"by one sort of both sides {bd['one_sort_ms']:.3f} ms; phase 2 at "
+        f"the join's shape: two stable torch.sort passes of the queries "
+        f"{b6['join_library_ms']:.3f} ms, B3's merge "
+        f"{kern['merge']['join_ms']:.3f} ms; index with holes wall "
+        f"{om['holes']['wall_s'] * 1e3:.2f} ms (staging "
+        f"{om['holes']['stage_ms']:.2f}, device "
+        f"{om['holes']['device_ms']:.3f}), peak "
+        f"{om['holes']['peak_gib']:.2f} GiB; numpy oracle "
+        f"{om['oracle_s']:.1f} s")
+    bb, b = om["bitonic_breakdown"], om["bitonic"]
+    log(f"[{card}] K={K} ordered membership under (merge, sort) modes "
+        f"(bitonic, bitonic): wall {b['wall_s'] * 1e3:.2f} ms; in the same "
+        f"call staging {b['stage_ms']:.2f} ms, word pipeline + sort-join "
+        f"{b['device_ms']:.3f} ms by device events, the mask's copy "
+        f"{b['copy_ms']:.3f} ms; alone: sort-join {bb['join_ms']:.3f} ms "
+        f"(its sorted rows {bb['rows_ms']:.3f}; data rows to one slot "
+        f"{bb['one_slot_ms']:.3f}), by one sort {bb['one_sort_ms']:.3f} "
+        f"ms; phase 2 at the join's shape: B6's sort of the queries "
+        f"{b6['join_ms']:.3f} ms, B7's merge {b7['sortjoin_ms']:.3f} ms; "
+        f"peak device memory {b['peak_gib']:.2f} GiB")
+    sq = om["seqs"]
+    log(f"[{card}] K={K} insert_seqs of {sq['records']} records "
+        f"({sq['kmers']} k-mers), remove_seqs of {sq['removed']}, count "
+        f"{sq['count']}: {sq['wall_s'] * 1e3:.2f} ms by the host clock = "
+        f"{sq['kmers'] / sq['wall_s']:.4g} k-mers/s; launches "
+        f"{sq['launches']}")
+
     src = {
         "necklace": ("cbl_tpu_torch/csrc/necklace.cu",
                      "cbl_tpu/ops/necklace_pallas.py:102"),
@@ -1602,11 +2065,16 @@ def main() -> int:
     }
     # launches: the counted runs of the static path (plain), the dynamic
     # rounds (in the default mode and under "bitonic"), the separate calls
-    # (runs A and B under "mergepath") and set algebra (under ("bitonic",
-    # "bitonic") and ("sort", "bitonic")), each counted from 0
+    # (runs A and B under "mergepath"), set algebra (under ("bitonic",
+    # "bitonic") and ("sort", "bitonic")) and ordered membership (the
+    # foreign stream in the default modes and under ("bitonic",
+    # "bitonic"), the index with holes, the sequence calls), each counted
+    # from 0
     paths = (main_launches, dyn_launches, b7_launches, sep["A"]["launches"],
              sep["B"]["launches"], alg_launches,
-             alg[ALGEBRA_MODES[1]]["launches"])
+             alg[ALGEBRA_MODES[1]]["launches"], om["default"]["launches"],
+             om["bitonic"]["launches"], om["holes"]["launches"],
+             seq_launches)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src[name][0],
          "replaces": src[name][1],

@@ -798,3 +798,80 @@ def test_set_algebra_on_cuda_matches_set_oracle(cuda, monkeypatch,
     assert (launched["bitonic_sort"] > 0) == (sort_mode == "bitonic")
     assert (launched["merge"] > 0) == (merge_mode == "mergepath")
     assert launched["sort"] == launched["slog_scan"] == 0
+
+
+@pytest.mark.parametrize("merge_mode", sort.MERGE_MODES)
+@pytest.mark.parametrize("n_q", [(1 << 17) - 1, 1 << 17, (1 << 17) + 1])
+def test_contains_sortjoin_on_cuda_matches_cpu(cuda, monkeypatch, merge_mode,
+                                               n_q):
+    """The sort-join of ordered membership on the card equals its CPU
+    result: a contiguous index with duplicate keys (merged, and by one
+    sort), an index with holes, queries with duplicates and sentinels,
+    and all-sentinel queries; in every merge mode."""
+    rng = np.random.default_rng(n_q)
+    vocab = rng.integers(0, 1 << 56, size=200_000)
+    dups = np.sort(np.concatenate([vocab[:150_000], vocab[:20_000]]))
+    dups = np.concatenate([dups, np.full(1 << 17, SENTINEL)])
+    holes = np.unique(vocab[:150_000])
+    holes = np.insert(holes, rng.integers(0, len(holes), size=30_000),
+                      SENTINEL)
+    q = vocab[rng.integers(0, 200_000, size=n_q)]
+    q[rng.random(n_q) < 0.05] = SENTINEL
+    cases = [(dups, q, False), (dups, q, True), (holes, q, True),
+             (dups, np.full(n_q, SENTINEL), False)]
+    for name in LAUNCHES:
+        monkeypatch.setitem(LAUNCHES, name, 0)
+    with sort.use_merge_mode(merge_mode):
+        for data, queries, h in cases:
+            d, qq = torch.from_numpy(data), torch.from_numpy(queries)
+            want = tws._contains_sortjoin_kernel(d, qq, holes=h)
+            got = tws._contains_sortjoin_kernel(d.to(cuda), qq.to(cuda),
+                                                holes=h)
+            assert torch.equal(got.cpu(), want)
+            assert got.shape == (n_q,) and got.dtype == torch.bool
+    assert not bool(want.any())
+    np.testing.assert_array_equal(
+        tws._contains_sortjoin_kernel(torch.from_numpy(dups),
+                                      torch.from_numpy(q), False).numpy(),
+        np.isin(q, vocab[:150_000]) & (q != SENTINEL))
+    merged = {"mergepath": "merge", "bitonic": "bitonic_merge"}
+    for mode, kernel in merged.items():
+        assert (LAUNCHES[kernel] == 2) == (merge_mode == mode), LAUNCHES
+
+
+@pytest.mark.parametrize("canonical", [False, True])
+def test_sequence_calls_on_cuda_match_cpu(cuda, monkeypatch, canonical):
+    """`insert_seqs` / `remove_seqs` through the chunked pipeline (B1),
+    then `contains_codes_stream` below the sort-join threshold and above
+    it (B1, B2, B3), on the card and on the CPU: equal states and
+    masks."""
+    rng = np.random.default_rng(12)
+    ascii_ = np.frombuffer(b"ACTG", dtype=np.uint8)
+    pool = rng.integers(0, 4, size=160_000, dtype=np.uint8)
+    seqs = [ascii_[pool[lo:hi]].tobytes()
+            for lo, hi in ((0, 9_000), (9_000, 9_020), (9_020, 30_000))]
+    off = np.array([0, 5_000, 5_010, 150_000, 160_000], dtype=np.int64)
+    results = []
+    for device in ("cpu", cuda):
+        for name in LAUNCHES:
+            monkeypatch.setitem(LAUNCHES, name, 0)
+        idx = CBL(k=25, canonical=canonical, device=device, chunk_size=4096,
+                  pending_cap=8192)
+        idx.insert_seqs(seqs)
+        idx.remove_seqs([seqs[0][2_000:6_000]])
+        ws = idx.wordset
+        logged = (ws.n_pending, ws.pending[:ws.n_pending].cpu(),
+                  ws.pending_tags[:ws.n_pending].cpu())
+        small = idx.contains_seqs([seqs[0], seqs[2][:3_000]])
+        big = idx.contains_codes_stream(pool, off)
+        results.append((logged, idx.count(), small, big, dict(LAUNCHES)))
+    (lc, nc, sc, bc, _), (lg, ng, sg, bg, launched) = results
+    assert lc[0] == lg[0] > 0 and torch.equal(lc[1], lg[1])
+    assert torch.equal(lc[2], lg[2]) and nc == ng > 0
+    for c, g in zip(sc + bc, sg + bg):
+        np.testing.assert_array_equal(c, g)
+    # removed: k-mers starting at 2000..5976; present: 6000..8975
+    assert not bg[0][2_000:5_000 - 24].any()
+    assert bg[2][6_000 - 5_010:9_000 - 24 - 5_010].all()
+    assert all(launched[n] >= 1 for n in ("necklace", "blank", "merge")), \
+        launched
