@@ -3,9 +3,12 @@
 A port of `cbl_tpu` (JAX, TPU) to PyTorch and CUDA for an NVIDIA H100:
 the static build+query path, the interleaved dynamic rounds over a sorted
 log, the separate insert / query / remove calls and point operations
-over a pending log, set algebra with its holes state, and the sequence
+over a pending log, set algebra with its holes state, the sequence
 calls with ordered membership (`insert_seq(s)`, `remove_seq(s)`,
-`contains_seq(s)`, `contains_codes_stream`, `contains_all`; see `cbl`).
+`contains_seq(s)`, `contains_codes_stream`, `contains_all`; see `cbl`),
+and export, checkpoints and stats (`words_array`, `kmers_limbs`,
+`iter_nucs`, `save_to_file` / `load_from_file` in `serialize`, the
+bucket stats in `stats`, the reference's `.cbl` files in `interop`).
 It imports neither JAX nor `cbl_tpu`; `cbl_tpu` stays the reference the
 port is tested against.  Words are one int64 key each (odd K <= 27, see
 `limbs`).  The seven kernels of these paths (B1 necklace, B2 blanking

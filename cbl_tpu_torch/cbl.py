@@ -32,6 +32,12 @@ then:
   `CBL.merge([...])` and `CBL.intersect([...])` build a new index from
   indexes of one configuration and never consume an operand
   (`DeviceWordSet.union` and the rest).
+- export: `kmers_limbs`, `__iter__` and `iter_nucs` decode the sorted
+  words (`DeviceWordSet.export_keys`) on the device and copy them out as
+  `cbl_tpu`'s limb rows, packed ints or ASCII; `save_to_file` /
+  `load_from_file` write and read `cbl_tpu`'s CBLX checkpoints
+  (`serialize`), `interop` the reference's `.cbl` files, and the stats
+  methods (`stats`) report the prefix buckets.
 Every sort goes through `ops.sort.sort_keys` (`torch.sort`, kernel B5
 under the "mergepath" sort mode, kernel B6 under "bitonic") and every
 merge through `ops.sort.merge_sorted_pair` / `merge_with_unsorted`
@@ -43,8 +49,8 @@ Differences from `cbl_tpu.CBL`:
   raises, and `device="cpu"` runs the plain tensor versions of the
   kernels.
 - Each call runs as eager PyTorch, not as one compiled program.
-- Not ported yet: export, decoding and serialisation (ROADMAP slice 5b),
-  the CLI and `io` (5c), dynamic rounds at K=27 and K >= 29 (slice 6).
+- Not ported yet: the CLI and `io` (ROADMAP slice 5c), dynamic rounds at
+  K=27 and K >= 29 (slice 6).
 """
 
 from __future__ import annotations
@@ -53,9 +59,9 @@ import numpy as np
 import torch
 
 from . import kmer as kmod
-from . import necklace
+from . import necklace, stats
 from .config import CBLConfig, get_config
-from .limbs import SENTINEL
+from .limbs import SENTINEL, to_py_ints
 from .ops.scan import blank_mask, slog_scan_counts
 from .ops.sort import merge_sorted_pair
 from . import wordset as wordset_mod
@@ -67,6 +73,7 @@ from .wordset import (
     _distinct_count,
     _next_pow2,
     _quantize_cap,
+    host_limbs,
     resolve_device,
     slog_key,
     sort_rows,
@@ -812,3 +819,60 @@ class CBL:
         """Intersection of every index of the list."""
         sets = cls._checked_wordsets(cbls)
         return cbls[0]._like(DeviceWordSet.intersect_many(sets))
+
+    # --- export ---
+
+    def kmers_limbs(self) -> np.ndarray:
+        """[n, L] uint32 k-mer limb rows in ascending word order, decoded
+        on the device (`necklace.word_to_kmer`) and copied once."""
+        kmers = necklace.word_to_kmer(self.wordset.export_keys(), self.cfg)
+        return host_limbs(kmers, self.cfg.kmer_limbs)
+
+    def __iter__(self):
+        """The k-mers as packed Python ints, in ascending word order."""
+        yield from to_py_ints(self.kmers_limbs())
+
+    def iter_nucs(self, chunk_rows: int = 1 << 20):
+        """Yield the k-mers as ASCII bytes in ascending word order, one
+        chunk of words decoded to base codes on the device and copied at
+        a time."""
+        keys = self.wordset.export_keys()
+        for lo in range(0, keys.shape[0], chunk_rows):
+            km = necklace.word_to_kmer(keys[lo : lo + chunk_rows], self.cfg)
+            codes = kmod.unpack_bases(km, self.cfg).cpu().numpy()
+            for row in kmod.BASE_LOOKUP[codes]:
+                yield row.tobytes()
+
+    # --- persistence: `cbl_tpu`'s CBLX checkpoints ---
+
+    def save_to_file(self, path) -> None:
+        from . import serialize
+
+        serialize.save(self, path)
+
+    @classmethod
+    def load_from_file(cls, path, device=None) -> "CBL":
+        """The index of a checkpoint, on `device` (default: the card)."""
+        from . import serialize
+
+        return serialize.load(path, device=device)
+
+    # --- repartition stats ---
+
+    def prefix_load(self) -> float:
+        return stats.prefix_load(self)
+
+    def buckets_sizes(self):
+        return stats.buckets_sizes(self)
+
+    def buckets_size_count(self):
+        return stats.buckets_size_count(self)
+
+    def buckets_load_repartition(self):
+        return stats.buckets_load_repartition(self)
+
+    def buckets_nodes(self):
+        return stats.buckets_nodes(self)
+
+    def buckets_node_count(self):
+        return stats.buckets_node_count(self)

@@ -21,6 +21,7 @@ NUC_LOOKUP = np.full(256, 255, dtype=np.uint8)
 for _i, _c in enumerate(b"ACTG"):
     NUC_LOOKUP[_c] = _i
     NUC_LOOKUP[_c + 32] = _i  # lowercase
+BASE_LOOKUP = np.frombuffer(b"ACTG", dtype=np.uint8)
 
 
 def encode_seq(seq) -> np.ndarray:
@@ -30,6 +31,11 @@ def encode_seq(seq) -> np.ndarray:
     raw = np.frombuffer(bytes(seq), dtype=np.uint8)
     codes = NUC_LOOKUP[raw]
     return codes[codes != 255]
+
+
+def decode_codes(codes: np.ndarray) -> bytes:
+    """[..., K] uint8 base codes -> ASCII."""
+    return BASE_LOOKUP[np.asarray(codes)].tobytes()
 
 
 def np_pack_stream(codes: np.ndarray) -> np.ndarray:
@@ -121,3 +127,80 @@ def canonicalize(kmers, cfg: CBLConfig):
     complement) and the is-canonical mask."""
     canon = is_canonical(kmers)
     return torch.where(canon, kmers, revcomp(kmers, cfg)), canon
+
+
+def unpack_bases(kmers: torch.Tensor, cfg: CBLConfig) -> torch.Tensor:
+    """[N] int64 k-mers -> [N, K] uint8 base codes (first base first)."""
+    shifts = torch.arange(cfg.kmer_bits - 2, -1, -2, dtype=torch.int64,
+                          device=kmers.device)
+    return ((kmers[:, None] >> shifts) & 3).to(torch.uint8)
+
+
+def np_unpack_bases(kmers: np.ndarray, cfg: CBLConfig) -> np.ndarray:
+    """[N, L] uint32 k-mer limbs -> [N, K] uint8 base codes (first base
+    first), as `cbl_tpu.kmer.np_unpack_bases`."""
+    W = cfg.kmer_bits
+    L = kmers.shape[-1]
+    cols = []
+    for j in range(cfg.k):
+        lo = W - 2 - 2 * j  # LSB index of base j; always even
+        limb = L - 1 - lo // 32
+        off = lo % 32
+        cols.append(((kmers[..., limb] >> np.uint32(off)) & np.uint32(3)
+                     ).astype(np.uint8))
+    return np.stack(cols, axis=-1)
+
+
+# --- k-mer neighbourhood of packed Python ints ---
+
+
+def extend_kmer(v: int, base: int) -> int:
+    """Append a base without dropping the first."""
+    return (v << 2) | base
+
+
+def append_kmer(v: int, base: int, k: int) -> int:
+    """Append a base, dropping the first."""
+    return ((v << 2) | base) & ((1 << (2 * k)) - 1)
+
+
+def prepend_kmer(v: int, base: int, k: int) -> int:
+    """Prepend a base, dropping the last."""
+    return (v >> 2) | (base << (2 * (k - 1)))
+
+
+def successors(v: int, k: int) -> list[int]:
+    """The 4 k-mers reachable by appending a base."""
+    return [append_kmer(v, b, k) for b in range(4)]
+
+
+def predecessors(v: int, k: int) -> list[int]:
+    """The 4 k-mers reachable by prepending a base."""
+    return [prepend_kmer(v, b, k) for b in range(4)]
+
+
+# --- host-side oracle helpers (tests, small inputs) ---
+
+
+def kmer_to_int(codes) -> int:
+    v = 0
+    for c in codes:
+        v = (v << 2) | int(c)
+    return v
+
+
+def int_to_codes(v: int, k: int) -> np.ndarray:
+    return np.array([(v >> (2 * (k - 1 - j))) & 3 for j in range(k)],
+                    dtype=np.uint8)
+
+
+def py_revcomp(v: int, k: int) -> int:
+    out = 0
+    for _ in range(k):
+        out = (out << 2) | ((v & 3) ^ 0b10)
+        v >>= 2
+    return out
+
+
+def py_is_canonical(v: int) -> bool:
+    return bin(v).count("1") % 2 == 0

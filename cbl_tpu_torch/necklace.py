@@ -8,10 +8,11 @@ held as one int64 key (see `limbs`).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .config import CBLConfig
-from .limbs import low_mask
+from .limbs import low_mask, to_limbs
 from .ops import necklace as _kernel
 
 
@@ -36,6 +37,40 @@ def unpack_word(word: torch.Tensor, cfg: CBLConfig):
     """word -> (necklace int64, pos int32)."""
     pos = (word & low_mask(cfg.pos_bits)).to(torch.int32)
     return word >> cfg.pos_bits, pos
+
+
+def revert_necklace_pos(necklace: torch.Tensor, pos: torch.Tensor,
+                        cfg: CBLConfig) -> torch.Tensor:
+    """Rotate each necklace right by its pos: the k-mer it came from."""
+    W = cfg.kmer_bits
+    p = pos.to(torch.int64)
+    return ((necklace >> p) | (necklace << ((W - p) % W))) & low_mask(W)
+
+
+def word_to_kmer(word: torch.Tensor, cfg: CBLConfig) -> torch.Tensor:
+    """[N] int64 words -> [N] int64 k-mers."""
+    necklace, pos = unpack_word(word, cfg)
+    return revert_necklace_pos(necklace, pos, cfg)
+
+
+def word_prefix(word: torch.Tensor, cfg: CBLConfig) -> torch.Tensor:
+    """prefix = word >> SUFFIX_BITS, as int64 (below 2^32)."""
+    return word >> cfg.suffix_bits
+
+
+def np_word_to_kmer(words: np.ndarray, cfg: CBLConfig) -> np.ndarray:
+    """Host decode of exported words: [N, L] uint32 word limbs -> [N, L]
+    uint32 k-mer limbs, as `cbl_tpu.necklace.np_word_to_kmer`."""
+    W = cfg.kmer_bits
+    u = np.asarray(words, dtype=np.uint32).astype(np.uint64)
+    key = u[:, 0]
+    for l in range(1, u.shape[1]):
+        key = (key << np.uint64(32)) | u[:, l]
+    pos = key & np.uint64(low_mask(cfg.pos_bits))
+    neck = key >> np.uint64(cfg.pos_bits)
+    left = (np.uint64(W) - pos) % np.uint64(W)
+    kmer = ((neck >> pos) | (neck << left)) & np.uint64(low_mask(W))
+    return to_limbs(kmer.astype(np.int64), u.shape[1])
 
 
 def py_necklace_pos(word: int, bits: int) -> tuple[int, int]:

@@ -44,16 +44,22 @@ more by a sort-join with the query position as a second column
 (`_contains_sortjoin_kernel`), which takes holes as they are, and a
 smaller batch by `torch.searchsorted` on the compacted index.
 
-Not ported yet: export (ROADMAP slice 5b), and dynamic rounds at K=27
-(slice 6).
+Export (`words_array`, `iter_words_chunks`, `prefixes`) flushes,
+compacts and drops duplicates first, as `cbl_tpu` does, and hands the
+first n keys out as `cbl_tpu`'s [n, L] uint32 limb rows, laid out on the
+device and copied once (`host_limbs`).
+
+Not ported yet: dynamic rounds at K=27 (ROADMAP slice 6).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .config import CBLConfig
-from .limbs import SENTINEL, check_config
+from .limbs import SENTINEL, check_config, keys_to_limbs
+from .necklace import word_prefix
 from .ops.scan import SLOG_TAG_MAX, slog_rows, slog_scan_counts
 from .ops.sort import (
     cat_cols,
@@ -89,6 +95,13 @@ def _quantize_cap(n: int, frac_log: int = 3) -> int:
     k = max((n - 1).bit_length() - 1 - frac_log, 12)
     step = 1 << k
     return -(-n // step) * step
+
+
+def host_limbs(keys: torch.Tensor, L: int) -> np.ndarray:
+    """[N] int64 keys of valid words -> [N, L] uint32 limb rows on the
+    host, laid out on the keys' device (`limbs.keys_to_limbs`) and
+    copied once into pageable memory."""
+    return keys_to_limbs(keys, L).cpu().numpy().view(np.uint32)
 
 
 def resolve_device(device) -> torch.device:
@@ -1067,3 +1080,32 @@ class DeviceWordSet:
         out._n_dev, out._n_host = self._n_dev, n
         out._n_upper = max(n, self._n_upper if self._dups else 0)
         return out
+
+    # --- export ---
+
+    def export_keys(self) -> torch.Tensor:
+        """The n keys of the set, ascending and unique, as a view of
+        `data` on the device: the logs are folded, holes compacted and
+        duplicates dropped first (`cbl_tpu`'s export preamble)."""
+        self.flush()
+        self._compact()
+        self._dedup()
+        return self.data[: self.n]
+
+    def words_array(self) -> np.ndarray:
+        """[n, L] uint32 host array in ascending word order."""
+        return host_limbs(self.export_keys(), self.cfg.word_limbs)
+
+    def iter_words_chunks(self, chunk_rows: int = 1 << 22):
+        """Yield [<= chunk_rows, L] uint32 host arrays in ascending word
+        order: slices of the keys on the device, one chunk's copy at a
+        time, so the host never holds more than a chunk."""
+        keys = self.export_keys()
+        L = self.cfg.word_limbs
+        for lo in range(0, keys.shape[0], chunk_rows):
+            yield host_limbs(keys[lo : lo + chunk_rows], L)
+
+    def prefixes(self) -> np.ndarray:
+        """Sorted [n] uint32 prefix (key >> SUFFIX_BITS) of each word."""
+        prefix = word_prefix(self.export_keys(), self.cfg)
+        return host_limbs(prefix, 1).reshape(-1)

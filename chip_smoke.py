@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's static, dynamic-round, separate-call,
-set-algebra and ordered-membership paths on one NVIDIA GPU.
+set-algebra, ordered-membership and export paths on one NVIDIA GPU.
 
 Run from the repository root, on a machine with one CUDA card, `nvcc` and
 `g++`:
 
-    python3 chip_smoke.py            # every phase, ~6 minutes
+    python3 chip_smoke.py            # every phase, ~7 minutes
     python3 chip_smoke.py --profile  # only a `torch.profiler` table of
                                      # the separate-calls workload
     python3 chip_smoke.py --profile-algebra  # the same of the set algebra
@@ -55,10 +55,11 @@ Phases (any failure raises and the script exits non-zero):
    operations against a Python oracle with no fold in between, and a
    round over a two-slab stream (the fallback) against the same three
    calls on a second index;
-7. run set algebra as `bench.py --mode algebra` does (BASELINE config 4
-   without its serde round-trip): `a` from the first 16 Mbp, `b` from the
-   second, then `a | b`, `a & b`, `a - b`, `a ^ b`, each followed by
-   `count()`, one warm-up and one counted pass, under three pairs of
+7. run set algebra as `bench.py --mode algebra` does (BASELINE config 4):
+   `a` from the first 16 Mbp, `b` from the second, then `a | b`, `a & b`,
+   `a - b`, `a ^ b`, each followed by `count()`, then the serde
+   round-trip of `a` (`save_to_file`, `load_from_file`, `count()`), one
+   warm-up and one counted pass, under three pairs of
    (merge mode, sort mode): ("bitonic", "bitonic") (merges on kernel B7,
    sorts on B6), ("sort", "bitonic") (no merge kernel, every tagged and
    compaction sort on B6) and the defaults (B3, `torch.sort`); the three
@@ -87,7 +88,19 @@ Phases (any failure raises and the script exits non-zero):
    (the word pipeline, the sort-join's sorted rows, the sort-join, with
    its data rows' answers stored to one slot, and as one sort), and `insert_seqs` / `remove_seqs` of 8 Mbp in records of
    mixed length against numpy and against the stream calls;
-9. require every kernel of each path to have been launched in that
+9. export and checkpoints on phase 8's index, counted from 0: in each
+   sort mode (`library`, `mergepath`: B5, `bitonic`: B6) a fresh build's
+   `words_array` (its dedup sort, the limbs laid out on the card and the
+   copy timed apart) against numpy's sorted unique words, the count against
+   `bench/baseline.cpp`'s; then `iter_words_chunks(2^22)`,
+   `kmers_limbs` against `np.unique` of the k-mers, the six stats and
+   `shard_balance` against numpy, `save_to_file` -> `load_from_file`
+   (the file's words against numpy) and the loaded index's self-query
+   (B1, B2, B3), `save_reference` at full size, `load_reference` of the
+   first 2 Mbp's index (its bucket headers are a Python loop) back to
+   the same words and the same bytes, and the first 2^20 rows of
+   `iter_nucs` against an ASCII decode of the k-mers;
+10. require every kernel of each path to have been launched in that
    path's counted run, print the timings, the kernels' JSON line and,
    last, the device JSON line.
 
@@ -101,6 +114,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1067,15 +1081,16 @@ ALGEBRA_MODES = (("bitonic", "bitonic"), ("sort", "bitonic"),
 
 
 def algebra_run(codes: np.ndarray, merge_mode: str, sort_mode: str):
-    """`bench.py --mode algebra` on the port without its serde round-trip,
-    under one (merge mode, sort mode) pair: `a` from the first half of
-    `codes`, `b` from the second (one record each), then `a | b`,
-    `a & b`, `a - b`, `a ^ b`, each followed by `count()`.  The operands
-    are built anew, so the run pays what a first pass pays (two dedup
-    sorts at `a & b`).  The launch counters are set to 0 before the
-    builds and read after the last count; the device events and the host
-    clock bracket the four operations.
-    -> ((a, b), {name: result index}, result dict)."""
+    """`bench.py --mode algebra` on the port under one (merge mode, sort
+    mode) pair: `a` from the first half of `codes`, `b` from the second
+    (one record each), then `a | b`, `a & b`, `a - b`, `a ^ b`, each
+    followed by `count()`, then the serde round-trip of `a`
+    (`save_to_file`, `load_from_file`, `count()`, timed by the host
+    clock).  The operands are built anew, so the run pays what a first
+    pass pays (two dedup sorts at `a & b`).  The launch counters are set
+    to 0 before the builds and read after the last count of the
+    operations; the device events and the host clock bracket the four
+    operations.  -> ((a, b), {name: result index}, result dict)."""
     import torch
 
     from cbl_tpu_torch import CBL
@@ -1104,7 +1119,19 @@ def algebra_run(codes: np.ndarray, merge_mode: str, sort_mode: str):
         torch.cuda.synchronize()
         launches = dict(LAUNCHES)
         counts["a after"], counts["b after"] = a.count(), b.count()
+        # bench.py's serde round-trip of `a`: save, load, count
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "bench_a.cblx.npz")
+            t0 = time.perf_counter()
+            a.save_to_file(path)
+            a2 = CBL.load_from_file(path)
+            assert a2.count() == counts["a"]
+            serde_s = time.perf_counter() - t0
+            assert int(a2.count_device()) == counts["a"]
+            serde_bytes = os.path.getsize(path)
+        del a2
     return (a, b), out, dict(
+        serde_s=serde_s, serde_bytes=serde_bytes,
         modes=(merge_mode, sort_mode), counts=counts, host_ms=host_ms,
         device_ms={name: ev[i].elapsed_time(ev[i + 1])
                    for i, (name, _) in enumerate(ALGEBRA_OPS)},
@@ -1498,9 +1525,10 @@ def seq_pipeline_check(codes: np.ndarray, words: np.ndarray):
 
 
 def ordered_membership_check(idx, codes: np.ndarray, offsets: np.ndarray,
-                             words: np.ndarray) -> dict:
+                             words: np.ndarray, keys: np.ndarray) -> dict:
     """Phase 8 on `idx` (phase 3's plain 32 Mbp build of `codes`, one
-    record; `words` its numpy words).  Every check raises."""
+    record; `words` its numpy words, `keys` their sorted unique values).
+    Every check raises."""
     import torch
 
     from cbl_tpu_torch import CBL
@@ -1508,7 +1536,6 @@ def ordered_membership_check(idx, codes: np.ndarray, offsets: np.ndarray,
 
     t_o = time.perf_counter()
     qcodes, qoff, qw, mutated = foreign_stream(codes, words, seed=4)
-    keys = np.unique(words)
     want = [np_isin_sorted(w, keys) for w in qw]
     oracle_s = time.perf_counter() - t_o
     nk = len(qcodes) - K + 1
@@ -1571,6 +1598,219 @@ def ordered_membership_check(idx, codes: np.ndarray, offsets: np.ndarray,
     assert idx.contains_seq(codes[:100_000]).all()
     del qw, want, masks
     out["seqs"] = seq_pipeline_check(codes, words)
+    return out
+
+
+# --- phase 9: export and checkpoints ----------------------------------------
+
+EXPORT_MODES = ("library", "mergepath", "bitonic")  # sort modes
+REF_CUT = 2_000_000  # bases of the index whose .cbl file is read back
+
+
+def np_limbs(words: np.ndarray) -> np.ndarray:
+    """[n, 2] uint32 big-endian limbs of uint64 words (numpy)."""
+    return np.stack([words >> np.uint64(32),
+                     words & np.uint64(0xFFFFFFFF)], axis=1).astype(np.uint32)
+
+
+def export_split(idx):
+    """`words_array` of `idx` taken apart: the preamble (flush, compact,
+    and on a fresh build the dedup sort) and the limbs laid out on the
+    card by CUDA events, the copy to the host by the host clock.
+    -> (words [n, 2] uint32, dict)."""
+    import torch
+
+    from cbl_tpu_torch.limbs import keys_to_limbs
+
+    ws = idx.wordset
+    dups = ws._dups
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    t0 = time.perf_counter()
+    ev[0].record()
+    keys = ws.export_keys()
+    ev[1].record()
+    limbs = keys_to_limbs(keys, 2)
+    ev[2].record()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    words = limbs.cpu().numpy().view(np.uint32)
+    t2 = time.perf_counter()
+    return words, dict(
+        dedup=dups, rows=len(words), wall_ms=(t2 - t0) * 1e3,
+        preamble_ms=ev[0].elapsed_time(ev[1]),
+        layout_ms=ev[1].elapsed_time(ev[2]), copy_ms=(t2 - t1) * 1e3)
+
+
+def np_stats(words: np.ndarray) -> dict:
+    """The stats of sorted unique uint64 words at PREFIX_BITS 24 (suffix
+    32 bits) by numpy; every bucket is a Vec (at most 1024 words) here,
+    so its node count is its size."""
+    from collections import Counter
+
+    prefixes, sizes = np.unique(words >> np.uint64(32), return_counts=True)
+    assert sizes.max() <= 1024
+    pairs = list(zip(prefixes.tolist(), sizes.tolist()))
+    sc = dict(sorted(Counter(sizes.tolist()).items()))
+    total = sum(s * c for s, c in sc.items())
+    return {"prefix_load": len(prefixes) / float(1 << 24),
+            "buckets_sizes": pairs, "buckets_size_count": sc,
+            "buckets_load_repartition": {s: (s * c) / total
+                                         for s, c in sc.items()},
+            "buckets_nodes": pairs, "buckets_node_count": sc,
+            "shard_balance": np.bincount(
+                (prefixes >> np.uint64(21)).astype(np.int64),
+                weights=sizes, minlength=8).astype(np.int64).tolist()}
+
+
+def export_check(idx, codes: np.ndarray, offsets: np.ndarray,
+                 keys: np.ndarray, distinct: int) -> dict:
+    """Phase 9 on `idx` (phase 8's rebuild of the plain 32 Mbp index;
+    `keys` its sorted unique numpy words, `distinct` the baseline's
+    count), with the launch counters set to 0 before it and read after:
+    `words_array` of a fresh build in each sort mode, then on `idx`
+    `iter_words_chunks`, `kmers_limbs`, the stats, `save_to_file` ->
+    `load_from_file` and the loaded index's self-query, `save_reference`
+    at full size, `load_reference` at a cut and `iter_nucs`; every result
+    against numpy, exact.  -> result dict."""
+    import itertools
+
+    import torch
+
+    from cbl_tpu_torch import CBL, interop, stats
+    from cbl_tpu_torch.limbs import from_limbs
+    from cbl_tpu_torch.ops import LAUNCHES
+    from cbl_tpu_torch.ops.sort import use_sort_mode
+
+    want = np_limbs(keys)
+    assert len(keys) == distinct, (len(keys), distinct)
+    out = {"words": len(keys)}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+    ps = idx.pack_stream(codes, offsets)
+    for mode in EXPORT_MODES:
+        with use_sort_mode(mode):
+            fresh = CBL(k=K, device=DEVICE)
+            fresh.insert_codes_stream(ps)
+            words, out[mode] = export_split(fresh)
+        assert out[mode]["dedup"], mode
+        assert words.dtype == np.uint32 and np.array_equal(words, want), mode
+        del fresh, words
+    del ps
+
+    ws = idx.wordset
+    t0 = time.perf_counter()
+    words = ws.words_array()
+    out["words_array_s"] = time.perf_counter() - t0
+    assert np.array_equal(words, want)
+    t0 = time.perf_counter()
+    chunks = np.concatenate(list(ws.iter_words_chunks(1 << 22)))
+    out["chunks_s"] = time.perf_counter() - t0  # every chunk held
+    assert np.array_equal(chunks, words)
+    del chunks
+    rows = 0
+    t0 = time.perf_counter()
+    for block in ws.iter_words_chunks(1 << 22):  # one chunk at a time
+        rows += block.shape[0]
+    out["chunks_streamed_s"] = time.perf_counter() - t0
+    assert rows == len(words)
+    t0 = time.perf_counter()
+    kmers = idx.kmers_limbs()
+    out["kmers_s"] = time.perf_counter() - t0
+    packed = (kmers[:, 0].astype(np.uint64) << np.uint64(32)) | kmers[:, 1]
+    assert np.array_equal(np.sort(packed), np.unique(np_kmers(codes)))
+
+    stats_s, got = {}, {}
+    for name in ("prefix_load", "buckets_sizes", "buckets_size_count",
+                 "buckets_load_repartition", "buckets_nodes",
+                 "buckets_node_count"):
+        t0 = time.perf_counter()
+        got[name] = getattr(idx, name)()
+        stats_s[name] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got["shard_balance"] = stats.shard_balance(idx, 8).tolist()
+    stats_s["shard_balance"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    oracle = np_stats(keys)
+    out["stats_oracle_s"] = time.perf_counter() - t0
+    for name, value in oracle.items():
+        assert got[name] == value, name
+    out["stats_s"], out["buckets"] = stats_s, len(got["buckets_sizes"])
+    del got, oracle
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "index.cblx.npz")
+        t0 = time.perf_counter()
+        idx.save_to_file(path)
+        out["save_s"] = time.perf_counter() - t0
+        out["file_bytes"] = os.path.getsize(path)
+        with np.load(path) as z:
+            assert np.array_equal(z["words"], want)
+        t0 = time.perf_counter()
+        loaded = CBL.load_from_file(path)
+        torch.cuda.synchronize()
+        out["load_s"] = time.perf_counter() - t0
+        # load_s taken apart on the host: the file's read, the keys
+        t0 = time.perf_counter()
+        with np.load(path) as z:
+            file_words = z["words"]
+        out["npz_read_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        assert len(from_limbs(file_words)) == len(keys)
+        out["from_limbs_s"] = time.perf_counter() - t0
+        del file_words
+        assert loaded.device.type == "cuda" and loaded.count() == len(keys)
+        assert int(loaded.count_device()) == len(keys)
+        n_kmers = len(codes) - K + 1
+        t0 = time.perf_counter()
+        total, positive = loaded.query_codes_stream(codes, offsets)
+        out["loaded_query_s"] = time.perf_counter() - t0
+        assert total == positive == n_kmers, (total, positive)
+        del loaded
+
+        path = os.path.join(tmp, "index.cbl")
+        t0 = time.perf_counter()
+        interop.save_reference(idx, path)
+        out["save_ref_s"] = time.perf_counter() - t0
+        out["ref_bytes"] = os.path.getsize(path)
+        with open(path, "rb") as f:
+            head = f.read(6)
+        assert head[0] == 0 and head[1] == 0xFC  # plain; a u32 bucket count
+        assert int.from_bytes(head[2:6], "little") == out["buckets"]
+        # the reader's bucket headers are a Python loop: read at a cut
+        cut = CBL(k=K, device=DEVICE)
+        cut.insert_codes_stream(codes[:REF_CUT], np.array([0, REF_CUT]))
+        cut_words = cut.wordset.words_array()
+        t0 = time.perf_counter()
+        interop.save_reference(cut, path)
+        out["cut_save_ref_s"] = time.perf_counter() - t0
+        out["cut_ref_bytes"] = os.path.getsize(path)
+        with open(path, "rb") as f:
+            first = f.read()
+        t0 = time.perf_counter()
+        back = interop.load_reference(path, k=K)
+        torch.cuda.synchronize()
+        out["cut_load_ref_s"] = time.perf_counter() - t0
+        assert back.device.type == "cuda"
+        assert np.array_equal(back.wordset.words_array(), cut_words)
+        interop.save_reference(back, path)
+        with open(path, "rb") as f:
+            assert f.read() == first
+        out["cut_words"] = len(cut_words)
+        del cut, back, first
+
+    rows = 1 << 20
+    t0 = time.perf_counter()
+    nucs = list(itertools.islice(idx.iter_nucs(), rows))
+    out["iter_nucs_s"] = time.perf_counter() - t0
+    shifts = np.arange(2 * (K - 1), -1, -2, dtype=np.uint64)
+    codes_ = ((packed[:rows, None] >> shifts) & np.uint64(3)).astype(np.uint8)
+    ascii_ = np.frombuffer(b"ACTG", dtype=np.uint8)[codes_]
+    assert nucs == [r.tobytes() for r in ascii_]
+    out["launches"] = dict(LAUNCHES)
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     return out
 
 
@@ -1939,10 +2179,11 @@ def main() -> int:
 
     # phase 8: ordered membership against phase 3's plain build, rebuilt
     words, _ = np_stream_words(codes, offsets)
+    keys = np.unique(words)
     om_idx = CBL(k=K, device=DEVICE)
     om_idx.insert_codes_stream(codes, offsets)
-    om = ordered_membership_check(om_idx, codes, offsets, words)
-    del om_idx, words
+    om = ordered_membership_check(om_idx, codes, offsets, words, keys)
+    del words
     log(f"ordered membership: {om}")
     for name in STATIC_KERNELS:
         assert om["default"]["launches"][name] == 1, om["default"]
@@ -1953,7 +2194,18 @@ def main() -> int:
     assert seq_launches["necklace"] >= 16 and seq_launches["merge"] >= 1
     assert seq_launches["blank"] == 0, seq_launches  # validity from the host
 
-    # phase 9
+    # phase 9: export and checkpoints on phase 8's index
+    ex = export_check(om_idx, codes, offsets, keys, runs["plain"][1]["distinct"])
+    del om_idx, keys
+    log(f"export and checkpoints: {ex}")
+    ex_launches = ex["launches"]
+    for name in STATIC_KERNELS:
+        assert ex_launches[name] >= 1, ex_launches
+    # each fresh build sorts once and its export once more
+    assert ex_launches["sort"] == ex_launches["bitonic_sort"] == 2, (
+        ex_launches)
+
+    # phase 10
     for name in STATIC_KERNELS:
         assert main_launches[name] >= 1, name
     for label, (r, base) in runs.items():
@@ -2047,6 +2299,38 @@ def main() -> int:
         f"{sq['kmers'] / sq['wall_s']:.4g} k-mers/s; launches "
         f"{sq['launches']}")
 
+    for mode in EXPORT_MODES:
+        r = ex[mode]
+        log(f"[{card}] K={K} words_array of a fresh {MAIN_BASES / 1e6:.0f} "
+            f"Mbp build, sort mode {mode}: {r['rows']} rows, "
+            f"{r['wall_ms']:.2f} ms by the host clock: preamble (flush, "
+            f"the dedup sort) {r['preamble_ms']:.3f} ms and limbs laid out "
+            f"on the card {r['layout_ms']:.3f} ms by device events, copy "
+            f"to the host {r['copy_ms']:.2f} ms")
+    st = ", ".join(f"{n} {v:.3f}" for n, v in ex["stats_s"].items())
+    log(f"[{card}] K={K} export of the {MAIN_BASES / 1e6:.0f} Mbp index "
+        f"({ex['words']} words, {ex['buckets']} buckets): words_array "
+        f"{ex['words_array_s'] * 1e3:.2f} ms, iter_words_chunks(2^22) "
+        f"{ex['chunks_s'] * 1e3:.2f} ms with every chunk kept, "
+        f"{ex['chunks_streamed_s'] * 1e3:.2f} ms one at a time, kmers_limbs "
+        f"{ex['kmers_s'] * 1e3:.2f} ms, iter_nucs first 2^20 rows "
+        f"{ex['iter_nucs_s'] * 1e3:.1f} ms; stats s: {st} (numpy oracle "
+        f"{ex['stats_oracle_s']:.2f} s); save_to_file {ex['save_s']:.3f} s "
+        f"({ex['file_bytes']} bytes), load_from_file {ex['load_s']:.3f} s "
+        f"(alone: np.load of the words {ex['npz_read_s']:.3f} s, "
+        f"from_limbs {ex['from_limbs_s']:.3f} s), "
+        f"the loaded index's self-query with staging "
+        f"{ex['loaded_query_s'] * 1e3:.1f} ms; save_reference "
+        f"{ex['save_ref_s']:.3f} s ({ex['ref_bytes']} bytes); at the "
+        f"{REF_CUT / 1e6:.0f} Mbp cut ({ex['cut_words']} words): "
+        f"save_reference {ex['cut_save_ref_s']:.3f} s ({ex['cut_ref_bytes']}"
+        f" bytes), load_reference {ex['cut_load_ref_s']:.3f} s; peak device "
+        f"memory {ex['peak_gib']:.2f} GiB; launches {ex_launches}")
+    for modes, r in alg.items():
+        log(f"[{card}] K={K} set algebra {modes}: serde round-trip of a "
+            f"({r['counts']['a']} words) {r['serde_s']:.3f} s, "
+            f"{r['serde_bytes']} bytes")
+
     src = {
         "necklace": ("cbl_tpu_torch/csrc/necklace.cu",
                      "cbl_tpu/ops/necklace_pallas.py:102"),
@@ -2068,13 +2352,14 @@ def main() -> int:
     # (runs A and B under "mergepath"), set algebra (under ("bitonic",
     # "bitonic") and ("sort", "bitonic")) and ordered membership (the
     # foreign stream in the default modes and under ("bitonic",
-    # "bitonic"), the index with holes, the sequence calls), each counted
+    # "bitonic"), the index with holes, the sequence calls) and export
+    # (three fresh builds' exports, checkpoints, .cbl files), each counted
     # from 0
     paths = (main_launches, dyn_launches, b7_launches, sep["A"]["launches"],
              sep["B"]["launches"], alg_launches,
              alg[ALGEBRA_MODES[1]]["launches"], om["default"]["launches"],
              om["bitonic"]["launches"], om["holes"]["launches"],
-             seq_launches)
+             seq_launches, ex_launches)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src[name][0],
          "replaces": src[name][1],

@@ -875,3 +875,68 @@ def test_sequence_calls_on_cuda_match_cpu(cuda, monkeypatch, canonical):
     assert bg[2][6_000 - 5_010:9_000 - 24 - 5_010].all()
     assert all(launched[n] >= 1 for n in ("necklace", "blank", "merge")), \
         launched
+
+
+@pytest.mark.parametrize("sort_mode", sort.SORT_MODES)
+@pytest.mark.parametrize("k,canonical", [(13, False), (25, True), (27, False)])
+def test_export_on_cuda_matches_cpu(cuda, monkeypatch, tmp_path, k,
+                                    canonical, sort_mode):
+    """Export, checkpoints, stats and `.cbl` files of a fresh build (the
+    dedup sort runs on the export) on the card equal the CPU's, in every
+    sort mode; a card-saved checkpoint loads on the CPU and back."""
+    from cbl_tpu_torch import interop, stats
+
+    rng = np.random.default_rng(k)
+    codes = rng.integers(0, 4, size=60_000, dtype=np.uint8)
+    off = np.array([0, 30_000, 60_000], dtype=np.int64)
+    got = {}
+    for device in ("cpu", cuda):
+        for name in LAUNCHES:
+            monkeypatch.setitem(LAUNCHES, name, 0)
+        with sort.use_sort_mode(sort_mode):
+            idx = CBL(k=k, prefix_bits=8, canonical=canonical, device=device)
+            idx.insert_codes_stream(codes, off)
+            idx.insert_kmers([1, 2, 3])
+            words = idx.wordset.words_array()
+        kernel = {"mergepath": "sort", "bitonic": "bitonic_sort"}.get(
+            sort_mode)
+        if device != "cpu" and kernel:
+            assert LAUNCHES[kernel] >= 2, LAUNCHES  # build + the export's
+        path = tmp_path / f"{idx.device.type}.cblx.npz"
+        idx.save_to_file(path)
+        interop.save_reference(idx, tmp_path / f"{idx.device.type}.cbl",
+                               chunk_rows=1000)
+        got[idx.device.type] = dict(
+            words=words, prefixes=idx.wordset.prefixes(),
+            chunks=np.concatenate(list(idx.wordset.iter_words_chunks(777))),
+            kmers=idx.kmers_limbs(), ints=list(idx)[:5000],
+            nucs=list(idx.iter_nucs(chunk_rows=1000))[:5000],
+            stats=[getattr(idx, n)() for n in (
+                "prefix_load", "buckets_sizes", "buckets_size_count",
+                "buckets_load_repartition", "buckets_nodes",
+                "buckets_node_count")] + [
+                    stats.shard_balance(idx, 4).tolist()],
+            file=np.load(path)["words"],
+            cbl=(tmp_path / f"{idx.device.type}.cbl").read_bytes())
+    cpu, card = got["cpu"], got["cuda"]
+    for name in ("words", "prefixes", "chunks", "kmers", "file"):
+        assert cpu[name].dtype == card[name].dtype, name
+        assert cpu[name].tobytes() == card[name].tobytes(), name
+    for name in ("ints", "nucs", "stats", "cbl"):
+        assert cpu[name] == card[name], name
+    assert max(n for _, n in cpu["stats"][1]) > 1024  # trie buckets
+    # a card-saved checkpoint and .cbl file load on the CPU and back
+    on_cpu = CBL.load_from_file(tmp_path / "cuda.cblx.npz", device="cpu")
+    back = CBL.load_from_file(tmp_path / "cpu.cblx.npz")
+    assert back.device.type == "cuda"
+    n = len(cpu["words"])
+    assert int(back.count_device()) == int(on_cpu.count_device()) == n
+    assert on_cpu.wordset.words_array().tobytes() == cpu["words"].tobytes()
+    assert back.wordset.words_array().tobytes() == cpu["words"].tobytes()
+    q = codes[:5_000]
+    q_off = np.array([0, len(q)], dtype=np.int64)
+    assert back.query_codes_stream(q, q_off) == on_cpu.query_codes_stream(
+        q, q_off)
+    ref = interop.load_reference(tmp_path / "cuda.cbl", k=k, prefix_bits=8)
+    assert ref.device.type == "cuda"
+    assert ref.wordset.words_array().tobytes() == cpu["words"].tobytes()
