@@ -49,8 +49,8 @@ Differences from `cbl_tpu.CBL`:
   raises, and `device="cpu"` runs the plain tensor versions of the
   kernels.
 - Each call runs as eager PyTorch, not as one compiled program.
-- Not ported yet: the CLI and `io` (ROADMAP slice 5c), dynamic rounds at
-  K=27 and K >= 29 (slice 6).
+- Not ported yet: the CLI and `io` (ROADMAP slice 5c), one-slab dynamic
+  rounds at K >= 27 (slice 6b).
 """
 
 from __future__ import annotations
@@ -61,7 +61,7 @@ import torch
 from . import kmer as kmod
 from . import necklace, stats
 from .config import CBLConfig, get_config
-from .limbs import SENTINEL, to_py_ints
+from .limbs import SENTINEL, ints_to_keys, kmer_cols, to_py_ints
 from .ops.scan import blank_mask, slog_scan_counts
 from .ops.sort import merge_sorted_pair
 from . import wordset as wordset_mod
@@ -106,8 +106,8 @@ def blank_delta(starts, ends, nk_pad: int):
 
 
 def _kmer_words(stream, n: int, cfg: CBLConfig, canonical: bool):
-    """Packed stream -> [n] int64 words of its first n k-mer starts:
-    extract, (canonicalize), necklace (kernel B1), pack."""
+    """Packed stream -> [n] (or [2, n]) int64 words of its first n k-mer
+    starts: extract, (canonicalize), necklace (kernel B1), pack."""
     kmers = kmod.extract_kmers(stream, n, cfg)
     if canonical:
         kmers, _ = kmod.canonicalize(kmers, cfg)
@@ -117,8 +117,8 @@ def _kmer_words(stream, n: int, cfg: CBLConfig, canonical: bool):
 
 def _device_words(stream, starts, ends, nk_pad: int, cfg: CBLConfig,
                   canonical: bool):
-    """Packed stream -> ([nk_pad] int64 words, blanked rows = SENTINEL;
-    n_valid int32 0-d)."""
+    """Packed stream -> ([nk_pad] (or [2, nk_pad]) int64 words, blanked
+    rows = SENTINEL; n_valid int32 0-d)."""
     words = _kmer_words(stream, nk_pad, cfg, canonical)
     mask, n_valid = blank_mask(blank_delta(starts, ends, nk_pad))
     return torch.where(mask.bool(), SENTINEL, words), n_valid
@@ -129,8 +129,8 @@ def _pipeline_words(stream, validbits, chunk: int, cfg: CBLConfig,
     """One chunk of the sequence pipeline (`cbl_tpu.cbl._pipeline_fn`):
     packed stream [S/16] (int64 holding uint32 words) and validity bits
     [chunk/8] uint8 (`np.packbits`, first k-mer in the top bit) ->
-    [chunk] int64 words, invalid rows SENTINEL.  Validity comes from the
-    host, so there is no blanking scan."""
+    [chunk] (or [2, chunk]) int64 words, invalid rows SENTINEL.  Validity
+    comes from the host, so there is no blanking scan."""
     words = _kmer_words(stream, chunk, cfg, canonical)
     shifts = torch.arange(7, -1, -1, dtype=torch.uint8,
                           device=validbits.device)
@@ -216,7 +216,7 @@ class PackedStream:
 class CBL:
     """A dynamic, exact set of k-mers on one device.
 
-    `k` (odd, <= 27 in this port), `prefix_bits`, `chunk_size` (k-mers
+    `k` (odd, <= 59), `prefix_bits`, `chunk_size` (k-mers
     a chunk of the sequence pipeline at most) and `pending_cap` (rows of
     the pending log) as in `cbl_tpu.CBL`.
     """
@@ -475,7 +475,7 @@ class CBL:
                 stream, s_arr, e_arr, nk_pad, self.cfg, self.canonical
             )
             ps._words[i] = (words, n_valid, True)
-            if words.shape[0] + ws.n_pending <= ws.pending_cap:
+            if words.shape[-1] + ws.n_pending <= ws.pending_cap:
                 ws.insert_words(words)
             else:
                 ws._merge_into(words, n_new_upper=n_here, batch_sorted=True)
@@ -486,8 +486,8 @@ class CBL:
         ps = self._resolve_stream(codes, offsets)
         batches = [self._slab_words(ps, i)[0] for i in range(len(ps.slabs))]
         if batches:
-            self.wordset.remove_words(
-                batches[0] if len(batches) == 1 else torch.cat(batches))
+            self.wordset.remove_words(batches[0] if len(batches) == 1
+                                      else torch.cat(batches, dim=-1))
 
     def query_codes_stream(self, codes, offsets: np.ndarray | None = None,
                            lazy: bool = False):
@@ -536,10 +536,10 @@ class CBL:
         (`_fused_round_slog`): the round enters on the index as it is (its
         keys become seq-0 inserts; a pending log is folded first), folds
         the log before its seq would pass 62, and commits its state only
-        after it was enqueued.  At K=27 that raises NotImplementedError:
-        the word leaves no room for the tag in one int64 key (ROADMAP
-        slice 6).  Any other streams take the separate insert, query and
-        remove calls."""
+        after it was enqueued.  At K >= 27 that raises
+        NotImplementedError: the word leaves no room for the tag in one
+        int64 key (ROADMAP slice 6b).  Any other streams take the separate
+        insert, query and remove calls."""
         ws = self.wordset
         streams = [self._resolve_round_stream(x) for x in (ins, qry, rm)]
         if any(len(ps.slabs) != 1 for ps in streams):
@@ -550,9 +550,8 @@ class CBL:
         if not ws._slog_pack:
             raise NotImplementedError(
                 f"dynamic_round at K={self.cfg.k}: the word and its 8-bit "
-                "tag do not fit one int64 slog key; the unpacked layout "
-                "with a tag column comes with multi-limb keys (ROADMAP "
-                "slice 6)"
+                "tag do not fit one int64 slog key; the unpacked sorted "
+                "log with a tag column is ROADMAP slice 6b"
             )
         (w_i, _), (w_q, total), (w_r, _) = (
             self._sorted_slab_words(ps) for ps in streams
@@ -637,7 +636,7 @@ class CBL:
         batch for the pending log."""
         batches = [w for w, _ in self._seqs_words(seqs)]
         if batches:
-            self.wordset.remove_words(torch.cat(batches))
+            self.wordset.remove_words(torch.cat(batches, dim=-1))
 
     def contains_seq(self, seq) -> np.ndarray:
         """Membership of each k-mer of `seq`, in sequence order."""
@@ -712,10 +711,11 @@ class CBL:
     # --- point operations; k-mers are packed integers (2 bits a base) ---
 
     def _word_rows_of_kmers(self, kmers_int) -> torch.Tensor:
-        """[N] words of k-mers given as Python ints (first base most
-        significant): canonicalize, necklace (plain version), pack."""
-        kmers = torch.tensor([int(v) for v in kmers_int], dtype=torch.int64,
-                             device=self.device)
+        """[N] (or [2, N]) words of k-mers given as Python ints (first base
+        most significant, up to 118 bits): canonicalize, necklace (plain
+        version), pack."""
+        kmers = torch.from_numpy(
+            ints_to_keys(kmers_int, kmer_cols(self.cfg))).to(self.device)
         if self.canonical:
             kmers, _ = kmod.canonicalize(kmers, self.cfg)
         best, pos = necklace.necklace_pos(kmers, self.cfg)
@@ -837,8 +837,9 @@ class CBL:
         chunk of words decoded to base codes on the device and copied at
         a time."""
         keys = self.wordset.export_keys()
-        for lo in range(0, keys.shape[0], chunk_rows):
-            km = necklace.word_to_kmer(keys[lo : lo + chunk_rows], self.cfg)
+        for lo in range(0, keys.shape[-1], chunk_rows):
+            km = necklace.word_to_kmer(keys[..., lo : lo + chunk_rows],
+                                       self.cfg)
             codes = kmod.unpack_bases(km, self.cfg).cpu().numpy()
             for row in kmod.BASE_LOOKUP[codes]:
                 yield row.tobytes()

@@ -1,4 +1,4 @@
-// The bitonic compare-exchange network over rows of one or two int64 key
+// The bitonic compare-exchange network over rows of one to three int64 key
 // columns, shared by kernel B6 (csrc/bitonic_sort.cu, a full sort, every
 // piece below) and kernel B7 (csrc/bitonic_merge.cu, the merge of two
 // sorted runs: one tile in shared memory a block, `shared_steps`).
@@ -53,7 +53,8 @@ constexpr int kRoundLog = 3;  // strides a thread runs in registers at once
 constexpr long long kBitonicPad = 0x7fffffffffffffffLL;  // sorts last
 
 // The tile: 2^13 rows of one column or 2^12 rows of two, 72 KB of padded
-// shared memory either way (three blocks an SM).  = ops/bitonic.py TILES
+// shared memory either way (three blocks an SM); 2^12 rows of three, 108 KB
+// (two blocks an SM at most).  = ops/bitonic.py TILES
 template <int C>
 constexpr int kTileLog = C == 1 ? 13 : 12;
 template <int C>
@@ -94,6 +95,8 @@ template <int C>
 constexpr int tile_smem_bytes() {
   return C * kColSlots<C> * (int)sizeof(long long);
 }
+// three columns: 2^12 rows, 108 KB, of the 227 KB a block may ask for
+static_assert(tile_smem_bytes<3>() <= 232448, "a B6 tile exceeds 227 KB");
 
 template <class Kernel>
 cudaError_t allow_tile_smem(Kernel kernel, int bytes) {

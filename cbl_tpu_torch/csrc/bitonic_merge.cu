@@ -50,8 +50,8 @@ namespace {
 constexpr int kEdgeThreads = 256;
 
 // The output tile and its block: 2^11 rows of one column or 2^10 of two
-// (18 KB of padded shared memory), 128 threads.  = ops/bitonic.py
-// MERGE_TILES
+// (18 KB of padded shared memory) or of three (27 KB), 128 threads.
+// = ops/bitonic.py MERGE_TILES
 constexpr int kMergeThreads = 128;
 template <int C>
 constexpr int kMergeTileLog = C == 1 ? 11 : 10;
@@ -59,6 +59,9 @@ template <int C>
 constexpr int kMergeRows = 1 << kMergeTileLog<C>;
 template <int C>
 constexpr int kMergeSlots = kMergeRows<C> + kMergeRows<C> / 8;
+// static shared memory, below the 48 KB a kernel gets without asking (three
+// columns: 27 KB)
+static_assert(3 * kMergeSlots<3> * 8 <= 48 * 1024, "B7 tile above 48 KB");
 
 // coranks[g] = the co-rank of tile edge min(g T, na + nb), g <= tiles.
 template <int C>
@@ -170,22 +173,24 @@ int bitonic_merge(const void* const* a_in, long long na,
 }  // namespace
 }  // namespace cbl
 
-// a0/b0/out0 are column 0; a1/b1/out1 column 1, or all three null for
-// one-column rows.  na + nb >= 1.  `coranks` is scratch for one int64 a
-// tile edge: ceil((na + nb) / tile) + 1 values.  `*passes` receives the
-// number of kernels launched that read and write every row (one).
-extern "C" int cbl_bitonic_merge(const void* a0, const void* a1, long long na,
-                                 const void* b0, const void* b1, long long nb,
-                                 void* out0, void* out1, void* coranks,
+// a, b and out are C-element arrays of column pointers (C = 1 to 3).
+// na + nb >= 1.  `coranks` is scratch for one int64 a tile edge:
+// ceil((na + nb) / tile) + 1 values.  `*passes` receives the number of
+// kernels launched that read and write every row (one).
+extern "C" int cbl_bitonic_merge(const void* const* a, long long na,
+                                 const void* const* b, long long nb,
+                                 void* const* out, int C, void* coranks,
                                  int* passes, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const void* a[2] = {a0, a1};
-  const void* b[2] = {b0, b1};
-  void* out[2] = {out0, out1};
   if (na < 0 || nb < 0 || na + nb < 1) return (int)cudaErrorInvalidValue;
-  if (out1 == nullptr)
-    return cbl::bitonic_merge<1>(a, na, b, nb, out, (long long*)coranks, s,
-                                 passes);
-  return cbl::bitonic_merge<2>(a, na, b, nb, out, (long long*)coranks, s,
-                               passes);
+  long long* cr = (long long*)coranks;
+  switch (C) {
+    case 1:
+      return cbl::bitonic_merge<1>(a, na, b, nb, out, cr, s, passes);
+    case 2:
+      return cbl::bitonic_merge<2>(a, na, b, nb, out, cr, s, passes);
+    case 3:
+      return cbl::bitonic_merge<3>(a, na, b, nb, out, cr, s, passes);
+  }
+  return (int)cudaErrorInvalidValue;
 }

@@ -1,7 +1,7 @@
 // Kernel B6: full sort of int64 key rows by the bitonic network.
 //
 // Replaces the TPU kernel cbl_tpu/ops/sort_pallas.py `sort_cols_pallas`
-// (`_tilesort_call`, `_cross_call`, `_intile_call`).  Rows of one or two
+// (`_tilesort_call`, `_cross_call`, `_intile_call`).  Rows of one to three
 // int64 columns are sorted ascending, lexicographically with column 0 major;
 // the result equals a stable library sort, since equal rows are identical.
 //
@@ -91,21 +91,23 @@ int bitonic_sort(const void* const* in, void* const* out, void* const* work,
 }  // namespace
 }  // namespace cbl
 
-// in0/out0/work0 are column 0; in1/out1/work1 column 1, or all three null
-// for one-column rows.  n >= 1.  `work` is scratch of `work_rows` rows a
-// column, at least the next power of two of n when n exceeds one tile (else
-// unused).  `*passes` receives the number of kernels launched that read and
+// in, out and work are C-element arrays of column pointers (C = 1 to 3).
+// n >= 1.  `work` is scratch of `work_rows` rows a column, at least the
+// next power of two of n when n exceeds one tile (else unused, and may hold
+// nulls).  `*passes` receives the number of kernels launched that read and
 // write every row.
-extern "C" int cbl_bitonic_sort(const void* in0, const void* in1, void* out0,
-                                void* out1, void* work0, void* work1,
-                                long long work_rows, long long n,
-                                int* passes, void* stream) {
+extern "C" int cbl_bitonic_sort(const void* const* in, void* const* out,
+                                void* const* work, int C, long long work_rows,
+                                long long n, int* passes, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const void* in[2] = {in0, in1};
-  void* out[2] = {out0, out1};
-  void* work[2] = {work0, work1};
   if (n < 1) return (int)cudaErrorInvalidValue;
-  if (out1 == nullptr)
-    return cbl::bitonic_sort<1>(in, out, work, work_rows, n, s, passes);
-  return cbl::bitonic_sort<2>(in, out, work, work_rows, n, s, passes);
+  switch (C) {
+    case 1:
+      return cbl::bitonic_sort<1>(in, out, work, work_rows, n, s, passes);
+    case 2:
+      return cbl::bitonic_sort<2>(in, out, work, work_rows, n, s, passes);
+    case 3:
+      return cbl::bitonic_sort<3>(in, out, work, work_rows, n, s, passes);
+  }
+  return (int)cudaErrorInvalidValue;
 }

@@ -2,8 +2,9 @@
 //
 // Replaces the TPU kernel cbl_tpu/ops/merge_pallas.py `merge_sorted_cols`
 // (`_coranks`, `_merge_params`, `_merge_call`, `_flip_pad_cols`).  Given a
-// and b, each sorted ascending (rows of one or two int64 columns, compared
-// lexicographically, column 0 major), it writes their merge, equal to
+// and b, each sorted ascending (rows of one to three int64 columns,
+// compared lexicographically, column 0 major: a word of one or two columns,
+// and a tag, a position or a seqtag), it writes their merge, equal to
 // sort(concat(a, b)).
 //
 // What bounds it on the H100: device memory, 8 bytes read and 8 written
@@ -36,16 +37,20 @@ int merge_sorted(const void* const* a, long long na, const void* const* b,
 
 }  // namespace
 
-// a0/b0/out0 are column 0; a1/b1/out1 column 1, or all three null for
-// one-column rows.  `coranks` is scratch for one int64 per output tile.
-extern "C" int cbl_merge_sorted(const void* a0, const void* a1, long long na,
-                                const void* b0, const void* b1, long long nb,
-                                void* out0, void* out1, void* coranks,
+// a, b and out are C-element arrays of column pointers (C = 1 to 3).
+// `coranks` is scratch for one int64 per output tile.
+extern "C" int cbl_merge_sorted(const void* const* a, long long na,
+                                const void* const* b, long long nb,
+                                void* const* out, int C, void* coranks,
                                 void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const void* a[2] = {a0, a1};
-  const void* b[2] = {b0, b1};
-  void* out[2] = {out0, out1};
-  if (out1 == nullptr) return merge_sorted<1>(a, na, b, nb, out, coranks, s);
-  return merge_sorted<2>(a, na, b, nb, out, coranks, s);
+  switch (C) {
+    case 1:
+      return merge_sorted<1>(a, na, b, nb, out, coranks, s);
+    case 2:
+      return merge_sorted<2>(a, na, b, nb, out, coranks, s);
+    case 3:
+      return merge_sorted<3>(a, na, b, nb, out, coranks, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }

@@ -1,4 +1,4 @@
-// Merge path over rows of one or two int64 key columns, shared by kernel
+// Merge path over rows of one to three int64 key columns, shared by kernel
 // B3 (csrc/merge.cu, one pair of sorted runs) and kernel B5 (csrc/sort.cu,
 // every pair, or every four, of the sorted runs of one buffer, once per
 // pass).
@@ -197,6 +197,21 @@ __device__ __forceinline__ int slot(int i) {
   return kPad ? i + (i >> 3) : i;
 }
 
+// The shared tile of C columns is dynamic shared memory: three columns (49
+// KB unpadded, 55 KB padded) exceed the 48 KB a kernel gets without asking,
+// so `merge_pass` / `quad_pass` ask for it with `cudaFuncSetAttribute`.
+template <int C, bool kPad>
+constexpr int kTileBytes = C * kTileSlots<kPad> * (int)sizeof(long long);
+static_assert(kTileBytes<3, true> <= 232448, "a merge tile exceeds 227 KB");
+
+// The tile of a merge kernel over the block's dynamic shared memory.
+template <bool kPad>
+__device__ __forceinline__ auto shared_tile()
+    -> long long (*)[kTileSlots<kPad>] {
+  extern __shared__ long long merge_tile_s[];
+  return reinterpret_cast<long long(*)[kTileSlots<kPad>]>(merge_tile_s);
+}
+
 // x <= y, lexicographic over the C columns (rows held in registers).
 template <int C>
 __device__ __forceinline__ bool le_rows(const long long (&x)[C],
@@ -315,7 +330,7 @@ template <int C>
 __global__ void merge_tiles(Cols<C> a, Cols<C> b, Pairs ps,
                             const long long* __restrict__ coranks,
                             MutCols<C> out) {
-  __shared__ long long tile_s[C][kTileSlots<false>];
+  long long(*tile_s)[kTileSlots<false>] = shared_tile<false>();
   long long base, na, nb, d0;
   tile_pair(ps, blockIdx.x, &base, &na, &nb, &d0);
   const long long d1 = d0 + kTile < na + nb ? d0 + kTile : na + nb;
@@ -353,8 +368,12 @@ cudaError_t merge_pass(const Cols<C>& a, const Cols<C>& b, const Pairs& ps,
                                                       n_tiles);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  merge_tiles<C><<<(unsigned)n_tiles, kThreads, 0, s>>>(a, b, ps, coranks,
-                                                        out);
+  constexpr int smem = kTileBytes<C, false>;
+  err = cudaFuncSetAttribute(merge_tiles<C>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  merge_tiles<C><<<(unsigned)n_tiles, kThreads, smem, s>>>(a, b, ps, coranks,
+                                                           out);
   return cudaGetLastError();
 }
 
@@ -554,7 +573,7 @@ template <int C>
 __global__ void merge_quads(Cols<C> buf, Quads qs,
                             const long long* __restrict__ splits,
                             MutCols<C> out) {
-  __shared__ long long tile_s[C][kTileSlots<true>];
+  long long(*tile_s)[kTileSlots<true>] = shared_tile<true>();
   long long base, len[4], d0;
   tile_quad(qs, blockIdx.x, &base, len, &d0);
   const long long nab = len[0] + len[1], all = nab + len[2] + len[3];
@@ -620,7 +639,12 @@ cudaError_t quad_pass(const Cols<C>& buf, long long run, long long n,
         buf, qs, scratch, splits, n_tiles);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  merge_quads<C><<<(unsigned)n_tiles, kThreads, 0, s>>>(buf, qs, splits, out);
+  constexpr int smem = kTileBytes<C, true>;
+  err = cudaFuncSetAttribute(merge_quads<C>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  merge_quads<C><<<(unsigned)n_tiles, kThreads, smem, s>>>(buf, qs, splits,
+                                                           out);
   return cudaGetLastError();
 }
 

@@ -2,9 +2,9 @@
 //
 // Replaces the TPU kernel cbl_tpu/ops/merge_pallas.py `sort_cols_mergepath`
 // (`_tilesort_call(alternating=False)`, `_coranks_runs`, `_merge_call`).
-// Rows of one or two int64 columns are sorted ascending, lexicographically
-// with column 0 major; the result equals a stable library sort, since equal
-// rows are identical.
+// Rows of one to three int64 columns are sorted ascending,
+// lexicographically with column 0 major; the result equals a stable library
+// sort, since equal rows are identical.
 //
 // What bounds it on the H100: device memory.  The least traffic is one read
 // and one write of every row; this design moves
@@ -13,7 +13,7 @@
 // one-column keys, where a pass per doubling over tiles of 2048 rows made
 // 15).
 //   1. `tile_sort`: each block loads one sort tile (2^13 rows of one
-//      column, 2^12 of two; a short last tile is padded with INT64_MAX
+//      column, 2^12 of two or three; a short last tile is padded with INT64_MAX
 //      rows, which sort last and are not written back) into shared memory;
 //      each thread sorts its own eight rows in registers with a fixed
 //      network of 19 exchanges, then the block merges the threads' runs in
@@ -53,6 +53,8 @@ template <int C>
 constexpr int kSortSlots = kSortRows<C> + kSortRows<C> / 8 + 1;
 template <int C>
 constexpr int kSortSmemBytes = C * kSortSlots<C> * (int)sizeof(long long);
+// three columns: 110.6 KB, of the 227 KB a block may ask for
+static_assert(kSortSmemBytes<3> <= 232448, "a sort tile exceeds 227 KB");
 
 // Order two rows held in registers.
 template <int C>
@@ -180,19 +182,22 @@ int sort_keys(const void* const* in, void* const* out, void* const* tmp,
 }  // namespace
 }  // namespace cbl
 
-// in0/out0/tmp0 are column 0; in1/out1/tmp1 column 1, or all three null
-// for one-column rows.  n >= 1.  `tmp` is scratch of the input's size
-// (unused when n fits one sort tile), `scratch` holds four int64 per 2048
+// in, out and tmp are C-element arrays of column pointers (C = 1 to 3).
+// n >= 1.  `tmp` is scratch of the input's size (unused, and may hold
+// nulls, when n fits one sort tile), `scratch` holds four int64 per 2048
 // rows.  `*passes` receives the number of kernels launched that read and
 // write every row (the partition kernels do not).
-extern "C" int cbl_sort_keys(const void* in0, const void* in1, void* out0,
-                             void* out1, void* tmp0, void* tmp1, long long n,
+extern "C" int cbl_sort_keys(const void* const* in, void* const* out,
+                             void* const* tmp, int C, long long n,
                              void* scratch, int* passes, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const void* in[2] = {in0, in1};
-  void* out[2] = {out0, out1};
-  void* tmp[2] = {tmp0, tmp1};
-  if (out1 == nullptr)
-    return cbl::sort_keys<1>(in, out, tmp, n, scratch, s, passes);
-  return cbl::sort_keys<2>(in, out, tmp, n, scratch, s, passes);
+  switch (C) {
+    case 1:
+      return cbl::sort_keys<1>(in, out, tmp, n, scratch, s, passes);
+    case 2:
+      return cbl::sort_keys<2>(in, out, tmp, n, scratch, s, passes);
+    case 3:
+      return cbl::sort_keys<3>(in, out, tmp, n, scratch, s, passes);
+  }
+  return (int)cudaErrorInvalidValue;
 }

@@ -12,7 +12,7 @@ the suffix width where it can).
 
 - `load_reference(path, k, prefix_bits, device)` reads a file into a CBL
   on `device` (default: the card): the words go to the pending log as
-  int64 keys and are folded (the build sort).
+  int64 keys (two columns at K >= 29) and are folded (the build sort).
 - `save_reference(cbl, path)` writes buckets of <= 1024 suffixes in Vec
   form and larger ones in Trie form, the container the reference itself
   holds at that size (THRESHOLD = 1024).
@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from .config import get_config
-from .limbs import check_config, from_limbs
+from .limbs import from_limbs, key_cols
 
 
 # --- varint primitives ---
@@ -161,12 +161,10 @@ def _read_trie_node(r: _Reader, depth: int, nbytes: int, prefix_bytes: tuple,
 def load_reference(path, k: int, prefix_bits: int = 24, device=None):
     """Read a reference-binary index file into a CBL on `device` (default:
     the card); k / prefix_bits must be the constants the file was built
-    with.  A configuration the port does not hold (K >= 29) raises before
-    the file is read."""
+    with."""
     from .cbl import CBL
 
     cfg = get_config(k=k, prefix_bits=prefix_bits)
-    check_config(cfg)
     nbytes = (cfg.suffix_bits + 7) // 8
     with open(path, "rb") as f:
         r = _Reader(f.read())
@@ -246,7 +244,7 @@ def load_reference(path, k: int, prefix_bits: int = 24, device=None):
             np.concatenate(pref_parts), np.concatenate(sufb_parts), cfg
         )
         if rows.shape[0]:
-            keys = torch.from_numpy(from_limbs(rows))
+            keys = torch.from_numpy(from_limbs(rows, key_cols(cfg)))
             cbl.wordset.insert_words(keys.to(cbl.device))
             cbl.wordset.flush()
     return cbl

@@ -1,9 +1,10 @@
-"""2-bit k-mer encoding and batched extraction on int64 keys.
+"""2-bit k-mer encoding and batched extraction on int64 values.
 
 Counterpart of `cbl_tpu/kmer.py`.  Base encoding A=0b00, C=0b01, T=0b10,
 G=0b11, so complement is XOR 0b10; a k-mer is canonical iff its packed
-value has even popcount (K is odd).  Host helpers are numpy; device code
-is plain tensor arithmetic on int64 values that stay below 2^63.
+value has even popcount (K is odd).  A k-mer is one int64 for 2K <= 62
+and two columns above (`limbs`).  Host helpers are numpy; device code is
+plain tensor arithmetic on int64 values that stay below 2^63.
 """
 
 from __future__ import annotations
@@ -12,7 +13,17 @@ import numpy as np
 import torch
 
 from .config import CBLConfig
-from .limbs import low_mask
+from .limbs import (
+    LOW_BITS,
+    MAX_KMER_BITS,
+    chunks32,
+    column_ranges,
+    from_chunks,
+    low_mask,
+    place,
+    shift_right,
+    stack,
+)
 
 BASES_PER_WORD = 16
 
@@ -49,38 +60,37 @@ def np_pack_stream(codes: np.ndarray) -> np.ndarray:
 
 
 def extract_kmers(stream: torch.Tensor, n_kmers: int, cfg: CBLConfig):
-    """Every k-mer of a packed base stream as [n_kmers] int64 values.
+    """Every k-mer of a packed base stream: [n_kmers] int64 values, or
+    [2, n_kmers] for W > 62 (`limbs.kmer_cols`).
 
     stream: [S/16] int64 holding uint32 words (16 bases each, first base
     most significant).  K-mer i covers stream bits [2i, 2i + W), W = 2K.
     K-mers whose start has the same phase p = i % 16 read the same bit
-    offset of words j, j+1, j+2 (i = 16j + p; 2p + W <= 84 bits), so each
-    phase is three strided views and constant shifts; the 16 phases are
-    then interleaved.  The tail is padded with L + 8 zero words, as
-    `cbl_tpu.kmer.extract_kmers` pads it.
+    offset of words j .. j+4 (i = 16j + p; 2p + W <= 148 bits), so each
+    phase and column is a few strided views and constant shifts
+    (`limbs.place`); the 16 phases are then interleaved.  At W <= 62 only
+    words j .. j+2 reach the value.  The tail is padded with L + 8 zero
+    words, as `cbl_tpu.kmer.extract_kmers` pads it.
     """
     W = cfg.kmer_bits
     L = cfg.word_limbs
     n_words = (n_kmers + BASES_PER_WORD - 1) // BASES_PER_WORD
     s = torch.cat([stream, stream.new_zeros(L + 8)])
-    phases = []
-    for p in range(BASES_PER_WORD):
-        sh = 96 - 2 * p - W  # right shift of the 96-bit window j..j+2
-        val = None
-        for t in range(3):
-            w = s[t : t + n_words]
-            a = 64 - 32 * t - sh  # where the word's LSB lands
-            if a >= W:
-                continue
-            if a >= 0:
-                part = (w & low_mask(W - a)) << a
-            elif -a >= 32:
-                continue
-            else:
-                part = w >> -a
-            val = part if val is None else val | part
-        phases.append(val & low_mask(W))
-    return torch.stack(phases, dim=1).reshape(-1)[:n_kmers]
+    out = []
+    for lo, width in column_ranges(W):
+        phases = []
+        for p in range(BASES_PER_WORD):
+            sh = 160 - 2 * p - W  # right shift of the 160-bit window j..j+4
+            val = None
+            for t in range(5):
+                a = 128 - 32 * t - sh  # where the word's LSB lands
+                if a - lo >= width or a - lo <= -32:
+                    continue
+                part = place(s[t : t + n_words], a, lo, width)
+                val = part if val is None else val | part
+            phases.append(val & low_mask(width))
+        out.append(torch.stack(phases, dim=1).reshape(-1)[:n_kmers])
+    return stack(out)
 
 
 def _reverse_bases32(x):
@@ -95,18 +105,28 @@ def _reverse_bases32(x):
     return ((x >> 2) & 0x33333333) | ((x & 0x33333333) << 2)
 
 
+_COMPLEMENT = int("AA" * 16, 16)  # 0b10 in every base of 128 bits
+
+
 def revcomp(kmers, cfg: CBLConfig):
     """Reverse complement of W-bit k-mer values: reverse the base order of
-    the 64-bit register (two 32-bit halves, swapped), realign to W bits,
+    the 64-bit register (two 32-bit halves, swapped) or, at W > 62, of
+    the 128-bit one (four pieces, `limbs.chunks32`), realign to W bits,
     complement every base by XOR 0b10."""
     W = cfg.kmer_bits
+    comp = low_mask(W) & _COMPLEMENT
+    if W > MAX_KMER_BITS:
+        pieces = [_reverse_bases32(c) for c in reversed(chunks32(kmers))]
+        rev = from_chunks(pieces, 128 - W, W)
+        return rev ^ torch.tensor([[comp >> LOW_BITS], [comp & low_mask(
+            LOW_BITS)]], dtype=torch.int64, device=kmers.device)
     lo = _reverse_bases32(kmers & 0xFFFFFFFF)
     if W > 32:
         hi = _reverse_bases32(kmers >> 32)
         rev = (lo << (W - 32)) | (hi >> (64 - W))
     else:
         rev = lo >> (32 - W)
-    return rev ^ (low_mask(W) & 0xAAAAAAAAAAAAAAAA)
+    return rev ^ comp
 
 
 def popcount_parity(x):
@@ -118,7 +138,10 @@ def popcount_parity(x):
 
 
 def is_canonical(kmers):
-    """True where the popcount is even."""
+    """True where the popcount is even (over both columns of a wide
+    k-mer)."""
+    if kmers.dim() == 2:
+        kmers = kmers[0] ^ kmers[1]
     return popcount_parity(kmers) == 0
 
 
@@ -130,7 +153,12 @@ def canonicalize(kmers, cfg: CBLConfig):
 
 
 def unpack_bases(kmers: torch.Tensor, cfg: CBLConfig) -> torch.Tensor:
-    """[N] int64 k-mers -> [N, K] uint8 base codes (first base first)."""
+    """[N] (or [2, N]) int64 k-mers -> [N, K] uint8 base codes (first
+    base first)."""
+    if kmers.dim() == 2:
+        bases = [shift_right(kmers, cfg.kmer_bits - 2 - 2 * j, 1) & 3
+                 for j in range(cfg.k)]
+        return torch.stack(bases, dim=1).to(torch.uint8)
     shifts = torch.arange(cfg.kmer_bits - 2, -1, -2, dtype=torch.int64,
                           device=kmers.device)
     return ((kmers[:, None] >> shifts) & 3).to(torch.uint8)

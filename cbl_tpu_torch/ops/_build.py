@@ -38,7 +38,11 @@ NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 
 LAUNCHES = {"necklace": 0, "blank": 0, "merge": 0, "slog_scan": 0,
-            "sort": 0, "bitonic_sort": 0, "bitonic_merge": 0}
+            "sort": 0, "bitonic_sort": 0, "bitonic_merge": 0,
+            # wide K: B1 on two-column k-mers, the sorts and merges at
+            # three columns (`ops.merge.launch_key`)
+            "necklace_wide": 0, "merge_3col": 0, "sort_3col": 0,
+            "bitonic_sort_3col": 0, "bitonic_merge_3col": 0}
 
 # passes over device memory (kernels that read and write every row) that the
 # last launch of each network, sort or scan reported
@@ -51,24 +55,28 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # (in, necklace out, pos out, n, W, stream)
     "cbl_necklace_pos": [_P, _P, _P, _N, _I, _P],
+    # (in col 0, in col 1, necklace col 0, necklace col 1, pos out, n, W,
+    # stream)
+    "cbl_necklace_pos_wide": [_P, _P, _P, _P, _P, _N, _I, _P],
     # (delta, mask out, n, scratch: n_valid out + ticket + tile statuses,
     # launches out, stream)
     "cbl_blank_mask": [_P, _P, _N, _P, _P, _P],
-    # (a col 0, a col 1, na, b col 0, b col 1, nb, out col 0, out col 1,
-    # co-rank scratch, stream); the col 1 pointers are null for one column
-    "cbl_merge_sorted": [_P, _P, _N, _P, _P, _N, _P, _P, _P, _P],
-    # (in col 0, in col 1, out col 0, out col 1, scratch col 0, scratch
-    # col 1, n, co-rank scratch, passes out, stream)
-    "cbl_sort_keys": [_P, _P, _P, _P, _P, _P, _N, _P, _P, _P],
+    # The sorts and merges take each operand as a C array of C column
+    # pointers, and C (1 to 3).
+    # (a cols, na, b cols, nb, out cols, C, co-rank scratch, stream)
+    "cbl_merge_sorted": [_P, _N, _P, _N, _P, _I, _P, _P],
+    # (in cols, out cols, tmp cols, C, n, co-rank scratch, passes out,
+    # stream)
+    "cbl_sort_keys": [_P, _P, _P, _I, _N, _P, _P, _P],
     # (keys, n, qtag, scratch: (hits, live) out + ticket + tile statuses,
     # launches out, stream)
     "cbl_slog_scan_counts": [_P, _N, _I, _P, _P, _P],
-    # (in col 0, in col 1, out col 0, out col 1, work col 0, work col 1,
-    # rows of work, n, passes out, stream)
-    "cbl_bitonic_sort": [_P, _P, _P, _P, _P, _P, _N, _N, _P, _P],
-    # (a col 0, a col 1, na, b col 0, b col 1, nb, out col 0, out col 1,
-    # co-rank scratch, passes out, stream)
-    "cbl_bitonic_merge": [_P, _P, _N, _P, _P, _N, _P, _P, _P, _P, _P],
+    # (in cols, out cols, work cols, C, rows of work, n, passes out,
+    # stream)
+    "cbl_bitonic_sort": [_P, _P, _P, _I, _N, _N, _P, _P],
+    # (a cols, na, b cols, nb, out cols, C, co-rank scratch, passes out,
+    # stream)
+    "cbl_bitonic_merge": [_P, _N, _P, _N, _P, _I, _P, _P, _P],
 }
 
 

@@ -1,9 +1,9 @@
 """Kernels B6 and B7: the bitonic sort and the bitonic merge.
 
-Rows are int64 keys of one column (a 1-D tensor) or two (a tuple of two
-1-D tensors of one length), ordered lexicographically with column 0
-major, as in `ops.merge`.  Every function returns what it was given: a
-tensor for a tensor, a tuple for a tuple.
+Rows are int64 keys of one column (a 1-D tensor) or of one to three (a
+tuple of 1-D tensors of one length), ordered lexicographically with
+column 0 major, as in `ops.merge`.  Every
+function returns what it was given.
 
 B6 replaces `cbl_tpu/ops/sort_pallas.py` `sort_cols_pallas`: a full sort
 by the bitonic network, stage k = 2, 4, ..., P with the steps
@@ -48,12 +48,20 @@ import ctypes
 import torch
 
 from . import _build
-from .merge import _PAD, _col_ptrs, _like, _ptr, as_cols
+from .merge import (
+    _PAD,
+    _col_ptrs,
+    _like,
+    _new_cols,
+    _ptr,
+    as_cols,
+    launch_key,
+)
 
 # rows per tile by number of columns: B6's (csrc/bitonic.cuh kTileRows) and
 # B7's output tiles (csrc/bitonic_merge.cu kMergeRows)
-TILES = {1: 8192, 2: 4096}
-MERGE_TILES = {1: 2048, 2: 1024}
+TILES = {1: 8192, 2: 4096, 3: 4096}
+MERGE_TILES = {1: 2048, 2: 1024, 3: 1024}
 
 
 def fuse_log(tile: int) -> int:
@@ -236,20 +244,22 @@ def bitonic_sort(keys):
     tile = TILES[len(cols)]
     rows = max(tile, _next_pow2(n))
     planned = network_passes(rows, tile, fuse_log(tile))
-    out = tuple(torch.empty_like(c) for c in cols)
+    out = _new_cols(len(cols), n, cols[0].device)
     # the network runs in a scratch of the padded length; one tile needs none
     work_rows = rows if rows > tile else 0
-    work = tuple(c.new_empty(work_rows) if work_rows else None for c in cols)
+    work = (_new_cols(len(cols), work_rows, cols[0].device) if work_rows
+            else (None,) * len(cols))
     passes = ctypes.c_int(0)
+    p_in, p_out, p_work = _col_ptrs(cols), _col_ptrs(out), _col_ptrs(work)
     lib = _build.library()
     err = lib.cbl_bitonic_sort(
-        *_col_ptrs(cols), *_col_ptrs(out), *_col_ptrs(work),
+        p_in, p_out, p_work, ctypes.c_int(len(cols)),
         ctypes.c_longlong(work_rows), ctypes.c_longlong(n),
         ctypes.byref(passes), _build.stream_handle(cols[0].device),
     )
     _build.check_error(err, "bitonic_sort")
     _build.check_passes(passes.value, planned, "bitonic_sort")
-    _build.LAUNCHES["bitonic_sort"] += 1
+    _build.LAUNCHES[launch_key("bitonic_sort", len(cols))] += 1
     _build.PASSES["bitonic_sort"] = passes.value
     return _like(keys, out)
 
@@ -369,22 +379,21 @@ def bitonic_merge(a, b):
     _build.check_cuda(*ca, *cb)
     na, nb = ca[0].shape[0], cb[0].shape[0]
     dev = ca[0].device
-    out = tuple(torch.empty(na + nb, dtype=torch.int64, device=dev)
-                for _ in ca)
+    out = _new_cols(len(ca), na + nb, dev)
     if na + nb == 0:
         return _like(a, out)
     planned = merge_passes(na + nb, MERGE_TILES[len(ca)])
     coranks = torch.empty(planned[0][1] + 1, dtype=torch.int64, device=dev)
     passes = ctypes.c_int(0)
+    pa, pb, po = _col_ptrs(ca), _col_ptrs(cb), _col_ptrs(out)
     lib = _build.library()
     err = lib.cbl_bitonic_merge(
-        *_col_ptrs(ca), ctypes.c_longlong(na),
-        *_col_ptrs(cb), ctypes.c_longlong(nb),
-        *_col_ptrs(out), _ptr(coranks),
+        pa, ctypes.c_longlong(na), pb, ctypes.c_longlong(nb), po,
+        ctypes.c_int(len(ca)), _ptr(coranks),
         ctypes.byref(passes), _build.stream_handle(dev),
     )
     _build.check_error(err, "bitonic_merge")
     _build.check_passes(passes.value, planned, "bitonic_merge")
-    _build.LAUNCHES["bitonic_merge"] += 1
+    _build.LAUNCHES[launch_key("bitonic_merge", len(ca))] += 1
     _build.PASSES["bitonic_merge"] = passes.value
     return _like(a, out)

@@ -1,10 +1,12 @@
 """Kernels B3 and B5: the merge-path merge and the merge-path sort.
 
-Rows are int64 keys of one column (a 1-D tensor) or two (a tuple of two
-1-D tensors of one length), ordered lexicographically with column 0
+Rows are int64 keys of one column (a 1-D tensor) or of one to three (a
+tuple of 1-D tensors of one length: a word's columns, and a tag, a
+position or a seqtag after them), ordered lexicographically with column 0
 major, as `cbl_tpu`'s kernels order their uint32 limb columns.  Every
 function returns what it was given: a tensor for a tensor, a tuple for a
-tuple.
+tuple.  (A kernel's output columns are the rows of one [C, N] tensor,
+which `limbs.stack` hands back without a copy.)
 
 B3 replaces `cbl_tpu/ops/merge_pallas.py` `merge_sorted_cols` (the
 merge-path co-rank merge).  Given `a` and `b`, each sorted ascending, it
@@ -34,16 +36,18 @@ from . import _build
 
 MERGE_TILE = 2048  # rows per block of csrc/merge_path.cuh (256 threads x 8)
 # rows per sort tile of B5 by number of columns (csrc/sort.cu kSortRows)
-SORT_TILES = {1: 8192, 2: 4096}
+SORT_TILES = {1: 8192, 2: 4096, 3: 4096}
+MAX_COLS = 3
 _PAD = (1 << 63) - 1  # INT64_MAX in every column sorts last
 
 
 def as_cols(keys) -> tuple:
-    """The columns of `keys` (a tensor or a tuple of one or two tensors),
-    checked: 1-D int64, one length, one device."""
+    """The columns of `keys` (a tensor or a tuple of one to three
+    tensors), checked: 1-D int64, one length, one device."""
     cols = (keys,) if isinstance(keys, torch.Tensor) else tuple(keys)
-    if not 1 <= len(cols) <= 2:
-        raise ValueError(f"expected one or two key columns, got {len(cols)}")
+    if not 1 <= len(cols) <= MAX_COLS:
+        raise ValueError(f"expected one to {MAX_COLS} key columns, got "
+                         f"{len(cols)}")
     for t in cols:
         if t.dtype != torch.int64 or t.dim() != 1:
             raise ValueError(
@@ -59,24 +63,42 @@ def _like(keys, cols):
 
 
 def sort_cols_plain(cols: tuple, dim: int = 0) -> tuple:
-    """Lexicographic sort of one or two columns along `dim` with
-    `torch.sort`: for two columns a stable sort by the minor column, then
-    a stable sort by the major one."""
+    """Lexicographic sort of columns along `dim` with `torch.sort`: one
+    stable sort a column, the last column first, each carrying the order
+    to the next."""
     if len(cols) == 1:
         return (torch.sort(cols[0], dim=dim).values,)
-    major, minor = cols
-    minor, order = torch.sort(minor, dim=dim, stable=True)
-    major, order = torch.sort(major.gather(dim, order), dim=dim, stable=True)
-    return major, minor.gather(dim, order)
+    out, order = torch.sort(cols[-1], dim=dim, stable=True)
+    done = [out]
+    for i in range(len(cols) - 2, -1, -1):
+        key, step = torch.sort(cols[i].gather(dim, order), dim=dim,
+                               stable=True)
+        if i:  # the next column is read in this order
+            order = order.gather(dim, step)
+        done = [key] + [d.gather(dim, step) for d in done]
+    return tuple(done)
 
 
 def _ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
-def _col_ptrs(cols) -> list:
-    """Column 0's pointer and column 1's (null for one-column rows)."""
-    return [_ptr(cols[0]), _ptr(cols[1] if len(cols) == 2 else None)]
+def _col_ptrs(cols) -> ctypes.Array:
+    """The columns' pointers as a C array (null for a None column); keep
+    it alive across the call."""
+    return (ctypes.c_void_p * len(cols))(
+        *[None if c is None else c.data_ptr() for c in cols])
+
+
+def _new_cols(n_cols: int, n: int, device) -> torch.Tensor:
+    """[C, n] int64 output columns."""
+    return torch.empty((n_cols, n), dtype=torch.int64, device=device)
+
+
+def launch_key(name: str, n_cols: int) -> str:
+    """The `LAUNCHES` entry of a kernel at `n_cols` columns: three-column
+    launches count apart ("<name>_3col")."""
+    return name if n_cols < 3 else f"{name}_3col"
 
 
 def _scratch(n_rows: int, device, per_tile: int = 1) -> torch.Tensor:
@@ -108,19 +130,18 @@ def merge_sorted(a, b):
     _build.check_cuda(*ca, *cb)
     na, nb = ca[0].shape[0], cb[0].shape[0]
     dev = ca[0].device
-    out = tuple(torch.empty(na + nb, dtype=torch.int64, device=dev)
-                for _ in ca)
+    out = _new_cols(len(ca), na + nb, dev)
     if na + nb == 0:
         return _like(a, out)
     coranks = _scratch(na + nb, dev)
+    pa, pb, po = _col_ptrs(ca), _col_ptrs(cb), _col_ptrs(out)
     lib = _build.library()
     err = lib.cbl_merge_sorted(
-        *_col_ptrs(ca), ctypes.c_longlong(na),
-        *_col_ptrs(cb), ctypes.c_longlong(nb),
-        *_col_ptrs(out), _ptr(coranks), _build.stream_handle(dev),
+        pa, ctypes.c_longlong(na), pb, ctypes.c_longlong(nb), po,
+        ctypes.c_int(len(ca)), _ptr(coranks), _build.stream_handle(dev),
     )
     _build.check_error(err, "merge")
-    _build.LAUNCHES["merge"] += 1
+    _build.LAUNCHES[launch_key("merge", len(ca))] += 1
     return _like(a, out)
 
 
@@ -249,20 +270,21 @@ def sort_mergepath(keys):
     if n <= 1:
         return _like(keys, tuple(c.clone() for c in cols))
     planned = mergepath_passes(n, SORT_TILES[len(cols)])
-    out = tuple(torch.empty_like(c) for c in cols)
+    out = _new_cols(len(cols), n, cols[0].device)
     # the passes ping-pong between `out` and `tmp`; one tile needs no pass
-    tmp = tuple(torch.empty_like(c) if len(planned) > 1 else None
-                for c in cols)
+    tmp = (_new_cols(len(cols), n, cols[0].device) if len(planned) > 1
+           else (None,) * len(cols))
     scratch = _scratch(n, cols[0].device, per_tile=4)
     passes = ctypes.c_int(0)
+    p_in, p_out, p_tmp = _col_ptrs(cols), _col_ptrs(out), _col_ptrs(tmp)
     lib = _build.library()
     err = lib.cbl_sort_keys(
-        *_col_ptrs(cols), *_col_ptrs(out), *_col_ptrs(tmp),
-        ctypes.c_longlong(n), _ptr(scratch), ctypes.byref(passes),
+        p_in, p_out, p_tmp, ctypes.c_int(len(cols)), ctypes.c_longlong(n),
+        _ptr(scratch), ctypes.byref(passes),
         _build.stream_handle(cols[0].device),
     )
     _build.check_error(err, "sort")
     _build.check_passes(passes.value, planned, "sort")
-    _build.LAUNCHES["sort"] += 1
+    _build.LAUNCHES[launch_key("sort", len(cols))] += 1
     _build.PASSES["sort"] = passes.value
     return _like(keys, out)

@@ -3,12 +3,12 @@
 Counterpart of the dispatchers in `cbl_tpu/ops/sort_pallas.py`
 (`_sort_mode`, `_merge_mode`, `sort_cols_auto`, `merge_with_unsorted`,
 `merge_sorted_pair`, `use_merge_combine`).  Keys are one int64 column (a
-1-D tensor) or two (a tuple of two), ordered lexicographically with column
-0 major (see `ops.merge`).
+1-D tensor) or one to three (a tuple of 1-D tensors), ordered
+lexicographically with column 0 major (see `ops.merge`).
 
 The sort has three modes:
-- "library" (the default, as `xla` is `cbl_tpu`'s): `torch.sort`; for two
-  columns, two stable passes;
+- "library" (the default, as `xla` is `cbl_tpu`'s): `torch.sort`; for C
+  columns, C stable passes, the last column first;
 - "mergepath": kernel B5 for CUDA tensors, its plain version for CPU
   tensors;
 - "bitonic": kernel B6 for CUDA tensors, its plain version for CPU tensors.
@@ -102,7 +102,7 @@ def use_merge_combine() -> bool:
 
 
 def sort_keys(keys):
-    """Sort keys ascending (one column or two, lexicographic)."""
+    """Sort keys ascending (one to three columns, lexicographic)."""
     mode = sort_mode()
     if mode == "mergepath":
         return sort_mergepath(keys)
@@ -119,8 +119,7 @@ def merge_sorted_pair(sorted_a, sorted_b):
         return merge_sorted(sorted_a, sorted_b)
     if mode == "bitonic":
         return bitonic_merge(sorted_a, sorted_b)
-    both = cat_cols(as_cols(sorted_a), as_cols(sorted_b))
-    return sort_keys(_like(sorted_a, both))
+    return sort_keys(cat_cols(sorted_a, sorted_b))
 
 
 def merge_with_unsorted(sorted_keys, unsorted_keys):
@@ -132,5 +131,7 @@ def merge_with_unsorted(sorted_keys, unsorted_keys):
 
 
 def cat_cols(*parts):
-    """Concatenate key runs (tuples of columns) column by column."""
-    return tuple(torch.cat(cs) for cs in zip(*parts, strict=True))
+    """Concatenate key runs column by column: a tensor for tensors, a
+    tuple of columns for tuples."""
+    return _like(parts[0], tuple(torch.cat(cs) for cs in zip(
+        *map(as_cols, parts), strict=True)))

@@ -14,7 +14,7 @@ import os
 import numpy as np
 import torch
 
-from .limbs import SENTINEL, from_limbs
+from .limbs import from_limbs, key_cols, sentinel_rows
 from .wordset import MIN_CAP, _next_pow2
 
 MAGIC = "CBLX"
@@ -50,9 +50,7 @@ def _npz_path(path) -> str:
 def load(path, device=None):
     """The index of a CBLX file on `device` (default: the card).  The
     saved rows are sorted and unique, so they are installed as the
-    index directly, SENTINEL-padded to a power of two: no kernel runs.
-    A configuration the port does not hold (K >= 29) raises before
-    anything is installed."""
+    index directly, SENTINEL-padded to a power of two: no kernel runs."""
     from .cbl import CBL
 
     with np.load(_npz_path(path)) as z:
@@ -71,8 +69,9 @@ def load(path, device=None):
     if n:
         ws = cbl.wordset
         cap = max(_next_pow2(n), MIN_CAP)
-        keys = torch.full((cap,), SENTINEL, dtype=torch.int64)
-        keys[:n] = torch.from_numpy(from_limbs(words))
+        n_cols = key_cols(cbl.cfg)
+        keys = sentinel_rows(cap, n_cols, "cpu")
+        keys[..., :n] = torch.from_numpy(from_limbs(words, n_cols))
         ws.data = keys.to(ws.device)
         ws.capacity = cap
         ws._n_host = ws._n_upper = n

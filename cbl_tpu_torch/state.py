@@ -2,10 +2,11 @@
 
 `cbl_tpu.wordset.DeviceWordSet` holds its words as an [N, L] uint32 limb
 array (`np.asarray(ws.data)`) with its distinct count (`ws.count()`); this
-port holds one sorted int64 key tensor.  Its pending log is a [P, L] limb
-array `pending`, uint32 `pending_tags` and the counters `n_pending` and
-`_pending_rm`; the port's is an int64 key tensor and int64 tags of the
-same values.  During dynamic rounds `cbl_tpu`
+port holds one sorted int64 key tensor ([N] keys, or [2, N] rows for
+n_bits > 60, `limbs`).  Its pending log is a [P, L] limb array `pending`,
+uint32 `pending_tags` and the counters `n_pending` and `_pending_rm`; the
+port's is a key tensor of the same layout and int64 tags of the same
+values.  During dynamic rounds `cbl_tpu`
 holds a sorted log as uint32 columns (`ws._slog`): L limbs of
 (word << 8) | tag where the config leaves 8 spare bits, else L word limbs
 and a tag column; this port holds one int64 slog key per row
@@ -19,7 +20,17 @@ import numpy as np
 import torch
 
 from .config import CBLConfig
-from .limbs import SENTINEL, from_limbs, to_limbs
+from .limbs import (
+    SENTINEL,
+    cols,
+    from_limbs,
+    is_valid,
+    key_cols,
+    rows_lt,
+    stack,
+    to_limbs,
+)
+from .ops.merge import sort_cols_plain
 from .wordset import _SLOG_BIAS, DeviceWordSet, slog_packed
 
 
@@ -39,24 +50,24 @@ def wordset_from_arrays(words_u32: np.ndarray, n_distinct: int,
             f"expected [N, {cfg.word_limbs}] limbs, got {words_u32.shape}"
         )
     ws = DeviceWordSet(cfg, device)
-    keys = torch.from_numpy(from_limbs(words_u32))
-    valid = keys[keys != SENTINEL]
+    keys = torch.from_numpy(from_limbs(words_u32, key_cols(cfg)))
+    valid = keys[..., is_valid(keys)]
     if holes:
-        if bool((valid[1:] <= valid[:-1]).any()):
+        if not bool(rows_lt(valid[..., :-1], valid[..., 1:]).all()):
             raise ValueError("an index with holes needs its valid keys "
                              "ascending and unique")
     else:
-        keys = torch.sort(keys).values
-    n_valid = valid.shape[0]
+        keys = stack(sort_cols_plain(cols(keys)))
+    n_valid = valid.shape[-1]
     if n_valid == 0:
         return ws
     if n_upper is None:
         n_upper = n_valid
-    if not n_valid <= n_upper <= keys.shape[0]:
+    if not n_valid <= n_upper <= keys.shape[-1]:
         raise ValueError(f"n_upper {n_upper} does not bound the "
-                         f"{n_valid} valid rows of {keys.shape[0]}")
+                         f"{n_valid} valid rows of {keys.shape[-1]}")
     ws.data = keys.to(ws.device)
-    ws.capacity = keys.shape[0]
+    ws.capacity = keys.shape[-1]
     ws._holes, ws._dups = bool(holes), bool(dups)
     ws._n_upper = int(n_upper)
     ws._set_count(
@@ -104,7 +115,7 @@ def slog_from_arrays(cols_u32, seq: int, real: int, n_upper: int,
     if not slog_packed(cfg):
         raise NotImplementedError(
             f"K={cfg.k}: the port's slog key does not hold this config "
-            "(ROADMAP slice 6)"
+            "(ROADMAP slice 6b)"
         )
     cols = [np.asarray(c, dtype=np.uint32) for c in cols_u32]
     L = cfg.word_limbs
@@ -173,7 +184,8 @@ def pending_from_arrays(ws: DeviceWordSet, pending_u32: np.ndarray,
     if not 0 <= n_pending <= tags_u32.shape[0]:
         raise ValueError(f"n_pending {n_pending} outside the log")
     ws.pending_cap = tags_u32.shape[0]
-    ws.pending = torch.from_numpy(from_limbs(pending_u32)).to(ws.device)
+    ws.pending = torch.from_numpy(
+        from_limbs(pending_u32, key_cols(ws.cfg))).to(ws.device)
     ws.pending_tags = torch.from_numpy(tags_u32.astype(np.int64)).to(ws.device)
     ws.n_pending = int(n_pending)
     ws._pending_rm = bool(pending_rm)

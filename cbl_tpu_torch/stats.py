@@ -26,6 +26,7 @@ from collections import Counter
 import numpy as np
 import torch
 
+from .limbs import shift_right
 from .necklace import word_prefix
 from .wordset import _first_of_run
 
@@ -41,17 +42,21 @@ def _buckets(cbl, nodes: bool = False):
     pref = word_prefix(keys, cfg)
     first = _first_of_run(pref)
     starts = torch.nonzero(first).reshape(-1)
-    ends = torch.cat([starts[1:], starts.new_tensor([keys.shape[0]])
+    ends = torch.cat([starts[1:], starts.new_tensor([keys.shape[-1]])
                       ])[: starts.shape[0]]
     sizes = ends - starts
     out = [pref[starts].cpu().numpy().astype(np.uint32),
            sizes.cpu().numpy()]
     if nodes:
         nbytes = (cfg.suffix_bits + 7) // 8
-        diff = keys[1:] ^ keys[:-1]  # within a bucket: the suffixes' xor
-        b = torch.zeros_like(diff)
+        # within a bucket: the suffixes' xor, one column or two
+        diff = keys[..., 1:] ^ keys[..., :-1]
+        b = torch.zeros_like(pref[1:])
         for m in range(1, nbytes):
-            b += (diff >> (8 * m)) != 0
+            if diff.dim() == 1:
+                b += (diff >> (8 * m)) != 0
+            else:
+                b += (shift_right(diff, 8 * m, 2) != 0).any(0)
         b[first[1:]] = 0  # a pair across two buckets
         bucket = torch.cumsum(first, 0)[1:] - 1
         pair_sum = torch.zeros_like(sizes).index_add_(0, bucket, b)

@@ -1,15 +1,19 @@
-"""DeviceWordSet: the k-mer word set as one sorted int64 key tensor.
+"""DeviceWordSet: the k-mer word set as one sorted tensor of int64 keys.
 
-Counterpart of the part of `cbl_tpu/wordset.py` that the static
-build+query path uses.  The set is a sorted key tensor padded with
-`SENTINEL` keys; after a bulk build it may hold duplicate keys (the
-`_dups` state: one sort instead of two), while `_n_dev` counts DISTINCT
-keys on the device.  The host keeps only an upper bound on the valid rows
+Counterpart of `cbl_tpu/wordset.py`.  The set is a sorted key tensor
+padded with `SENTINEL` rows: [N] int64 keys for n_bits <= 60 (odd K <=
+27), [2, N] two-column rows for wider words (K from 29 to 59; `limbs`),
+and every function below takes either shape in one body (row slices
+`x[..., a:b]`, `torch.where`, `limbs.first_of_run`).  After a bulk
+build it may hold duplicate keys (the `_dups` state: one sort instead of
+two), while `_n_dev` counts DISTINCT keys on the device.  The host keeps only an upper bound on the valid rows
 (`_n_upper`), so building never waits for the device.
 
 Queries are merge joins: both sides get a one-bit tag below the word
-(data 1, query 0), the two sorted runs are merged by kernel B3, and a
-query row is a hit when a data row follows it within its word's run.
+(data 1, query 0; `_shift_tag`: packed into the key's low bit for one
+column, a third column for two), the two sorted runs are merged by kernel
+B3, and a query row is a hit when a data row follows it within its word's
+run.
 
 Interleaved dynamic rounds keep the set as a (word, tag)-sorted log, the
 "slog" (`_slog`, one int64 key per row, see `slog_key`): inserts, queries
@@ -21,9 +25,10 @@ and under the autofold policy, exactly as in `cbl_tpu`.
 Separate insert and remove calls go through the pending log, as in
 `cbl_tpu`: `pending` holds appended words and `pending_tags` their
 (seq << 1) | op (1 insert, 0 remove), so a small batch costs an append and
-not a merge with the whole index.  The log is sorted by (word, seqtag), a
-two-column key (the 23-bit seqtag does not fit beside a 56-bit word in
-one int64), and folds into `data` with last-write-wins on `flush()`,
+not a merge with the whole index.  The log is sorted by (word, seqtag),
+the word's columns and one more (the 23-bit seqtag does not fit beside a
+56-bit word in one int64), and folds into `data` with last-write-wins on
+`flush()`,
 `count()` and overflow; queries join index and log without folding.
 
 Set algebra (`union`, `intersection`, `difference`,
@@ -40,16 +45,19 @@ search of a contains batch below `_SORTJOIN_MIN_QUERIES`) compacts first
 tagged sort, adjacency marks and a compaction sort.
 
 Ordered membership (`contains_words`) answers a batch of 2^17 queries or
-more by a sort-join with the query position as a second column
+more by a sort-join with the query position as a column after the word's
 (`_contains_sortjoin_kernel`), which takes holes as they are, and a
-smaller batch by `torch.searchsorted` on the compacted index.
+smaller batch by a binary search of the compacted index
+(`limbs.searchsorted`: `torch.searchsorted` for one column, a
+lexicographic search for two).
 
 Export (`words_array`, `iter_words_chunks`, `prefixes`) flushes,
 compacts and drops duplicates first, as `cbl_tpu` does, and hands the
 first n keys out as `cbl_tpu`'s [n, L] uint32 limb rows, laid out on the
 device and copied once (`host_limbs`).
 
-Not ported yet: dynamic rounds at K=27 (ROADMAP slice 6).
+Not ported yet: dynamic rounds at K >= 27, whose words leave no room for
+the slog's tag in one int64 key (ROADMAP slice 6b).
 """
 
 from __future__ import annotations
@@ -58,7 +66,20 @@ import numpy as np
 import torch
 
 from .config import CBLConfig
-from .limbs import SENTINEL, check_config, keys_to_limbs
+from .limbs import (
+    SENTINEL,
+    check_config,
+    cols,
+    first_of_run,
+    is_valid,
+    key_cols,
+    keys_to_limbs,
+    major,
+    rows_eq,
+    searchsorted,
+    sentinel_rows,
+    stack,
+)
 from .necklace import word_prefix
 from .ops.scan import SLOG_TAG_MAX, slog_rows, slog_scan_counts
 from .ops.sort import (
@@ -98,8 +119,8 @@ def _quantize_cap(n: int, frac_log: int = 3) -> int:
 
 
 def host_limbs(keys: torch.Tensor, L: int) -> np.ndarray:
-    """[N] int64 keys of valid words -> [N, L] uint32 limb rows on the
-    host, laid out on the keys' device (`limbs.keys_to_limbs`) and
+    """[N] (or [2, N]) int64 keys of valid words -> [N, L] uint32 limb
+    rows on the host, laid out on the keys' device (`limbs.keys_to_limbs`) and
     copied once into pageable memory."""
     return keys_to_limbs(keys, L).cpu().numpy().view(np.uint32)
 
@@ -120,21 +141,27 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+# The sort and merge seam (`ops.sort`) takes a packed key tensor or a
+# tuple of columns; word keys ([N] or [C, N]) cross it as `cols(keys)` and
+# come back by `stack`, which copies nothing when a kernel made them.
+
+
 def sort_rows(keys: torch.Tensor) -> torch.Tensor:
-    """Sort keys ascending (sentinels last)."""
-    return sort_keys(keys)
+    """Sort [N] or [C, N] keys ascending (sentinels last)."""
+    return stack(sort_keys(cols(keys)))
 
 
-def _valid_mask(keys: torch.Tensor) -> torch.Tensor:
-    """True for non-sentinel keys."""
-    return keys != SENTINEL
+def _merge_rows(sorted_keys: torch.Tensor, keys: torch.Tensor,
+                keys_sorted: bool = True) -> torch.Tensor:
+    """Merge sorted [N] or [C, N] keys with more keys, sorted or not."""
+    merge = merge_sorted_pair if keys_sorted else merge_with_unsorted
+    return stack(merge(cols(sorted_keys), cols(keys)))
 
 
-def _first_of_run(s: torch.Tensor) -> torch.Tensor:
-    """True where a sorted key differs from the one before it."""
-    first = torch.ones_like(s, dtype=torch.bool)
-    first[1:] = s[1:] != s[:-1]
-    return first
+# True for non-sentinel rows; True where a sorted row differs from the one
+# before it (one column or two)
+_valid_mask = is_valid
+_first_of_run = first_of_run
 
 
 def _distinct_count(s: torch.Tensor) -> torch.Tensor:
@@ -158,11 +185,24 @@ def _run_ids(run_start: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     return torch.where(valid, run_id, pos)
 
 
-def _shift_tag(keys: torch.Tensor, tag: int) -> torch.Tensor:
-    """Pack a one-bit operand tag below the word: (key << 1) | tag, which
-    keeps sorted keys sorted.  Sentinels stay SENTINEL (a valid key is
-    below 2^60, so a shifted one is below 2^61)."""
-    return torch.where(keys == SENTINEL, SENTINEL, (keys << 1) | tag)
+def _shift_tag(keys: torch.Tensor, tag: int):
+    """Put a one-bit operand tag below the word, which keeps sorted rows
+    sorted.  One column: (key << 1) | tag, packed; sentinels stay SENTINEL
+    (a valid key is below 2^60, so a shifted one is below 2^61).  Two
+    columns: the tag as a third column, a tuple of columns (`cbl_tpu`'s
+    tag column; column 0 of a shifted K=59 word could reach INT64_MAX)."""
+    if keys.dim() == 1:
+        return torch.where(keys == SENTINEL, SENTINEL, (keys << 1) | tag)
+    return (keys[0], keys[1], torch.full_like(keys[1], tag))
+
+
+def _untag(s):
+    """(words, tag == 1, valid) of sorted rows tagged by `_shift_tag`: a
+    packed key tensor, or a tuple of columns with the tag last."""
+    if isinstance(s, torch.Tensor):
+        return s >> 1, (s & 1) == 1, s != SENTINEL
+    words = stack(s[:-1])
+    return words, s[-1] == 1, _valid_mask(words)
 
 
 def _query_hits(run_start: torch.Tensor, valid: torch.Tensor,
@@ -183,13 +223,13 @@ def _query_hits(run_start: torch.Tensor, valid: torch.Tensor,
     return ~is_data & (data_in_run[run_id] > 0) & valid, run_id
 
 
-def _packed_join_count(s: torch.Tensor) -> torch.Tensor:
-    """Hits over merged tagged keys: query rows (tag 0) whose word run holds
-    a data row (tag 1), as an int64 0-d tensor.  Sentinel keys are odd,
-    so they count as data, but only in their own runs (`_run_ids`), and
-    are masked."""
-    hits, _ = _query_hits(_first_of_run(s >> 1), _valid_mask(s),
-                          (s & 1) == 1)
+def _packed_join_count(s) -> torch.Tensor:
+    """Hits over merged tagged rows: query rows (tag 0) whose word run
+    holds a data row (tag 1), as an int64 0-d tensor.  Packed sentinel
+    keys are odd, so they count as data, but only in their own runs
+    (`_run_ids`), and are masked."""
+    words, is_data, valid = _untag(s)
+    hits, _ = _query_hits(_first_of_run(words), valid, is_data)
     return hits.sum()
 
 
@@ -210,28 +250,28 @@ def _count_hits_merge_sorted_kernel(data: torch.Tensor, sorted_queries):
 def _merge_sortedbatch_kernel(data: torch.Tensor, batch: torch.Tensor):
     """Fold a sorted batch into the sorted index, keeping duplicates:
     (merged keys, distinct count)."""
-    s = merge_sorted_pair(data, batch)
+    s = _merge_rows(data, batch)
     return s, _distinct_count(s)
 
 
 def _merge_keepdups_kernel(data: torch.Tensor, batch: torch.Tensor):
     """`_merge_sortedbatch_kernel` for an unsorted batch: sort it, then
     one merge."""
-    s = merge_with_unsorted(data, batch)
+    s = _merge_rows(data, batch, keys_sorted=False)
     return s, _distinct_count(s)
 
 
 def _build_sorted_kernel(batch: torch.Tensor):
     """Sort a fresh batch and count its distinct keys (insert into an
     empty index)."""
-    s = sort_keys(batch)
+    s = sort_rows(batch)
     return s, _distinct_count(s)
 
 
 def _compact_marked(words: torch.Tensor, keep: torch.Tensor, out_cap: int):
     """Make every row that is not kept SENTINEL, compact by one sort, fit
     to out_cap: (keys [out_cap], kept count)."""
-    s = sort_keys(torch.where(keep, words, SENTINEL))
+    s = sort_rows(torch.where(keep, words, SENTINEL))
     return _fit(s, out_cap), keep.sum()
 
 
@@ -246,12 +286,12 @@ def _merge_sortcompact_kernel(data: torch.Tensor, batch: torch.Tensor,
                               out_cap: int):
     """Union of the index and a batch without duplicates: one sort of
     both, duplicates and sentinels marked, one compaction sort."""
-    s = sort_keys(torch.cat([data, batch]))
+    s = sort_rows(torch.cat([data, batch], dim=-1))
     return _compact_marked(s, _valid_mask(s) & _first_of_run(s), out_cap)
 
 
-def _setop_keep(s: torch.Tensor, op: str):
-    """(words, keep) over sorted tagged keys (word << 1) | tag with tag 1
+def _setop_keep(s, op: str):
+    """(words, keep) over sorted tagged rows (`_shift_tag`) with tag 1
     for a-rows and 0 for b-rows: b-rows come first among equal words, so
     "the key before me holds my word" tells an a-row that its word is in
     b.  Which rows an operation keeps:
@@ -260,9 +300,8 @@ def _setop_keep(s: torch.Tensor, op: str):
                (b may hold duplicates and sentinels; duplicates in a drop)
       inter    a-rows with a row of their word before them (no duplicates)
       symdiff  rows alone in their word's run (no duplicates)"""
-    word = s >> 1
+    word, is_a, valid = _untag(s)
     first = _first_of_run(word)
-    is_a = (s & 1) == 1
     if op == "union":
         keep = first
     elif op in ("remove", "diff"):
@@ -274,7 +313,7 @@ def _setop_keep(s: torch.Tensor, op: str):
         keep[:-1] &= first[1:]
     else:
         raise ValueError(f"unknown set operation {op!r}")
-    return word, keep & _valid_mask(s)
+    return word, keep & valid
 
 
 def _setop_sort_kernel_packed(a: torch.Tensor, b: torch.Tensor, op: str,
@@ -283,16 +322,17 @@ def _setop_sort_kernel_packed(a: torch.Tensor, b: torch.Tensor, op: str,
     adjacency marks and a compaction sort (`cbl_tpu`'s kernel of the same
     name): (keys [out_cap], kept count).  Neither side needs to be sorted
     or contiguous.  (`cbl_tpu` also has an unpacked variant with a tag
-    column for words that fill their uint32 limbs, K=13; an int64 key
-    always has the spare bit, so the port has no caller for it.)"""
-    s = sort_keys(torch.cat([_shift_tag(a, 1), _shift_tag(b, 0)]))
+    column for words that fill their uint32 limbs, K=13 and K=29; here a
+    one-column key always has the spare bit and two columns always take
+    the tag column, so this one body serves both.)"""
+    s = sort_keys(cat_cols(_shift_tag(a, 1), _shift_tag(b, 0)))
     return _compact_marked(*_setop_keep(s, op), out_cap)
 
 
 def _union_merge_kernel(a: torch.Tensor, b: torch.Tensor):
     """Union of two sorted, contiguous operands in ONE merge, duplicate
     keys kept (a `_dups` state): (merged keys, distinct count)."""
-    s = merge_sorted_pair(a, b)
+    s = _merge_rows(a, b)
     return s, _distinct_count(s)
 
 
@@ -311,7 +351,7 @@ def _merge_sortmark_kernel(data: torch.Tensor, batch: torch.Tensor):
     """Union of an index with holes and a batch in ONE sort: duplicates
     become SENTINEL where they stand, which leaves holes again:
     (keys [|data| + |batch|], distinct count)."""
-    s = sort_keys(torch.cat([data, batch]))
+    s = sort_rows(torch.cat([data, batch], dim=-1))
     keep = _valid_mask(s) & _first_of_run(s)
     return torch.where(keep, s, SENTINEL), keep.sum()
 
@@ -319,19 +359,21 @@ def _merge_sortmark_kernel(data: torch.Tensor, batch: torch.Tensor):
 def _count_hits_kernel_packed(data: torch.Tensor, queries: torch.Tensor):
     """Hits of `queries` in `data` by one tagged sort of both: the join
     for an index with holes (or in any order)."""
-    s = sort_keys(torch.cat([_shift_tag(data, 1), _shift_tag(queries, 0)]))
+    s = sort_keys(cat_cols(_shift_tag(data, 1), _shift_tag(queries, 0)))
     return _packed_join_count(s)
 
 
 def _contains_kernel(data: torch.Tensor, queries: torch.Tensor):
-    """[Q] bool: which queries are keys of sorted, contiguous `data`
-    (duplicates allowed); SENTINEL queries are False.  `torch.searchsorted`
-    stands for `cbl_tpu`'s hand-rolled binary search (plain XLA there, no
-    kernel) and for its radix-window table, which answers the same
-    question."""
-    idx = torch.searchsorted(data, queries)
-    found = data[idx.clamp(max=data.shape[0] - 1)] == queries
-    return (idx < data.shape[0]) & found & _valid_mask(queries)
+    """[Q] bool: which queries are rows of sorted, contiguous `data`
+    (duplicates allowed); SENTINEL queries are False.  `limbs.searchsorted`
+    (`torch.searchsorted`, or a lexicographic binary search for two
+    columns) stands for `cbl_tpu`'s hand-rolled binary search (plain XLA
+    there, no kernel) and for its radix-window table, which answers the
+    same question."""
+    n = data.shape[-1]
+    idx = searchsorted(data, queries)
+    found = rows_eq(data[..., idx.clamp(max=n - 1)], queries)
+    return (idx < n) & found & _valid_mask(queries)
 
 
 # --- the pending log ---------------------------------------------------------
@@ -343,19 +385,24 @@ def _contains_kernel(data: torch.Tensor, queries: torch.Tensor):
 # words (blanked k-mers, unused slots) are ignored everywhere.
 
 
-def _fold_keep_mask(words: torch.Tensor, seqtag: torch.Tensor):
+def _fold_keep_mask(words, seqtag: torch.Tensor):
     """Last-write-wins over (word, seqtag)-sorted rows: keep the LAST row
     of each word's run when its op bit says insert (which also drops
     duplicates); never a SENTINEL row."""
-    last_of_run = torch.ones_like(words, dtype=torch.bool)
-    last_of_run[:-1] = words[1:] != words[:-1]
+    last_of_run = torch.ones_like(seqtag, dtype=torch.bool)
+    last_of_run[:-1] = _first_of_run(words)[1:]
     return _valid_mask(words) & last_of_run & ((seqtag & 1) == 1)
 
 
 def _index_cols(data: torch.Tensor):
     """The index as (word, seqtag) rows: seqtag 1 everywhere, so sorted
-    `data` is sorted in both columns."""
-    return data, torch.ones_like(data)
+    `data` is sorted in every column."""
+    return (*cols(data), torch.ones_like(major(data)))
+
+
+def _log_cols(pending: torch.Tensor, tags: torch.Tensor):
+    """The log as (word, seqtag) rows."""
+    return (*cols(pending), tags)
 
 
 def _fold_log_kernel(data: torch.Tensor, pending: torch.Tensor,
@@ -363,16 +410,18 @@ def _fold_log_kernel(data: torch.Tensor, pending: torch.Tensor,
     """Fold a log of inserts and removes into the index with one sort of
     index and log by (word, seqtag): (keys [out_cap], distinct count).
     `data` may be in any order."""
-    words, seqtag = sort_keys(cat_cols(_index_cols(data), (pending, tags)))
-    return _compact_marked(words, _fold_keep_mask(words, seqtag), out_cap)
+    s = sort_keys(cat_cols(_index_cols(data), _log_cols(pending, tags)))
+    words = stack(s[:-1])
+    return _compact_marked(words, _fold_keep_mask(words, s[-1]), out_cap)
 
 
 def _fold_log_merge_kernel(data: torch.Tensor, pending: torch.Tensor,
                            tags: torch.Tensor, out_cap: int):
     """`_fold_log_kernel` for sorted, contiguous `data`: sort only the
-    log, then one merge (B3 on two columns)."""
-    words, seqtag = merge_with_unsorted(_index_cols(data), (pending, tags))
-    return _compact_marked(words, _fold_keep_mask(words, seqtag), out_cap)
+    log, then one merge (B3 on two or three columns)."""
+    s = merge_with_unsorted(_index_cols(data), _log_cols(pending, tags))
+    words = stack(s[:-1])
+    return _compact_marked(words, _fold_keep_mask(words, s[-1]), out_cap)
 
 
 def _last_entry_of_runs(run_start: torch.Tensor, valid: torch.Tensor,
@@ -394,7 +443,7 @@ def _last_entry_of_runs(run_start: torch.Tensor, valid: torch.Tensor,
     return run_id, last
 
 
-def _log_join_count(words: torch.Tensor, seqtag: torch.Tensor):
+def _log_join_count(words, seqtag: torch.Tensor):
     """Hits over (word, seqtag)-sorted rows of index, log and queries: a
     query row (seqtag `_QUERY_SEQTAG`, last in its word's run) hits when
     the run's last entry has the insert bit.  int64 0-d tensor."""
@@ -407,23 +456,25 @@ def _log_join_count(words: torch.Tensor, seqtag: torch.Tensor):
 
 
 def _query_cols(queries: torch.Tensor):
-    return queries, torch.full_like(queries, _QUERY_SEQTAG)
+    return (*cols(queries), torch.full_like(major(queries), _QUERY_SEQTAG))
 
 
 def _count_hits_log_kernel(data, pending, tags, queries):
     """Hits of `queries` against `data` and the pending log WITHOUT
     folding: one sort of all three by (word, seqtag).  `data` may hold
     holes."""
-    return _log_join_count(*sort_keys(cat_cols(
-        _index_cols(data), (pending, tags), _query_cols(queries))))
+    s = sort_keys(cat_cols(_index_cols(data), _log_cols(pending, tags),
+                           _query_cols(queries)))
+    return _log_join_count(stack(s[:-1]), s[-1])
 
 
 def _count_hits_log_merge_kernel(data, pending, tags, queries):
     """`_count_hits_log_kernel` for sorted, contiguous `data`: sort log
-    and queries by (word, seqtag), then one merge with the index (two
-    columns)."""
-    return _log_join_count(*merge_with_unsorted(
-        _index_cols(data), cat_cols((pending, tags), _query_cols(queries))))
+    and queries by (word, seqtag), then one merge with the index (two or
+    three columns)."""
+    s = merge_with_unsorted(_index_cols(data), cat_cols(
+        _log_cols(pending, tags), _query_cols(queries)))
+    return _log_join_count(stack(s[:-1]), s[-1])
 
 
 # a contains batch of this many queries or more joins by a sort and
@@ -438,14 +489,16 @@ _SORTJOIN_SPILL = 1 << 16
 
 def _sortjoin_rows(data: torch.Tensor, queries: torch.Tensor,
                    holes: bool):
-    """The sort-join's rows, sorted: (word, position) pairs, data rows at
-    position Q, query rows at their index, so that a word's data rows
-    sort after its queries.  For a contiguous index (`holes` False) the
-    queries are sorted and merged with it (B3, B7 under the "bitonic"
-    merge mode); else one sort of both sides."""
-    n_q = queries.shape[0]
-    d = (data, torch.full_like(data, n_q))
-    q = (queries, torch.arange(n_q, dtype=torch.int64, device=queries.device))
+    """The sort-join's rows, sorted: (word, position) rows, the word's
+    columns and one more, data rows at position Q, query rows at their
+    index, so that a word's data rows sort after its queries.  For a
+    contiguous index (`holes` False) the queries are sorted and merged
+    with it (B3, B7 under the "bitonic" merge mode); else one sort of
+    both sides."""
+    n_q = queries.shape[-1]
+    d = (*cols(data), torch.full_like(major(data), n_q))
+    q = (*cols(queries), torch.arange(n_q, dtype=torch.int64,
+                                      device=queries.device))
     if holes:
         return sort_keys(cat_cols(d, q))
     return merge_with_unsorted(d, q)
@@ -461,8 +514,9 @@ def _contains_sortjoin_kernel(data: torch.Tensor, queries: torch.Tensor,
     word's run holds a data row (`_query_hits`), and a scatter by
     position puts the answers back in query order, where `cbl_tpu` sorts
     by position once more."""
-    n_q = queries.shape[0]
-    words, pos = _sortjoin_rows(data, queries, holes)
+    n_q = queries.shape[-1]
+    rows = _sortjoin_rows(data, queries, holes)
+    words, pos = stack(rows[:-1]), rows[-1]
     is_data = pos == n_q
     hit, run_id = _query_hits(_first_of_run(words), _valid_mask(words),
                               is_data)
@@ -481,20 +535,23 @@ def _pending_override_kernel(pending, tags, queries):
     its last logged op (True = insert).
 
     One sort of log and queries by (word, seqtag, query position), the
-    last two packed into column 1 as (seqtag << 31) | position; the run's
+    last two packed into the column after the word's as
+    (seqtag << 31) | position; the run's
     last entry decides; a one-column sort by position restores the query
     order (log rows carry position Q and fall off the end)."""
-    n_log, n_q = pending.shape[0], queries.shape[0]
+    n_log, n_q = pending.shape[-1], queries.shape[-1]
     if n_q >= 1 << _QPOS_BITS:
         raise ValueError(f"{n_q} queries do not fit {_QPOS_BITS} bits")
     dev = queries.device
-    seqtag = torch.cat([tags, torch.full_like(queries, _QUERY_SEQTAG)])
+    seqtag = torch.cat([tags, torch.full_like(major(queries),
+                                              _QUERY_SEQTAG)])
     qpos = torch.cat([
         torch.full((n_log,), n_q, dtype=torch.int64, device=dev),
         torch.arange(n_q, dtype=torch.int64, device=dev),
     ])
-    words, minor = sort_keys((torch.cat([pending, queries]),
-                              (seqtag << _QPOS_BITS) | qpos))
+    rows = sort_keys((*cols(torch.cat([pending, queries], dim=-1)),
+                      (seqtag << _QPOS_BITS) | qpos))
+    words, minor = stack(rows[:-1]), rows[-1]
     seqtag = minor >> _QPOS_BITS
     valid = _valid_mask(words)
     run_id, last = _last_entry_of_runs(_first_of_run(words), valid,
@@ -527,8 +584,8 @@ _SLOG_SEQ_MAX = 62
 
 def slog_packed(cfg: CBLConfig) -> bool:
     """True when a word and its 8-bit tag fit one slog key:
-    n_bits + 8 <= 64, odd K <= 25 (`cbl_tpu.wordset.slog_packed`; K=27
-    needs its unpacked layout with a tag column, ROADMAP slice 6).
+    n_bits + 8 <= 64, odd K <= 25 (`cbl_tpu.wordset.slog_packed`; K >= 27
+    needs its unpacked layout with a tag column, ROADMAP slice 6b).
 
     At n_bits = 56 (K=25) the all-ones word with tag 0xFF would equal the
     sentinel.  No valid word is all-ones: that needs pos = 2^pos_bits - 1,
@@ -557,19 +614,19 @@ def slog_word(keys: torch.Tensor) -> torch.Tensor:
 
 
 def _fit(s: torch.Tensor, out_cap: int) -> torch.Tensor:
-    """Truncate, or pad with SENTINEL, to out_cap rows."""
-    if out_cap <= s.shape[0]:
-        return s[:out_cap]
-    pad = torch.full((out_cap - s.shape[0],), SENTINEL, dtype=torch.int64,
-                     device=s.device)
-    return torch.cat([s, pad])
+    """Truncate, or pad with SENTINEL rows, to out_cap rows."""
+    n = s.shape[-1]
+    if out_cap <= n:
+        return s[..., :out_cap]
+    pad = sentinel_rows(out_cap - n, len(cols(s)), s.device)
+    return torch.cat([s, pad], dim=-1)
 
 
 def _compact_sort_kernel(data: torch.Tensor, out_cap: int):
     """Sort so that sentinels fall to the end, then truncate or pad with
     SENTINEL to out_cap: (keys [out_cap], valid count).  The valid keys
     are unique and at most out_cap."""
-    s = sort_keys(data)
+    s = sort_rows(data)
     return _fit(s, out_cap), _valid_mask(s).sum()
 
 
@@ -605,15 +662,16 @@ def _slog_fold_kernel(slog: torch.Tensor, out_cap: int):
 
 class DeviceWordSet:
     """A dynamic set of packed words as a sorted int64 tensor on one
-    device, with a pending log of unfolded inserts and removes."""
+    device ([N] keys, or [2, N] rows at wide K), with a pending log of
+    unfolded inserts and removes."""
 
     def __init__(self, cfg: CBLConfig, device: torch.device,
                  pending_cap: int = DEFAULT_PENDING_CAP):
         check_config(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.data = torch.full((MIN_CAP,), SENTINEL, dtype=torch.int64,
-                               device=self.device)
+        self._cols = key_cols(cfg)
+        self.data = sentinel_rows(MIN_CAP, self._cols, self.device)
         self._n_dev = None  # distinct count, device 0-d tensor (None = 0)
         self._n_host: int | None = 0
         self._n_upper = 0  # host upper bound on valid rows of `data`
@@ -642,8 +700,8 @@ class DeviceWordSet:
         self._slog_pack = slog_packed(cfg)
 
     def _reset_pending(self) -> None:
-        self.pending = torch.full((self.pending_cap,), SENTINEL,
-                                  dtype=torch.int64, device=self.device)
+        self.pending = sentinel_rows(self.pending_cap, self._cols,
+                                     self.device)
         self.pending_tags = torch.zeros(self.pending_cap, dtype=torch.int64,
                                         device=self.device)
         self.n_pending = 0
@@ -662,8 +720,8 @@ class DeviceWordSet:
         """The prefix of `data` that can hold every valid key."""
         if self._holes:
             return self.data
-        eff = min(self.data.shape[0], _next_pow2(max(self._n_upper, 1)))
-        return self.data[:eff]
+        eff = min(self.data.shape[-1], _next_pow2(max(self._n_upper, 1)))
+        return self.data[..., :eff]
 
     def _live_cap(self) -> int:
         """The capacity a compacted index of `_n_upper` keys gets."""
@@ -702,7 +760,7 @@ class DeviceWordSet:
         if self._n_upper != 0 or self._slog is not None or self.n_pending:
             raise ValueError("adopt_built needs an empty word set")
         self.data = data
-        self.capacity = data.shape[0]
+        self.capacity = data.shape[-1]
         self._holes = False
         self._dups = True
         self._set_count(n_dev)
@@ -711,18 +769,20 @@ class DeviceWordSet:
     # --- insert path ---
 
     def insert_words(self, words: torch.Tensor) -> None:
-        """Queue [N] words for insertion (SENTINEL rows are ignored)."""
+        """Queue [N] (or [2, N]) words for insertion (SENTINEL rows are
+        ignored)."""
         self._append_log(words, tag=1)
 
     def remove_words(self, words: torch.Tensor) -> None:
-        """Queue [N] words for removal (folds with the pending log)."""
+        """Queue [N] (or [2, N]) words for removal (folds with the
+        pending log)."""
         self._append_log(words, tag=0)
 
     def _append_log(self, words: torch.Tensor, tag: int) -> None:
         """Append a batch with op `tag`.  A batch larger than the log is
         applied at once; a batch that does not fit beside what is queued
         folds the log first."""
-        n = words.shape[0]
+        n = words.shape[-1]
         if n > self.pending_cap:
             self.flush()
             if tag == 1:
@@ -739,7 +799,7 @@ class DeviceWordSet:
                            device=self.device)
         # in place: the log's buffers belong to this word set alone
         self.pending_tags[off:off + n] = (seq << 1) | tag
-        self.pending[off:off + n] = words
+        self.pending[..., off:off + n] = words
         self.n_pending += n
 
     def insert_rows_bulk(self, rows_list: list) -> None:
@@ -749,14 +809,15 @@ class DeviceWordSet:
         if not rows_list:
             return
         self.flush()
-        rows = rows_list[0] if len(rows_list) == 1 else torch.cat(rows_list)
-        self._merge_into(rows, n_new_upper=rows.shape[0])
+        rows = (rows_list[0] if len(rows_list) == 1
+                else torch.cat(rows_list, dim=-1))
+        self._merge_into(rows, n_new_upper=rows.shape[-1])
 
     def _pending_prefix(self):
         """The next-power-of-two prefix of the log that holds every row in
         use (few shapes, and a lightly filled log costs a small sort)."""
         eff = min(_next_pow2(self.n_pending), self.pending_cap)
-        return self.pending[:eff], self.pending_tags[:eff]
+        return self.pending[..., :eff], self.pending_tags[:eff]
 
     def flush(self) -> None:
         """Fold an active slog, then the pending log, into `data`."""
@@ -775,7 +836,7 @@ class DeviceWordSet:
         # again)
         out_cap = _out_cap(self._n_upper + n_pend)
         if self._n_upper == 0 and not self._holes:
-            fold, data = _fold_log_kernel, self.data[:0]
+            fold, data = _fold_log_kernel, self.data[..., :0]
         elif self._holes:
             fold, data = _fold_log_kernel, self.data
         else:
@@ -798,21 +859,21 @@ class DeviceWordSet:
                 self.data, n_dev = rows, _distinct_count(rows)
             else:
                 self.data, n_dev = _build_sorted_kernel(rows)
-            self.capacity = self.data.shape[0]
+            self.capacity = self.data.shape[-1]
             self._dups = True
         elif self._holes:
             # not monotone: one sort of index and batch, duplicates marked
             # where they stand (holes again)
             self.data, n_dev = _merge_sortmark_kernel(self.data, rows)
-            self.capacity = self.data.shape[0]
+            self.capacity = self.data.shape[-1]
             self._dups = False
-        elif self._live().shape[0] + rows.shape[0] <= 2 * out_cap:
+        elif self._live().shape[-1] + rows.shape[-1] <= 2 * out_cap:
             # sort only the batch and merge; duplicates are kept, so the
             # tensor stays monotone
             kern = (_merge_sortedbatch_kernel if batch_sorted
                     else _merge_keepdups_kernel)
             self.data, n_dev = kern(self._live(), rows)
-            self.capacity = self.data.shape[0]
+            self.capacity = self.data.shape[-1]
             self._dups = True
         else:
             # duplicates and padding would pass one half: compact in the
@@ -900,7 +961,8 @@ class DeviceWordSet:
         return int(self.count_hits_device(words))
 
     def contains_words(self, words: torch.Tensor) -> torch.Tensor:
-        """[N] bool on the device; SENTINEL rows are False.  With a
+        """[N] bool on the device (N query rows); SENTINEL rows are
+        False.  With a
         pending log, the log's last op per word overrides the index's
         answer: a point query never forces a fold."""
         self._fold_slog()
@@ -912,7 +974,7 @@ class DeviceWordSet:
         return torch.where(has, present, base) & _valid_mask(words)
 
     def _contains_base(self, words: torch.Tensor) -> torch.Tensor:
-        if words.shape[0] >= _SORTJOIN_MIN_QUERIES:
+        if words.shape[-1] >= _SORTJOIN_MIN_QUERIES:
             return _contains_sortjoin_kernel(self._live(), words,
                                              self._holes)
         self._compact()  # the binary search needs a contiguous index
@@ -982,8 +1044,8 @@ class DeviceWordSet:
         out = self._new()
         if self._merge_setop_ready(other):
             data, n_dev = _union_merge_kernel(self._live(), other._live())
-            out.data, out.capacity = data, data.shape[0]
-            out._n_upper = data.shape[0]
+            out.data, out.capacity = data, data.shape[-1]
+            out._n_upper = data.shape[-1]
             out._dups = True  # both copies of a shared key stay
         else:
             cap = _out_cap(self.n + other.n)
@@ -1004,8 +1066,8 @@ class DeviceWordSet:
         if (cfg.n_bits <= 32 * cfg.word_limbs - 2
                 and self._merge_setop_ready(other)):
             data, n_dev = _setop_merge_kernel(self._live(), other._live(), op)
-            out.data, out.capacity = data, data.shape[0]
-            out._n_upper = min(cap_bound, data.shape[0])
+            out.data, out.capacity = data, data.shape[-1]
+            out._n_upper = min(cap_bound, data.shape[-1])
             out._holes = True  # compacted when something needs it
         else:
             cap = _out_cap(cap_bound)
@@ -1046,9 +1108,9 @@ class DeviceWordSet:
         for s in sets:
             s.flush()
         cap = _out_cap(sum(s.n for s in sets))
-        cat = torch.cat([s._live() for s in sets])
+        cat = torch.cat([s._live() for s in sets], dim=-1)
         out = sets[0]._new()
-        out.data, n_dev = _merge_sortcompact_kernel(cat, cat[:0], cap)
+        out.data, n_dev = _merge_sortcompact_kernel(cat, cat[..., :0], cap)
         out.capacity = cap
         out._n_upper = cap
         out._set_count(n_dev)
@@ -1073,7 +1135,7 @@ class DeviceWordSet:
         self.flush()
         out = self._new()
         out.data = self._live()
-        out.capacity = out.data.shape[0]
+        out.capacity = out.data.shape[-1]
         out._holes = self._holes
         out._dups = self._dups
         n = self.n
@@ -1090,7 +1152,7 @@ class DeviceWordSet:
         self.flush()
         self._compact()
         self._dedup()
-        return self.data[: self.n]
+        return self.data[..., : self.n]
 
     def words_array(self) -> np.ndarray:
         """[n, L] uint32 host array in ascending word order."""
@@ -1102,10 +1164,10 @@ class DeviceWordSet:
         time, so the host never holds more than a chunk."""
         keys = self.export_keys()
         L = self.cfg.word_limbs
-        for lo in range(0, keys.shape[0], chunk_rows):
-            yield host_limbs(keys[lo : lo + chunk_rows], L)
+        for lo in range(0, keys.shape[-1], chunk_rows):
+            yield host_limbs(keys[..., lo : lo + chunk_rows], L)
 
     def prefixes(self) -> np.ndarray:
-        """Sorted [n] uint32 prefix (key >> SUFFIX_BITS) of each word."""
+        """Sorted [n] uint32 prefix (word >> SUFFIX_BITS) of each word."""
         prefix = word_prefix(self.export_keys(), self.cfg)
         return host_limbs(prefix, 1).reshape(-1)

@@ -1,17 +1,18 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's static, dynamic-round, separate-call,
-set-algebra, ordered-membership and export paths on one NVIDIA GPU.
+set-algebra, ordered-membership, export and wide-K paths on one NVIDIA
+GPU.
 
 Run from the repository root, on a machine with one CUDA card, `nvcc` and
 `g++`:
 
-    python3 chip_smoke.py            # every phase, ~7 minutes
+    python3 chip_smoke.py            # every phase, ~9 minutes
     python3 chip_smoke.py --profile  # only a `torch.profiler` table of
                                      # the separate-calls workload
     python3 chip_smoke.py --profile-algebra  # the same of the set algebra
 
 Phases (any failure raises and the script exits non-zero):
-1. print the card, its power limit and the versions; build the seven CUDA
+1. print the card, its power limit and the versions; build the CUDA
    kernels of `cbl_tpu_torch` from `cbl_tpu_torch/csrc/` (one nvcc per
    source, in parallel);
 2. hold each kernel against its plain PyTorch version on the card at the
@@ -21,7 +22,9 @@ Phases (any failure raises and the script exits non-zero):
    schedule's; B7 also at B3's shapes of a fold and a log join, timed
    beside B3; B3, B6 and B7 also at the sort-join's shapes: 2^25 index
    rows (word, 2^25) against 2^25 (word, position) queries, with
-   realistic words and with heavy duplicates),
+   realistic words and with heavy duplicates; at wide K, B1 on two-column
+   k-mers of W = 118 and 66 bits at 2^25, and B3, B5, B6 and B7 at three
+   columns at the K=59 sort-join's shapes and their tile edges),
    time both with CUDA events, time the one PyTorch call that computes the
    same function where there is one, and work out each kernel's bound
    (the larger of bytes over the HBM peak and integer operations over
@@ -76,7 +79,7 @@ Phases (any failure raises and the script exits non-zero):
    2^25 slab against the 2^25-row index: B1, B2 and a sort-join on B3;
    records copied from the index, fresh ones, and copies with a point
    mutation every 20 to 40 bases, whose answers change every few
-   k-mers), masks element for element against numpy (`np.isin` of the
+   k-mers), masks element for element against numpy (membership of the
    stream's necklace words at its valid starts), staging, the device
    work and the mask's copy timed inside the counted call, the
    self-query all True, then
@@ -93,14 +96,32 @@ Phases (any failure raises and the script exits non-zero):
    `words_array` (its dedup sort, the limbs laid out on the card and the
    copy timed apart) against numpy's sorted unique words, the count against
    `bench/baseline.cpp`'s; then `iter_words_chunks(2^22)`,
-   `kmers_limbs` against `np.unique` of the k-mers, the six stats and
+   `kmers_limbs` against numpy's sorted unique k-mers, the six stats and
    `shard_balance` against numpy, `save_to_file` -> `load_from_file`
    (the file's words against numpy) and the loaded index's self-query
    (B1, B2, B3), `save_reference` at full size, `load_reference` of the
    first 2 Mbp's index (its bucket headers are a Python loop) back to
    the same words and the same bytes, and the first 2^20 rows of
    `iter_nucs` against an ASCII decode of the k-mers;
-10. require every kernel of each path to have been launched in that
+10. wide K: BASELINE config 3 (K=59, prefix 28, 32 Mbp, one record),
+   plain and canonical: the build, `count()` against numpy's distinct
+   k-mers ((first 32 bases, last 27) pairs), `kmers_limbs` as a set
+   against numpy's, the words of the first 2^20 k-mers against a numpy
+   necklace, the self-query (every k-mer present) and a 4 Mbp foreign
+   stream with point-mutated copies against numpy; then K=31 (prefix 24):
+   `insert_seqs` / `remove_seqs` of 8 Mbp under the "mergepath" sort mode
+   (B5 at three columns), point operations on the pending log, the four
+   set operations under phase 7's three mode pairs, a 2 Mbp
+   `contains_codes_stream` mask (B3, and B6 + B7 under "bitonic", at
+   three columns), a checkpoint and a `.cbl` file at a 2 Mbp cut, all
+   against numpy; each path's launches are counted from 0 just before
+   it and read just after (config 3's timed build and self-query: B1
+   wide, B2 and three-column B3 once each; at K=31 the sequence calls,
+   the set operations of each mode pair and each mask), and each must
+   have launched its three-column kernel; config 3 is also timed as
+   `bench.py --mode largek` times it (build from the bases, then
+   `kmers_limbs`);
+11. require every kernel of each path to have been launched in that
    path's counted run, print the timings, the kernels' JSON line and,
    last, the device JSON line.
 
@@ -129,7 +150,10 @@ STATIC_KERNELS = ("necklace", "blank", "merge")
 ROUND_KERNELS = STATIC_KERNELS + ("slog_scan",)  # the dynamic rounds'
 ALGEBRA_KERNELS = ("necklace", "blank", "bitonic_sort", "bitonic_merge")
 KERNELS = ROUND_KERNELS + ("sort", "bitonic_sort", "bitonic_merge")
-NO_LAUNCHES = dict.fromkeys(KERNELS, 0)
+# wide K: B1 on two-column k-mers, B3 / B5 / B6 / B7 at three columns
+WIDE_KERNELS = ("necklace_wide", "merge_3col", "sort_3col",
+                "bitonic_sort_3col", "bitonic_merge_3col")
+NO_LAUNCHES = dict.fromkeys(KERNELS + WIDE_KERNELS, 0)
 # Peaks of one H100 SXM (NVIDIA's data sheet): HBM3 at 3.35 TB/s; 67
 # TFLOP/s of float32 outside the tensor cores counts a fused multiply-add
 # as two, so its 128 float32 lanes an SM issue 33.5e12 operations a
@@ -488,8 +512,9 @@ def check_kernels(card: str) -> dict:
         for tiles in (4, 5, 6, 7):
             n = tiles * tile + 123
             keys = rand_keys(n, 1 << 20, 0.1)
-            if c == 2:
-                keys = (keys, rand_keys(n, 3, 0))
+            if c > 1:
+                keys = (keys,) + tuple(rand_keys(n, 3, 0)
+                                       for _ in range(c - 1))
             errs.append(sort_case(
                 f"n={n} ({tiles} tiles + 123), {c} column(s)", keys))
     merge.sort_mergepath(x1)
@@ -532,6 +557,7 @@ def check_kernels(card: str) -> dict:
     del x1, x2, x3, x4
     results.update(check_bitonic(rng, results["merge"]["ms"], card, joins))
     del joins
+    results.update(check_wide_kernels(rng, card))
 
     for name, r in results.items():
         lib = r["library_ms"]
@@ -781,6 +807,178 @@ def check_bitonic(rng, b3_ms: float, card: str, joins: dict) -> dict:
         b3_ms=b3_here, ms_2_25_2_24=ms3, b3_ms_2_25_2_24=b3_3,
         passes=b7_passes, **extra, **bound(2 * 8 * 2 * half, 2 * half * 2))
     return out
+
+
+def once_ms(fn):
+    """(result, device ms) of one run of `fn`, by CUDA events (for the
+    plain versions at full size, where a second run is not worth it)."""
+    import torch
+
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    out = fn()
+    e1.record()
+    e1.synchronize()
+    return out, e0.elapsed_time(e1)
+
+
+def wide_join_rows(rng, n: int):
+    """The two sides of a full-size sort-join at K=59
+    (`wordset._sortjoin_rows` on two-column words): (index rows, query
+    rows), three int64 columns each (word column 0 below 2^62, column 1
+    below 2^63, then the position): the index's n sorted words with a
+    5 % sentinel tail, each at position n; n query words at positions
+    0..n-1, unsorted, half of them drawn from the index, 3 % sentinels."""
+    import torch
+
+    from cbl_tpu_torch.ops import merge
+
+    dev = torch.device(DEVICE)
+    pad = (1 << 63) - 1
+    hi = rng.integers(0, 1 << 62, size=n)
+    lo = rng.integers(0, 1 << 63, size=n)
+    hi[n - n // 20:] = pad
+    lo[n - n // 20:] = pad
+    d = merge.sort_cols_plain((torch.from_numpy(hi).to(dev),
+                               torch.from_numpy(lo).to(dev)))
+    dh, dl = d[0].cpu().numpy(), d[1].cpu().numpy()
+    qh = rng.integers(0, 1 << 62, size=n)
+    ql = rng.integers(0, 1 << 63, size=n)
+    half = rng.random(n) < 0.5
+    at = rng.integers(0, n - n // 20, size=int(half.sum()))
+    qh[half], ql[half] = dh[at], dl[at]
+    sent = rng.random(n) < 0.03
+    qh[sent], ql[sent] = pad, pad
+    return ((d[0], d[1], torch.full_like(d[0], n)),
+            (torch.from_numpy(qh).to(dev), torch.from_numpy(ql).to(dev),
+             torch.arange(n, dtype=torch.int64, device=dev)))
+
+
+def check_wide_kernels(rng, card: str) -> dict:
+    """Phase 2 at wide K: B1 on two-column k-mers (W = 118 and 66) at
+    2^25 k-mers, and B3, B5, B6 and B7 at three columns at the K=59
+    sort-join's full-size shapes (2^25 index rows against 2^25 queries),
+    each against its plain version, exact; timed beside three stable
+    `torch.sort` passes, the library's way to the same sort."""
+    import torch
+
+    from cbl_tpu_torch.ops import bitonic, merge, necklace
+
+    dev = torch.device(DEVICE)
+    results = {}
+    errs = []
+    for W in (118, 66):
+        x = torch.stack([
+            torch.from_numpy(rng.integers(0, 1 << (W - 63), size=SLAB)),
+            torch.from_numpy(rng.integers(0, 1 << 63, size=SLAB))]).to(dev)
+        x[:, 0] = 0  # poly-A
+        x[0, 1] = (1 << (W - 63)) - 1  # poly-T: all ones
+        x[1, 1] = (1 << 63) - 1
+        got = necklace.necklace_pos(x, W)
+        want, plain_ms = once_ms(lambda: necklace.necklace_pos_plain(x, W))
+        errs.append(max(max_abs_err(got[0], want[0]),
+                        max_abs_err(got[1].long(), want[1].long())))
+        log(f"B1 necklace, two columns, W={W} n={SLAB}: kernel == plain: "
+            f"{errs[-1] == 0}")
+        if W == 118:
+            ms = time_ms(lambda: necklace.necklace_pos(x, W), 10)
+            x118_plain_ms = plain_ms
+        del x, got, want
+    # 16 bytes read, 16 + 4 written a k-mer.  Operations: W - 1 candidate
+    # rotations of a value held in four 32-bit registers, each at least
+    # thirteen 32-bit integer instructions (four funnel shifts form it from
+    # the one before, four compares order it against the best, five
+    # selects keep the best's four words and its position); the kernel
+    # also carries the top bit round and masks, about 23 a step in its
+    # SASS
+    b1 = bound(SLAB * 36, SLAB * (118 - 1) * 13)
+    log(f"B1 necklace, two columns, W=118: {ms:.4f} ms, plain "
+        f"{x118_plain_ms:.4f} ms, bound {b1['bound_ms']:.4f} ms by "
+        f"{b1['bound_by']} ({117 * 13} INT32 operations a k-mer); by bytes "
+        f"alone {bound(SLAB * 36, 0)['bound_ms']:.4f} ms [{card}]")
+    results["necklace_wide"] = dict(err=max(errs), ms=ms,
+                                    plain_ms=x118_plain_ms, library_ms=None,
+                                    **b1)
+
+    # three columns at the K=59 sort-join's shapes
+    d, q = wide_join_rows(np.random.default_rng(12), SLAB)
+    before = [c.clone() for c in q]
+    want_sorted = merge.sort_cols_plain(q)
+    lib_sort_ms = time_ms(lambda: merge.sort_cols_plain(q), 3)
+    n3 = SLAB
+    sort_bound = bound(2 * 24 * n3, n3 * 25 * 3)
+    for name, kernel, plain in (
+            ("sort_3col", merge.sort_mergepath, merge.sort_mergepath_plain),
+            ("bitonic_sort_3col", bitonic.bitonic_sort,
+             bitonic.bitonic_sort_passes_plain)):
+        got = kernel(q)
+        err = cols_equal(got, want_sorted)
+        plain_got, plain_ms = once_ms(lambda: plain(q))
+        err = max(err, cols_equal(plain_got, want_sorted),
+                  cols_equal(q, tuple(before)))
+        del got, plain_got
+        ms = time_ms(lambda: kernel(q), 5)
+        label = "B5 sort" if name == "sort_3col" else "B6 bitonic sort"
+        log(f"{label}, three columns, {n3} (the K=59 sort-join's queries):"
+            f" kernel == plain == torch.sort, input kept: {err == 0}; "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, three stable torch.sort "
+            f"passes {lib_sort_ms:.4f} ms, bound "
+            f"{sort_bound['bound_ms']:.4f} ms [{card}]")
+        results[name] = dict(err=err, ms=ms, plain_ms=plain_ms,
+                             library_ms=lib_sort_ms, **sort_bound)
+    del before
+    qs = want_sorted
+    cat = tuple(torch.cat([x, y]) for x, y in zip(d, q))
+    want_merged = merge.sort_cols_plain(cat)
+    lib_merge_ms = time_ms(lambda: merge.sort_cols_plain(cat), 3)
+    del cat
+    merge_bound = bound(2 * 24 * 2 * n3, 2 * n3 * 3)
+    for name, kernel, plain in (
+            ("merge_3col", merge.merge_sorted, merge.merge_sorted_plain),
+            ("bitonic_merge_3col", bitonic.bitonic_merge,
+             bitonic.bitonic_merge_tiled_plain)):
+        err = cols_equal(kernel(d, qs), want_merged)
+        plain_got, plain_ms = once_ms(lambda: plain(d, qs))
+        err = max(err, cols_equal(plain_got, want_merged))
+        del plain_got
+        ms = time_ms(lambda: kernel(d, qs), 10)
+        label = "B3 merge" if name == "merge_3col" else "B7 bitonic merge"
+        log(f"{label}, three columns, {n3} + {n3} (the K=59 sort-join): "
+            f"kernel == plain: {err == 0}; {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, three stable torch.sort passes of both "
+            f"{lib_merge_ms:.4f} ms, bound {merge_bound['bound_ms']:.4f} ms "
+            f"[{card}]")
+        results[name] = dict(err=err, ms=ms, plain_ms=plain_ms,
+                             library_ms=lib_merge_ms, **merge_bound)
+    # the tile edges of each kernel at three columns
+    def rows3(n, hi):
+        return tuple(torch.from_numpy(rng.integers(0, hi, size=n)).to(dev)
+                     for _ in range(3))
+
+    edge = []
+    for n in (1, 2, bitonic.TILES[3] - 1, bitonic.TILES[3],
+              bitonic.TILES[3] + 1, 4 * merge.SORT_TILES[3] + 123,
+              7 * merge.SORT_TILES[3] + 123):
+        x = rows3(n, 1 << 20)
+        want = merge.sort_cols_plain(x)
+        edge.append(cols_equal(merge.sort_mergepath(x), want))
+        edge.append(cols_equal(bitonic.bitonic_sort(x), want))
+    t = bitonic.MERGE_TILES[3]
+    for na, nb in ((0, 5), (t - 1, 1), (t, t), (3 * t + 1, t - 1),
+                   (merge.MERGE_TILE + 1, 3), (5, 0)):
+        a = merge.sort_cols_plain(rows3(na, 5))
+        b = merge.sort_cols_plain(rows3(nb, 5))
+        want = merge.merge_sorted_plain(a, b)
+        edge.append(cols_equal(merge.merge_sorted(a, b), want))
+        edge.append(cols_equal(bitonic.bitonic_merge(a, b), want))
+    log(f"B3, B5, B6, B7 at three columns at their tile edges: kernel == "
+        f"plain: {max(edge) == 0}")
+    for name in ("sort_3col", "bitonic_sort_3col", "merge_3col",
+                 "bitonic_merge_3col"):
+        results[name]["err"] = max(results[name]["err"], max(edge))
+    return results
 
 
 def slog_keys(rng, n: int, query_run: int = 0):
@@ -1038,7 +1236,8 @@ def point_ops_check(idx, seg_codes: np.ndarray) -> str:
     idx.insert_kmers(inside[:300])
     last.update((v, True) for v in inside[:300])
     probe = inside + outside
-    in_base = np.isin(np.array(probe, dtype=np.uint64), base)
+    in_base = np_isin_sorted(np.array(probe, dtype=np.uint64),
+                             np_unique(base))
     want = [last.get(v, bool(b)) for v, b in zip(probe, in_base)]
     got = idx.contains_kmers(probe)
     assert got.tolist() == want, "point operations disagree with the oracle"
@@ -1243,7 +1442,7 @@ def algebra_overlap_check(codes: np.ndarray, words: np.ndarray) -> str:
         stream, w = window(lo, hi)
         idx = CBL(k=K, device=DEVICE)
         idx.insert_codes_stream(*stream)
-        return idx, np.unique(w)
+        return idx, np_unique(w)
 
     def same(idx, want, what):
         got = index_keys(idx).cpu().numpy().astype(np.uint64)
@@ -1255,9 +1454,9 @@ def algebra_overlap_check(codes: np.ndarray, words: np.ndarray) -> str:
     with use_merge_mode("bitonic"), use_sort_mode("bitonic"):
         (a, wa), (b, wb), (c, wc) = (build(0, 5 * M), build(3 * M, 8 * M),
                                      build(2 * M, 6 * M))
-        u1 = lambda x, y: np.union1d(x, y)
+        u1 = lambda x, y: np_unique(np.concatenate([x, y]))
         i1 = lambda x, y: np.intersect1d(x, y, assume_unique=True)
-        d1 = lambda x, y: np.setdiff1d(x, y, assume_unique=True)
+        d1 = np_setdiff
         x1 = lambda x, y: np.setxor1d(x, y, assume_unique=True)
         same(a | b, u1(wa, wb), "a | b")
         same(a & b, i1(wa, wb), "a & b")
@@ -1286,7 +1485,8 @@ def algebra_overlap_check(codes: np.ndarray, words: np.ndarray) -> str:
         h, wh = a & b, i1(wa, wb)
         assert h.wordset._holes
         q, wq = window(2 * M, 6 * M)
-        assert h.query_codes_stream(*q) == (len(wq), int(np.isin(wq, wh).sum()))
+        assert h.query_codes_stream(*q) == (len(wq),
+                                            int(np_isin_sorted(wq, wh).sum()))
         assert h.wordset._holes  # joined by one sort, not compacted
         ins, wi = window(6 * M, 7 * M)
         h.insert_codes_stream(*ins)  # fits the log
@@ -1295,10 +1495,11 @@ def algebra_overlap_check(codes: np.ndarray, words: np.ndarray) -> str:
         assert h.wordset._holes and h.count() == len(wh)
         rm, wr = window(3 * M + M // 2, 4 * M)
         h.remove_codes_stream(*rm)  # stays in the log
-        wh = d1(wh, np.unique(wr))
+        wh = d1(wh, np_unique(wr))
         assert h.wordset.n_pending > 0 and h.wordset._holes
         # index with holes + log: one sort of all three
-        assert h.query_codes_stream(*q) == (len(wq), int(np.isin(wq, wh).sum()))
+        assert h.query_codes_stream(*q) == (len(wq),
+                                            int(np_isin_sorted(wq, wh).sum()))
         assert h.wordset.n_pending > 0 and h.wordset._holes
         h.flush()
         assert not h.wordset._holes
@@ -1310,7 +1511,7 @@ def algebra_overlap_check(codes: np.ndarray, words: np.ndarray) -> str:
         probe = [int(v) for v in np_kmers(codes)[pos]]
         got = g.contains_kmers(probe)  # compacts first
         assert not g.wordset._holes
-        assert got.tolist() == np.isin(words[pos], wg).tolist()
+        assert got.tolist() == np_isin_sorted(words[pos], wg).tolist()
         assert 0 < int(got.sum()) < len(probe)
         same(g, wg, "a - b after contains_kmers")
     launched = {n: LAUNCHES[n] - n0[n] for n in n0}
@@ -1495,8 +1696,8 @@ def seq_pipeline_check(codes: np.ndarray, words: np.ndarray):
         return np.concatenate([words[off[i]:off[i + 1] - K + 1]
                                for i in which if off[i + 1] - off[i] >= K])
 
-    want = np.setdiff1d(np.unique(rec_words(range(len(recs)))),
-                        rec_words(sorted(rm)))
+    want = np_setdiff(np_unique(rec_words(range(len(recs)))),
+                      np_unique(rec_words(sorted(rm))))
     idx = CBL(k=K, device=DEVICE)
     torch.cuda.synchronize()
     for name in LAUNCHES:
@@ -1570,7 +1771,8 @@ def ordered_membership_check(idx, codes: np.ndarray, offsets: np.ndarray,
     h = a - b
     del a, b
     assert h.wordset._holes
-    diff = np.setdiff1d(words[:2 * M - K + 1], words[M:3 * M - K + 1])
+    diff = np_setdiff(np_unique(words[:2 * M - K + 1]),
+                      np_unique(words[M:3 * M - K + 1]))
     want_h = [np_isin_sorted(w, diff) for w in qw]
     got_h, out["holes"] = contains_run(h, qcodes, qoff)
     assert h.wordset._holes, "the contains call compacted the index"
@@ -1648,7 +1850,9 @@ def np_stats(words: np.ndarray) -> dict:
     so its node count is its size."""
     from collections import Counter
 
-    prefixes, sizes = np.unique(words >> np.uint64(32), return_counts=True)
+    pref = words >> np.uint64(32)  # sorted, as the words are
+    starts = np.flatnonzero(np.r_[True, pref[1:] != pref[:-1]])
+    prefixes, sizes = pref[starts], np.diff(np.r_[starts, len(pref)])
     assert sizes.max() <= 1024
     pairs = list(zip(prefixes.tolist(), sizes.tolist()))
     sc = dict(sorted(Counter(sizes.tolist()).items()))
@@ -1720,7 +1924,7 @@ def export_check(idx, codes: np.ndarray, offsets: np.ndarray,
     kmers = idx.kmers_limbs()
     out["kmers_s"] = time.perf_counter() - t0
     packed = (kmers[:, 0].astype(np.uint64) << np.uint64(32)) | kmers[:, 1]
-    assert np.array_equal(np.sort(packed), np.unique(np_kmers(codes)))
+    assert np.array_equal(np.sort(packed), np_unique(np_kmers(codes)))
 
     stats_s, got = {}, {}
     for name in ("prefix_load", "buckets_sizes", "buckets_size_count",
@@ -1811,6 +2015,556 @@ def export_check(idx, codes: np.ndarray, offsets: np.ndarray,
     assert nucs == [r.tobytes() for r in ascii_]
     out["launches"] = dict(LAUNCHES)
     out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return out
+
+
+# --- phase 10: wide K ----------------------------------------------------------
+
+WIDE_K, WIDE_PREFIX = 59, 28  # BASELINE config 3 (bench.py --mode largek)
+K31 = 31  # the k most genomics tools default to
+K31_BASES = 8_000_000
+WIDE_FOREIGN = 4_000_000  # bases of config 3's foreign query stream
+
+
+def _np_rolling(codes: np.ndarray, first: int, width: int,
+                nk: int) -> np.ndarray:
+    """[nk] uint64: bases [i + first, i + first + width) of `codes` as a
+    2-bit big-endian value (width <= 32), in eight threads."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    out = np.empty(nk, dtype=np.uint64)
+    edges = np.linspace(0, nk, 9).astype(np.int64)
+
+    def piece(i):
+        lo, hi = edges[i], edges[i + 1]
+        v = np.zeros(hi - lo, dtype=np.uint64)
+        for j in range(width):
+            v <<= np.uint64(2)
+            v |= codes[lo + first + j : hi + first + j]
+        out[lo:hi] = v
+
+    with ThreadPoolExecutor(8) as ex:
+        list(ex.map(piece, range(8)))
+    return out
+
+
+def _np_parity(*xs) -> np.ndarray:
+    """Parity of the summed popcounts of uint64 arrays."""
+    total = 0
+    for x in xs:
+        if hasattr(np, "bitwise_count"):
+            total = total + np.bitwise_count(x)
+        else:
+            lut = np.array([bin(i).count("1") for i in range(256)],
+                           dtype=np.uint8)
+            total = total + lut[x.view(np.uint8)].reshape(-1, 8).sum(1)
+    return (np.asarray(total) & 1).astype(bool)
+
+
+def np_kmer_pairs(codes: np.ndarray, k: int, canonical: bool):
+    """(hi, lo) uint64 of every k-mer start of `codes` for k > 32: hi its
+    first 32 bases, lo the other k - 32 (one to one with the k-mer, and
+    ordered as the k-mer is); with `canonical`, of the even-popcount one
+    of the k-mer and its reverse complement."""
+    nk = len(codes) - k + 1
+    hi = _np_rolling(codes, 0, 32, nk)
+    lo = _np_rolling(codes, 32, k - 32, nk)
+    if canonical:
+        rc = (codes ^ np.uint8(2))[::-1].copy()
+        rh = _np_rolling(rc, 0, 32, nk)[::-1]
+        rl = _np_rolling(rc, 32, k - 32, nk)[::-1]
+        odd = _np_parity(hi, lo)
+        hi, lo = np.where(odd, rh, hi), np.where(odd, rl, lo)
+    return hi, lo
+
+
+def _np_argsort_threads(x: np.ndarray) -> np.ndarray:
+    """`np.argsort` of uint64 values in eight threads: the rows bucketed
+    by their top three bits (a stable sort of a small key), each bucket
+    sorted in a thread of its own (numpy releases the interpreter lock)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    bucket = (x >> np.uint64(61)).astype(np.uint8)
+    idx = np.argsort(bucket, kind="stable")
+    edges = np.concatenate([[0], np.cumsum(np.bincount(bucket,
+                                                       minlength=8))])
+    out = np.empty_like(idx)
+
+    def piece(b):
+        sub = idx[edges[b]:edges[b + 1]]
+        out[edges[b]:edges[b + 1]] = sub[np.argsort(x[sub])]
+
+    with ThreadPoolExecutor(8) as ex:
+        list(ex.map(piece, range(8)))
+    return out
+
+
+def np_unique_pairs(hi: np.ndarray, lo: np.ndarray):
+    """The sorted unique (hi, lo) pairs: one sort by hi, then the rare
+    runs of one hi sorted by lo."""
+    o = _np_argsort_threads(hi)
+    h, l = hi[o], lo[o]
+    dup = np.flatnonzero(h[1:] == h[:-1])
+    if dup.size:
+        rows = np.unique(np.concatenate([dup, dup + 1]))
+        sub = np.lexsort((l[rows], h[rows]))
+        h[rows], l[rows] = h[rows][sub], l[rows][sub]
+    keep = np.ones(len(h), dtype=bool)
+    keep[1:] = (h[1:] != h[:-1]) | (l[1:] != l[:-1])
+    return h[keep], l[keep]
+
+
+def np_pairs_in(qh, ql, uh, ul) -> np.ndarray:
+    """Which query pairs are among the sorted unique pairs (uh, ul).  The
+    queries are searched in sorted order (numpy's binary search starts
+    from the last key's place when the keys ascend; in a random order
+    every search misses the cache)."""
+    o = _np_argsort_threads(qh)
+    qh, ql = qh[o], ql[o]
+    i = np.searchsorted(uh, qh, "left")
+    j = np.searchsorted(uh, qh, "right")
+    hit = np.zeros(len(qh), dtype=bool)
+    one = j - i == 1
+    hit[one] = ul[i[one]] == ql[one]
+    for r in np.flatnonzero(j - i > 1):
+        seg = ul[i[r]:j[r]]
+        at = int(np.searchsorted(seg, ql[r]))
+        hit[r] = at < len(seg) and seg[at] == ql[r]
+    out = np.empty_like(hit)
+    out[o] = hit
+    return out
+
+
+def limbs_to_pairs(limbs: np.ndarray, k: int):
+    """[n, 4] uint32 k-mer limbs (`kmers_limbs`) -> the (hi, lo) pairs of
+    `np_kmer_pairs`."""
+    u = limbs.astype(np.uint64)
+    sh = 2 * (k - 32) - 32  # bits of limb 2 that belong to lo
+    hi = ((u[:, 0] << np.uint64(64 - sh)) | (u[:, 1] << np.uint64(32 - sh))
+          | (u[:, 2] >> np.uint64(sh)))
+    lo = ((u[:, 2] & np.uint64((1 << sh) - 1)) << np.uint64(32)) | u[:, 3]
+    return hi, lo
+
+
+def np_wide_word_limbs(hi: np.ndarray, lo: np.ndarray, k: int):
+    """[n, 4] uint32 limbs of the packed words of k-mer pairs
+    (`_np_wide_words` in eight threads over pieces of the rows)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    out = np.empty((len(hi), 4), dtype=np.uint32)
+    edges = np.linspace(0, len(hi), 9).astype(np.int64)
+
+    def piece(i):
+        a, b = edges[i], edges[i + 1]
+        out[a:b] = _np_wide_words(hi[a:b], lo[a:b], k)
+
+    with ThreadPoolExecutor(8) as ex:
+        list(ex.map(piece, range(8)))
+    return out
+
+
+def _np_wide_words(hi: np.ndarray, lo: np.ndarray, k: int):
+    """[n, 4] uint32 limbs of the packed words (necklace << pos_bits |
+    pos) of k-mer pairs, k > 32: the W - 1 one-bit rotations of the
+    128-bit value in two uint64 halves (independent of the port)."""
+    W = 2 * k
+    pb = (W - 1).bit_length()
+    lbits = 2 * (k - 32)
+    h = hi >> np.uint64(64 - lbits)
+    l = (hi << np.uint64(lbits)) | lo
+    hm, top = np.uint64((1 << (W - 64)) - 1), np.uint64(W - 65)
+    one, s63 = np.uint64(1), np.uint64(63)
+    bh, bl = h.copy(), l.copy()
+    pos = np.zeros(len(h), dtype=np.uint64)
+    for p in range(1, W):
+        msb = (h >> top) & one
+        h = ((h << one) | (l >> s63)) & hm
+        l = (l << one) | msb
+        better = (h < bh) | ((h == bh) & (l < bl))
+        np.copyto(bh, h, where=better)
+        np.copyto(bl, l, where=better)
+        np.copyto(pos, np.uint64(p), where=better)
+    wh = (bh << np.uint64(pb)) | (bl >> np.uint64(64 - pb))
+    wl = (bl << np.uint64(pb)) | pos
+    m = np.uint64(0xFFFFFFFF)
+    return np.stack([wh >> np.uint64(32), wh & m, wl >> np.uint64(32),
+                     wl & m], axis=1).astype(np.uint32)
+
+
+def wide_foreign_stream(codes: np.ndarray, n_bases: int, seed: int):
+    """(codes, offsets) of 16 records of n_bases / 16 and an 11-base
+    tail: records 0, 2, 4, ... copied from `codes`, 1, 5, 9, 13 fresh,
+    3, 7, 11, 15 copies with a point mutation every 20 to 40 bases (as
+    phase 8's `foreign_stream`)."""
+    rng = np.random.default_rng(seed)
+    n = n_bases // 16
+    parts = []
+    for r in range(16):
+        if r % 4 == 1:
+            parts.append(rng.integers(0, 4, size=n, dtype=np.uint8))
+            continue
+        s = int(rng.integers(0, len(codes) - n))
+        parts.append(codes[s : s + n].copy())
+        if r % 4 == 3:
+            at = np.cumsum(rng.integers(20, 41, size=n // 20))
+            at = at[at < n]
+            parts[-1][at] = (parts[-1][at] + rng.integers(
+                1, 4, size=len(at), dtype=np.uint8)) % 4
+    parts.append(rng.integers(0, 4, size=11, dtype=np.uint8))
+    return (np.concatenate(parts),
+            np.concatenate([[0], np.cumsum([len(p) for p in parts])]))
+
+
+def np_valid_starts(offsets: np.ndarray, k: int, nk: int) -> np.ndarray:
+    """[nk] bool: the k-mer starting there lies inside one record."""
+    valid = np.zeros(nk + 1, dtype=np.int64)
+    for r in range(len(offsets) - 1):
+        lo, hi = int(offsets[r]), int(offsets[r + 1]) - k + 1
+        if hi > lo:
+            valid[lo] += 1
+            valid[hi] -= 1
+    return np.cumsum(valid[:nk]) > 0
+
+
+def zero_launches() -> None:
+    """Set every kernel's launch count to 0."""
+    from cbl_tpu_torch.ops import LAUNCHES
+
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def launches_now() -> dict:
+    """A copy of the launch counts."""
+    from cbl_tpu_torch.ops import LAUNCHES
+
+    return dict(LAUNCHES)
+
+
+def config3_run(codes: np.ndarray, canonical: bool, card: str) -> dict:
+    """BASELINE config 3 on the card (K=59, prefix 28, one record of
+    `codes`): a timed build and self-query, its launches counted alone
+    (then once more under `torch.profiler`, its device time by kernel
+    printed), then `count()`, `kmers_limbs`, the words of the first 2^20
+    k-mers and a foreign query, each against numpy."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from cbl_tpu_torch import CBL
+    from cbl_tpu_torch import cbl as cmod
+    from cbl_tpu_torch.wordset import host_limbs
+
+    t_fn = time.perf_counter()
+    offsets = np.array([0, len(codes)], dtype=np.int64)
+    nk = len(codes) - WIDE_K + 1
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    idx = CBL(k=WIDE_K, prefix_bits=WIDE_PREFIX, canonical=canonical,
+              device=DEVICE)
+    t_s = time.perf_counter()
+    ps = idx.pack_stream(codes, offsets)
+    torch.cuda.synchronize()
+    stage_s = time.perf_counter() - t_s
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    zero_launches()
+    t0 = time.perf_counter()
+    ev[0].record()
+    idx.insert_codes_stream(ps)
+    n_dev = idx.count_device()
+    ev[1].record()
+    total_dev, pos_dev = idx.query_codes_stream(ps, lazy=True)
+    ev[2].record()
+    distinct, total, positive = torch.stack(
+        [n_dev.long(), total_dev.long(), pos_dev.long()]).tolist()
+    wall_s = time.perf_counter() - t0
+    r = dict(distinct=distinct, total=total, positive=positive,
+             stage_s=stage_s, wall_s=wall_s,
+             insert_ms=ev[0].elapsed_time(ev[1]),
+             query_ms=ev[1].elapsed_time(ev[2]), launches=launches_now())
+    assert total == positive == nk, r
+    t_p = time.perf_counter()
+    # one slab: B1 wide and B2 build it, B3 joins the (word, tag) rows of
+    # the index and of the stream's sorted words (its memo) on three
+    # columns; the library sort mode sorts with torch.sort
+    assert r["launches"] == dict(
+        {n: 0 for n in r["launches"]}, necklace_wide=1, blank=1,
+        merge_3col=1), r["launches"]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        again = CBL(k=WIDE_K, prefix_bits=WIDE_PREFIX, canonical=canonical,
+                    device=DEVICE)
+        again.insert_codes_stream(ps)
+        n_again = again.count_device()
+        again.query_codes_stream(ps, lazy=True)
+        torch.cuda.synchronize()
+    label = "canonical" if canonical else "plain"
+    print_profile(prof, f"[{card}] config 3 {label}: build + self-query "
+                  f"under the profiler (timed run "
+                  f"{r['insert_ms'] + r['query_ms']:.2f} ms)",
+                  r["insert_ms"] + r["query_ms"])
+    assert int(n_again) == distinct
+    del again
+    r["profile_s"] = time.perf_counter() - t_p
+    # `bench.py --mode largek`'s metric: a build from the bases (staging
+    # included) and `count()`, then every k-mer listed (`kmers_limbs`),
+    # by the host clock: (n_kmers + distinct) / (build + list)
+    listed = CBL(k=WIDE_K, prefix_bits=WIDE_PREFIX, canonical=canonical,
+                 device=DEVICE)
+    torch.cuda.synchronize()
+    t_b = time.perf_counter()
+    listed.insert_codes_stream(codes, offsets)
+    assert int(listed.count_device()) == distinct
+    t_k = time.perf_counter()
+    kl = listed.kmers_limbs()
+    r["kmers_limbs_s"] = time.perf_counter() - t_k
+    r["largek_build_s"] = t_k - t_b
+    r["largek_rate"] = (nk + distinct) / (time.perf_counter() - t_b)
+    del listed
+    n_first = min(1 << 20, nk)
+    stream = ps.slabs[0][1]
+    words = host_limbs(cmod._kmer_words(stream, n_first, idx.cfg, canonical),
+                       idx.cfg.word_limbs)
+    fcodes, foff = wide_foreign_stream(codes, WIDE_FOREIGN, 13)
+    t_f = time.perf_counter()
+    f_total, f_pos = idx.query_codes_stream(fcodes, foff)
+    r["foreign_s"] = time.perf_counter() - t_f
+    assert idx.count() == distinct
+    r["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del idx, ps, stream
+
+    t_o = time.perf_counter()
+    parts = {}
+
+    def lap(name):
+        parts[name] = round(time.perf_counter() - t_o - sum(parts.values()),
+                            3)
+
+    hi, lo = np_kmer_pairs(codes, WIDE_K, canonical)
+    lap("pairs")
+    uh, ul = np_unique_pairs(hi, lo)
+    lap("unique")
+    assert distinct == len(uh), (distinct, len(uh))
+    gh, gl = np_unique_pairs(*limbs_to_pairs(kl, WIDE_K))
+    lap("kmers_unique")
+    assert len(gh) == len(kl) == len(uh)
+    assert np.array_equal(gh, uh) and np.array_equal(gl, ul)
+    del kl, gh, gl
+    want = np_wide_word_limbs(hi[:n_first], lo[:n_first], WIDE_K)
+    lap("words")
+    assert np.array_equal(words, want), "words of the first 2^20 k-mers"
+    del hi, lo
+    fh, fl = np_kmer_pairs(fcodes, WIDE_K, canonical)
+    valid = np_valid_starts(foff, WIDE_K, len(fh))
+    hits = np_pairs_in(fh[valid], fl[valid], uh, ul)
+    assert (f_total, f_pos) == (int(valid.sum()), int(hits.sum())), (
+        f_total, f_pos, int(valid.sum()), int(hits.sum()))
+    assert 0 < f_pos < f_total
+    lap("foreign")
+    r.update(foreign_total=f_total, foreign_positive=f_pos,
+             oracle_s=time.perf_counter() - t_o, oracle_parts_s=parts,
+             fn_s=time.perf_counter() - t_fn)
+    return r
+
+
+def k31_check(card: str) -> dict:
+    """K=31, prefix 24 on the card: words of two int64 columns, k-mers of
+    one (B1 at one column).  `insert_seqs` / `remove_seqs` of 8 Mbp in
+    records of mixed length through the pending log under the
+    "mergepath" sort mode (B5 at three columns), point operations on the
+    log, the four set operations under phase 7's three (merge, sort)
+    mode pairs, a `contains_codes_stream` mask (the sort-join on three
+    columns: B3, and B7 + B6 under "bitonic"), `save_to_file` ->
+    `load_from_file` and `save_reference` -> `load_reference` at a 2 Mbp
+    cut; everything against numpy."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from cbl_tpu_torch import CBL, interop
+    from cbl_tpu_torch.ops.sort import use_merge_mode, use_sort_mode
+
+    k = K31
+    t_o = time.perf_counter()
+    rng = np.random.default_rng(31)
+    codes = rng.integers(0, 4, size=K31_BASES, dtype=np.uint8)
+    vals = _np_rolling(codes, 0, k, len(codes) - k + 1)
+    out = {"launches": {}, "parts_s": {}}
+
+    def lap(name):
+        out["parts_s"][name] = round(
+            time.perf_counter() - t_o - sum(out["parts_s"].values()), 3)
+
+    def kmer_values(idx):
+        kl = idx.kmers_limbs().astype(np.uint64)
+        return np.sort((kl[:, 1] << np.uint64(32)) | kl[:, 2])
+
+    # insert_seqs / remove_seqs in records of mixed length
+    lens = list(rng.integers(1, K31_BASES // 50, size=200)) + [5, k - 1, k]
+    rng.shuffle(lens)
+    off = np.cumsum([0] + lens)
+    off = np.append(off[off < K31_BASES], K31_BASES)
+    recs = [codes[a:b] for a, b in zip(off[:-1], off[1:])]
+    rm = sorted(range(0, len(recs), 3))
+
+    def rec_vals(which):
+        return np.concatenate([vals[off[i]:off[i + 1] - k + 1] for i in which
+                               if off[i + 1] - off[i] >= k])
+
+    want = np_setdiff(np_unique(rec_vals(range(len(recs)))),
+                      np_unique(rec_vals(rm)))
+    lap("oracle")
+    with use_sort_mode("mergepath"):
+        idx = CBL(k=k, device=DEVICE)
+        torch.cuda.synchronize()
+        zero_launches()
+        t0 = time.perf_counter()
+        idx.insert_seqs(recs)
+        idx.remove_seqs([recs[i] for i in rm])
+        count = idx.count()
+        out["seqs_s"] = time.perf_counter() - t0
+        seqs = out["launches"]["seqs"] = launches_now()
+        # B1 at one column; the log's folds sort (word, seqtag) rows on
+        # three columns with B5
+        assert seqs["necklace"] >= 1 and seqs["sort_3col"] >= 1, seqs
+        assert seqs["necklace_wide"] == 0, seqs  # 62-bit k-mers
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            again = CBL(k=k, device=DEVICE)
+            again.insert_seqs(recs)
+            again.remove_seqs([recs[i] for i in rm])
+            assert again.count() == count
+        print_profile(prof, f"[{card}] K=31 insert_seqs + remove_seqs + "
+                      f"count under the profiler (timed run "
+                      f"{out['seqs_s'] * 1e3:.1f} ms by the host clock)",
+                      out["seqs_s"] * 1e3)
+        del again
+        assert count == len(want), (count, len(want))
+        assert np.array_equal(kmer_values(idx), want)
+        # point operations on the pending log, against a Python set
+        present = [int(v) for v in want[:: max(len(want) // 500, 1)][:500]]
+        absent = [int(v) for v in np_setdiff(np_unique(
+            rng.integers(0, 1 << (2 * k), size=2000, dtype=np.uint64)),
+            want)[:500]]
+        assert idx.contains_kmers(present).all()
+        assert not idx.contains_kmers(absent).any()
+        idx.remove_kmers(present[:250])
+        idx.insert_kmers(absent[:250])
+        assert idx.wordset.n_pending == 500
+        got = idx.contains_kmers(present + absent)
+        assert got.tolist() == [False] * 250 + [True] * 500 + [False] * 250
+        assert idx.count() == len(want)
+    out["seqs_count"] = count
+    del idx
+    lap("seqs")
+
+    # set algebra of two overlapping 4 Mbp windows (2 Mbp shared), under
+    # phase 7's three mode pairs
+    half, quarter = K31_BASES // 2, K31_BASES // 4
+    wa, wb = codes[:half], codes[quarter:quarter + half]
+    ua = np_unique(vals[: half - k + 1])
+    ub = np_unique(vals[quarter: quarter + half - k + 1])
+    inter = np.intersect1d(ua, ub, assume_unique=True)
+    want_n = dict(union=len(ua) + len(ub) - len(inter), inter=len(inter),
+                  diff=len(ua) - len(inter),
+                  symdiff=len(ua) + len(ub) - 2 * len(inter))
+    out["algebra_ms"] = {}
+    for merge_mode, sort_mode in ALGEBRA_MODES:
+        with use_merge_mode(merge_mode), use_sort_mode(sort_mode):
+            a = CBL(k=k, device=DEVICE)
+            a.insert_codes_stream(wa, np.array([0, len(wa)]))
+            b = CBL(k=k, device=DEVICE)
+            b.insert_codes_stream(wb, np.array([0, len(wb)]))
+            assert (a.count(), b.count()) == (len(ua), len(ub))
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+            zero_launches()
+            e0.record()
+            got = {name: op(a, b).count() for name, op in ALGEBRA_OPS}
+            e1.record()
+            e1.synchronize()
+            ops = out["launches"][f"algebra {merge_mode}/{sort_mode}"] = \
+                launches_now()
+            assert got == want_n, (merge_mode, sort_mode, got, want_n)
+            # inter, diff and symdiff join (word, tag) rows on three
+            # columns: B7's merge, B6's sort (no merge kernel) or B3's
+            # merge
+            kernel = {"bitonic": "bitonic_merge_3col",
+                      "sort": "bitonic_sort_3col",
+                      "mergepath": "merge_3col"}[merge_mode]
+            assert ops[kernel] >= 1, (merge_mode, sort_mode, ops)
+            assert np.array_equal(kmer_values(a & b), inter)
+            out["algebra_ms"][(merge_mode, sort_mode)] = e0.elapsed_time(e1)
+    # ordered membership: a mask of a 2 Mbp foreign stream (above the
+    # sort-join's 2^17 k-mers) against `a`
+    lap("algebra")
+    fcodes, foff = wide_foreign_stream(wa, quarter, 14)
+    fvals = _np_rolling(fcodes, 0, k, len(fcodes) - k + 1)
+    hit = np_isin_sorted(fvals, ua)
+    want_masks = [hit[int(foff[r]):max(int(foff[r + 1]) - k + 1,
+                                        int(foff[r]))]
+                  for r in range(len(foff) - 1)]
+    for merge_mode, sort_mode in (("mergepath", "library"),
+                                  ("bitonic", "bitonic")):
+        with use_merge_mode(merge_mode), use_sort_mode(sort_mode):
+            torch.cuda.synchronize()
+            zero_launches()
+            t0 = time.perf_counter()
+            got = a.contains_codes_stream(fcodes, foff)
+            out[f"contains_{merge_mode}_s"] = time.perf_counter() - t0
+            join = out["launches"][f"contains {merge_mode}/{sort_mode}"] = \
+                launches_now()
+            masks_equal(got, want_masks, f"K=31 contains ({merge_mode})")
+            # the sort-join's (word, position) rows on three columns: the
+            # queries sorted (torch.sort, or B6) and merged (B3, or B7)
+            kernels = (("merge_3col",) if merge_mode == "mergepath" else
+                       ("bitonic_sort_3col", "bitonic_merge_3col"))
+            assert all(join[n] == 1 for n in kernels), (merge_mode, join)
+    lap("contains")
+    # checkpoints and .cbl files
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "k31.cblx.npz")
+        t0 = time.perf_counter()
+        a.save_to_file(path)
+        back = CBL.load_from_file(path, device=DEVICE)
+        out["serde_s"] = time.perf_counter() - t0
+        assert np.array_equal(kmer_values(back), ua)
+        cut = CBL(k=k, device=DEVICE)
+        cut.insert_codes_stream(codes[:REF_CUT], np.array([0, REF_CUT]))
+        ref, ref2 = os.path.join(tmp, "k31.cbl"), os.path.join(tmp, "b.cbl")
+        t0 = time.perf_counter()
+        interop.save_reference(cut, ref)
+        loaded = interop.load_reference(ref, k=k, prefix_bits=24,
+                                        device=DEVICE)
+        out["ref_s"] = time.perf_counter() - t0
+        assert np.array_equal(loaded.wordset.words_array(),
+                              cut.wordset.words_array())
+        assert np.array_equal(kmer_values(loaded),
+                              np_unique(vals[: REF_CUT - k + 1]))
+        interop.save_reference(loaded, ref2)
+        with open(ref, "rb") as f1, open(ref2, "rb") as f2:
+            assert f1.read() == f2.read()
+    lap("files")
+    return out
+
+
+def wide_k_check(card: str) -> dict:
+    """Phase 10: config 3 (K=59) plain and canonical, then K=31; each
+    path's launches counted alone (`launches`, by path)."""
+    import torch
+
+    codes = np.random.default_rng(0).integers(0, 4, size=MAIN_BASES,
+                                              dtype=np.uint8)
+    out = {"launches": {}}
+    for canonical in (False, True):
+        r = config3_run(codes, canonical, card)
+        label = "canonical" if canonical else "plain"
+        log(f"wide K, config 3 {label}: {r}")
+        out[label] = r
+        out["launches"][f"config 3 {label}"] = r["launches"]
+    torch.cuda.reset_peak_memory_stats()
+    out["k31"] = k31_check(card)
+    out["k31"]["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    log(f"wide K, K=31: {out['k31']}")
+    for path, counts in out["k31"]["launches"].items():
+        out["launches"][f"K=31 {path}"] = counts
     return out
 
 
@@ -1937,6 +2691,23 @@ def np_necklace_words(codes: np.ndarray, offsets: np.ndarray) -> np.ndarray:
     return words[valid]
 
 
+def np_unique(x: np.ndarray) -> np.ndarray:
+    """The sorted unique values of a 1-D array, by a sort and a compare of
+    neighbours.  (`np.unique` of numpy 2.3 hashes integers first, and so
+    do `np.isin` and the set routines without `assume_unique`: on the
+    H100 machine's host that took 87.6 of 145.6 s of phase 10 under
+    cProfile, 5.5 s a call.)"""
+    x = np.sort(x)
+    keep = np.ones(len(x), dtype=bool)
+    keep[1:] = x[1:] != x[:-1]
+    return x[keep]
+
+
+def np_setdiff(x: np.ndarray, y: np.ndarray) -> np.ndarray:
+    """`np.setdiff1d(x, y)` for sorted unique x and y."""
+    return x[~np_isin_sorted(x, y)]
+
+
 def np_isin_sorted(x: np.ndarray, keys: np.ndarray) -> np.ndarray:
     """`np.isin(x, keys)` for sorted unique `keys`, by binary search in
     eight threads."""
@@ -1976,6 +2747,11 @@ def main() -> int:
               file=sys.stderr)
         return 2
 
+    t_main = time.perf_counter()
+
+    def stamp(phase: int) -> None:
+        log(f"phase {phase} starts at {time.perf_counter() - t_main:.1f} s")
+
     # phase 1
     card = card_line()
     log(card)
@@ -1991,9 +2767,11 @@ def main() -> int:
         if "registers" in line or "spill" in line:
             log("  ptxas: " + line.strip())
 
+    stamp(2)
     # phase 2
     kern = check_kernels(card)
 
+    stamp(3)
     # phase 3
     exe = build_baseline()
     rng = np.random.default_rng(0)
@@ -2024,6 +2802,7 @@ def main() -> int:
         del idx, ps
     log(f"launch counters on the static path (plain): {main_launches}")
 
+    stamp(4)
     # phase 4: a multi-record query stream that was never inserted, against
     # an index of the first quarter of the bases (the numpy oracle's time
     # goes with the index's size); half of its records are copied from the
@@ -2050,7 +2829,7 @@ def main() -> int:
     t_o = time.perf_counter()
     q_words = np_necklace_words(qcodes, qoff)
     i_words = np_necklace_words(quarter, q_off)
-    want_pos = int(np.isin(q_words, i_words).sum())
+    want_pos = int(np_isin_sorted(q_words, np_unique(i_words)).sum())
     log(f"foreign query against {len(quarter) / 1e6:.0f} Mbp: total {total} "
         f"positive {positive}; numpy oracle total {len(q_words)} positive "
         f"{want_pos} ({time.perf_counter() - t_o:.1f} s)")
@@ -2074,6 +2853,7 @@ def main() -> int:
     assert LAUNCHES["merge"] - n_merge == 3
     del idx2, ps2
 
+    stamp(5)
     # phase 5: the dynamic workload at full size
     base_dyn = run_baseline(exe, codes, "dynamic")
     dynamic_run(codes, timed=False)  # warm-up
@@ -2125,6 +2905,7 @@ def main() -> int:
     assert b7_launches["merge"] == 0, b7_launches
     assert b7_launches["slog_scan"] == SEGS, b7_launches
 
+    stamp(6)
     # phase 6: the separate calls, every sort through B5 ("mergepath"),
     # then run A once more in the default mode
     half_codes = codes[: MAIN_BASES // 2]
@@ -2163,6 +2944,7 @@ def main() -> int:
         del idx
     log(multi_slab_round_check(codes))
 
+    stamp(7)
     # phase 7: set algebra at full size under three mode pairs, then with
     # real overlap against numpy over phase 4's oracle words
     alg = algebra_check(codes)
@@ -2177,9 +2959,10 @@ def main() -> int:
     log(algebra_overlap_check(quarter, i_words))
     del i_words
 
+    stamp(8)
     # phase 8: ordered membership against phase 3's plain build, rebuilt
     words, _ = np_stream_words(codes, offsets)
-    keys = np.unique(words)
+    keys = np_unique(words)
     om_idx = CBL(k=K, device=DEVICE)
     om_idx.insert_codes_stream(codes, offsets)
     om = ordered_membership_check(om_idx, codes, offsets, words, keys)
@@ -2194,6 +2977,7 @@ def main() -> int:
     assert seq_launches["necklace"] >= 16 and seq_launches["merge"] >= 1
     assert seq_launches["blank"] == 0, seq_launches  # validity from the host
 
+    stamp(9)
     # phase 9: export and checkpoints on phase 8's index
     ex = export_check(om_idx, codes, offsets, keys, runs["plain"][1]["distinct"])
     del om_idx, keys
@@ -2205,7 +2989,12 @@ def main() -> int:
     assert ex_launches["sort"] == ex_launches["bitonic_sort"] == 2, (
         ex_launches)
 
-    # phase 10
+    stamp(10)
+    # phase 10: wide K (config 3, K=31)
+    wide = wide_k_check(card)
+
+    stamp(11)
+    # phase 11
     for name in STATIC_KERNELS:
         assert main_launches[name] >= 1, name
     for label, (r, base) in runs.items():
@@ -2330,6 +3119,37 @@ def main() -> int:
         log(f"[{card}] K={K} set algebra {modes}: serde round-trip of a "
             f"({r['counts']['a']} words) {r['serde_s']:.3f} s, "
             f"{r['serde_bytes']} bytes")
+    for label in ("plain", "canonical"):
+        r = wide[label]
+        n_wide = MAIN_BASES - WIDE_K + 1
+        log(f"[{card}] K={WIDE_K} prefix {WIDE_PREFIX} (config 3) "
+            f"{MAIN_BASES / 1e6:.0f} Mbp {label}: distinct {r['distinct']}"
+            f" (numpy's), stage {r['stage_s'] * 1e3:.1f} ms, insert "
+            f"{r['insert_ms']:.2f} ms, query {r['query_ms']:.2f} ms (device "
+            f"events), combined wall {r['wall_s'] * 1e3:.2f} ms = "
+            f"{2 * n_wide / r['wall_s']:.4g} k-mers/s; bench.py --mode "
+            f"largek's metric: build from the bases with staging "
+            f"{r['largek_build_s'] * 1e3:.1f} ms + kmers_limbs "
+            f"{r['kmers_limbs_s'] * 1e3:.1f} ms = {r['largek_rate']:.4g} "
+            f"(k-mers + distinct)/s; foreign query of "
+            f"{WIDE_FOREIGN / 1e6:.0f} Mbp {r['foreign_s'] * 1e3:.1f} ms "
+            f"with staging ({r['foreign_positive']} of "
+            f"{r['foreign_total']} present); peak device memory "
+            f"{r['peak_gib']:.2f} GiB; numpy oracle {r['oracle_s']:.1f} s")
+    r = wide["k31"]
+    alg31 = ", ".join(f"{m}: {v:.2f} ms" for m, v in r["algebra_ms"].items())
+    log(f"[{card}] K={K31} prefix 24: insert_seqs + remove_seqs + count of "
+        f"{K31_BASES / 1e6:.0f} Mbp (sort mode mergepath) "
+        f"{r['seqs_s'] * 1e3:.1f} ms, count {r['seqs_count']}; four set "
+        f"operations with counts of 2 x 4 Mbp by device events {alg31}; "
+        f"contains_codes_stream of 2 Mbp {r['contains_mergepath_s'] * 1e3:.1f}"
+        f" ms (bitonic: {r['contains_bitonic_s'] * 1e3:.1f} ms); checkpoint "
+        f"round-trip {r['serde_s']:.3f} s; .cbl round-trip at the "
+        f"{REF_CUT / 1e6:.0f} Mbp cut {r['ref_s']:.3f} s; peak device "
+        f"memory {r['peak_gib']:.2f} GiB; host clock by part {r['parts_s']}")
+    for path, counts in wide["launches"].items():
+        log(f"[{card}] wide-K launches, {path}: "
+            f"{ {n: c for n, c in counts.items() if c} }")
 
     src = {
         "necklace": ("cbl_tpu_torch/csrc/necklace.cu",
@@ -2347,19 +3167,23 @@ def main() -> int:
         "bitonic_merge": ("cbl_tpu_torch/csrc/bitonic_merge.cu",
                           "cbl_tpu/ops/sort_pallas.py:302"),
     }
+    for name in WIDE_KERNELS:
+        src[name] = src[name.replace("_wide", "").replace("_3col", "")]
     # launches: the counted runs of the static path (plain), the dynamic
     # rounds (in the default mode and under "bitonic"), the separate calls
     # (runs A and B under "mergepath"), set algebra (under ("bitonic",
     # "bitonic") and ("sort", "bitonic")) and ordered membership (the
     # foreign stream in the default modes and under ("bitonic",
-    # "bitonic"), the index with holes, the sequence calls) and export
-    # (three fresh builds' exports, checkpoints, .cbl files), each counted
-    # from 0
+    # "bitonic"), the index with holes, the sequence calls), export
+    # (three fresh builds' exports, checkpoints, .cbl files) and wide K
+    # (config 3's timed build and self-query in each mode; at K=31 the
+    # sequence calls, the set operations in each mode pair and the
+    # contains mask in two), each counted from 0
     paths = (main_launches, dyn_launches, b7_launches, sep["A"]["launches"],
              sep["B"]["launches"], alg_launches,
              alg[ALGEBRA_MODES[1]]["launches"], om["default"]["launches"],
              om["bitonic"]["launches"], om["holes"]["launches"],
-             seq_launches, ex_launches)
+             seq_launches, ex_launches, *wide["launches"].values())
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src[name][0],
          "replaces": src[name][1],
@@ -2371,7 +3195,7 @@ def main() -> int:
          "library_ms": kern[name]["library_ms"],
          **({"passes": kern[name]["passes"]} if "passes" in kern[name]
             else {})}
-        for name in KERNELS
+        for name in KERNELS + WIDE_KERNELS
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

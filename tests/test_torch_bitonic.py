@@ -248,7 +248,7 @@ def test_default_tiles_follow_the_sources():
     src = (bitonic._build.SRC_DIR / "bitonic.cuh").read_text()
     assert "kTileLog = C == 1 ? 13 : 12;" in src
     assert "kFuseLog = kTileLog<C> - 4;" in src
-    assert bitonic.TILES == {1: 1 << 13, 2: 1 << 12}
+    assert bitonic.TILES == {1: 1 << 13, 2: 1 << 12, 3: 1 << 12}
     assert [bitonic.fuse_log(t) for t in (1 << 13, 1 << 12)] == [9, 8]
     # one sort of 2^25 one-column keys: 28 passes (105 with one stride a
     # pass over tiles of 2^12 rows)
@@ -266,7 +266,7 @@ def test_merge_tiles_follow_the_source():
     assert "const long long d0 = (long long)blockIdx.x * T;" in src
     assert "constexpr int T = kMergeRows<C>;" in src
     assert "coranks[g] = corank<C>(a, na, b, nb, d);" in src
-    assert bitonic.MERGE_TILES == {1: 1 << 11, 2: 1 << 10}
+    assert bitonic.MERGE_TILES == {1: 1 << 11, 2: 1 << 10, 3: 1 << 10}
     assert bitonic.merge_passes(2 << 24, bitonic.MERGE_TILES[1]) == [
         ("tiles", 1 << 14)]
 
@@ -526,8 +526,8 @@ def test_bitonic_modes_walk_the_network(monkeypatch):
 
 def test_keys_are_checked():
     x = torch.zeros(8, dtype=torch.int64)
-    with pytest.raises(ValueError, match="one or two"):
-        bitonic.bitonic_sort((x, x, x))
+    with pytest.raises(ValueError, match="one to 3"):  # three are taken
+        bitonic.bitonic_sort((x, x, x, x))
     with pytest.raises(ValueError, match="int64"):
         bitonic.bitonic_sort(x.to(torch.int32))
     with pytest.raises(ValueError, match="length"):

@@ -158,12 +158,19 @@ def test_lazy_query_and_empty_index():
 
 
 def test_unported_paths_raise():
-    """K >= 29 is refused; a second insert and a remove, refused until the
-    pending log was ported, now match `cbl_tpu` call by call."""
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        CBL(k=29, device="cpu")
-    CBL(k=27, device="cpu")  # the widest K one int64 key holds
+    """K >= 29, refused until wide K was ported, now builds into
+    `cbl_tpu`'s state (two-column words); a second insert and a remove,
+    refused until the pending log was ported, now match `cbl_tpu` call by
+    call."""
     codes, off, q, qoff = _streams(25)
+    j29, t29 = cbl_tpu.CBL(k=29), CBL(k=29, device="cpu")
+    for i in (j29, t29):
+        i.insert_codes_stream(codes, off)
+    assert t29.wordset.data.shape[0] == 2  # two int64 columns a word
+    np.testing.assert_array_equal(t29.wordset.data.numpy(),
+                                  from_limbs(np.asarray(j29.wordset.data), 2))
+    assert t29.count() == j29.count() > 0
+    CBL(k=27, device="cpu")  # the widest K one int64 key holds
     jidx = cbl_tpu.CBL(k=25)
     idx = CBL(k=25, device="cpu")
     for i in (jidx, idx):

@@ -245,8 +245,8 @@ def test_fast_limb_views_match(L):
     assert ints == jlimbs.to_py_ints(want) == keys.tolist()
     _same_array(limbs.from_py_ints(ints, L), jlimbs.from_py_ints(ints, L))
     assert limbs.to_py_ints(want[0]) == [ints[0]]
-    with pytest.raises(ValueError):
-        limbs.keys_to_limbs(torch.from_numpy(keys), 3)
+    with pytest.raises(ValueError):  # L from 1 to 4 (wide K) is taken
+        limbs.keys_to_limbs(torch.from_numpy(keys), 5)
     if L == 2:  # above INT64_MAX, or INT64_MAX itself, is no key
         for bad in ([0x80000000, 0], [0x7FFFFFFF, 0xFFFFFFFF]):
             with pytest.raises(ValueError):

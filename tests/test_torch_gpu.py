@@ -940,3 +940,110 @@ def test_export_on_cuda_matches_cpu(cuda, monkeypatch, tmp_path, k,
     ref = interop.load_reference(tmp_path / "cuda.cbl", k=k, prefix_bits=8)
     assert ref.device.type == "cuda"
     assert ref.wordset.words_array().tobytes() == cpu["words"].tobytes()
+
+
+# --- wide K: B1 on two-column k-mers, B3/B5/B6/B7 at three columns -----------
+
+
+@pytest.mark.parametrize("W", [66, 70, 90, 118])
+@pytest.mark.parametrize("n", [1, 255, 257, 100_003])
+def test_wide_necklace_kernel_matches_plain(cuda, W, n):
+    """B1 on [2, n] k-mers of W = 2K bits (K >= 33; column 1 the low 63): random
+    values, poly-A (all zeros), poly-T (all ones) and (AC)*."""
+    rng = np.random.default_rng(W * 1000 + n)
+    hi = rng.integers(0, 1 << (W - 63), size=n)
+    lo = rng.integers(0, 1 << 63, size=n)
+    ac = int("01" * (W // 2), 2)
+    special = [(0, 0), ((1 << (W - 63)) - 1, (1 << 63) - 1),
+               (ac >> 63, ac & ((1 << 63) - 1))]
+    for i, (h, l) in enumerate(special[:n]):
+        hi[i], lo[i] = h, l
+    x = torch.from_numpy(np.stack([hi, lo])).to(cuda)
+    neck, pos = necklace.necklace_pos(x, W)
+    want_neck, want_pos = necklace.necklace_pos_plain(x, W)
+    torch.cuda.synchronize()
+    assert torch.equal(neck, want_neck) and torch.equal(pos, want_pos)
+
+
+def _rows3(cuda, n, hi, seed):
+    """Three int64 columns of n rows below `hi`, 5 % sentinel rows."""
+    rng = np.random.default_rng(seed)
+    cols = [rng.integers(0, hi, size=n) for _ in range(3)]
+    sent = rng.random(n) < 0.05
+    for c in cols:
+        c[sent] = SENTINEL
+    return tuple(torch.from_numpy(c).to(cuda) for c in cols)
+
+
+@pytest.mark.parametrize("n", [1, 2, 2047, 2048, 2049, 4095, 4096, 4097,
+                               4 * 4096 + 123, 7 * 4096 + 123,
+                               (1 << 20) + 3])
+@pytest.mark.parametrize("hi", [2, 1 << 40])
+def test_three_column_sorts_match_plain(cuda, n, hi):
+    """B5 and B6 at three columns around their tiles (4096 rows, a quad's
+    last short run) against `torch.sort` in three stable passes and the
+    plain versions, the input kept."""
+    x = _rows3(cuda, n, hi, n)
+    before = [c.clone() for c in x]
+    want = merge.sort_cols_plain(x)
+    for got in (merge.sort_mergepath(x), bitonic.bitonic_sort(x)):
+        torch.cuda.synchronize()
+        assert all(torch.equal(g, w) for g, w in zip(got, want, strict=True))
+    assert all(torch.equal(c, b) for c, b in zip(x, before))
+
+
+@pytest.mark.parametrize("na,nb", [(0, 5), (5, 0), (1023, 1), (1024, 1024),
+                                   (2047, 2), (2048, 2049), (4097, 1023),
+                                   ((1 << 20) + 5, 1 << 18)])
+@pytest.mark.parametrize("hi", [2, 1 << 40])
+def test_three_column_merges_match_plain(cuda, na, nb, hi):
+    """B3 (tiles of 2048 rows, dynamic shared memory at three columns)
+    and B7 (tiles of 1024) against the plain merge."""
+    a = merge.sort_cols_plain(_rows3(cuda, na, hi, na + 1))
+    b = merge.sort_cols_plain(_rows3(cuda, nb, hi, nb + 2))
+    want = merge.merge_sorted_plain(a, b)
+    gots = [merge.merge_sorted(a, b)]
+    if na + nb:
+        gots.append(bitonic.bitonic_merge(a, b))
+    torch.cuda.synchronize()
+    for got in gots:
+        assert all(torch.equal(g, w) for g, w in zip(got, want, strict=True))
+
+
+@pytest.mark.parametrize("k,prefix_bits", [(59, 28), (31, 24)])
+@pytest.mark.parametrize("canonical", [False, True])
+def test_wide_k_on_cuda_matches_cpu(cuda, monkeypatch, k, prefix_bits,
+                                    canonical):
+    """A wide-K build, query, contains mask, pending log and export on
+    the card equal the CPU's, in each sort and merge mode pair."""
+    rng = np.random.default_rng(k + canonical)
+    codes = rng.integers(0, 4, size=60_000, dtype=np.uint8)
+    codes[1_000:1_200] = 2  # poly-T
+    codes[3_000:3_200] = 0  # poly-A
+    off = np.array([0, 20_000, 20_010, 60_000], dtype=np.int64)
+    q = np.concatenate([codes[5_000:30_000],
+                        rng.integers(0, 4, size=25_000, dtype=np.uint8)])
+    qoff = np.array([0, 25_000, 25_020, 50_000], dtype=np.int64)
+    got = {}
+    for mode in (("library", "mergepath"), ("mergepath", "mergepath"),
+                 ("bitonic", "bitonic"), ("library", "sort")):
+        with sort.use_sort_mode(mode[0]), sort.use_merge_mode(mode[1]):
+            for device in ("cpu", cuda):
+                idx = CBL(k=k, prefix_bits=prefix_bits, canonical=canonical,
+                          device=device)
+                idx.insert_codes_stream(codes, off)
+                r = [idx.count(), idx.query_codes_stream(q, qoff)]
+                m = idx.contains_codes_stream(q, qoff)
+                idx.insert_seqs([q[:9_000]])
+                idx.remove_kmers([1, 2, int(idx.kmers_limbs()[0, -1])])
+                r += [idx.query_codes_stream(q, qoff),
+                      idx.contains_kmers([1, 2, 3]).tolist(), idx.count()]
+                got[(mode, str(device))] = (
+                    r, [x.tolist() for x in m], idx.wordset.words_array(),
+                    idx.kmers_limbs(), idx.buckets_nodes())
+    ref = got[(("library", "mergepath"), "cpu")]
+    for key, val in got.items():
+        assert val[:2] == ref[:2], key
+        assert np.array_equal(val[2], ref[2]) and np.array_equal(
+            val[3], ref[3]), key
+        assert val[4] == ref[4], key

@@ -226,9 +226,9 @@ def test_bad_files_raise_alike(tmp_path):
     assert "not ascending" in _errors_alike(bad, 25)
     bad.write_bytes(b"\x00\x01\x05\x02")
     assert "unknown bucket variant" in _errors_alike(bad, 25)
-    # K=31: the port holds odd K <= 27 and refuses before reading
-    with pytest.raises(NotImplementedError, match="K=31"):
-        interop.load_reference(good, k=31, device="cpu")
+    # K=31, refused until wide K was ported: a K=25 file read as K=31
+    # (6-byte suffixes expected) raises alike
+    assert _errors_alike(good, 31)
 
 
 def test_load_reference_defaults_to_the_card(tmp_path):

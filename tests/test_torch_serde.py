@@ -158,12 +158,14 @@ def test_bad_files_raise(tmp_path):
     np.savez(tmp_path / "v2.npz", **z)
     got, want = _raises_like(tmp_path / "v2.npz")
     assert got == want and "unsupported index version 2" in got
-    # K=31: cbl_tpu loads it; the port holds odd K <= 27 and refuses
+    # K=31, refused until wide K was ported: both load it, into one state
     wide = cbl_tpu.CBL(k=31)
     wide.insert_kmers([1, 2, 3])
     wide.save_to_file(tmp_path / "k31.npz")
-    with pytest.raises(NotImplementedError, match="K=31"):
-        CBL.load_from_file(tmp_path / "k31.npz", device="cpu")
+    got = CBL.load_from_file(tmp_path / "k31.npz", device="cpu")
+    want = cbl_tpu.CBL.load_from_file(tmp_path / "k31.npz")
+    _loaded_state(want, got)
+    assert got.count() == want.count() == 3
 
 
 def test_load_defaults_to_the_card(tmp_path):

@@ -195,7 +195,7 @@ def test_default_tiles_follow_the_sources():
         src / "sort.cu").read_text()
     assert "kTile = kThreads * kItems;  // 2048" in (
         src / "merge_path.cuh").read_text()
-    assert merge.SORT_TILES == {1: 1 << 13, 2: 1 << 12}
+    assert merge.SORT_TILES == {1: 1 << 13, 2: 1 << 12, 3: 1 << 12}
     assert all(t % merge.MERGE_TILE == 0 for t in merge.SORT_TILES.values())
     assert len(merge.mergepath_passes(1 << 25, merge.SORT_TILES[1])) == 7
 
@@ -284,8 +284,8 @@ def test_mergepath_mode_walks_the_passes(monkeypatch):
 
 def test_keys_are_checked():
     x = torch.zeros(8, dtype=torch.int64)
-    with pytest.raises(ValueError, match="one or two"):
-        sort.sort_keys((x, x, x))
+    with pytest.raises(ValueError, match="one to 3"):  # three are taken
+        sort.sort_keys((x, x, x, x))
     with pytest.raises(ValueError, match="int64"):
         sort.sort_keys(x.to(torch.int32))
     with pytest.raises(ValueError, match="length"):
