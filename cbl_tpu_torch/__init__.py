@@ -12,12 +12,14 @@ bucket stats in `stats`, the reference's `.cbl` files in `interop`).
 It imports neither JAX nor `cbl_tpu`; `cbl_tpu` stays the reference the
 port is tested against.  Every odd K up to 59 is held: a word is one
 int64 key for K <= 27 and two int64 columns from K=29 (see `limbs`);
-the sorted log of single-slab dynamic rounds still needs K <= 25
-(ROADMAP slice 6b).  The kernels of these paths (B1 necklace, also on
-two-column k-mers, B2 blanking scan, B3 merge, B4 slog scan, B5
-merge-path sort, B6 bitonic sort, B7 bitonic merge; B3, B5, B6 and B7
-on one to three key columns) are CUDA C++ for sm_90a under `csrc/`,
-built at first use by `ops._build`.
+the sorted log of single-slab dynamic rounds is one int64 key a row
+where the word and an 8-bit tag fit one and `cbl_tpu` packs its tag too,
+else the word's columns and a tag column (see `wordset`).  The kernels of
+these paths (B1 necklace, also on two-column k-mers, B2 blanking scan, B3
+merge, B4 slog scan, packed or with a tag column, B5 merge-path sort, B6
+bitonic sort, B7 bitonic merge; B3, B5, B6 and B7 on one to three key
+columns) are CUDA C++ for sm_90a under `csrc/`, built at first use by
+`ops._build`.
 """
 
 from .cbl import CBL, PackedStream

@@ -49,8 +49,7 @@ Differences from `cbl_tpu.CBL`:
   raises, and `device="cpu"` runs the plain tensor versions of the
   kernels.
 - Each call runs as eager PyTorch, not as one compiled program.
-- Not ported yet: the CLI and `io` (ROADMAP slice 5c), one-slab dynamic
-  rounds at K >= 27 (slice 6b).
+- Not ported yet: the CLI and `io` (ROADMAP slice 5c).
 """
 
 from __future__ import annotations
@@ -61,8 +60,8 @@ import torch
 from . import kmer as kmod
 from . import necklace, stats
 from .config import CBLConfig, get_config
-from .limbs import SENTINEL, ints_to_keys, kmer_cols, to_py_ints
-from .ops.scan import blank_mask, slog_scan_counts
+from .limbs import SENTINEL, cols, ints_to_keys, kmer_cols, stack, to_py_ints
+from .ops.scan import blank_mask, slog_counts, slog_is_packed
 from .ops.sort import merge_sorted_pair
 from . import wordset as wordset_mod
 from .wordset import (
@@ -71,11 +70,12 @@ from .wordset import (
     DeviceWordSet,
     _contains_sortjoin_kernel,
     _distinct_count,
+    _fit,
     _next_pow2,
     _quantize_cap,
     host_limbs,
     resolve_device,
-    slog_key,
+    slog_tagged,
     sort_rows,
 )
 
@@ -162,32 +162,34 @@ def _fused_words_sorted(stream, starts, ends, nk_pad, cfg, canonical):
     return sort_rows(words), n_valid
 
 
+def _merge_slog(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Merge two sorted slogs of one layout (B3, or B7 under "bitonic")."""
+    return stack(merge_sorted_pair(cols(a), cols(b)))
+
+
 def _fused_round_slog(a: torch.Tensor, seq: int, w_i, w_q, w_r,
                       out_cap: int):
     """One interleaved round over the sorted log (`cbl_tpu.cbl.
     _fused_round_slog_fn`): tag the three PRE-SORTED word streams with
-    (seq << 2) | {1 insert, 2 query, 3 remove} (each stays sorted;
-    sentinel rows stay SENTINEL, at the end), combine them with two small
-    merges, merge the batch into the log `a` with one big merge (all B3),
-    truncate or pad with SENTINEL to `out_cap` (the caller guarantees
-    that only sentinel rows are cut), and scan once (B4).
+    (seq << 2) | {1 insert, 2 query, 3 remove} (`slog_tagged`: packed
+    keys, or a constant tag column, as `a` is laid out; each stays
+    sorted, sentinel rows stay sentinel, at the end), combine them with
+    two small merges, merge the batch into the log `a` with one big
+    merge, truncate or pad with sentinel rows to `out_cap` (the caller
+    guarantees that only sentinel rows are cut), and scan once (B4 in the
+    log's form).
 
     The tags make the reference's sequential semantics a property of the
     order: a round's queries sort after its inserts and before its
     removes, and the scan honours only entries at or before each query.
-    -> (log [out_cap], positive, live) with int64 0-d counters."""
-    base = seq << 2
-    b = merge_sorted_pair(slog_key(w_i, base | 1), slog_key(w_q, base | 2))
-    b = merge_sorted_pair(b, slog_key(w_r, base | 3))
-    merged = merge_sorted_pair(a, b) if a.shape[0] else b
-    total = merged.shape[0]
-    if total > out_cap:
-        merged = merged[:out_cap]
-    elif total < out_cap:
-        pad = torch.full((out_cap - total,), SENTINEL, dtype=torch.int64,
-                         device=merged.device)
-        merged = torch.cat([merged, pad])
-    positive, live = slog_scan_counts(merged, base | 2)
+    -> (log [out_cap] or [C, out_cap], positive, live) with int64 0-d
+    counters."""
+    base, packed = seq << 2, slog_is_packed(a)
+    b = _merge_slog(slog_tagged(w_i, base | 1, packed),
+                    slog_tagged(w_q, base | 2, packed))
+    b = _merge_slog(b, slog_tagged(w_r, base | 3, packed))
+    merged = _fit(_merge_slog(a, b) if a.shape[-1] else b, out_cap)
+    positive, live = slog_counts(merged, base | 2)
     return merged, positive, live
 
 
@@ -535,11 +537,10 @@ class CBL:
         Streams of ONE slab each run over the sorted log
         (`_fused_round_slog`): the round enters on the index as it is (its
         keys become seq-0 inserts; a pending log is folded first), folds
-        the log before its seq would pass 62, and commits its state only
-        after it was enqueued.  At K >= 27 that raises
-        NotImplementedError: the word leaves no room for the tag in one
-        int64 key (ROADMAP slice 6b).  Any other streams take the separate
-        insert, query and remove calls."""
+        the log before its seq would pass 62 where `cbl_tpu` does
+        (`wordset.slog_tag_in_limbs`), and commits its state only after it
+        was enqueued.  Any other streams take the separate insert, query
+        and remove calls."""
         ws = self.wordset
         streams = [self._resolve_round_stream(x) for x in (ins, qry, rm)]
         if any(len(ps.slabs) != 1 for ps in streams):
@@ -547,38 +548,30 @@ class CBL:
             t, p = self.query_codes_stream(streams[1], lazy=lazy)
             self.remove_codes_stream(streams[2])
             return t, p
-        if not ws._slog_pack:
-            raise NotImplementedError(
-                f"dynamic_round at K={self.cfg.k}: the word and its 8-bit "
-                "tag do not fit one int64 slog key; the unpacked sorted "
-                "log with a tag column is ROADMAP slice 6b"
-            )
         (w_i, _), (w_q, total), (w_r, _) = (
             self._sorted_slab_words(ps) for ps in streams
         )
-        nk_i, nk_q, nk_r = (w.shape[0] for w in (w_i, w_q, w_r))
+        nk_i, nk_q, nk_r = (w.shape[-1] for w in (w_i, w_q, w_r))
         if ws.n_pending > 0:
             ws.flush()
-        if ws._slog_seq >= _SLOG_SEQ_MAX:
-            ws._fold_slog()  # the 8-bit tag caps the round's seq at 62
+        if ws._slog_capped and ws._slog_seq >= _SLOG_SEQ_MAX:
+            ws._fold_slog()  # `cbl_tpu`'s 8-bit tag caps the seq at 62
         ws.maybe_autofold_slog()
         if ws._slog is None:
             ws._compact()  # the index's keys enter the log as a sorted run
         if ws._slog is not None:
             a, a_real = ws._slog, ws._slog_real
-        elif ws._n_upper == 0:
-            a = torch.empty(0, dtype=torch.int64, device=self.device)
-            a_real = 0
         else:
-            live = ws._live()
             # the index's keys enter as implicit seq-0 inserts (tag 1)
-            a, a_real = slog_key(live, 1), min(ws._n_upper, live.shape[0])
-        a_cap = a.shape[0]
+            live = ws._live() if ws._n_upper else ws.data[..., :0]
+            a = slog_tagged(live, 1, ws._slog_pack)
+            a_real = min(ws._n_upper, live.shape[-1])
+        a_cap = a.shape[-1]
         new_real = a_real + nk_i + nk_q + nk_r
         out_cap = a_cap if new_real <= a_cap else _quantize_cap(new_real)
         seq = ws._slog_seq + 1
-        merged, positive, live_n = _fused_round_slog(a, seq, w_i, w_q, w_r,
-                                                     out_cap)
+        merged, positive, live_n = _fused_round_slog(
+            a, seq, w_i, w_q, w_r, out_cap)
         # commit state only after the round was enqueued (a failed launch
         # must not advance the log)
         ws._slog = merged

@@ -36,7 +36,8 @@
 //   A tile without a marker then publishes that state as its own;
 // - a tile whose first row is a sentinel holds only sentinels (the keys
 //   are sorted), counts nothing and is never looked back at: it stops
-//   after that one load (the bound still counts every row).
+//   after that one load (so a bound on a log with a sentinel tail counts
+//   one row of each such tile, chip_smoke.py's `slog_bound`).
 // A status is one 32-bit word read or written in one access (release
 // stores, acquire loads).  The C entry point clears the statuses, the
 // ticket and the counters with one memset on the call's stream, so no call
@@ -45,6 +46,18 @@
 // four bit masks, and the counts are per-block sums with one atomicAdd
 // each.  A look-back of 128 statuses a step (four loads a lane) measured
 // 1.04x slower here at 2^26 rows (and 1.3x for B2, csrc/scan.cu).
+//
+// The tag-column form (`slog_tag_lookback`; the TPU kernel's pack=False,
+// NCOL = L + 1 with the tag in refs[L]) scans a log of C = 2 or 3 int64
+// columns: the word's one or two columns, then the tag.  A run is grouped
+// by every word column, a row is a sentinel when word column 0 is
+// INT64_MAX, and a tag of INT64_MAX (a join query's or a sentinel's, the
+// TPU's 0xFFFFFFFF) is never an entry.  It reads 8 * C bytes a row.  The
+// C columns of a tile go through padded shared memory together (34.8 KB a
+// column: 69.6 KB at C = 2, 104.4 KB at C = 3, dynamic shared memory asked
+// for with cudaFuncSetAttribute), and each thread scans its 16 rows in one
+// pass, as the packed form does; from the rows' bit masks on, both forms
+// share `count_tile`.
 
 #include <climits>
 #include <cstdint>
@@ -89,40 +102,18 @@ __device__ unsigned look_back(unsigned* status, int t) {
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-    slog_lookback(const long long* __restrict__ keys, long long n, int qtag,
-                  unsigned long long* __restrict__ out,
-                  unsigned* __restrict__ ticket,
-                  unsigned* __restrict__ status) {
-  // slot pad(j) holds row base + j
-  __shared__ long long tile[pad(kTile - 1) + 1];
-  __shared__ long long s_prev, s_next;
-  __shared__ int s_t, s_need, s_warp[kWarps], s_hits[kWarps], s_live[kWarps];
-  __shared__ unsigned s_carry;
-  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-  if (threadIdx.x == 0) {
-    const int t = (int)atomicAdd(ticket, 1u);
-    const long long base = (long long)t * kTile;
-    s_t = t;
-    s_carry = 0;
-    if (base < n) {
-      s_prev = base > 0 ? keys[base - 1] : 0;
-      tile[pad(0)] = keys[base];
-      s_next = base + kTile < n ? keys[base + kTile] : kSentinel;
-    }
-  }
-  __syncthreads();
-  const int t = s_t;
-  const long long base = (long long)t * kTile;
-  if (base >= n || tile[pad(0)] == kSentinel) return;
-
-  const long long rows = n - base < kTile ? n - base : kTile;
-  if (rows == kTile && (reinterpret_cast<uintptr_t>(keys) & 15) == 0) {
-    const longlong2* src = reinterpret_cast<const longlong2*>(keys + base);
+// Rows base .. base + rows - 1 of `src` into slots pad(0 ..) of `tile`,
+// the slots past `rows` as sentinels; 16-byte loads for a whole, aligned
+// tile.
+__device__ __forceinline__ void load_tile(const long long* __restrict__ src,
+                                          long long base, long long rows,
+                                          long long* tile) {
+  if (rows == kTile && (reinterpret_cast<uintptr_t>(src + base) & 15) == 0) {
+    const longlong2* v2 = reinterpret_cast<const longlong2*>(src + base);
 #pragma unroll
     for (int k = 0; k < kItems / 2; ++k) {
       const int p = k * kThreads + threadIdx.x;
-      const longlong2 v = src[p];
+      const longlong2 v = v2[p];
       tile[pad(2 * p)] = v.x;
       tile[pad(2 * p + 1)] = v.y;
     }
@@ -130,38 +121,23 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int k = 0; k < kItems; ++k) {
       const int j = k * kThreads + threadIdx.x;
-      tile[pad(j)] = j < rows ? keys[base + j] : kSentinel;
+      tile[pad(j)] = j < rows ? src[base + j] : kSentinel;
     }
   }
-  __syncthreads();
+}
 
-  // bit k of each mask describes row base + j0 + k: M a marker, E an
-  // insert entry, H a hit if live, R a run end if live
-  const int j0 = threadIdx.x * kItems;
-  unsigned M = 0, E = 0, H = 0, R = 0;
-  long long prev = j0 > 0 ? tile[pad(j0 - 1)] : s_prev;
-  long long key = tile[pad(j0)];
-#pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    const long long next = j0 + k + 1 < kTile ? tile[pad(j0 + k + 1)] : s_next;
-    const long long i = base + j0 + k;
-    if (i < n) {
-      const bool sent = key == kSentinel;
-      const bool run_start =
-          i == 0 || ((unsigned long long)(key ^ prev) >> 8) != 0;
-      const bool run_end =
-          i == n - 1 || ((unsigned long long)(key ^ next) >> 8) != 0;
-      const int tag = (int)(key & 0xFF);
-      const bool entry = (tag & 1) && tag != 0xFF && !sent;  // typ 1 or 3
-      M |= (unsigned)(run_start || entry) << k;
-      E |= (unsigned)(entry && (tag & 3) == 1) << k;
-      H |= (unsigned)(!sent && tag == qtag) << k;
-      R |= (unsigned)(!sent && run_end) << k;
-    }
-    prev = key;
-    key = next;
-  }
-
+// Counts tile t from its rows' bit masks (bit k of a thread's masks
+// describes row base + threadIdx.x * kItems + k): M a marker, E an insert
+// entry, H a hit if live, R a run end if live.  Publishes the tile's
+// status, looks back when its first row is no marker, and adds the
+// block's counts to out.
+__device__ __forceinline__ void count_tile(unsigned M, unsigned E, unsigned H,
+                                           unsigned R, int t,
+                                           unsigned long long* __restrict__ out,
+                                           unsigned* __restrict__ status) {
+  __shared__ int s_need, s_warp[kWarps], s_hits[kWarps], s_live[kWarps];
+  __shared__ unsigned s_carry;
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
   // exclusive scan of "the live bit of the last marker" over the block's
   // threads; -1 = no marker yet
   const int own = M ? (int)((E >> (31 - __clz(M))) & 1u) : -1;
@@ -174,7 +150,10 @@ __global__ void __launch_bounds__(kThreads)
   int excl = __shfl_up_sync(0xffffffffu, incl, 1);
   if (lane == 0) excl = -1;
   if (lane == 31) s_warp[wid] = incl;
-  if (threadIdx.x == 0) s_need = !(M & 1u);
+  if (threadIdx.x == 0) {
+    s_need = !(M & 1u);
+    s_carry = 0;
+  }
   __syncthreads();
   int before = -1, tile_state = -1;
 #pragma unroll
@@ -225,6 +204,164 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+__global__ void __launch_bounds__(kThreads)
+    slog_lookback(const long long* __restrict__ keys, long long n, int qtag,
+                  unsigned long long* __restrict__ out,
+                  unsigned* __restrict__ ticket,
+                  unsigned* __restrict__ status) {
+  // slot pad(j) holds row base + j
+  __shared__ long long tile[pad(kTile - 1) + 1];
+  __shared__ long long s_prev, s_next;
+  __shared__ int s_t;
+  if (threadIdx.x == 0) {
+    const int t = (int)atomicAdd(ticket, 1u);
+    const long long base = (long long)t * kTile;
+    s_t = t;
+    if (base < n) {
+      s_prev = base > 0 ? keys[base - 1] : 0;
+      tile[pad(0)] = keys[base];
+      s_next = base + kTile < n ? keys[base + kTile] : kSentinel;
+    }
+  }
+  __syncthreads();
+  const int t = s_t;
+  const long long base = (long long)t * kTile;
+  if (base >= n || tile[pad(0)] == kSentinel) return;
+
+  const long long rows = n - base < kTile ? n - base : kTile;
+  load_tile(keys, base, rows, tile);
+  __syncthreads();
+
+  const int j0 = threadIdx.x * kItems;
+  unsigned M = 0, E = 0, H = 0, R = 0;
+  long long prev = j0 > 0 ? tile[pad(j0 - 1)] : s_prev;
+  long long key = tile[pad(j0)];
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) {
+    const long long next = j0 + k + 1 < kTile ? tile[pad(j0 + k + 1)] : s_next;
+    const long long i = base + j0 + k;
+    if (i < n) {
+      const bool sent = key == kSentinel;
+      const bool run_start =
+          i == 0 || ((unsigned long long)(key ^ prev) >> 8) != 0;
+      const bool run_end =
+          i == n - 1 || ((unsigned long long)(key ^ next) >> 8) != 0;
+      const int tag = (int)(key & 0xFF);
+      const bool entry = (tag & 1) && tag != 0xFF && !sent;  // typ 1 or 3
+      M |= (unsigned)(run_start || entry) << k;
+      E |= (unsigned)(entry && (tag & 3) == 1) << k;
+      H |= (unsigned)(!sent && tag == qtag) << k;
+      R |= (unsigned)(!sent && run_end) << k;
+    }
+    prev = key;
+    key = next;
+  }
+  count_tile(M, E, H, R, t, out, status);
+}
+
+template <int C>
+struct SlogCols {
+  const long long* p[C];
+};
+
+// Slots of one column's padded tile.
+constexpr int kSlots = pad(kTile - 1) + 1;
+
+// The tag-column form: cols.p[0 .. C - 2] the word, cols.p[C - 1] the tag;
+// the C column tiles live in dynamic shared memory, slot pad(j) of tile c
+// at tiles[c * kSlots + pad(j)].
+template <int C>
+__global__ void __launch_bounds__(kThreads)
+    slog_tag_lookback(SlogCols<C> cols, long long n, long long qtag,
+                      unsigned long long* __restrict__ out,
+                      unsigned* __restrict__ ticket,
+                      unsigned* __restrict__ status) {
+  extern __shared__ long long tiles[];
+  __shared__ long long s_prev[C], s_next[C];
+  __shared__ int s_t, s_skip;
+  if (threadIdx.x == 0) {
+    const int t = (int)atomicAdd(ticket, 1u);
+    const long long base = (long long)t * kTile;
+    s_t = t;
+    s_skip = base >= n || cols.p[0][base] == kSentinel;
+    if (!s_skip) {
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        s_prev[c] = base > 0 ? cols.p[c][base - 1] : 0;
+        s_next[c] = base + kTile < n ? cols.p[c][base + kTile] : kSentinel;
+      }
+    }
+  }
+  __syncthreads();
+  if (s_skip) return;
+  const int t = s_t;
+  const long long base = (long long)t * kTile;
+  const long long rows = n - base < kTile ? n - base : kTile;
+#pragma unroll
+  for (int c = 0; c < C; ++c)
+    load_tile(cols.p[c], base, rows, tiles + c * kSlots);
+  __syncthreads();
+
+  const int j0 = threadIdx.x * kItems;
+  long long prev[C - 1];
+#pragma unroll
+  for (int c = 0; c < C - 1; ++c)
+    prev[c] = j0 > 0 ? tiles[c * kSlots + pad(j0 - 1)] : s_prev[c];
+  unsigned M = 0, E = 0, H = 0, R = 0;
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) {
+    const long long i = base + j0 + k;
+    // a run is grouped by every word column
+    bool run_start = i == 0, run_end = i == n - 1;
+#pragma unroll
+    for (int c = 0; c < C - 1; ++c) {
+      const long long v = tiles[c * kSlots + pad(j0 + k)];
+      const long long next = j0 + k + 1 < kTile
+                                 ? tiles[c * kSlots + pad(j0 + k + 1)]
+                                 : s_next[c];
+      run_start |= v != prev[c];
+      run_end |= v != next;
+      prev[c] = v;
+    }
+    if (i < n) {
+      const bool sent = tiles[pad(j0 + k)] == kSentinel;
+      const long long tag = tiles[(C - 1) * kSlots + pad(j0 + k)];
+      // typ 1 or 3; INT64_MAX & 3 == 3, so the join / sentinel tag needs
+      // its own test
+      const bool entry = (tag & 1) && tag != kSentinel && !sent;
+      M |= (unsigned)(run_start || entry) << k;
+      E |= (unsigned)(entry && (tag & 3) == 1) << k;
+      H |= (unsigned)(!sent && tag == qtag) << k;
+      R |= (unsigned)(!sent && run_end) << k;
+    }
+  }
+  count_tile(M, E, H, R, t, out, status);
+}
+
+// Clears the counters, the ticket and one status word a tile on stream s.
+cudaError_t clear_scratch(void* scratch, long long n_tiles, cudaStream_t s) {
+  return cudaMemsetAsync(scratch, 0, 24 + 4 * n_tiles, s);
+}
+
+template <int C>
+cudaError_t launch_tag(const void* const* cols, long long n, long long qtag,
+                       unsigned long long* out, long long n_tiles,
+                       cudaStream_t s) {
+  SlogCols<C> c;
+  for (int i = 0; i < C; ++i) c.p[i] = (const long long*)cols[i];
+  unsigned* ticket = (unsigned*)(out + 2);
+  // 69.6 KB at C = 2, 104.4 KB at C = 3: past the 48 KB a kernel gets
+  // without asking
+  const int smem = C * kSlots * (int)sizeof(long long);
+  cudaError_t err = cudaFuncSetAttribute(
+      slog_tag_lookback<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return err;
+  slog_tag_lookback<C><<<(unsigned)(n_tiles > 0 ? n_tiles : 1), kThreads,
+                         smem, s>>>(c, n, qtag, out, ticket, ticket + 2);
+  return cudaGetLastError();
+}
+
 }  // namespace
 }  // namespace cbl
 
@@ -241,11 +378,32 @@ extern "C" int cbl_slog_scan_counts(const void* keys, long long n, int qtag,
   if (n < 0 || n_tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   unsigned long long* out = (unsigned long long*)scratch;
   unsigned* ticket = (unsigned*)(out + 2);
-  cudaError_t err = cudaMemsetAsync(scratch, 0, 24 + 4 * n_tiles, s);
+  cudaError_t err = cbl::clear_scratch(scratch, n_tiles, s);
   if (err != cudaSuccess) return (int)err;
   cbl::slog_lookback<<<(unsigned)(n_tiles > 0 ? n_tiles : 1), cbl::kThreads,
                        0, s>>>((const long long*)keys, n, qtag, out, ticket,
                                ticket + 2);
   ++*launches;
   return (int)cudaGetLastError();
+}
+
+// The tag-column form: `cols` is a C-element array of column pointers (C =
+// 2 or 3: the word's columns, then the tag), `qtag` an int64 tag; scratch
+// and launches as above.
+extern "C" int cbl_slog_scan_tag_counts(const void* const* cols, int C,
+                                        long long n, long long qtag,
+                                        void* scratch, int* launches,
+                                        void* stream) {
+  *launches = 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  const long long n_tiles = (n + cbl::kTile - 1) / cbl::kTile;
+  if (n < 0 || n_tiles > 0x7fffffffLL || C < 2 || C > 3)
+    return (int)cudaErrorInvalidValue;
+  unsigned long long* out = (unsigned long long*)scratch;
+  cudaError_t err = cbl::clear_scratch(scratch, n_tiles, s);
+  if (err != cudaSuccess) return (int)err;
+  err = C == 2 ? cbl::launch_tag<2>(cols, n, qtag, out, n_tiles, s)
+               : cbl::launch_tag<3>(cols, n, qtag, out, n_tiles, s);
+  ++*launches;
+  return (int)err;
 }

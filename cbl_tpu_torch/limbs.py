@@ -130,8 +130,9 @@ def rows_lt(a, b) -> torch.Tensor:
 
 
 def first_of_run(keys) -> torch.Tensor:
-    """True where a row differs from the one before it (and at row 0)."""
-    cs = cols(keys)
+    """True where a row differs from the one before it (and at row 0);
+    `keys` a tensor or a tuple of columns."""
+    cs = cols(keys) if isinstance(keys, torch.Tensor) else tuple(keys)
     first = torch.ones(cs[0].shape[0], dtype=torch.bool, device=cs[0].device)
     if cs[0].shape[0] > 1:
         ne = cs[0][1:] != cs[0][:-1]

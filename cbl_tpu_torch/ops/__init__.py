@@ -2,7 +2,8 @@
 
 - `necklace`: kernel B1, the batched necklace (`csrc/necklace.cu`);
 - `scan`: kernel B2, record-boundary blanking (`csrc/scan.cu`), and
-  kernel B4, the liveness scan of a sorted log (`csrc/slog_scan.cu`);
+  kernel B4, the liveness scan of a sorted log, packed or with a tag
+  column (`csrc/slog_scan.cu`);
 - `merge`: kernel B3, the merge of two sorted key runs (`csrc/merge.cu`),
   and kernel B5, the merge-path sort (`csrc/sort.cu`), both on
   `csrc/merge_path.cuh`;

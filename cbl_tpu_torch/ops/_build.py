@@ -42,12 +42,15 @@ LAUNCHES = {"necklace": 0, "blank": 0, "merge": 0, "slog_scan": 0,
             # wide K: B1 on two-column k-mers, the sorts and merges at
             # three columns (`ops.merge.launch_key`)
             "necklace_wide": 0, "merge_3col": 0, "sort_3col": 0,
-            "bitonic_sort_3col": 0, "bitonic_merge_3col": 0}
+            "bitonic_sort_3col": 0, "bitonic_merge_3col": 0,
+            # B4 over a log with a tag column: C = 2 (a one-column word)
+            # and C = 3 (a two-column word)
+            "slog_scan_tag": 0, "slog_scan_tag_3col": 0}
 
 # passes over device memory (kernels that read and write every row) that the
 # last launch of each network, sort or scan reported
 PASSES = {"sort": 0, "bitonic_sort": 0, "bitonic_merge": 0, "blank": 0,
-          "slog_scan": 0}
+          "slog_scan": 0, "slog_scan_tag": 0, "slog_scan_tag_3col": 0}
 
 _P = ctypes.c_void_p
 _N = ctypes.c_longlong
@@ -71,6 +74,9 @@ _SIGNATURES = {
     # (keys, n, qtag, scratch: (hits, live) out + ticket + tile statuses,
     # launches out, stream)
     "cbl_slog_scan_counts": [_P, _N, _I, _P, _P, _P],
+    # (cols: the word's columns and the tag's, C (2 or 3), n, qtag,
+    # scratch as above, launches out, stream)
+    "cbl_slog_scan_tag_counts": [_P, _I, _N, _N, _P, _P, _P],
     # (in cols, out cols, work cols, C, rows of work, n, passes out,
     # stream)
     "cbl_bitonic_sort": [_P, _P, _P, _I, _N, _N, _P, _P],

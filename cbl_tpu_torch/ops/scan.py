@@ -6,19 +6,29 @@ returns the int32 mask `mask[i] = cumsum(delta)[i] > 0` (1 = blanked) and
 the count of rows that are not blanked, as an int32 0-d tensor.
 
 B4 replaces `slog_scan_counts_pallas`, the liveness scan of a sorted log
-(`wordset` slog keys: `key >> 8` groups a word's run, `key & 0xFF` is the
-row's tag `(seq << 2) | typ`, typ 1 insert, 2 query, 3 remove; 0xFF and
-`SENTINEL` rows are never entries).  It returns `(hits, live)`: the rows
-tagged `qtag` whose word is live at their position, and the distinct
-live words.
+whose rows carry the tag `(seq << 2) | typ`, typ 1 insert, 2 query, 3
+remove.  It returns `(hits, live)`: the rows tagged `qtag` whose word is
+live at their position, and the distinct live words.  A log comes in the
+two forms of `cbl_tpu`'s `pack` flag:
+- packed (`slog_scan_counts`): one int64 key a row, a 1-D tensor
+  (`wordset.slog_key`: `key >> 8` groups a word's run, `key & 0xFF` is
+  the tag; 0xFF tags join queries and sentinel rows);
+- tag column (`slog_scan_tag_counts`, `pack=False`): C = 2 or 3 int64
+  columns, a tuple or a [C, N] tensor, the word's one or two columns and
+  then the tag; a run is grouped by every word column, a row is a
+  sentinel when word column 0 is `SENTINEL`, and `SLOG_COL_TAG_MAX`
+  (`SENTINEL`, `cbl_tpu`'s 0xFFFFFFFF) tags join queries and sentinel
+  rows.
+A row is an entry when its typ is 1 or 3 and it is neither a join query
+nor a sentinel.
 
-`blank_mask` and `slog_scan_counts` take the plain version for a CPU
-tensor and launch their CUDA kernel (`csrc/scan.cu`, `csrc/slog_scan.cu`)
-for a CUDA tensor.  Each kernel is one launch that reads every row once
-and carries the scan across tiles (`BLANK_TILE`, `SLOG_TILE` rows) by
-decoupled look-back.  `blank_mask_tiled` and `slog_scan_tiled` walk the same tile
-protocol in plain code, so that the CPU tests can hold it to the plain
-versions with tiles of a few rows.
+`blank_mask`, `slog_scan_counts` and `slog_scan_tag_counts` take the plain
+version for CPU tensors and launch their CUDA kernel (`csrc/scan.cu`,
+`csrc/slog_scan.cu`) for CUDA tensors.  Each kernel is one launch that
+reads every row once and carries the scan across tiles (`BLANK_TILE`,
+`SLOG_TILE` rows) by decoupled look-back.  `blank_mask_tiled` and
+`slog_scan_tiled` walk the same tile protocol in plain code, so that the
+CPU tests can hold it to the plain versions with tiles of a few rows.
 """
 
 from __future__ import annotations
@@ -29,11 +39,13 @@ import operator
 import torch
 
 from . import _build
-from ..limbs import SENTINEL
+from ..limbs import SENTINEL, first_of_run
+from .merge import _col_ptrs, launch_key
 
 BLANK_TILE = 8192  # rows per block of csrc/scan.cu
 SLOG_TILE = 4096  # rows per block of csrc/slog_scan.cu
-SLOG_TAG_MAX = 0xFF  # the query / sentinel tag of a slog key
+SLOG_TAG_MAX = 0xFF  # the query / sentinel tag of a packed slog key
+SLOG_COL_TAG_MAX = SENTINEL  # the query / sentinel tag of a tag column
 LOOKBACK_WINDOW = 32  # status words a look-back step reads, one a lane
 # flags of a tile's status (flag, value); a status is None until published
 AGGREGATE, INCLUSIVE = 1, 2
@@ -90,26 +102,52 @@ def blank_mask(delta: torch.Tensor):
     return mask, scratch[0]
 
 
-def slog_rows(keys: torch.Tensor):
-    """(run_start, sentinel, is_entry, is_insert) [n] bool over sorted
-    slog keys.  An entry is an insert or remove row (typ 1 or 3) that is
-    neither a 0xFF join query nor a sentinel."""
-    n = keys.shape[0]
-    run_start = torch.ones(n, dtype=torch.bool, device=keys.device)
-    word = keys >> 8
-    run_start[1:] = word[1:] != word[:-1]
-    sentinel = keys == SENTINEL
-    tag = keys & SLOG_TAG_MAX
+def slog_is_packed(s) -> bool:
+    """True for packed slog keys (a 1-D tensor), False for a tag-column
+    log (a tuple of columns or a [C, N] tensor).  The one rule by which
+    code that is handed a log reads its layout; `wordset.slog_packed`
+    picks the layout only where a log is made."""
+    return isinstance(s, torch.Tensor) and s.dim() == 1
+
+
+def slog_tag_cols(s) -> tuple:
+    """The columns of a tag-column log (a tuple of two or three columns,
+    or a [C, N] tensor), checked: 1-D int64, one length, one device."""
+    cs = tuple(s.unbind(0)) if isinstance(s, torch.Tensor) else tuple(s)
+    if not 2 <= len(cs) <= 3:
+        raise ValueError(f"expected a word of one or two columns and a tag "
+                         f"column, got {len(cs)} columns")
+    for c in cs:
+        if c.dtype != torch.int64 or c.dim() != 1:
+            raise ValueError(
+                f"expected 1-D int64 columns, got {c.dtype} {tuple(c.shape)}")
+        if c.shape != cs[0].shape or c.device != cs[0].device:
+            raise ValueError("slog columns differ in length or device")
+    return cs
+
+
+def slog_rows(s):
+    """(run_start, sentinel, is_entry, is_insert, tag) [n] over a sorted
+    slog, packed keys or a tag-column log (see the module's docstring).
+    An entry is an insert or remove row (typ 1 or 3) that is neither a
+    join query nor a sentinel."""
+    if slog_is_packed(s):
+        word, tag, tag_max = s >> 8, s & SLOG_TAG_MAX, SLOG_TAG_MAX
+        run_start, sentinel = first_of_run(word), s == SENTINEL
+    else:
+        cs = slog_tag_cols(s)
+        tag, tag_max = cs[-1], SLOG_COL_TAG_MAX
+        run_start, sentinel = first_of_run(cs[:-1]), cs[0] == SENTINEL
     typ = tag & 3
-    is_entry = ((typ == 1) | (typ == 3)) & (tag != SLOG_TAG_MAX) & ~sentinel
-    return run_start, sentinel, is_entry, typ == 1
+    is_entry = ((typ == 1) | (typ == 3)) & (tag != tag_max) & ~sentinel
+    return run_start, sentinel, is_entry, typ == 1, tag
 
 
-def slog_scan_counts_plain(keys: torch.Tensor, qtag: int):
-    """(hits, live) int64 0-d over sorted slog keys by the formula of
-    `cbl_tpu.wordset._slog_scan`: hits = rows tagged `qtag` that are live
-    at their position; live = run-end rows that are live (distinct live
-    words).  Sentinel rows never count.
+def slog_scan_counts_plain(s, qtag: int):
+    """(hits, live) int64 0-d over a sorted slog (packed keys or a
+    tag-column log) by the formula of `cbl_tpu.wordset._slog_scan`: hits
+    = rows tagged `qtag` that are live at their position; live = run-end
+    rows that are live (distinct live words).  Sentinel rows never count.
 
     A row is live when the latest insert or remove entry at or before it
     in its word run is an insert.  One running max says so: every run
@@ -117,13 +155,14 @@ def slog_scan_counts_plain(keys: torch.Tensor, qtag: int):
     : 0), every other row -1; the running max is the later of {latest run
     start, latest entry}, so its bit 1 says "an entry exists in my run"
     and bit 0 its kind."""
-    run_start, sentinel, is_entry, is_insert = slog_rows(keys)
-    idx = torch.arange(keys.shape[0], dtype=torch.int64, device=keys.device)
+    run_start, sentinel, is_entry, is_insert, tag = slog_rows(s)
+    n = run_start.shape[0]
+    idx = torch.arange(n, dtype=torch.int64, device=run_start.device)
     bits = torch.where(is_entry, 2 | is_insert.to(torch.int64), 0)
     marker = torch.where(run_start | is_entry, (idx << 2) | bits, -1)
     live_here = (torch.cummax(marker, 0).values & 3) == 3
     real_live = live_here & ~sentinel
-    hits = (real_live & ((keys & SLOG_TAG_MAX) == qtag)).sum()
+    hits = (real_live & (tag == qtag)).sum()
     run_end = torch.ones_like(run_start)
     run_end[:-1] = run_start[1:]
     return hits, (real_live & run_end).sum()
@@ -142,9 +181,7 @@ def slog_scan_counts(keys: torch.Tensor, qtag: int):
         return slog_scan_counts_plain(keys, qtag)
     _build.check_cuda(keys)
     n = keys.shape[0]
-    # (hits, live), the tile ticket, a 32-bit status word a tile
-    scratch = torch.empty(3 + (_n_tiles(n, SLOG_TILE) + 1) // 2,
-                          dtype=torch.int64, device=keys.device)
+    scratch = _slog_scratch(n, keys.device)
     launches = ctypes.c_int(0)
     err = _build.library().cbl_slog_scan_counts(
         ctypes.c_void_p(keys.data_ptr()),
@@ -158,6 +195,58 @@ def slog_scan_counts(keys: torch.Tensor, qtag: int):
     _check_one_launch(launches, "slog_scan")
     _build.LAUNCHES["slog_scan"] += 1
     return scratch[0], scratch[1]
+
+
+def _slog_scratch(n: int, device) -> torch.Tensor:
+    """B4's scratch: (hits, live), the tile ticket, a 32-bit status word a
+    tile."""
+    return torch.empty(3 + (_n_tiles(n, SLOG_TILE) + 1) // 2,
+                       dtype=torch.int64, device=device)
+
+
+def slog_scan_tag_counts(s, qtag: int):
+    """`slog_scan_counts_plain` of a tag-column log (a tuple of two or
+    three columns, or a [C, N] tensor) on the CPU; on CUDA, kernel B4's
+    tag-column form (every call launches it, whatever n), counted under
+    `launch_key("slog_scan_tag", C)`."""
+    cs = slog_tag_cols(s)
+    if not 0 <= qtag <= SLOG_COL_TAG_MAX:
+        raise ValueError(f"qtag {qtag} is not an int64 slog tag")
+    if cs[0].device.type == "cpu":
+        return slog_scan_counts_plain(cs, qtag)
+    _build.check_cuda(*cs)
+    n = cs[0].shape[0]
+    scratch = _slog_scratch(n, cs[0].device)
+    ptrs = _col_ptrs(cs)
+    launches = ctypes.c_int(0)
+    err = _build.library().cbl_slog_scan_tag_counts(
+        ptrs,
+        ctypes.c_int(len(cs)),
+        ctypes.c_longlong(n),
+        ctypes.c_longlong(qtag),
+        ctypes.c_void_p(scratch.data_ptr()),
+        ctypes.byref(launches),
+        _build.stream_handle(cs[0].device),
+    )
+    key = launch_key("slog_scan_tag", len(cs))
+    _build.check_error(err, key)
+    _check_one_launch(launches, key)
+    _build.LAUNCHES[key] += 1
+    return scratch[0], scratch[1]
+
+
+def slog_query_tag(s) -> int:
+    """The tag of a join query in the log's form (after every entry of
+    its word)."""
+    return SLOG_TAG_MAX if slog_is_packed(s) else SLOG_COL_TAG_MAX
+
+
+def slog_counts(s, qtag: int):
+    """B4 in the log's form: `slog_scan_counts` for packed keys,
+    `slog_scan_tag_counts` for a tag-column log."""
+    if slog_is_packed(s):
+        return slog_scan_counts(s, qtag)
+    return slog_scan_tag_counts(s, qtag)
 
 
 # --- the kernels' tile protocol in plain code (for the CPU tests) -----------
@@ -223,20 +312,24 @@ def _last_known(earlier, later):
     return earlier if later is None else later
 
 
-def slog_scan_tiled(keys: torch.Tensor, qtag: int, tile: int = SLOG_TILE,
+def slog_scan_tiled(s, qtag: int, tile: int = SLOG_TILE,
                     wave: int | None = None):
     """`slog_scan_counts_plain` by kernel B4's tile protocol
-    (`csrc/slog_scan.cu`).  Markers grow with the row index, so the
-    running max at a row is its last marker, and the state that crosses a
-    tile is one bit: whether the last marker before it is an insert entry.
-    A tile whose first row is a sentinel counts nothing and publishes
-    nothing (every later tile is all sentinels too).  Any other tile
-    publishes its last marker's bit as INCLUSIVE, or AGGREGATE (no
-    marker, value None) when it has none; when its first row is no marker
-    it looks back for the bit before it, and publishes that bit as
-    INCLUSIVE if it had no marker.  Only the tile's rows, rows base - 1
-    and base + tile, and the statuses of the tiles before it are read."""
-    n = keys.shape[0]
+    (`csrc/slog_scan.cu`), for packed keys or a tag-column log.  Markers
+    grow with the row index, so the running max at a row is its last
+    marker, and the state that crosses a tile is one bit: whether the last
+    marker before it is an insert entry.  A tile whose first row is a
+    sentinel counts nothing and publishes nothing (every later tile is all
+    sentinels too).  Any other tile publishes its last marker's bit as
+    INCLUSIVE, or AGGREGATE (no marker, value None) when it has none; when
+    its first row is no marker it looks back for the bit before it, and
+    publishes that bit as INCLUSIVE if it had no marker.  Only the tile's
+    rows, rows base - 1 and base + tile, and the statuses of the tiles
+    before it are read."""
+    packed = slog_is_packed(s)
+    rows_of = s if packed else torch.stack(slog_tag_cols(s))
+    major = rows_of if packed else rows_of[0]
+    n = rows_of.shape[-1]
     n_tiles = _n_tiles(n, tile)
     status = [None] * n_tiles
     hits = live = 0
@@ -244,17 +337,18 @@ def slog_scan_tiled(keys: torch.Tensor, qtag: int, tile: int = SLOG_TILE,
         rows = {}
         for t in tiles:
             base = t * tile
-            if int(keys[base]) == SENTINEL:
+            if int(major[base]) == SENTINEL:
                 continue
             lo = max(base - 1, 0)
-            ext = keys[lo : base + tile + 1]  # rows base - 1 .. base + tile
-            run_start, sent, entry, insert = slog_rows(ext)
+            # rows base - 1 .. base + tile
+            ext = rows_of[..., lo : base + tile + 1]
+            run_start, sent, entry, insert, tag = slog_rows(ext)
             own = slice(base - lo, base - lo + min(tile, n - base))
             run_end = torch.cat([run_start[own.start + 1 :],
                                  torch.ones(1, dtype=torch.bool)])
             marked = (run_start | entry)[own]
             rows[t] = (marked, (entry & insert)[own],
-                       ~sent[own] & ((ext[own] & SLOG_TAG_MAX) == qtag),
+                       ~sent[own] & (tag[own] == qtag),
                        ~sent[own] & run_end[: marked.shape[0]])
             at = marked.nonzero()
             status[t] = ((INCLUSIVE, int(rows[t][1][at[-1]])) if len(at)

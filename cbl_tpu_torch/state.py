@@ -8,10 +8,15 @@ uint32 `pending_tags` and the counters `n_pending` and `_pending_rm`; the
 port's is a key tensor of the same layout and int64 tags of the same
 values.  During dynamic rounds `cbl_tpu`
 holds a sorted log as uint32 columns (`ws._slog`): L limbs of
-(word << 8) | tag where the config leaves 8 spare bits, else L word limbs
-and a tag column; this port holds one int64 slog key per row
-(`wordset.slog_key`).  The functions below convert through numpy, so
-neither package imports the other.
+(word << 8) | tag where the config leaves 8 spare bits
+(`wordset.slog_tag_in_limbs`), else L word limbs and a tag column; this
+port holds one int64 slog key a row (`wordset.slog_key`) where
+`wordset.slog_packed`, else the word's columns and an int64 tag column.
+Either of `cbl_tpu`'s layouts maps to either of the port's; the join and
+sentinel tag (0xFF packed, 0xFFFFFFFF in a tag column) maps to the
+port's (0xFF in a key, INT64_MAX in a tag column) and back.  The
+functions below convert through numpy, so neither package imports the
+other.
 """
 
 from __future__ import annotations
@@ -31,7 +36,15 @@ from .limbs import (
     to_limbs,
 )
 from .ops.merge import sort_cols_plain
-from .wordset import _SLOG_BIAS, DeviceWordSet, slog_packed
+from .ops.scan import slog_is_packed
+from .wordset import (
+    _SLOG_BIAS,
+    DeviceWordSet,
+    slog_packed,
+    slog_tag_in_limbs,
+)
+
+_U32_MAX = 0xFFFFFFFF
 
 
 def wordset_from_arrays(words_u32: np.ndarray, n_distinct: int,
@@ -87,23 +100,27 @@ def wordset_to_arrays(ws: DeviceWordSet) -> tuple[np.ndarray, int, dict]:
         holes=ws._holes, dups=ws._dups, n_upper=ws._n_upper)
 
 
-def _jax_slog_packed(cfg: CBLConfig) -> bool:
-    """`cbl_tpu`'s layout choice: the tag packs into the word limbs when
-    they leave 8 spare bits (K=11 and 13 fill one limb and use a tag
-    column there, though one int64 slog key holds them)."""
-    return cfg.n_bits + 8 <= 32 * cfg.word_limbs
+def _tag_max(in_limbs: bool) -> int:
+    """`cbl_tpu`'s join and sentinel tag in its layout."""
+    return 0xFF if in_limbs else _U32_MAX
 
 
-def _words_tags_to_keys(words: np.ndarray, tags: np.ndarray,
-                        sent: np.ndarray) -> np.ndarray:
-    """int64 slog keys of uint64 words and tags (sentinel rows ->
-    SENTINEL)."""
-    if np.any(tags[~sent] >= 0xFF):
-        raise ValueError("a slog tag does not fit 8 bits below 0xFF")
-    w = words.astype(np.int64) - np.int64(_SLOG_BIAS)
-    keys = (w << np.int64(8)) | tags.astype(np.int64)
-    keys[sent] = SENTINEL
-    return keys
+def _shr8(cols: list) -> list:
+    """`cbl_tpu`'s packed-tag limbs (word << 8) | tag -> the word's limbs
+    (its `_shr8`)."""
+    return [(c >> np.uint32(8))
+            | (cols[l - 1] << np.uint32(24) if l else np.uint32(0))
+            for l, c in enumerate(cols)]
+
+
+def _shl8_or(limbs: list, tags: np.ndarray) -> list:
+    """The word's limbs and 8-bit tags -> `cbl_tpu`'s packed-tag limbs
+    (its `_shl8_or`)."""
+    L = len(limbs)
+    return [(v << np.uint32(8))
+            | (limbs[l + 1] >> np.uint32(24) if l + 1 < L
+               else tags.astype(np.uint32))
+            for l, v in enumerate(limbs)]
 
 
 def slog_from_arrays(cols_u32, seq: int, real: int, n_upper: int,
@@ -112,26 +129,30 @@ def slog_from_arrays(cols_u32, seq: int, real: int, n_upper: int,
     are its [n] uint32 columns (`ws._slog`, packed or with a tag column),
     `seq`, `real` and `n_upper` its `_slog_seq`, `_slog_real` and
     `_n_upper`."""
-    if not slog_packed(cfg):
-        raise NotImplementedError(
-            f"K={cfg.k}: the port's slog key does not hold this config "
-            "(ROADMAP slice 6b)"
-        )
     cols = [np.asarray(c, dtype=np.uint32) for c in cols_u32]
     L = cfg.word_limbs
-    packed = _jax_slog_packed(cfg)
-    if len(cols) != (L if packed else L + 1):
-        raise ValueError(f"expected {L if packed else L + 1} slog columns "
+    in_limbs = slog_tag_in_limbs(cfg)
+    if len(cols) != (L if in_limbs else L + 1):
+        raise ValueError(f"expected {L if in_limbs else L + 1} slog columns "
                          f"for K={cfg.k}, got {len(cols)}")
-    v = np.zeros(cols[0].shape[0], dtype=np.uint64)
-    for c in cols[:L]:
-        v = (v << np.uint64(32)) | c.astype(np.uint64)
-    sent = np.all(np.stack(cols) == np.uint32(0xFFFFFFFF), axis=0)
-    if packed:
-        words, tags = v >> np.uint64(8), v & np.uint64(0xFF)
+    sent = np.all(np.stack(cols[:L]) == np.uint32(_U32_MAX), axis=0)
+    if in_limbs:
+        limbs, tags = _shr8(cols), cols[L - 1] & np.uint32(0xFF)
     else:
-        words, tags = v, cols[L].astype(np.uint64)
-    keys = _words_tags_to_keys(words, tags, sent)
+        limbs, tags = cols[:L], cols[L]
+    rows = np.stack(limbs, axis=1)
+    rows[sent] = np.uint32(_U32_MAX)
+    words = from_limbs(rows, key_cols(cfg))
+    tags = tags.astype(np.int64)
+    query = tags == _tag_max(in_limbs)
+    if slog_packed(cfg):
+        if np.any(query & ~sent):
+            raise ValueError("a packed slog row holds a join query's tag")
+        keys = ((words - np.int64(_SLOG_BIAS)) << np.int64(8)) | tags
+        keys[sent] = SENTINEL
+    else:
+        tags[query | sent] = SENTINEL
+        keys = np.concatenate([words.reshape(-1, len(tags)), tags[None]])
     ws = DeviceWordSet(cfg, device)
     ws._slog = torch.from_numpy(keys).to(ws.device)
     ws._slog_seq = int(seq)
@@ -147,23 +168,29 @@ def slog_to_arrays(ws: DeviceWordSet):
     if ws._slog is None:
         raise ValueError("no active sorted log")
     keys = ws._slog.cpu().numpy()
-    sent = keys == SENTINEL
-    words = ((keys >> np.int64(8)) + np.int64(_SLOG_BIAS)).astype(np.uint64)
-    tags = (keys & np.int64(0xFF)).astype(np.uint64)
-    L = ws.cfg.word_limbs
-    if _jax_slog_packed(ws.cfg):
-        v, n_cols = (words << np.uint64(8)) | tags, L
+    if slog_is_packed(ws._slog):
+        sent = keys == SENTINEL
+        words = (keys >> np.int64(8)) + np.int64(_SLOG_BIAS)
+        words[sent] = SENTINEL
+        tags = keys & np.int64(0xFF)
+        query = tags == 0xFF
     else:
-        v, n_cols = words, L + 1
-    cols = [
-        ((v >> np.uint64(32 * (L - 1 - l))) & np.uint64(0xFFFFFFFF))
-        .astype(np.uint32)
-        for l in range(L)
-    ]
-    if n_cols > L:
-        cols.append(tags.astype(np.uint32))
+        words, tags = keys[:-1], keys[-1].copy()
+        words = words[0] if len(words) == 1 else words
+        sent = keys[0] == SENTINEL
+        query = tags == SENTINEL
+    L = ws.cfg.word_limbs
+    in_limbs = slog_tag_in_limbs(ws.cfg)
+    tag_max = _tag_max(in_limbs)
+    if np.any(tags[~query] >= tag_max):
+        raise ValueError(f"a slog tag does not fit below {tag_max:#x}")
+    tags[query] = tag_max
+    rows = to_limbs(words, L)
+    limbs = [rows[:, l].copy() for l in range(L)]
+    cols = _shl8_or(limbs, tags) if in_limbs else limbs + [
+        tags.astype(np.uint32)]
     for c in cols:
-        c[sent] = np.uint32(0xFFFFFFFF)
+        c[sent] = np.uint32(_U32_MAX)
     return tuple(cols), ws._slog_seq, ws._slog_real, ws._n_upper
 
 

@@ -16,11 +16,13 @@ B3, and a query row is a hit when a data row follows it within its word's
 run.
 
 Interleaved dynamic rounds keep the set as a (word, tag)-sorted log, the
-"slog" (`_slog`, one int64 key per row, see `slog_key`): inserts, queries
-and removes of a round are merged in with their tags, and kernel B4 scans
-the log once for the round's query hits and the distinct count.  The log
-folds back into a sorted `data` tensor on `flush()`, at the tag's seq cap
-and under the autofold policy, exactly as in `cbl_tpu`.
+"slog" (`_slog`: one int64 key a row where the word and an 8-bit tag fit
+one, see `slog_key`; else the word's columns and a tag column, see
+`slog_tagged`): inserts, queries and removes of a round are merged in
+with their tags, and kernel B4 scans the log once for the round's query
+hits and the distinct count.  The log folds back into a sorted `data`
+tensor on `flush()`, at `cbl_tpu`'s seq cap (`slog_tag_in_limbs`) and
+under the autofold policy, exactly as in `cbl_tpu`.
 
 Separate insert and remove calls go through the pending log, as in
 `cbl_tpu`: `pending` holds appended words and `pending_tags` their
@@ -55,9 +57,6 @@ Export (`words_array`, `iter_words_chunks`, `prefixes`) flushes,
 compacts and drops duplicates first, as `cbl_tpu` does, and hands the
 first n keys out as `cbl_tpu`'s [n, L] uint32 limb rows, laid out on the
 device and copied once (`host_limbs`).
-
-Not ported yet: dynamic rounds at K >= 27, whose words leave no room for
-the slog's tag in one int64 key (ROADMAP slice 6b).
 """
 
 from __future__ import annotations
@@ -81,7 +80,7 @@ from .limbs import (
     stack,
 )
 from .necklace import word_prefix
-from .ops.scan import SLOG_TAG_MAX, slog_rows, slog_scan_counts
+from .ops.scan import slog_counts, slog_is_packed, slog_query_tag, slog_rows
 from .ops.sort import (
     cat_cols,
     merge_sorted_pair,
@@ -566,32 +565,52 @@ def _pending_override_kernel(pending, tags, queries):
 
 # --- the sorted log (slog) of dynamic rounds ---------------------------------
 #
-# A slog row is one int64 key, key = ((word - 2^55) << 8) | tag.  For
-# every word below 2^56 it neither overflows nor changes order: keys sort
-# exactly like `cbl_tpu`'s packed-tag limbs (word << 8) | tag read as
-# unsigned (the bias only flips the sign bit).  `key >> 8` (arithmetic)
-# is the word's run, `key & 0xFF` the tag, and the all-ones word with tag
-# 0xFF, `cbl_tpu`'s sentinel row, is INT64_MAX, the port's SENTINEL, so
-# sentinel rows need no special case in the merges.  Tags are
-# (seq << 2) | typ with typ 1 insert, 2 query, 3 remove; 0xFF tags the
-# queries of a slog join.  Query rows of the rounds stay in the log as
-# inert rows until a fold.
-_SLOG_BIAS = 1 << 55
+# Rows carry the tag (seq << 2) | typ, typ 1 insert, 2 query, 3 remove,
+# and sort by (word, tag).  Query rows of the rounds stay in the log as
+# inert rows until a fold.  The log has one of two layouts:
+#
+# - packed (`slog_packed`): one int64 key a row, key = ((word - 2^55) << 8)
+#   | tag.  For every word below 2^56 it neither overflows nor changes
+#   order: keys sort exactly like `cbl_tpu`'s packed-tag limbs (word << 8)
+#   | tag read as unsigned (the bias only flips the sign bit).  `key >> 8`
+#   (arithmetic) is the word's run, `key & 0xFF` the tag, and the all-ones
+#   word with tag 0xFF, `cbl_tpu`'s sentinel row, is INT64_MAX, the port's
+#   SENTINEL, so sentinel rows need no special case in the merges.  0xFF
+#   tags the queries of a slog join;
+# - tag column (every other config): a [C, N] int64 tensor, the word's one
+#   or two columns and then the tag, C = 2 or 3 (`cbl_tpu`'s pack=False,
+#   L word limbs and a tag column).  The tag has no 8-bit limit;
+#   INT64_MAX, `cbl_tpu`'s 0xFFFFFFFF, tags join queries and sentinel
+#   rows, which are INT64_MAX in every column.
+#
+# The seq cap is `cbl_tpu`'s, whatever the port's layout: it folds before
+# seq 63 where it packs its tag into the word limbs (`slog_tag_in_limbs`);
 # rounds run with seq = _slog_seq + 1, so a remove's tag (62 << 2) | 3 =
-# 251 stays below 0xFF; at 63 it would pack to 0xFF and be ignored
+# 251 stays below 0xFF, and at 63 it would pack to 0xFF and be ignored.
+_SLOG_BIAS = 1 << 55
 _SLOG_SEQ_MAX = 62
 
 
+def slog_tag_in_limbs(cfg: CBLConfig) -> bool:
+    """`cbl_tpu.wordset.slog_packed`: True where `cbl_tpu` packs the 8-bit
+    tag into the word's uint32 limbs, n_bits + 8 <= 32 L (odd K 1-9,
+    15-25, 31-39 and 45-55).  Its rounds fold before seq 63 there, and so
+    do the port's, whatever the port's own layout."""
+    return cfg.n_bits + 8 <= 32 * cfg.word_limbs
+
+
 def slog_packed(cfg: CBLConfig) -> bool:
-    """True when a word and its 8-bit tag fit one slog key:
-    n_bits + 8 <= 64, odd K <= 25 (`cbl_tpu.wordset.slog_packed`; K >= 27
-    needs its unpacked layout with a tag column, ROADMAP slice 6b).
+    """True when the port's slog is one int64 key a row: the word and its
+    8-bit tag fit one (n_bits + 8 <= 64) and `cbl_tpu` packs its tag too
+    (`slog_tag_in_limbs`), odd K 1-9 and 15-25.  At K=11 and 13 the key
+    would fit, but `cbl_tpu` keeps a tag column and runs past seq 62, where
+    an 8-bit tag cannot go; those K, and K >= 27, take the tag column.
 
     At n_bits = 56 (K=25) the all-ones word with tag 0xFF would equal the
     sentinel.  No valid word is all-ones: that needs pos = 2^pos_bits - 1,
     and pos < 2K <= 2^pos_bits - 1 because 2K is never a power of two for
     odd K.  Below 56 bits every word is below 2^55 and its keys negative."""
-    if cfg.n_bits + 8 > 64:
+    if cfg.n_bits + 8 > 64 or not slog_tag_in_limbs(cfg):
         return False
     if cfg.n_bits + 8 == 64 and (1 << cfg.pos_bits) - 1 < 2 * cfg.k:
         raise ValueError(
@@ -611,6 +630,24 @@ def slog_key(words: torch.Tensor, tag) -> torch.Tensor:
 def slog_word(keys: torch.Tensor) -> torch.Tensor:
     """The word keys of non-sentinel slog keys (the tag dropped)."""
     return (keys >> 8) + _SLOG_BIAS
+
+
+def slog_tagged(words: torch.Tensor, tag, packed: bool) -> torch.Tensor:
+    """Slog rows of [N] or [2, N] word keys with `tag` (an int or an int64
+    tensor): packed keys (`slog_key`), or the word's columns and a tag
+    column, [C, N]; sentinel words stay sentinel rows."""
+    if packed:
+        return slog_key(words, tag)
+    tags = torch.where(_valid_mask(words),
+                       torch.as_tensor(tag, device=words.device), SENTINEL)
+    return torch.stack([*cols(words), tags])
+
+
+def slog_words(slog: torch.Tensor) -> torch.Tensor:
+    """The word keys of a slog's non-sentinel rows, [N] or [2, N]."""
+    if slog_is_packed(slog):
+        return slog_word(slog)
+    return stack(cols(slog)[:-1])
 
 
 def _fit(s: torch.Tensor, out_cap: int) -> torch.Tensor:
@@ -633,11 +670,12 @@ def _compact_sort_kernel(data: torch.Tensor, out_cap: int):
 def _slog_join_count(slog: torch.Tensor, words: torch.Tensor,
                      words_sorted: bool = False):
     """Hits of `words` against a slog without folding it: the queries get
-    tag 0xFF (after every entry of their word), one merge (B3), one scan
-    (B4).  A query row is a hit when its word is live there."""
-    q = slog_key(words, SLOG_TAG_MAX)
+    the join's tag (after every entry of their word), one merge (B3), one
+    scan (B4).  A query row is a hit when its word is live there."""
+    qtag = slog_query_tag(slog)
+    q = slog_tagged(words, qtag, slog_is_packed(slog))
     merge = merge_sorted_pair if words_sorted else merge_with_unsorted
-    return slog_scan_counts(merge(slog, q), SLOG_TAG_MAX)[0]
+    return slog_counts(stack(merge(cols(slog), cols(q))), qtag)[0]
 
 
 def _slog_fold_kernel(slog: torch.Tensor, out_cap: int):
@@ -650,13 +688,13 @@ def _slog_fold_kernel(slog: torch.Tensor, out_cap: int):
     instead of 270 for flush() + count() on the 84M-row log of the 32 Mbp
     dynamic workload, NVIDIA H100 80GB HBM3, 700 W).  Sentinel rows are
     never entries, so their runs are never live."""
-    run_start, _, is_entry, is_insert = slog_rows(slog)
+    run_start, _, is_entry, is_insert, _ = slog_rows(slog)
     run_id, last = _last_entry_of_runs(run_start, _valid_mask(slog), is_entry)
     run_live = (last >= 0) & is_insert[last.clamp(min=0)]
     keep = run_live[run_id]
     keep[:-1] &= run_start[1:]  # one row per run: its last
     return _compact_sort_kernel(
-        torch.where(keep, slog_word(slog), SENTINEL), out_cap
+        torch.where(keep, slog_words(slog), SENTINEL), out_cap
     )
 
 
@@ -697,7 +735,10 @@ class DeviceWordSet:
         self._slog_seq = 0
         self._slog_count_dev = None
         self._slog_real = 0
+        # the log's layout (one key a row, or a tag column), and whether
+        # rounds fold before seq 63 (where `cbl_tpu` does)
         self._slog_pack = slog_packed(cfg)
+        self._slog_capped = slog_tag_in_limbs(cfg)
 
     def _reset_pending(self) -> None:
         self.pending = sentinel_rows(self.pending_cap, self._cols,
@@ -999,8 +1040,8 @@ class DeviceWordSet:
     def _slog_count(self):
         if self._slog_count_dev is None:
             # distinct live words: runs whose last entry is an insert
-            self._slog_count_dev = slog_scan_counts(self._slog,
-                                                    SLOG_TAG_MAX)[1]
+            self._slog_count_dev = slog_counts(
+                self._slog, slog_query_tag(self._slog))[1]
         return self._slog_count_dev
 
     def count_device(self):

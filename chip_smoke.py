@@ -6,7 +6,7 @@ GPU.
 Run from the repository root, on a machine with one CUDA card, `nvcc` and
 `g++`:
 
-    python3 chip_smoke.py            # every phase, ~9 minutes
+    python3 chip_smoke.py            # every phase, ~5 minutes
     python3 chip_smoke.py --profile  # only a `torch.profiler` table of
                                      # the separate-calls workload
     python3 chip_smoke.py --profile-algebra  # the same of the set algebra
@@ -24,7 +24,10 @@ Phases (any failure raises and the script exits non-zero):
    rows (word, 2^25) against 2^25 (word, position) queries, with
    realistic words and with heavy duplicates; at wide K, B1 on two-column
    k-mers of W = 118 and 66 bits at 2^25, and B3, B5, B6 and B7 at three
-   columns at the K=59 sort-join's shapes and their tile edges),
+   columns at the K=59 sort-join's shapes and their tile edges; B4 on a
+   log with a tag column, C = 2 and 3, at 2^26 rows, the dynamic rounds'
+   83,886,080, a 2^22-row query run and a run whose liveness flips
+   across tiles before a sentinel tail from a tile edge),
    time both with CUDA events, time the one PyTorch call that computes the
    same function where there is one, and work out each kernel's bound
    (the larger of bytes over the HBM peak and integer operations over
@@ -121,7 +124,17 @@ Phases (any failure raises and the script exits non-zero):
    have launched its three-column kernel; config 3 is also timed as
    `bench.py --mode largek` times it (build from the bases, then
    `kmers_limbs`);
-11. require every kernel of each path to have been launched in that
+11. dynamic rounds at wide K: phase 5's 8 rounds on the same 32 Mbp at
+   K=59 (prefix 28; the log is two word columns and a tag column, C = 3)
+   and K=27 (prefix 24; one word column and a tag column, C = 2), one
+   warm-up and one timed run each; `distinct` and the summed `positive`
+   must equal a numpy oracle (one sort of every k-mer start, first held
+   to `bench/baseline.cpp dynamic` at K=25), a query of the active log
+   must equal the same query after `flush()`, and each timed run must
+   launch B4's tag-column kernel once a round and B1 (the wide kernel at
+   K=59, the one-column kernel at K=27); then K=59 under merge mode
+   "bitonic" (B7 at three columns, no B3), with the same counts;
+12. require every kernel of each path to have been launched in that
    path's counted run, print the timings, the kernels' JSON line and,
    last, the device JSON line.
 
@@ -153,7 +166,9 @@ KERNELS = ROUND_KERNELS + ("sort", "bitonic_sort", "bitonic_merge")
 # wide K: B1 on two-column k-mers, B3 / B5 / B6 / B7 at three columns
 WIDE_KERNELS = ("necklace_wide", "merge_3col", "sort_3col",
                 "bitonic_sort_3col", "bitonic_merge_3col")
-NO_LAUNCHES = dict.fromkeys(KERNELS + WIDE_KERNELS, 0)
+# B4 over a log with a tag column: a one-column word (C = 2), two (C = 3)
+TAG_KERNELS = ("slog_scan_tag", "slog_scan_tag_3col")
+NO_LAUNCHES = dict.fromkeys(KERNELS + WIDE_KERNELS + TAG_KERNELS, 0)
 # Peaks of one H100 SXM (NVIDIA's data sheet): HBM3 at 3.35 TB/s; 67
 # TFLOP/s of float32 outside the tensor cores counts a fused multiply-add
 # as two, so its 128 float32 lanes an SM issue 33.5e12 operations a
@@ -445,19 +460,20 @@ def check_kernels(card: str) -> dict:
             log(f"B4 slog_scan {label} qtag={qtag:#x}: hits {int(want[0])} "
                 f"live {int(want[1])}: kernel == plain: {errs[-1] == 0}")
             assert n == 1 or int(want[0]) > 0 < int(want[1])
+        if n > 1 << 22:
+            t = time_ms(lambda: scan.slog_scan_counts(keys, round_qtag), 20)
+            # one 8-byte read a row B4 needs, two counters written; a few
+            # compares a row
+            b = slog_bound(keys, 1, 6)
+            log(f"B4 slog_scan {label}: {t:.4f} ms, bound "
+                f"{b['bound_ms']:.4f} ms [{card}]")
         if n == 2 * SLAB:
-            ms = time_ms(lambda: scan.slog_scan_counts(keys, round_qtag), 20)
+            ms, b_main = t, b
             plain_ms = time_ms(
                 lambda: scan.slog_scan_counts_plain(keys, round_qtag), 3)
-        elif n > 1 << 22:
-            t = time_ms(lambda: scan.slog_scan_counts(keys, round_qtag), 20)
-            # one 8-byte read a row, two counters written; a few compares
-            log(f"B4 slog_scan {label}: {t:.4f} ms, bound "
-                f"{bound(n * 8 + 16, n * 6)['bound_ms']:.4f} ms [{card}]")
         del keys
     results["slog_scan"] = dict(
-        err=max(errs), ms=ms, plain_ms=plain_ms, library_ms=None,
-        **bound(2 * SLAB * 8 + 16, 2 * SLAB * 6))
+        err=max(errs), ms=ms, plain_ms=plain_ms, library_ms=None, **b_main)
 
     # B5: 2^25 keys in one column (the static build's sort); 2^26 + 2^21
     # keys, three quarters of them sentinels (the largest compaction of
@@ -558,6 +574,7 @@ def check_kernels(card: str) -> dict:
     results.update(check_bitonic(rng, results["merge"]["ms"], card, joins))
     del joins
     results.update(check_wide_kernels(rng, card))
+    results.update(check_slog_tag(rng, card))
 
     for name, r in results.items():
         lib = r["library_ms"]
@@ -1009,6 +1026,113 @@ def slog_keys(rng, n: int, query_run: int = 0):
     return torch.sort(keys).values
 
 
+def slog_bound(col0, n_cols: int, ops_a_row: int) -> dict:
+    """B4's bound on this log (`bound`): the rows it must read, 8 bytes a
+    column each, two counters written, `ops_a_row` operations a row.  A
+    tile whose first row is a sentinel holds only sentinels (the log is
+    sorted) and needs that one 8-byte load of column 0 and no more
+    (csrc/slog_scan.cu stops it there); every other tile needs all its
+    rows.  `col0` is the packed keys or the log's word column 0."""
+    from cbl_tpu_torch.limbs import SENTINEL
+    from cbl_tpu_torch.ops import scan
+
+    n, T = col0.shape[0], scan.SLOG_TILE
+    n_skip = int((col0[::T] == SENTINEL).sum())
+    rows = min(n, (-(-n // T) - n_skip) * T)
+    return bound(rows * 8 * n_cols + n_skip * 8 + 16, rows * ops_a_row)
+
+
+def slog_tag_cols(rng, n: int, n_cols: int, query_run: int = 0,
+                  flip: bool = False, tail: int | None = None):
+    """A sorted slog with a tag column on the card, as a tuple of n_cols
+    int64 columns (one or two word columns, then the tag): words of runs
+    of ~16 rows and one run of min(n / 64, 2^20) rows, tags (seq << 2) |
+    typ of seqs 0-79 (above 0xFF from seq 64; insert twice as often as
+    query or remove), 5 % join queries (`SENTINEL`), the last n / 10 rows
+    (or n - `tail`) sentinels.  With `query_run`, the long run has that
+    many rows: one insert, then queries only, so that the liveness must
+    cross query_run / SLOG_TILE tiles with no marker; with `flip`, one
+    word over every row: an insert at row 0, a remove at row 2n/3, the
+    rest queries (of seq 5 before the remove, of seq 70 after)."""
+    import torch
+
+    from cbl_tpu_torch.limbs import SENTINEL
+    from cbl_tpu_torch.ops.merge import sort_cols_plain
+
+    dev = torch.device(DEVICE)
+    w = rng.integers(0, max(n // 16, 1), size=n)
+    w[: query_run or min(n // 64, 1 << 20)] = n  # a word of no other row
+    tags = (rng.integers(0, 80, size=n) << 2) | rng.choice([1, 1, 2, 3], n)
+    tags[rng.random(n) < 0.05] = SENTINEL
+    if flip:  # queries of seq 5 before the remove, of seq 70 after it
+        w[:] = n
+        tags = np.where(np.arange(n) < 2 * n // 3, (5 << 2) | 2,
+                        (70 << 2) | 2)
+        tags[0], tags[2 * n // 3] = 1, (6 << 2) | 3
+    elif query_run:
+        tags[:query_run] = np.where(tags[:query_run] == SENTINEL, SENTINEL,
+                                    (tags[:query_run] & ~3) | 2)
+        tags[0] = 1  # seq 0's insert sorts first in the run
+    words = [w * 977 + 5] if n_cols == 2 else [w // 7 + 1, w % 7 * 977 + 5]
+    cols = [torch.from_numpy(c).to(dev) for c in (*words, tags)]
+    for c in cols:
+        c[n - n // 10 if tail is None else tail:] = SENTINEL
+    return sort_cols_plain(tuple(cols))
+
+
+def check_slog_tag(rng, card: str) -> dict:
+    """B4 on a log with a tag column (C = 2 and 3) against its plain
+    version, exact: 2^26 rows, 2^26 - 4097 rows and one row, the
+    83,886,080 rows the 32 Mbp dynamic rounds' log reaches, 2^24 rows
+    whose long run is 2^22 rows of queries after one insert, and one word
+    over 300 tiles whose liveness flips two thirds in, its sentinel tail
+    from a tile edge; at a round's query tag, a tag above 0xFF (seq 70)
+    and the join's; timed with CUDA events at 2^26 rows beside the
+    plain version and the bound (8 * C bytes a row it needs,
+    `slog_bound`)."""
+    from cbl_tpu_torch.limbs import SENTINEL
+    from cbl_tpu_torch.ops import scan
+
+    T = scan.SLOG_TILE
+    results = {}
+    for n_cols in (2, 3):
+        name = "slog_scan_tag" + ("_3col" if n_cols == 3 else "")
+        errs = []
+        for n, kw in ((2 * SLAB, {}), (2 * SLAB - 4097, {}), (1, {}),
+                      (83_886_080, {}), (1 << 24, {"query_run": 1 << 22}),
+                      (300 * T + 5, {"flip": True, "tail": 250 * T})):
+            cols = slog_tag_cols(rng, n, n_cols, **kw)
+            label = f"C={n_cols} n={n} {kw or ''}"
+            hits = []
+            for qtag in ((5 << 2) | 2, (70 << 2) | 2, SENTINEL):
+                got = scan.slog_scan_tag_counts(cols, qtag)
+                want = scan.slog_scan_counts_plain(cols, qtag)
+                errs.append(max(max_abs_err(g, w) for g, w in zip(got, want)))
+                hits.append(int(want[0]))
+                log(f"B4 tag {label} qtag={qtag:#x}: hits {int(want[0])} "
+                    f"live {int(want[1])}: kernel == plain: {errs[-1] == 0}")
+            assert n == 1 or hits[0] > 0, label
+            if "flip" in kw:  # live before the remove, dead after it
+                assert hits[:2] == [2 * n // 3 - 1, 0], hits
+            if n > 1 << 22:
+                t = time_ms(lambda: scan.slog_scan_tag_counts(
+                    cols, (5 << 2) | 2), 20)
+                # every column of a row B4 needs read once, two counters
+                # written; a compare or two a column and a few bit
+                # operations a row
+                b = slog_bound(cols[0], n_cols, 2 * n_cols + 4)
+                log(f"B4 tag {label}: {t:.4f} ms, bound "
+                    f"{b['bound_ms']:.4f} ms [{card}]")
+            if n == 2 * SLAB:
+                ms, b_main = t, b
+                plain_ms = time_ms(lambda: scan.slog_scan_counts_plain(
+                    cols, (5 << 2) | 2), 3)
+            del cols
+        results[name] = dict(
+            err=max(errs), ms=ms, plain_ms=plain_ms, library_ms=None, **b_main)
+    return results
+
+
 # --- phase 3 and 4: the static path ------------------------------------------
 
 
@@ -1072,13 +1196,19 @@ def static_run(codes: np.ndarray, offsets: np.ndarray, canonical: bool):
 # --- phase 5: the dynamic path ------------------------------------------------
 
 
-def dynamic_run(codes: np.ndarray, timed: bool):
-    """`bench.py --mode dynamic` on the port: SEGS rounds of
+def dynamic_run(codes: np.ndarray, timed: bool, k: int = K,
+                prefix_bits: int = 24, profiled: bool = False):
+    """`bench.py --mode dynamic` on the port at K=k: SEGS rounds of
     `dynamic_round(segs[i], segs[max(i-1, 0)], halves[i], lazy=True)`,
     one sync for the distinct count and the summed positives.  With
     `timed`, the launch counters are set to 0 after staging and read
-    after the sync.  -> (index, segs, result dict)."""
+    after the sync; with `profiled`, the rounds (not the staging) run
+    under `torch.profiler` (`prof` in the result).  -> (index, segs,
+    result dict)."""
+    import contextlib
+
     import torch
+    from torch.profiler import ProfilerActivity, profile
 
     from cbl_tpu_torch import CBL
     from cbl_tpu_torch.ops import LAUNCHES
@@ -1087,7 +1217,7 @@ def dynamic_run(codes: np.ndarray, timed: bool):
     off1 = np.array([0, sb], dtype=np.int64)
     off_h = np.array([0, sb // 2], dtype=np.int64)
     torch.cuda.synchronize()
-    idx = CBL(k=K, device=DEVICE)
+    idx = CBL(k=k, prefix_bits=prefix_bits, device=DEVICE)
     t0 = time.perf_counter()  # bench.py's t0: staging is inside the wall
     segs = [idx.pack_stream(codes[i * sb:(i + 1) * sb], off1)
             for i in range(SEGS)]
@@ -1099,17 +1229,19 @@ def dynamic_run(codes: np.ndarray, timed: bool):
         for name in LAUNCHES:
             LAUNCHES[name] = 0
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-    ev[0].record()
-    pos_dev = None
-    ops = 0
-    for i in range(SEGS):
-        _, p = idx.dynamic_round(segs[i], segs[i - 1 if i else 0], halves[i],
-                                 lazy=True)
-        pos_dev = p if pos_dev is None else pos_dev + p
-        ops += 2 * (sb - K + 1) + sb // 2 - K + 1
-    n_dev = idx.count_device()
-    ev[1].record()
-    distinct, positive = torch.stack([n_dev, pos_dev]).tolist()
+    with (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+          if profiled else contextlib.nullcontext()) as prof:
+        ev[0].record()
+        pos_dev = None
+        ops = 0
+        for i in range(SEGS):
+            _, p = idx.dynamic_round(segs[i], segs[i - 1 if i else 0],
+                                     halves[i], lazy=True)
+            pos_dev = p if pos_dev is None else pos_dev + p
+            ops += 2 * (sb - k + 1) + sb // 2 - k + 1
+        n_dev = idx.count_device()
+        ev[1].record()
+        distinct, positive = torch.stack([n_dev, pos_dev]).tolist()
     t2 = time.perf_counter()
     launches = dict(LAUNCHES) if timed else None
     ws = idx.wordset
@@ -1117,8 +1249,10 @@ def dynamic_run(codes: np.ndarray, timed: bool):
         ops=ops, distinct=distinct, positive=positive,
         wall_s=t2 - t0, stage_s=t1 - t0, rounds_s=t2 - t1,
         rounds_ms=ev[0].elapsed_time(ev[1]), launches=launches,
-        log_rows=ws._slog.shape[0], log_real=ws._slog_real,
-        seq=ws._slog_seq,
+        log_rows=ws._slog.shape[-1],
+        log_cols=1 if ws._slog.dim() == 1 else ws._slog.shape[0],
+        log_real=ws._slog_real,
+        seq=ws._slog_seq, prof=prof,
     )
 
 
@@ -2568,6 +2702,158 @@ def wide_k_check(card: str) -> dict:
     return out
 
 
+# --- phase 11: dynamic rounds at wide K -----------------------------------------
+
+DYN_WIDE = ((WIDE_K, WIDE_PREFIX), (27, 24))  # a log of C = 3 and C = 2
+
+
+def _np_group_sorted(hi: np.ndarray, lo):
+    """(order, first) of values `hi` (or (hi, lo) pairs): the order that
+    sorts them and, in that order, True at the first row of each
+    distinct value."""
+    o = _np_argsort_threads(hi)
+    h = hi[o]
+    if lo is None:
+        first = np.concatenate([[True], h[1:] != h[:-1]])
+        return o, first
+    dup = np.flatnonzero(h[1:] == h[:-1])
+    if dup.size:  # runs of one hi, sorted by lo
+        rows = np_unique(np.concatenate([dup, dup + 1]))
+        o[rows] = o[rows][np.lexsort((lo[o[rows]], h[rows]))]
+    h, l = hi[o], lo[o]
+    first = np.concatenate([[True], (h[1:] != h[:-1]) | (l[1:] != l[:-1])])
+    return o, first
+
+
+def np_dynamic_oracle(codes: np.ndarray, k: int):
+    """(distinct, summed positive) of `bench.py --mode dynamic`'s rounds on
+    `codes` at K=k, plain: SEGS segments, each a record of its own; round
+    i inserts segment i, queries segment max(i - 1, 0) (every k-mer
+    occurrence counts; it sees the inserts of rounds <= i and the removes
+    of rounds < i) and removes the first half of segment i.  One sort of
+    every k-mer start groups equal k-mers; each group's rounds of insert
+    and of remove are bit masks, and the last event before an observer
+    decides."""
+    sb = len(codes) // SEGS
+    nk = len(codes) - k + 1
+    if 2 * k <= 64:
+        hi, lo = _np_rolling(codes, 0, k, nk), None
+    else:
+        hi, lo = np_kmer_pairs(codes, k, False)
+    off = np.arange(nk) % sb
+    inside = off <= sb - k  # k-mers of one segment
+    seg = (np.arange(nk) // sb)[inside]
+    in_half = (off <= sb // 2 - k)[inside]
+    hi = hi[inside]
+    lo = None if lo is None else lo[inside]
+    o, first = _np_group_sorted(hi, lo)
+    starts = np.flatnonzero(first)
+    bit = (np.int64(1) << seg)[o]
+    ins = np.bitwise_or.reduceat(bit, starts)
+    rm = np.bitwise_or.reduceat(np.where(in_half[o], bit, 0), starts)
+    gid = np.empty(len(o), dtype=np.int64)
+    gid[o] = np.cumsum(first) - 1
+    top = np.array([m.bit_length() - 1 for m in range(1 << SEGS)])
+
+    def present(mask_ins: np.ndarray, rm_before: int) -> np.ndarray:
+        """Groups whose last insert (in `mask_ins`) has no remove after it
+        among the rounds below `rm_before`."""
+        j = top[mask_ins]
+        since = ((1 << rm_before) - 1) & ~((1 << np.maximum(j, 0)) - 1)
+        return (j >= 0) & ((rm & since) == 0)
+
+    positive = 0
+    for i in range(SEGS):
+        live = present(ins & ((1 << (i + 1)) - 1), i)
+        positive += int(live[gid[seg == max(i - 1, 0)]].sum())
+    return int(present(ins, SEGS).sum()), positive
+
+
+def wide_dynamic_check(codes: np.ndarray, base_dyn: dict, card: str) -> dict:
+    """Phase 11: config 2's rounds at K=59 (prefix 28; the log's two word
+    columns and a tag column) and K=27 (prefix 24; one word column and a
+    tag column), one warm-up and one timed run each, against
+    `np_dynamic_oracle` (first held to `bench/baseline.cpp dynamic` at
+    K=25); a query of the active log against the same query after
+    `flush()`; K=59 once more under merge mode "bitonic" (B7 at three
+    columns, no B3).  Each timed run's launches are counted alone."""
+    import torch
+
+    from cbl_tpu_torch.ops.sort import use_merge_mode
+
+    t0 = time.perf_counter()
+    want25 = np_dynamic_oracle(codes, K)
+    out = {"launches": {}, "oracle_k25_s": time.perf_counter() - t0}
+    assert want25 == (base_dyn["distinct"], base_dyn["positive"]), (
+        want25, base_dyn)
+    sb = len(codes) // SEGS
+    want = {}
+    for k, pb in DYN_WIDE:
+        t0 = time.perf_counter()
+        want[k] = np_dynamic_oracle(codes, k)
+        oracle_s = time.perf_counter() - t0
+        dynamic_run(codes, timed=False, k=k, prefix_bits=pb)  # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        idx, segs, r = dynamic_run(codes, timed=True, k=k, prefix_bits=pb)
+        r["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        r["oracle_s"] = oracle_s
+        log(f"dynamic rounds, K={k} prefix {pb}: {r}; numpy oracle "
+            f"(distinct, positive) {want[k]}")
+        assert (r["distinct"], r["positive"]) == want[k], (k, r, want[k])
+        n = r["launches"]
+        tag, merge, neck = (("slog_scan_tag_3col", "merge_3col",
+                             "necklace_wide") if k > 27 else
+                            ("slog_scan_tag", "merge", "necklace"))
+        assert n[tag] == SEGS and n["slog_scan"] == 0, n
+        # three merges a round, two in the first; B1 once a segment and
+        # once a half (the streams' words are kept, so a segment queried
+        # in the next round is not run again)
+        assert n[merge] == 3 * SEGS - 1 and n[neck] == 2 * SEGS, n
+        assert n["blank"] >= 1, n
+        out["launches"][f"K={k} rounds"] = n
+        before = launches_now()
+        t_j = time.perf_counter()
+        joined = idx.query_codes_stream(segs[SEGS - 1])  # B3 + B4 tag
+        r["join_s"] = time.perf_counter() - t_j
+        after = launches_now()
+        assert (after[merge] - before[merge], after[tag] - before[tag]) == (
+            1, 1), (before, after)
+        t_f = time.perf_counter()
+        idx.flush()
+        folded = idx.count()
+        r["flush_s"] = time.perf_counter() - t_f
+        static = idx.query_codes_stream(segs[SEGS - 1])
+        log(f"K={k}: query of segment {SEGS - 1} against the log {joined}, "
+            f"after flush() {static}; count {folded}")
+        assert joined == static and joined[0] == sb - k + 1, (joined, static)
+        assert 0 < joined[1] < joined[0] and folded == r["distinct"]
+        out[k] = r
+        del idx, segs
+        # once more under the profiler: device time by kernel, idle share
+        _, _, rp = dynamic_run(codes, timed=False, k=k, prefix_bits=pb,
+                               profiled=True)
+        assert (rp["distinct"], rp["positive"]) == want[k], rp
+        print_profile(rp["prof"], f"[{card}] K={k} dynamic rounds under the "
+                      f"profiler ({rp['rounds_ms']:.2f} ms by device events; "
+                      f"timed run {r['rounds_ms']:.2f})", rp["rounds_ms"])
+        torch.cuda.empty_cache()
+    with use_merge_mode("bitonic"):
+        dynamic_run(codes, timed=False, k=WIDE_K, prefix_bits=WIDE_PREFIX)
+        torch.cuda.reset_peak_memory_stats()
+        _, _, rb = dynamic_run(codes, timed=True, k=WIDE_K,
+                               prefix_bits=WIDE_PREFIX)
+    rb["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    log(f"dynamic rounds, K={WIDE_K}, merge mode bitonic: {rb}")
+    assert (rb["distinct"], rb["positive"]) == want[WIDE_K], rb
+    n = rb["launches"]
+    assert n["bitonic_merge_3col"] == 3 * SEGS - 1, n
+    assert n["merge_3col"] == 0 and n["slog_scan_tag_3col"] == SEGS, n
+    out["bitonic"] = rb
+    out["launches"][f"K={WIDE_K} rounds, bitonic"] = n
+    torch.cuda.empty_cache()
+    return out
+
+
 def profile_algebra() -> int:
     """`--profile-algebra`: the set-algebra runs under `torch.profiler`
     in the ("bitonic", "bitonic") and the default modes; prints the
@@ -2994,7 +3280,11 @@ def main() -> int:
     wide = wide_k_check(card)
 
     stamp(11)
-    # phase 11
+    # phase 11: config 2's rounds at K=59 and K=27 against numpy
+    wdyn = wide_dynamic_check(codes, base_dyn, card)
+
+    stamp(12)
+    # phase 12
     for name in STATIC_KERNELS:
         assert main_launches[name] >= 1, name
     for label, (r, base) in runs.items():
@@ -3150,6 +3440,24 @@ def main() -> int:
     for path, counts in wide["launches"].items():
         log(f"[{card}] wide-K launches, {path}: "
             f"{ {n: c for n, c in counts.items() if c} }")
+    runs = [(f"K={k} prefix {pb}", wdyn[k]) for k, pb in DYN_WIDE]
+    for label, r in runs + [(f"K={WIDE_K} prefix {WIDE_PREFIX}, merge mode "
+                             "bitonic (B7)", wdyn["bitonic"])]:
+        extra = (f"; query of the active log {r['join_s'] * 1e3:.1f} ms, "
+                 f"flush + count {r['flush_s'] * 1e3:.1f} ms; numpy oracle "
+                 f"{r['oracle_s']:.1f} s" if "join_s" in r else "")
+        log(f"[{card}] {label} {MAIN_BASES / 1e6:.0f} Mbp dynamic, {SEGS} "
+            f"rounds, {r['ops']} ops: wall with staging "
+            f"{r['wall_s'] * 1e3:.2f} ms = {r['ops'] / r['wall_s']:.4g} ops/s"
+            f" (stage {r['stage_s'] * 1e3:.1f} ms); device rounds "
+            f"{r['rounds_s'] * 1e3:.2f} ms = {r['ops'] / r['rounds_s']:.4g} "
+            f"ops/s ({r['rounds_ms']:.2f} ms by device events); peak device "
+            f"memory {r['peak_gib']:.2f} GiB; final log {r['log_rows']} rows"
+            f" x {r['log_cols']} columns ({r['log_real']} real bound, seq "
+            f"{r['seq']}){extra}; launches "
+            f"{ {n: c for n, c in r['launches'].items() if c} }")
+    log(f"[{card}] phase 11's oracle held to bench/baseline.cpp at K={K}: "
+        f"{wdyn['oracle_k25_s']:.1f} s")
 
     src = {
         "necklace": ("cbl_tpu_torch/csrc/necklace.cu",
@@ -3167,8 +3475,9 @@ def main() -> int:
         "bitonic_merge": ("cbl_tpu_torch/csrc/bitonic_merge.cu",
                           "cbl_tpu/ops/sort_pallas.py:302"),
     }
-    for name in WIDE_KERNELS:
-        src[name] = src[name.replace("_wide", "").replace("_3col", "")]
+    for name in WIDE_KERNELS + TAG_KERNELS:
+        src[name] = src[name.replace("_wide", "").replace("_3col", "")
+                        .replace("_tag", "")]
     # launches: the counted runs of the static path (plain), the dynamic
     # rounds (in the default mode and under "bitonic"), the separate calls
     # (runs A and B under "mergepath"), set algebra (under ("bitonic",
@@ -3178,12 +3487,14 @@ def main() -> int:
     # (three fresh builds' exports, checkpoints, .cbl files) and wide K
     # (config 3's timed build and self-query in each mode; at K=31 the
     # sequence calls, the set operations in each mode pair and the
-    # contains mask in two), each counted from 0
+    # contains mask in two) and the rounds at wide K (K=59 and 27, and
+    # K=59 under "bitonic"), each counted from 0
     paths = (main_launches, dyn_launches, b7_launches, sep["A"]["launches"],
              sep["B"]["launches"], alg_launches,
              alg[ALGEBRA_MODES[1]]["launches"], om["default"]["launches"],
              om["bitonic"]["launches"], om["holes"]["launches"],
-             seq_launches, ex_launches, *wide["launches"].values())
+             seq_launches, ex_launches, *wide["launches"].values(),
+             *wdyn["launches"].values())
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src[name][0],
          "replaces": src[name][1],
@@ -3195,7 +3506,7 @@ def main() -> int:
          "library_ms": kern[name]["library_ms"],
          **({"passes": kern[name]["passes"]} if "passes" in kern[name]
             else {})}
-        for name in KERNELS + WIDE_KERNELS
+        for name in KERNELS + WIDE_KERNELS + TAG_KERNELS
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,7 +9,9 @@ real-row bounds and the log itself (`cbl_tpu`'s columns converted with
 on a built index, with queries of the active log between rounds, across
 the fold at the seq cap of 62 (with a remove at seq 62) and the
 autofold, at K=25 and K=7 (one limb), and after `flush()` with a static
-query.  Every comparison is exact integer equality.
+query; one round at K=27, over the log with a tag column
+(`tests/test_torch_slog_tag.py` holds that layout).  Every comparison is
+exact integer equality.
 """
 
 import numpy as np
@@ -228,14 +230,17 @@ def test_slog_carried_across_from_jax():
 
 
 def test_unported_round_paths_raise():
-    """K=27 rounds are refused; rounds over streams of several slabs, or
-    of none, refused until the pending log was ported, now take the
-    separate calls and match `cbl_tpu`'s."""
+    """Round paths that were refused once: a K=27 round (refused until the
+    log with a tag column was ported) now runs over that log and matches
+    `cbl_tpu`'s; rounds over streams of several slabs, or of none
+    (refused until the pending log was ported), take the separate calls
+    and match `cbl_tpu`'s."""
     codes = np.random.default_rng(3).integers(0, 4, size=9_000,
                                               dtype=np.uint8)
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        CBL(k=27, device="cpu").dynamic_round(_one(codes), _one(codes),
-                                               _one(codes))
+    j27, t27 = _pair(k=27)
+    _rounds(j27, t27, [(_one(codes), _one(codes[:6_000]),
+                        _one(codes[:3_000]))])
+    assert t27.wordset._slog.shape[0] == 2  # the word's column and a tag's
     jidx, idx = _pair()
     multi = idx.pack_stream(*_one(codes), slab=4096)
     assert len(multi.slabs) == 3

@@ -1047,3 +1047,156 @@ def test_wide_k_on_cuda_matches_cpu(cuda, monkeypatch, k, prefix_bits,
         assert np.array_equal(val[2], ref[2]) and np.array_equal(
             val[3], ref[3]), key
         assert val[4] == ref[4], key
+
+
+# --- B4 on a log with a tag column --------------------------------------------
+
+
+def _tag_cols(rng, n, n_cols, n_words, sent_from=None, run=0,
+              first_typ=1):
+    """A sorted slog with a tag column: one (C = 2) or two (C = 3) word
+    columns over few words, tags (seq << 2) | typ of seqs 0-79 (above
+    0xFF from seq 64), 5 % join queries (SENTINEL), sentinels from row
+    `sent_from` (default: the last tenth).  With `run`, rows 0..run-1 are
+    one word's run: an entry of typ `first_typ`, then queries only."""
+    w = rng.integers(0, max(n_words, 1), size=n)
+    tags = (rng.integers(0, 80, size=n) << 2) | rng.choice([1, 1, 2, 3], n)
+    tags[rng.random(n) < 0.05] = SENTINEL
+    if run:
+        w[:run] = n_words  # a word of no other row
+        tags[:run] = np.where(tags[:run] == SENTINEL, SENTINEL,
+                              (tags[:run] & ~3) | 2)
+        tags[0] = first_typ
+    words = [w * 977 + 5] if n_cols == 2 else [w // 7 + 1, w % 7 * 977 + 5]
+    cols = [torch.from_numpy(c) for c in (*words, tags)]
+    for c in cols:
+        c[n - n // 10 if sent_from is None else sent_from:] = SENTINEL
+    return merge.sort_cols_plain(tuple(cols))
+
+
+def _tag_flip(n, n_cols):
+    """One word over n rows: inserted at row 0, removed at 2n/3 (seq 6),
+    queried at seq 5 before and seq 70 after."""
+    tags = np.where(np.arange(n) < 2 * n // 3, (5 << 2) | 2, (70 << 2) | 2)
+    tags[0], tags[2 * n // 3] = 1, (6 << 2) | 3
+    words = [np.full(n, 42)] * (n_cols - 1)
+    return tuple(torch.from_numpy(c) for c in (*words, tags))
+
+
+@pytest.mark.parametrize("n_cols", [2, 3])
+@pytest.mark.parametrize("case", [
+    "empty", "one", "tile-1", "tile+1", "random", "flip", "all-sentinel",
+    "query run", "tile-edge runs", "sentinels from a tile edge",
+    "k*tile-1", "k*tile", "k*tile+1",
+])
+def test_slog_scan_tag_kernel_matches_plain(cuda, n_cols, case):
+    """B4's tag-column form: one launch at the edge lengths of the real
+    tile, a query run over 300 tiles that hold no marker, runs that end
+    on tile edges, tags above 0xFF and the join's SENTINEL tag."""
+    rng = np.random.default_rng(len(case) + n_cols)
+    cols = {
+        "empty": lambda: tuple(torch.empty(0, dtype=torch.int64)
+                               for _ in range(n_cols)),
+        "one": lambda: _tag_cols(rng, 1, n_cols, 1, sent_from=1),
+        "tile-1": lambda: _tag_cols(rng, T - 1, n_cols, 300),
+        "tile+1": lambda: _tag_cols(rng, T + 1, n_cols, 30),
+        "random": lambda: _tag_cols(rng, 1_000_003, n_cols, 60_000),
+        "flip": lambda: _tag_flip(50_001, n_cols),
+        "all-sentinel": lambda: tuple(torch.full((9_000,), SENTINEL)
+                                      for _ in range(n_cols)),
+        "query run": lambda: _tag_cols(rng, 302 * T, n_cols, 20_000,
+                                       run=300 * T + 7),
+        "tile-edge runs": lambda: tuple(torch.from_numpy(c) for c in (
+            *[np.arange(40 * T) // T + 1] * (n_cols - 1),
+            np.sort((rng.integers(0, 80, 40 * T) << 2)
+                    | rng.choice([1, 2, 2, 3], 40 * T)))),
+        "sentinels from a tile edge": lambda: _tag_cols(
+            rng, 40 * T, n_cols, 3_000, sent_from=20 * T, run=10 * T),
+        "k*tile-1": lambda: _tag_cols(rng, 37 * T - 1, n_cols, 3000),
+        "k*tile": lambda: _tag_cols(rng, 37 * T, n_cols, 30),
+        "k*tile+1": lambda: _tag_cols(rng, 37 * T + 1, n_cols, 3000,
+                                      sent_from=37 * T + 1),
+    }[case]()
+    cols = tuple(c.to(cuda) for c in cols)
+    key = "slog_scan_tag" + ("_3col" if n_cols == 3 else "")
+    n0 = LAUNCHES[key]
+    qtags = ((5 << 2) | 2, (70 << 2) | 2, 1, SENTINEL)
+    for qtag in qtags:
+        PASSES[key] = 0
+        got = scan.slog_scan_tag_counts(cols, qtag)
+        want = scan.slog_scan_counts_plain(cols, qtag)
+        torch.cuda.synchronize()
+        assert [int(x) for x in got] == [int(x) for x in want], qtag
+        assert PASSES[key] == 1
+    assert LAUNCHES[key] == n0 + len(qtags)
+    if case == "flip":
+        assert int(scan.slog_scan_tag_counts(cols, (5 << 2) | 2)[0]) > 0
+
+
+def test_slog_scan_tag_kernel_repeat_strided_and_side_stream(cuda):
+    """Calls never read the statuses of the one before (a live and a dead
+    query run of the same size, in turns), the columns of a [C, N]
+    tensor's prefix (rows of a longer stride, as a cut log's), and a
+    call on another stream."""
+    n, run = 302 * T, 300 * T + 7
+    live = torch.stack(_tag_cols(np.random.default_rng(11), n, 3, 20_000,
+                                 run=run)).to(cuda)
+    dead = torch.stack(_tag_cols(np.random.default_rng(11), n, 3, 20_000,
+                                 run=run, first_typ=3)).to(cuda)
+    for s in (live, dead, live, dead):
+        got = scan.slog_scan_tag_counts(s, SENTINEL)
+        want = scan.slog_scan_counts_plain(s, SENTINEL)
+        assert [int(x) for x in got] == [int(x) for x in want]
+    assert int(scan.slog_scan_tag_counts(live, SENTINEL)[0]) > int(
+        scan.slog_scan_tag_counts(dead, SENTINEL)[0])
+    cut = live[:, :n - 3 * T - 1]  # every column a strided row
+    assert not cut.is_contiguous()
+    got = scan.slog_scan_tag_counts(cut, (3 << 2) | 2)
+    want = scan.slog_scan_counts_plain(cut, (3 << 2) | 2)
+    assert [int(x) for x in got] == [int(x) for x in want]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got = scan.slog_scan_tag_counts(live, (2 << 2) | 2)
+    side.synchronize()
+    want = scan.slog_scan_counts_plain(live, (2 << 2) | 2)
+    assert [int(x) for x in got] == [int(x) for x in want]
+
+
+@pytest.mark.parametrize("k,prefix_bits,canonical", [
+    (13, 20, False), (27, 24, False), (31, 24, True), (59, 28, False)])
+def test_wide_rounds_on_cuda_match_cpu(cuda, monkeypatch, k, prefix_bits,
+                                       canonical):
+    """Dynamic rounds over the log with a tag column (C = 2 at K=13 and
+    27, 3 at K=31 and 59), a query of the active log and `flush()` on
+    the card equal the CPU's, in the default merge mode and under
+    "bitonic"; each round and the query launch B4's tag-column kernel
+    once."""
+    rng = np.random.default_rng(k)
+    sb = 6_000
+    codes = rng.integers(0, 4, size=4 * sb, dtype=np.uint8)
+    one = lambda c: (c, np.array([0, len(c)], dtype=np.int64))
+    key = "slog_scan_tag" + ("_3col" if k > 27 else "")
+    for merge_mode in ("mergepath", "bitonic"):
+        got = {}
+        with sort.use_merge_mode(merge_mode):
+            for device in ("cpu", cuda):
+                for name in LAUNCHES:
+                    monkeypatch.setitem(LAUNCHES, name, 0)
+                idx = CBL(k=k, prefix_bits=prefix_bits, canonical=canonical,
+                          device=device)
+                r = [idx.dynamic_round(one(codes[i * sb:(i + 1) * sb]),
+                                       one(codes[max(i - 1, 0) * sb:
+                                                 max(i, 1) * sb]),
+                                       one(codes[i * sb:i * sb + sb // 2]))
+                     for i in range(4)]
+                r += [idx.count(), idx.query_codes_stream(*one(codes))]
+                launched = LAUNCHES[key]
+                idx.flush()
+                r += [idx.count(), idx.query_codes_stream(*one(codes))]
+                got[str(device)] = (r, idx.wordset.words_array(), launched)
+        cpu, card = got["cpu"], got[str(cuda)]
+        assert card[0] == cpu[0] and np.array_equal(card[1], cpu[1])
+        # one a round and one for the query; `count()` reads the last
+        # round's scan
+        assert cpu[2] == 0 and card[2] == 4 + 1

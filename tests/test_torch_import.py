@@ -99,10 +99,13 @@ def test_cpu_path_never_counts_launches(monkeypatch):
             assert (idx - other).count() == (idx ^ other).count() == 0
             assert both.query_codes_stream(ps)[1] == 3_000 - 24
             assert both.contains_kmers([0]).tolist() == [False]
+    wide = CBL(k=27, device="cpu")  # a round over the log's tag column
+    assert wide.dynamic_round(*[(codes, off)] * 3) == (2 * (3_000 - 26),) * 2
     assert LAUNCHES == {"necklace": 0, "blank": 0, "merge": 0, "slog_scan": 0,
                         "sort": 0, "bitonic_sort": 0, "bitonic_merge": 0,
                         "necklace_wide": 0, "merge_3col": 0, "sort_3col": 0,
-                        "bitonic_sort_3col": 0, "bitonic_merge_3col": 0}
+                        "bitonic_sort_3col": 0, "bitonic_merge_3col": 0,
+                        "slog_scan_tag": 0, "slog_scan_tag_3col": 0}
 
 
 def test_wrappers_check_inputs():

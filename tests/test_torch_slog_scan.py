@@ -186,12 +186,22 @@ def test_slog_state_round_trips(k, prefix_bits):
 
 
 def test_slog_packed_configs():
-    for k in range(1, 28, 2):  # the port holds odd K <= 27
-        cfg = get_config(k=k, prefix_bits=min(24, 2 * k - 1))
-        assert tws.slog_packed(cfg) == (k <= 25)
-        if jws.slog_packed(cbl_tpu.config.get_config(
-                k=k, prefix_bits=min(24, 2 * k - 1))):
-            assert tws.slog_packed(cfg)  # where cbl_tpu packs, so does the port
+    """The log's layout and seq cap for every odd K: the port packs one
+    key (word and 8-bit tag) at K 1-9 and 15-25, elsewhere it keeps a tag
+    column beside the word's one (K=11, 13, 27) or two columns; it folds
+    before seq 63 exactly where `cbl_tpu` packs its tag into the limbs
+    (K 1-9, 15-25, 31-39, 45-55)."""
+    for k in range(1, 60, 2):
+        pb = min(24, 2 * k - 1)
+        cfg = get_config(k=k, prefix_bits=pb)
+        packed = k <= 9 or 15 <= k <= 25
+        capped = packed or 31 <= k <= 39 or 45 <= k <= 55
+        assert tws.slog_packed(cfg) == packed, k
+        assert tws.slog_tag_in_limbs(cfg) == capped, k
+        assert capped == jws.slog_packed(cbl_tpu.config.get_config(
+            k=k, prefix_bits=pb)), k
+        ws = tws.DeviceWordSet(cfg, "cpu")
+        assert (ws._slog_pack, ws._slog_capped) == (packed, capped), k
 
 
 def test_slog_scan_wrapper_checks_and_counts_no_cpu_launch(monkeypatch):

@@ -24,7 +24,8 @@ first two-column k-mer, B1 wide) and K=59/28 (BASELINE config 3):
   thinly, against the interpret-mode Pallas kernels at L+1 columns.
 
 Every comparison is exact integer equality.  Single-slab `dynamic_round`
-at K >= 27 stays refused (ROADMAP slice 6b).
+at K >= 27 runs over the log with a tag column, held against `cbl_tpu` in
+`tests/test_torch_slog_tag.py`.
 """
 
 import jax.numpy as jnp
@@ -368,15 +369,24 @@ def test_index_matches_jax(monkeypatch, tmp_path, k, prefix_bits,
 
 
 def test_dynamic_rounds_at_wide_k():
-    """A single-slab round at K >= 27 stays refused (slice 6b); a round
-    over a stream of several slabs takes the separate calls and equals
+    """A single-slab round at K >= 27 runs over the log with a tag column
+    (refused until that log was ported; `tests/test_torch_slog_tag.py`
+    holds it against `cbl_tpu`): on an empty index it finds every k-mer it
+    inserted, and its count equals the separate calls'.  A round over a
+    stream of several slabs takes the separate calls and equals
     `cbl_tpu`'s calls on the same streams."""
     codes = _codes(7, BUILD_BASES)  # one slab of 8192 in `cbl_tpu`
     one = (codes, np.array([0, len(codes)], dtype=np.int64))
+    half = (codes[2000:5000], np.array([0, 3000], dtype=np.int64))
     for k in (27, 29, 59):
-        with pytest.raises(NotImplementedError, match="slice 6b"):
-            CBL(k=k, prefix_bits=24, device="cpu").dynamic_round(
-                one, one, one)
+        rounds = CBL(k=k, prefix_bits=24, device="cpu")
+        calls = CBL(k=k, prefix_bits=24, device="cpu")
+        n = len(codes) - k + 1
+        assert rounds.dynamic_round(one, one, half) == (n, n)
+        assert rounds.wordset._slog.shape[0] == (2 if k == 27 else 3)
+        calls.insert_codes_stream(*one)
+        calls.remove_codes_stream(*half)
+        assert rounds.count() == calls.count() > 0
     j, t = _pair(33, 24, False)
     multi = t.pack_stream(*one, slab=4096)
     assert len(multi.slabs) == 2
@@ -455,9 +465,18 @@ def test_states_carry_both_ways(k, prefix_bits):
     assert (n_pending, rm) == (jw.n_pending, jw._pending_rm)
     assert t.count() == j.count()
     _same_wordset(jw, tw)
-    with pytest.raises(NotImplementedError, match="slice 6b"):
-        state.slog_from_arrays((np.zeros(4, np.uint32),) * (j.wordset.L + 1),
-                               1, 4, 4, get_config(k, prefix_bits), "cpu")
+    # a log in `cbl_tpu`'s layout for the config (the tag packed into the
+    # limbs at K=31, a tag column at K=29 and 59) carried in and back
+    n_cols = jw.L + (0 if jws.slog_packed(j.cfg) else 1)
+    cols = (np.zeros(4, np.uint32),) * (n_cols - 1) + (
+        np.array([1, 2, 3, 5], np.uint32),)
+    ws = state.slog_from_arrays(cols, 1, 4, 4, get_config(k, prefix_bits),
+                                "cpu")
+    assert ws._slog.shape == (3, 4) and ws.count() == 1
+    back = state.slog_to_arrays(ws)
+    assert back[1:] == (1, 4, 4)
+    for a, b in zip(back[0], cols, strict=True):
+        _same(a, b)
 
 
 # --- three-column sorts and merges -------------------------------------------
