@@ -8,7 +8,9 @@ calls with ordered membership (`insert_seq(s)`, `remove_seq(s)`,
 `contains_seq(s)`, `contains_codes_stream`, `contains_all`; see `cbl`),
 and export, checkpoints and stats (`words_array`, `kmers_limbs`,
 `iter_nucs`, `save_to_file` / `load_from_file` in `serialize`, the
-bucket stats in `stats`, the reference's `.cbl` files in `interop`).
+bucket stats in `stats`, the reference's `.cbl` files in `interop`),
+FASTA/Q input and the native 2-bit packer (`io`), the command line
+(`python -m cbl_tpu_torch`, `cli`) and `profiling`.
 It imports neither JAX nor `cbl_tpu`; `cbl_tpu` stays the reference the
 port is tested against.  Every odd K up to 59 is held: a word is one
 int64 key for K <= 27 and two int64 columns from K=29 (see `limbs`);

@@ -51,7 +51,14 @@ def decode_codes(codes: np.ndarray) -> bytes:
 
 def np_pack_stream(codes: np.ndarray) -> np.ndarray:
     """[S] uint8 codes (S % 16 == 0) -> [S/16] uint32, base s at bits
-    [30 - 2*(s%16), 32 - 2*(s%16)) of word s//16 (big-endian bases)."""
+    [30 - 2*(s%16), 32 - 2*(s%16)) of word s//16 (big-endian bases).
+    The native packer (`io.pack_stream_native`) first, numpy where it is
+    unavailable."""
+    from . import io as _io
+
+    out = _io.pack_stream_native(codes)
+    if out is not None:
+        return out
     c = codes.reshape(-1, BASES_PER_WORD).astype(np.uint32)
     word = np.zeros(c.shape[0], dtype=np.uint32)
     for j in range(BASES_PER_WORD):

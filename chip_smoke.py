@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's static, dynamic-round, separate-call,
-set-algebra, ordered-membership, export and wide-K paths on one NVIDIA
-GPU.
+set-algebra, ordered-membership, export and wide-K paths, and its CLI,
+on one NVIDIA GPU.
 
 Run from the repository root, on a machine with one CUDA card, `nvcc` and
 `g++`:
 
-    python3 chip_smoke.py            # every phase, ~5 minutes
+    python3 chip_smoke.py            # every phase, ~8 minutes
     python3 chip_smoke.py --profile  # only a `torch.profiler` table of
                                      # the separate-calls workload
     python3 chip_smoke.py --profile-algebra  # the same of the set algebra
@@ -14,7 +14,8 @@ Run from the repository root, on a machine with one CUDA card, `nvcc` and
 Phases (any failure raises and the script exits non-zero):
 1. print the card, its power limit and the versions; build the CUDA
    kernels of `cbl_tpu_torch` from `cbl_tpu_torch/csrc/` (one nvcc per
-   source, in parallel);
+   source, in parallel) and the native FASTA/Q decoder and packer from
+   `cbl_tpu_torch/io/native/fastx.cpp` (g++);
 2. hold each kernel against its plain PyTorch version on the card at the
    main paths' shapes (exact equality; B5, B6 and B7 also against
    `torch.sort`, their inputs unchanged, and the number of passes over
@@ -134,12 +135,39 @@ Phases (any failure raises and the script exits non-zero):
    launch B4's tag-column kernel once a round and B1 (the wide kernel at
    K=59, the one-column kernel at K=27); then K=59 under merge mode
    "bitonic" (B7 at three columns, no B3), with the same counts;
-12. require every kernel of each path to have been launched in that
+12. the CLI on `bench.py --mode genome`'s corpus (`make_genome_corpus`,
+   32 Mbp, seed 0): its 3,125 insert records written as FASTA (80
+   columns), its 15,625 query records as FASTQ gzip (level 1); both
+   parsed back by `cbl_tpu_torch.io` (the native decoder and the Python
+   parser) to the corpus's codes and offsets; the native packer (built in
+   phase 1 from `cbl_tpu_torch/io/native/fastx.cpp` into
+   `cbl_tpu_torch/_build/`) against numpy, both timed; then
+   `python -m cbl_tpu_torch` as a user runs it, a subprocess a command
+   (the timed build and query alone, the others in two waves at once):
+   `build` plain and `-c` (counts against `bench/baseline.cpp records`),
+   `query` of the FASTQ gzip (queries and positives against the
+   baseline, plain and canonical), an index of the query stream (under
+   `--trace`, whose Chrome trace must name B1 and B2), `merge` / `inter` /
+   `diff` / `sym-diff` (words against numpy's set functions over numpy's
+   words, counts by the set identities), `insert` equal to `merge` and
+   `remove` to `diff`, `count`, `list` (numpy's distinct k-mers),
+   `export-ref` -> `import-ref` (the same words), `repartition` (its
+   stderr equal to the report of the loaded index in this process), and
+   at K=59 (prefix 28) `build` + `list` of the first 4 Mbp against
+   numpy; the examples `build_from_fastx` (its count the CLI's) and
+   `dynamic_rounds` as subprocesses; then in this process, launches
+   counted from 0 and device time by `torch.profiler`: `build`, `query`
+   and `inter` (B1, B2, B3), K=59 `build` and `query` (B1 wide, B3 at
+   three columns), each `np_pack_stream` on the native packer, and the
+   example `bench_necklace_throughput` (two launches of B1);
+13. require every kernel of each path to have been launched in that
    path's counted run, print the timings, the kernels' JSON line and,
    last, the device JSON line.
 
-The script imports no JAX.  The kernels and the baseline are built into
-`cbl_tpu_torch/_build/`.
+The script imports no JAX and nothing of `cbl_tpu` (phase 12 imports
+`bench.py` for its corpus, which imports neither at module level).  The
+kernels, the native decoder and the baseline are built into
+`cbl_tpu_torch/_build/`, phase 12's files written under it.
 """
 
 from __future__ import annotations
@@ -2854,6 +2882,392 @@ def wide_dynamic_check(codes: np.ndarray, base_dyn: dict, card: str) -> dict:
     return out
 
 
+# --- phase 12: the CLI on the genome corpus -------------------------------------
+
+GENOME_BASES = 32_000_000  # bench.py --mode genome's corpus
+K59_CLI_BASES = 4_000_000  # bases of the K=59 build + list (whole records)
+FASTA_WIDTH = 80
+ASCII = np.frombuffer(b"ACTG", dtype=np.uint8)  # base codes 0-3
+
+
+def write_fasta(path, codes: np.ndarray, offsets: np.ndarray) -> None:
+    """The records as FASTA, FASTA_WIDTH bases a line."""
+    text = ASCII[codes].tobytes()
+    with open(path, "wb") as f:
+        for r in range(len(offsets) - 1):
+            s = text[offsets[r] : offsets[r + 1]]
+            f.write(b">i%d\n" % r)
+            f.write(b"\n".join(s[j : j + FASTA_WIDTH]
+                               for j in range(0, len(s), FASTA_WIDTH)))
+            f.write(b"\n")
+
+
+def write_fastq_gz(path, codes: np.ndarray, offsets: np.ndarray) -> None:
+    """The records as FASTQ, gzip at level 1."""
+    import gzip
+
+    text = ASCII[codes].tobytes()
+    with gzip.open(path, "wb", compresslevel=1) as f:
+        for r in range(len(offsets) - 1):
+            s = text[offsets[r] : offsets[r + 1]]
+            f.write(b"@q%d\n%s\n+\n%s\n" % (r, s, b"I" * len(s)))
+
+
+def start_baseline_records(exe: str, work, ci, oi, cq, oq) -> dict:
+    """`bench/baseline.cpp records` on the corpus, plain and canonical, as
+    processes that run beside the commands (`bench.py`'s
+    `run_baseline_records` call)."""
+    paths = []
+    for name, arr in (("gcodes", ci), ("goff", oi), ("gqcodes", cq),
+                      ("gqoff", oq)):
+        paths.append(str(work / f"{name}.bin"))
+        arr.tofile(paths[-1])
+    return {c: subprocess.Popen(
+        [exe, paths[0], "records", *paths[1:]] + (["canonical"] if c else []),
+        stdout=subprocess.PIPE) for c in (False, True)}
+
+
+def start_cli(argvs: list, module: str = "cbl_tpu_torch") -> list:
+    """`python -m <module> ARGV` for each argv, all started at once from
+    the repository root."""
+    return [(a, subprocess.Popen([sys.executable, "-m", module, *map(str, a)],
+                                 cwd=REPO, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True))
+            for a in argvs]
+
+
+def finish_cli(started: list) -> list:
+    """(stdout, stderr) of each started command; raises on a non-zero
+    exit."""
+    out = []
+    for argv, proc in started:
+        so, se = proc.communicate(timeout=900)
+        if proc.returncode != 0:
+            raise RuntimeError(f"{' '.join(map(str, argv))} exited "
+                               f"{proc.returncode}:\n{se[-4000:]}")
+        out.append((so, se))
+    return out
+
+
+def cli_waves(*waves: list) -> list:
+    """The commands of each wave at once, the waves one after the other;
+    (stdout, stderr) of every command, in order."""
+    out = []
+    for wave in waves:
+        out += finish_cli(start_cli(wave))
+    return out
+
+
+def stderr_value(err: str, prefix: str) -> str:
+    """The rest of the stderr line that starts with `prefix`."""
+    for line in err.splitlines():
+        if line.startswith(prefix):
+            return line[len(prefix):]
+    raise AssertionError(f"no line {prefix!r} in:\n{err}")
+
+
+def meter(err: str, label: str) -> dict:
+    """The `ThroughputMeter` line of `label`: k-mers, seconds, rate."""
+    rest = stderr_value(err, f"{label} throughput: ")
+    n, rest = rest.split(" k-mers in ")
+    s, rate = rest.split("s = ")
+    return dict(kmers=int(n), s=float(s), rate=float(rate[:-2].replace(",", "")))
+
+
+def built_count(err: str) -> int:
+    """N of the `build` line "Built in Xs (N k-mers)"."""
+    return int(stderr_value(err, "Built in ").split("(")[1].split()[0])
+
+
+def query_counts(err: str) -> tuple:
+    total = int(stderr_value(err, "# queries: "))
+    positive = int(stderr_value(err, "# positive queries: ").split()[0])
+    return total, positive
+
+
+def listed_kmers(path, k: int) -> np.ndarray:
+    """[n, k] base codes of the lines of a `list` output file."""
+    rows = np.fromfile(path, dtype=np.uint8).reshape(-1, k + 1)
+    assert (rows[:, k] == ord("\n")).all()
+    lut = np.full(256, 255, dtype=np.uint8)
+    lut[ASCII] = np.arange(4, dtype=np.uint8)
+    codes = lut[rows[:, :k]]
+    assert (codes != 255).all()
+    return codes
+
+
+def fold_codes(codes: np.ndarray) -> np.ndarray:
+    """[n, w] base codes (w <= 32) -> [n] uint64, first base most
+    significant."""
+    v = np.zeros(len(codes), dtype=np.uint64)
+    for j in range(codes.shape[1]):
+        v = (v << np.uint64(2)) | codes[:, j].astype(np.uint64)
+    return v
+
+
+def genome_oracles(ci, oi, cq, oq, c59, o59) -> dict:
+    """numpy's distinct words of both streams, the distinct k-mers of the
+    insert stream and the distinct K=59 (hi, lo) pairs of its cut."""
+    t0 = time.perf_counter()
+    wi = np_unique(np_necklace_words(ci, oi))
+    wq = np_unique(np_necklace_words(cq, oq))
+    nk = len(ci) - K + 1
+    kmers = np_unique(_np_rolling(ci, 0, K, nk)[np_valid_starts(oi, K, nk)])
+    nk59 = len(c59) - 59 + 1
+    hi, lo = np_kmer_pairs(c59, 59, False)
+    valid = np_valid_starts(o59, 59, nk59)
+    uh, ul = np_unique_pairs(hi[valid], lo[valid])
+    return dict(wi=wi, wq=wq, kmers=kmers, k59=(uh, ul),
+                oracle_s=time.perf_counter() - t0)
+
+
+def inproc_cli(argv: list, packs: list) -> dict:
+    """`cli.main(["--device", "cuda", *argv])` in this process, launches
+    counted from 0, under `torch.profiler`: launches, the device's busy
+    time (every kernel and copy), the host clock, and whether each
+    `np_pack_stream` took the native packer (appended to `packs`)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from cbl_tpu_torch import cli
+    from cbl_tpu_torch import io as tio
+
+    native = tio.pack_stream_native
+
+    def counted(codes):
+        out = native(codes)
+        packs.append(out is not None)
+        return out
+
+    torch.cuda.synchronize()
+    zero_launches()
+    tio.pack_stream_native = counted
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            assert cli.main(["--device", "cuda", *map(str, argv)]) == 0
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        tio.pack_stream_native = native
+    launches = launches_now()
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    return dict(launches=launches, device_ms=busy, wall_s=wall)
+
+
+def trace_kernel_names(path) -> set:
+    """The names of the card's kernels in a Chrome trace."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return {e["name"] for e in events if e.get("cat") == "kernel"}
+
+
+def index_words(path) -> np.ndarray:
+    """The words of a CBLX file, loaded by the port on the card."""
+    from cbl_tpu_torch import CBL
+
+    return CBL.load_from_file(path).wordset.words_array()
+
+
+def cli_genome_check(exe: str) -> dict:
+    """Phase 12: the genome corpus through `python -m cbl_tpu_torch`."""
+    import contextlib
+    import io as pyio
+    import shutil
+    from concurrent.futures import ThreadPoolExecutor
+
+    import bench
+    from cbl_tpu_torch import cli
+    from cbl_tpu_torch import io as tio
+    from cbl_tpu_torch import kmer as tkmer
+    from cbl_tpu_torch.examples import bench_necklace_throughput
+    from cbl_tpu_torch.ops._build import BUILD_DIR
+
+    r = {}
+    work = BUILD_DIR / "cli"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    t0 = time.perf_counter()
+    ci, oi, cq, oq = bench.make_genome_corpus(GENOME_BASES)
+    n59 = int(np.searchsorted(oi, K59_CLI_BASES, "right")) - 1
+    c59, o59 = ci[: oi[n59]], oi[: n59 + 1]
+    fa, fq, fa59 = work / "insert.fa", work / "query.fq.gz", work / "i59.fa"
+    write_fasta(fa, ci, oi)
+    write_fastq_gz(fq, cq, oq)
+    write_fasta(fa59, c59, o59)
+    r["files_s"] = time.perf_counter() - t0
+    r["bytes"] = {p.name: p.stat().st_size for p in (fa, fq, fa59)}
+    r["records"] = (len(oi) - 1, len(oq) - 1)
+
+    # the native decoder and packer: built in phase 1 from the port's
+    # source into cbl_tpu_torch/_build/, loaded here
+    so = tio.native_library_path()
+    assert tio._load_native() is not None and so.exists(), so
+    assert so.parent == BUILD_DIR, so
+    r["native_lib"] = os.path.relpath(so, REPO)
+    r["parse_s"] = {}
+    for label, path, codes, offsets in (("fasta", fa, ci, oi),
+                                        ("fastq.gz", fq, cq, oq)):
+        for backend, fn in (("native", tio.parse_fastx),
+                            ("python", tio._parse_fastx_py)):
+            t = time.perf_counter()
+            got_c, got_o = fn(path)
+            r["parse_s"][f"{label} {backend}"] = time.perf_counter() - t
+            assert np.array_equal(got_c, codes), (label, backend)
+            assert np.array_equal(got_o, offsets), (label, backend)
+    pad = ci[: len(ci) // 16 * 16]
+    t = time.perf_counter()
+    packed = tio.pack_stream_native(pad)
+    r["pack_native_ms"] = (time.perf_counter() - t) * 1e3
+    c = pad.reshape(-1, 16).astype(np.uint32)
+    t = time.perf_counter()
+    want = np.zeros(len(c), dtype=np.uint32)
+    for j in range(16):
+        want = (want << np.uint32(2)) | c[:, j]
+    r["pack_numpy_ms"] = (time.perf_counter() - t) * 1e3
+    assert packed is not None and np.array_equal(packed, want)
+    assert np.array_equal(tkmer.np_pack_stream(pad), want)
+
+    idx_i, idx_ic, idx_q = work / "i.npz", work / "ic.npz", work / "q.npz"
+    idx59, trace_dir = work / "i59.npz", work / "trace"
+    ops = ("merge", "inter", "diff", "sym-diff")
+    # the timed build and query alone; then the rest in two waves of
+    # commands at once, the baseline and the numpy oracles beside them
+    (_, b_err), (_, q_err) = cli_waves(
+        [["build", fa, "-o", idx_i]], [["query", idx_i, fq]])
+    base = start_baseline_records(exe, work, ci, oi, cq, oq)
+    pool = ThreadPoolExecutor(1)
+    oracle = pool.submit(genome_oracles, ci, oi, cq, oq, c59, o59)
+    wave3 = [["build", fa, "-c", "-o", idx_ic],
+             ["--trace", trace_dir, "build", fq, "-o", idx_q],
+             ["build", fa59, "-k", "59", "--prefix-bits", "28", "-o", idx59],
+             ["count", idx_i], ["list", idx_i, "-o", work / "i.txt"],
+             ["export-ref", idx_i, work / "i.cbl"], ["repartition", idx_i]]
+    twins = start_cli([[fa]], "cbl_tpu_torch.examples.build_from_fastx")
+    twins += start_cli([[]], "cbl_tpu_torch.examples.dynamic_rounds")
+    res3 = cli_waves(wave3)
+    twin_out = finish_cli(twins)
+    wave4 = [["query", idx_ic, fq],
+             *[[op, idx_i, idx_q, "-o", work / f"{op}.npz"] for op in ops],
+             ["insert", idx_i, fq, "-o", work / "ins.npz"],
+             ["remove", idx_i, fq, "-o", work / "rm.npz"],
+             ["list", idx59, "-o", work / "i59.txt"],
+             ["import-ref", work / "i.cbl", work / "imp.npz"]]
+    t = time.perf_counter()
+    res4 = cli_waves(wave4)
+    r["wave4_s"] = time.perf_counter() - t
+    bases = {}
+    for canonical, proc in base.items():
+        out, _ = proc.communicate(timeout=600)
+        assert proc.returncode == 0
+        bases[canonical] = json.loads(out)
+    orc = oracle.result()
+    pool.shutdown()
+    r["oracle_s"] = orc["oracle_s"]
+    r["baseline"] = bases
+
+    # counts against bench/baseline.cpp records
+    r["build"], r["query"] = meter(b_err, "build"), meter(q_err, "query")
+    r["build_wall_s"] = float(stderr_value(b_err, "Built in ").split("s")[0])
+    r["query_wall_s"] = float(stderr_value(q_err, "Queried in ")[:-1])
+    r["distinct"] = built_count(b_err)
+    r["distinct_c"] = built_count(res3[0][1])
+    assert r["distinct"] == bases[False]["distinct"], (r, bases)
+    assert r["distinct_c"] == bases[True]["distinct"], (r, bases)
+    assert int(res3[3][0]) == r["distinct"]  # `count`
+    assert r["build"]["kmers"] == bases[False]["n_kmers_insert"]
+    r["positive"] = query_counts(q_err)
+    r["positive_c"] = query_counts(res4[0][1])
+    for got, b in ((r["positive"], bases[False]),
+                   (r["positive_c"], bases[True])):
+        assert got == (b["n_kmers_query"], b["positive"]), (got, b)
+    assert 0 < r["positive"][1] < r["positive"][0]
+    # the example twin's count equals the CLI's
+    assert twin_out[0][0] == f"{r['distinct']} distinct 25-mers in {fa}\n"
+    r["dynamic_twin"] = twin_out[1][0].strip()
+
+    # set operations, insert and remove against numpy's set functions
+    wi, wq = orc["wi"], orc["wq"]
+    assert len(wi) == r["distinct"]
+    inter = wi[np_isin_sorted(wi, wq)]
+    diff = np_setdiff(wi, wq)
+    want = {"merge": np_unique(np.concatenate([wi, wq])), "inter": inter,
+            "diff": diff,
+            "sym-diff": np.sort(np.concatenate([diff, np_setdiff(wq, wi)]))}
+    counts = {}
+    for op in ops:
+        got = index_words(work / f"{op}.npz")
+        assert np.array_equal(got, np_limbs(want[op])), op
+        counts[op] = len(got)
+    n_q = len(wq)
+    assert counts["merge"] == len(wi) + n_q - counts["inter"]
+    assert counts["diff"] == len(wi) - counts["inter"]
+    assert counts["sym-diff"] == counts["merge"] - counts["inter"]
+    r["set_counts"] = dict(counts, i=len(wi), q=n_q)
+    for name, op in (("ins", "merge"), ("rm", "diff")):
+        with np.load(work / f"{name}.npz") as a, \
+                np.load(work / f"{op}.npz") as b:
+            assert np.array_equal(a["words"], b["words"]), (name, op)
+
+    # list, export-ref -> import-ref, repartition, the trace
+    listed = fold_codes(listed_kmers(work / "i.txt", K))
+    assert len(listed) == len(orc["kmers"])
+    assert np.array_equal(np_unique(listed), orc["kmers"])
+    with np.load(idx_i) as a, np.load(work / "imp.npz") as b:
+        assert np.array_equal(a["words"], b["words"])
+        assert bool(b["canonical"]) is False
+    rep = pyio.StringIO()
+    with contextlib.redirect_stderr(rep):
+        cli._repartition_report(cli._read_index(idx_i, "cuda"))
+    rep_lines = rep.getvalue().splitlines()
+    assert res3[6][1].splitlines() == rep_lines, (res3[6][1], rep_lines)
+    kernels = trace_kernel_names(trace_dir / "trace.json")
+    r["trace_kernels"] = len(kernels)
+    assert any("necklace_pos_kernel" in name for name in kernels), kernels
+    assert any("blank_lookback" in name for name in kernels), kernels
+    codes59 = listed_kmers(work / "i59.txt", 59)
+    uh, ul = np_unique_pairs(fold_codes(codes59[:, :32]),
+                             fold_codes(codes59[:, 32:]))
+    assert len(uh) == len(codes59) == len(orc["k59"][0])
+    assert np.array_equal(uh, orc["k59"][0])
+    assert np.array_equal(ul, orc["k59"][1])
+    r["k59_distinct"] = len(uh)
+
+    # in this process, launches counted from 0: build, query and a set
+    # operation at K=25, build and query at K=59
+    packs = []
+    r["inproc"] = {
+        "build": inproc_cli(["build", fa], packs),
+        "query": inproc_cli(["query", idx_i, fq], packs),
+        "inter": inproc_cli(["inter", idx_i, idx_q, "-o",
+                             work / "inter2.npz"], packs),
+        "build K=59": inproc_cli(["build", fa59, "-k", "59", "--prefix-bits",
+                                  "28"], packs),
+        "query K=59": inproc_cli(["query", idx59, fa59], packs),
+    }
+    assert packs and all(packs), packs  # np_pack_stream took the native packer
+    r["native_packs"] = len(packs)
+    launches = {n: v["launches"] for n, v in r["inproc"].items()}
+    for name in ("necklace", "blank"):
+        assert launches["build"][name] >= 1, launches
+    for name in STATIC_KERNELS:
+        assert launches["query"][name] >= 1, launches
+    assert launches["inter"]["merge"] >= 1, launches
+    assert launches["build K=59"]["necklace_wide"] >= 1, launches
+    assert launches["query K=59"]["necklace_wide"] >= 1, launches
+    assert launches["query K=59"]["merge_3col"] >= 1, launches
+    zero_launches()
+    line = pyio.StringIO()
+    with contextlib.redirect_stdout(line):
+        assert bench_necklace_throughput.main([str(SLAB), str(K)]) == 0
+    r["necklace_twin"] = line.getvalue().strip()
+    r["necklace_twin_launches"] = launches_now()
+    assert r["necklace_twin_launches"]["necklace"] == 2
+    r["launches"] = launches
+    return r
+
+
 def profile_algebra() -> int:
     """`--profile-algebra`: the set-algebra runs under `torch.profiler`
     in the ("bitonic", "bitonic") and the default modes; prints the
@@ -3052,6 +3466,14 @@ def main() -> int:
     for line in so.with_suffix(".log").read_text().splitlines():
         if "registers" in line or "spill" in line:
             log("  ptxas: " + line.strip())
+    from cbl_tpu_torch import io as tio
+
+    fx = tio.native_library_path()
+    fresh = not fx.exists()
+    t0 = time.perf_counter()
+    assert tio._build_native() == fx and tio._load_native() is not None
+    log(f"native fastx decoder and packer {'built' if fresh else 'found'} "
+        f"in {time.perf_counter() - t0:.2f} s: {os.path.relpath(fx, REPO)}")
 
     stamp(2)
     # phase 2
@@ -3284,7 +3706,11 @@ def main() -> int:
     wdyn = wide_dynamic_check(codes, base_dyn, card)
 
     stamp(12)
-    # phase 12
+    # phase 12: the genome corpus through the CLI
+    gen = cli_genome_check(exe)
+
+    stamp(13)
+    # phase 13
     for name in STATIC_KERNELS:
         assert main_launches[name] >= 1, name
     for label, (r, base) in runs.items():
@@ -3459,6 +3885,49 @@ def main() -> int:
     log(f"[{card}] phase 11's oracle held to bench/baseline.cpp at K={K}: "
         f"{wdyn['oracle_k25_s']:.1f} s")
 
+    ps, b, q = gen["parse_s"], gen["build"], gen["query"]
+    log(f"[{card}] K={K} genome corpus ({GENOME_BASES / 1e6:.0f} Mbp, "
+        f"{gen['records'][0]} insert records as FASTA, "
+        f"{gen['bytes']['insert.fa']} bytes; {gen['records'][1]} query "
+        f"records as FASTQ gzip at level 1, {gen['bytes']['query.fq.gz']} "
+        f"bytes) through python -m "
+        f"cbl_tpu_torch: parse (host) FASTA native "
+        f"{ps['fasta native'] * 1e3:.1f} ms, python "
+        f"{ps['fasta python'] * 1e3:.1f} ms; FASTQ gzip native "
+        f"{ps['fastq.gz native'] * 1e3:.1f} ms, python "
+        f"{ps['fastq.gz python'] * 1e3:.1f} ms; pack of 32 Mbp (host) "
+        f"native {gen['pack_native_ms']:.2f} ms, numpy "
+        f"{gen['pack_numpy_ms']:.2f} ms ({gen['native_packs']} native "
+        f"packs in the in-process commands, {gen['native_lib']})")
+    log(f"[{card}] K={K} genome CLI build: distinct {gen['distinct']} "
+        f"(canonical {gen['distinct_c']}; baseline.cpp records "
+        f"{gen['baseline'][False]['distinct']} / "
+        f"{gen['baseline'][True]['distinct']}), 'Built in' "
+        f"{gen['build_wall_s']:.2f} s, meter {b['kmers']} k-mers in "
+        f"{b['s']:.2f} s = {b['rate']:.4g} k-mers/s (parse, build, flush, "
+        f"count); query: {gen['positive'][1]} of {gen['positive'][0]} "
+        f"positive (canonical {gen['positive_c'][1]}; baseline "
+        f"{gen['baseline'][False]['positive']} / "
+        f"{gen['baseline'][True]['positive']}), 'Queried in' "
+        f"{gen['query_wall_s']:.2f} s, meter {q['rate']:.4g} k-mers/s "
+        f"(the query call alone, after the parse); each a process of "
+        f"its own, started cold")
+    for name, v in gen["inproc"].items():
+        log(f"[{card}] genome CLI in-process {name}: device busy "
+            f"{v['device_ms']:.2f} ms (profiler, kernels and copies), host "
+            f"clock {v['wall_s'] * 1e3:.1f} ms under the profiler, idle "
+            f"{1 - v['device_ms'] / (v['wall_s'] * 1e3):.1%}; launches "
+            f"{ {n: c for n, c in v['launches'].items() if c} }")
+    log(f"[{card}] genome CLI set operations {gen['set_counts']} (numpy's "
+        f"words); K=59 build + list of {K59_CLI_BASES / 1e6:.0f} Mbp: "
+        f"{gen['k59_distinct']} distinct (numpy's); trace of the query "
+        f"stream's build: {gen['trace_kernels']} kernel names; the second "
+        f"wave of commands (11 at once) {gen['wave4_s']:.1f} s; numpy "
+        f"oracles {gen['oracle_s']:.1f} s; corpus files written in "
+        f"{gen['files_s']:.1f} s")
+    log(f"[{card}] examples: {gen['dynamic_twin']}; {gen['necklace_twin']} "
+        f"(launches {gen['necklace_twin_launches']['necklace']} of B1)")
+
     src = {
         "necklace": ("cbl_tpu_torch/csrc/necklace.cu",
                      "cbl_tpu/ops/necklace_pallas.py:102"),
@@ -3494,7 +3963,8 @@ def main() -> int:
              alg[ALGEBRA_MODES[1]]["launches"], om["default"]["launches"],
              om["bitonic"]["launches"], om["holes"]["launches"],
              seq_launches, ex_launches, *wide["launches"].values(),
-             *wdyn["launches"].values())
+             *wdyn["launches"].values(), *gen["launches"].values(),
+             gen["necklace_twin_launches"])
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src[name][0],
          "replaces": src[name][1],

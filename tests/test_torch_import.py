@@ -38,6 +38,17 @@ def test_imports_without_jax():
         "sys.modules['cbl_tpu'] = None\n"
         "import cbl_tpu_torch, cbl_tpu_torch.state, cbl_tpu_torch.cbl\n"
         "import cbl_tpu_torch.ops.sort, cbl_tpu_torch.ops.bitonic\n"
+        "import cbl_tpu_torch.io, cbl_tpu_torch.cli, cbl_tpu_torch.profiling\n"
+        "import cbl_tpu_torch.examples.build_from_fastx\n"
+        "import cbl_tpu_torch.examples.dynamic_rounds\n"
+        "import cbl_tpu_torch.examples.bench_necklace_throughput\n"
+        "assert cbl_tpu_torch.io._load_native() is not None\n"
+        "import chip_smoke, bench, runpy\n"  # phase 12 imports bench
+        "sys.argv = ['cbl_tpu_torch', '--help']\n"
+        "try:\n"
+        "    runpy.run_module('cbl_tpu_torch', run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'cbl_tpu') and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"
