@@ -10,7 +10,9 @@ and export, checkpoints and stats (`words_array`, `kmers_limbs`,
 `iter_nucs`, `save_to_file` / `load_from_file` in `serialize`, the
 bucket stats in `stats`, the reference's `.cbl` files in `interop`),
 FASTA/Q input and the native 2-bit packer (`io`), the command line
-(`python -m cbl_tpu_torch`, `cli`) and `profiling`.
+(`python -m cbl_tpu_torch`, `cli`), `profiling`, and the index
+partitioned over a mesh of devices in one process (`parallel`:
+`ShardedCBL`, `make_mesh`; the multi-process layer is not ported yet).
 It imports neither JAX nor `cbl_tpu`; `cbl_tpu` stays the reference the
 port is tested against.  Every odd K up to 59 is held: a word is one
 int64 key for K <= 27 and two int64 columns from K=29 (see `limbs`);

@@ -49,7 +49,8 @@ Differences from `cbl_tpu.CBL`:
   raises, and `device="cpu"` runs the plain tensor versions of the
   kernels.
 - Each call runs as eager PyTorch, not as one compiled program.
-- Not ported yet: the CLI and `io` (ROADMAP slice 5c).
+- The index partitioned over a mesh of devices is `parallel.ShardedCBL`,
+  which runs this module's word pipeline on each shard's slab.
 """
 
 from __future__ import annotations
@@ -103,6 +104,14 @@ def blank_delta(starts, ends, nk_pad: int):
     delta.index_add_(0, starts, ones)
     delta.index_add_(0, ends, -ones)
     return delta[:nk_pad]
+
+
+def host_to_device(arr: np.ndarray, device, mask32: bool = False):
+    """int32/uint32 numpy -> int64 tensor on `device` (the copy moves 4
+    bytes per value; uint32 words travel as their int32 view)."""
+    t = torch.from_numpy(np.ascontiguousarray(arr).view(np.int32))
+    t = t.to(device).to(torch.int64)
+    return t & 0xFFFFFFFF if mask32 else t
 
 
 def _kmer_words(stream, n: int, cfg: CBLConfig, canonical: bool):
@@ -184,12 +193,27 @@ def _fused_round_slog(a: torch.Tensor, seq: int, w_i, w_q, w_r,
     removes, and the scan honours only entries at or before each query.
     -> (log [out_cap] or [C, out_cap], positive, live) with int64 0-d
     counters."""
-    base, packed = seq << 2, slog_is_packed(a)
+    b = _round_batch(seq, w_i, w_q, w_r, slog_is_packed(a))
+    return _round_into_log(a, b, (seq << 2) | 2, out_cap)
+
+
+def _round_batch(seq: int, w_i, w_q, w_r, packed: bool) -> torch.Tensor:
+    """The round's three PRE-SORTED word streams tagged with (seq << 2) |
+    {1, 2, 3} and combined by two merges into one sorted batch of slog
+    rows (packed keys, or a tag column)."""
+    base = seq << 2
     b = _merge_slog(slog_tagged(w_i, base | 1, packed),
                     slog_tagged(w_q, base | 2, packed))
-    b = _merge_slog(b, slog_tagged(w_r, base | 3, packed))
+    return _merge_slog(b, slog_tagged(w_r, base | 3, packed))
+
+
+def _round_into_log(a: torch.Tensor, b: torch.Tensor, qtag: int,
+                    out_cap: int):
+    """Merge a round's sorted batch `b` into the log `a` (an empty `a`
+    adopts it), fit to out_cap rows and scan once (B4): (log, positive,
+    live)."""
     merged = _fit(_merge_slog(a, b) if a.shape[-1] else b, out_cap)
-    positive, live = slog_counts(merged, base | 2)
+    positive, live = slog_counts(merged, qtag)
     return merged, positive, live
 
 
@@ -281,13 +305,15 @@ class CBL:
         return starts, ends
 
     def _fused_slabs(self, codes: np.ndarray, offsets: np.ndarray,
-                     slab: int | None = None):
+                     slab: int | None = None, uniform: bool = False):
         """Yield (nk_pad, packed stream [uint32], starts, ends, n_kmers)
         per slab, as numpy arrays.  Slab windows are 16-base-aligned views
         of one packed stream with the K-1 halo included; starts/ends are
         int32 blank intervals local to the slab, padded to a power-of-two
         length with the index nk_pad + 1.  `slab` overrides the slab size
-        (a power of two >= 4096)."""
+        (a power of two >= 4096); `uniform` pads the last slab to the full
+        size too (the sharded index stacks a slab a shard,
+        `parallel.shard.build_slab_groups`)."""
         k = self.cfg.k
         nk = max(len(codes) - k + 1, 0)
         if nk == 0:
@@ -296,7 +322,7 @@ class CBL:
         slab = _FUSED_SLAB if slab is None else slab
         n_slabs = (nk + slab - 1) // slab
         last_nk = nk - (n_slabs - 1) * slab
-        last_pad = max(_next_pow2(last_nk), 4096)
+        last_pad = slab if uniform else max(_next_pow2(last_nk), 4096)
         total_bases = (n_slabs - 1) * slab + _stream_len(last_pad, k)
         cbuf = np.zeros(total_bases, dtype=np.uint8)
         cbuf[: min(len(codes), total_bases)] = codes[:total_bases]
@@ -320,13 +346,6 @@ class CBL:
             e_arr[: len(ee)] = ee
             yield nk_pad, stream, s_arr, e_arr, n_here
 
-    def _to_device(self, arr: np.ndarray, mask32: bool = False):
-        """int32/uint32 numpy -> int64 tensor on the device (the copy moves
-        4 bytes per value; uint32 words travel as their int32 view)."""
-        t = torch.from_numpy(np.ascontiguousarray(arr).view(np.int32))
-        t = t.to(self.device).to(torch.int64)
-        return t & 0xFFFFFFFF if mask32 else t
-
     def pack_stream(self, codes: np.ndarray, offsets: np.ndarray,
                     slab: int | None = None) -> PackedStream:
         """Pack a record stream (uint8 codes, record `offsets` [n+1]) and
@@ -334,9 +353,9 @@ class CBL:
         slabs = [
             (
                 nk_pad,
-                self._to_device(stream, mask32=True),
-                self._to_device(s_arr),
-                self._to_device(e_arr),
+                host_to_device(stream, self.device, mask32=True),
+                host_to_device(s_arr, self.device),
+                host_to_device(e_arr, self.device),
                 n_here,
             )
             for nk_pad, stream, s_arr, e_arr, n_here in self._fused_slabs(
@@ -425,7 +444,7 @@ class CBL:
         chunk = self._effective_chunk(len(valid))
         for stream, vbits, n in self._stream_chunks(codes, valid, chunk):
             words = _pipeline_words(
-                self._to_device(stream, mask32=True),
+                host_to_device(stream, self.device, mask32=True),
                 torch.from_numpy(vbits).to(self.device), chunk, self.cfg,
                 self.canonical)
             yield words, n

@@ -7,9 +7,12 @@ package; `export-ref` / `import-ref` convert to and from the reference
 binary's `.cbl` files.
 
 The port adds a top-level `--device` (default `cuda`; there is no CPU
-fallback, `--device cpu` asks for the plain tensor path), placed before
-the subcommand as `--trace` is.  `--sharded` is accepted by the parser and
-refused: the port has no counterpart of `cbl_tpu.parallel` yet.
+fallback, `--device cpu` asks for the plain tensor path) and `--shards`,
+placed before the subcommand as `--trace` is.  `--sharded` (`build`,
+`query`, `repartition`) runs `parallel.ShardedCBL` on a mesh of
+`--shards` shards on the device; without `--shards` the mesh is every
+CUDA card for `--device cuda` (`cbl_tpu`'s every local device) and one
+shard elsewhere.
 """
 
 from __future__ import annotations
@@ -48,6 +51,11 @@ def build_parser() -> argparse.ArgumentParser:
         help="torch device of the index (default: cuda; cpu runs the plain "
         "tensor path); place BEFORE the subcommand",
     )
+    ap.add_argument(
+        "--shards", type=int, default=None, metavar="N",
+        help="with --sharded: N shards on the device (default: every CUDA "
+        "card for cuda, one shard elsewhere); place BEFORE the subcommand",
+    )
     sub = ap.add_subparsers(dest="command", required=True)
 
     p = sub.add_parser("build", help="Build an index containing the k-mers of a FASTA/Q file")
@@ -55,8 +63,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-o", "--output", default=None, help="Output file (no serialization by default)")
     p.add_argument("-c", "--canonical", action="store_true", help="Use canonical k-mers")
     p.add_argument("--sharded", action="store_true",
-                   help="Shard the index across all local devices (not "
-                   "supported yet)")
+                   help="Shard the index across all local devices")
     _add_common(p)
 
     p = sub.add_parser("count", help="Count the k-mers contained in an index")
@@ -71,7 +78,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("input")
     p.add_argument("--sharded", action="store_true",
                    help="Distribute the index across all local devices for "
-                   "the query (not supported yet)")
+                   "the query")
 
     for name, help_ in [
         ("insert", "Add the k-mers of a FASTA/Q file to an index"),
@@ -96,7 +103,7 @@ def build_parser() -> argparse.ArgumentParser:
     p = sub.add_parser("repartition", help="Show the repartition of the k-mers in the data structure")
     p.add_argument("index")
     p.add_argument("--sharded", action="store_true",
-                   help="Re-balance a sharded checkpoint (not supported yet)")
+                   help="Re-balance a sharded checkpoint")
     p.add_argument("-o", "--output", default=None,
                    help="Write the re-balanced sharded index back out")
 
@@ -137,14 +144,13 @@ def main(argv=None) -> int:
     from .wordset import resolve_device
 
     args = build_parser().parse_args(argv)
-    if getattr(args, "sharded", False):
-        _eprint("cbl_tpu_torch: --sharded is not supported: the port has no "
-                "counterpart of cbl_tpu.parallel (ShardedCBL) yet")
-        return 2
     try:
         args.device = resolve_device(args.device)
     except (RuntimeError, ValueError) as e:
         _eprint(f"cbl_tpu_torch: {e}")
+        return 2
+    if args.shards is not None and args.shards < 1:
+        _eprint(f"cbl_tpu_torch: --shards {args.shards}: expected N >= 1")
         return 2
     if args.trace:
         from .profiling import trace
@@ -153,6 +159,15 @@ def main(argv=None) -> int:
         with trace(args.trace):
             return _run(args)
     return _run(args)
+
+
+def _mesh(args) -> list:
+    """The shards' devices of `--sharded`."""
+    from .parallel import make_mesh
+
+    if args.shards is None and args.device.type == "cuda":
+        return make_mesh()
+    return make_mesh([args.device] * (args.shards or 1))
 
 
 def _run(args) -> int:
@@ -167,6 +182,22 @@ def _run(args) -> int:
         kind = f"canonical {k}-mers" if args.canonical else f"{k}-mers"
         _eprint(f"Building the index of {kind} contained in {args.input}")
         t0 = time.time()
+        if args.sharded:
+            from .parallel import ShardedCBL
+
+            cbl = ShardedCBL(k=k, prefix_bits=pb, canonical=args.canonical,
+                             mesh=_mesh(args))
+            _eprint(f"Sharding the prefix space across {cbl.D} device(s)")
+            codes, offsets = io.parse_fastx(args.input)
+            cbl.insert_codes_stream(codes, offsets)
+            _eprint(
+                f"Built in {time.time()-t0:.2f}s ({cbl.count()} k-mers; "
+                f"shard balance {cbl.shard_balance().tolist()})"
+            )
+            if args.output:
+                _eprint(f"Writing the index to {args.output}")
+                cbl.save_to_file(args.output)
+            return 0
         cbl = CBL(k=k, prefix_bits=pb, canonical=args.canonical, device=dev)
         meter = ThroughputMeter("build throughput")
         codes, offsets = io.parse_fastx(args.input)
@@ -204,7 +235,14 @@ def _run(args) -> int:
         codes, offsets = io.parse_fastx(args.input)
         t0 = time.time()
         meter = ThroughputMeter("query throughput")
-        total, positive = cbl.query_codes_stream(codes, offsets)
+        if args.sharded:
+            from .parallel import ShardedCBL
+
+            sharded = ShardedCBL.from_cbl(cbl, mesh=_mesh(args))
+            _eprint(f"Index sharded across {sharded.D} device(s)")
+            total, positive = sharded.query_codes_stream(codes, offsets)
+        else:
+            total, positive = cbl.query_codes_stream(codes, offsets)
         meter.add(total)
         dt = time.time() - t0
         _eprint(f"# queries: {total}")
@@ -236,8 +274,20 @@ def _run(args) -> int:
         if args.output:
             _write_index(a, args.output)
     elif cmd == "repartition":
-        cbl = _read_index(args.index, dev)
-        _repartition_report(cbl)
+        if args.sharded:
+            from .parallel import ShardedCBL
+
+            _eprint(f"Reading the sharded index stored in {args.index}")
+            cbl = ShardedCBL.load_from_file(args.index, mesh=_mesh(args))
+            _eprint(f"Shard balance before: {cbl.shard_balance().tolist()}")
+            cbl.repartition()
+            _eprint(f"Shard balance after:  {cbl.shard_balance().tolist()}")
+            if args.output:
+                _eprint(f"Writing the index to {args.output}")
+                cbl.save_to_file(args.output)
+        else:
+            cbl = _read_index(args.index, dev)
+            _repartition_report(cbl)
     elif cmd == "export-ref":
         from . import interop
 

@@ -17,6 +17,14 @@ sentinel tag (0xFF packed, 0xFFFFFFFF in a tag column) maps to the
 port's (0xFF in a key, INT64_MAX in a tag column) and back.  The
 functions below convert through numpy, so neither package imports the
 other.
+
+A `cbl_tpu` `ShardedCBL` travels as a dict of numpy arrays named after
+its attributes (`sharded_to_arrays` / `sharded_from_arrays`): `data`
+[D, C, L] (every shard's rows, duplicates and sentinel padding
+included), `boundaries` [D-1, L], `counts` [D], `dups`, `count_upper`,
+`boundaries_from_data`, and while a round log is live `slog` (its
+columns, each [D, S]), `slog_seq`, `slog_real` and `slog_live`.  `counts`
+is None in an index that has counted nothing since its log began.
 """
 
 from __future__ import annotations
@@ -224,3 +232,72 @@ def pending_to_arrays(ws: DeviceWordSet):
     pending = to_limbs(ws.pending.cpu().numpy(), ws.cfg.word_limbs)
     tags = ws.pending_tags.cpu().numpy().astype(np.uint32)
     return pending, tags, ws.n_pending, ws._pending_rm
+
+
+def sharded_from_arrays(arrays: dict, cfg: CBLConfig, canonical: bool,
+                        mesh, batch_per_device: int = 1 << 14):
+    """A port `ShardedCBL` on `mesh` in the state of `cbl_tpu`'s, given as
+    the dict of `sharded_to_arrays`; each shard's log goes through
+    `slog_from_arrays`."""
+    from .parallel import ShardedCBL
+
+    data = np.asarray(arrays["data"], dtype=np.uint32)
+    D, C, _ = data.shape
+    sh = ShardedCBL(k=cfg.k, prefix_bits=cfg.prefix_bits,
+                    canonical=canonical, mesh=mesh, shard_capacity=C,
+                    batch_per_device=batch_per_device)
+    if sh.D != D:
+        raise ValueError(f"state has {D} shards; the mesh has {sh.D}")
+    n_cols = key_cols(cfg)
+    sh.data = [torch.from_numpy(from_limbs(data[d], n_cols)).to(dev)
+               for d, dev in enumerate(sh.mesh)]
+    sh.boundaries = from_limbs(np.asarray(arrays["boundaries"], np.uint32),
+                               n_cols)
+    sh._boundaries_from_data = bool(arrays["boundaries_from_data"])
+    sh._dups = bool(arrays["dups"])
+    counts = arrays["counts"]  # None: no count since a log began
+    sh._counts_dev = None if counts is None else [
+        torch.tensor(int(c), dtype=torch.int64, device=dev)
+        for c, dev in zip(counts, sh.mesh)]
+    sh._counts_host = None
+    sh._count_upper = int(arrays["count_upper"])
+    if arrays.get("slog") is not None:
+        cols_u32 = [np.asarray(c, dtype=np.uint32) for c in arrays["slog"]]
+        sh._slog_dev = [
+            slog_from_arrays([c[d] for c in cols_u32], 0, 0, 0, cfg,
+                             dev)._slog
+            for d, dev in enumerate(sh.mesh)
+        ]
+        sh._slog_seq = int(arrays["slog_seq"])
+        sh._slog_real = int(arrays["slog_real"])
+        live = arrays.get("slog_live")
+        sh._slog_live_dev = (None if live is None else torch.tensor(
+            int(live), dtype=torch.int64, device=sh.mesh[0]))
+    return sh
+
+
+def sharded_to_arrays(sh) -> dict:
+    """The state of a port `ShardedCBL` in `cbl_tpu`'s layout: the dict
+    that `sharded_from_arrays` takes (counts read without the overflow
+    check, so nothing in `sh` changes)."""
+    L = sh.cfg.word_limbs
+    counts = (sh._counts_host if sh._counts_host is not None
+              else None if sh._counts_dev is None
+              else torch.stack([c.cpu() for c in sh._counts_dev]).numpy())
+    out = dict(
+        data=np.stack([to_limbs(d.cpu().numpy(), L) for d in sh.data]),
+        boundaries=sh.boundary_limbs(),
+        counts=None if counts is None else np.asarray(counts, np.int64),
+        dups=sh._dups, count_upper=sh._count_upper,
+        boundaries_from_data=sh._boundaries_from_data,
+        slog=None, slog_seq=sh._slog_seq, slog_real=sh._slog_real,
+        slog_live=(None if sh._slog_live_dev is None
+                   else int(sh._slog_live_dev)))
+    if sh._slog_dev is not None:
+        per_shard = []
+        for s in sh._slog_dev:
+            ws = DeviceWordSet(sh.cfg, s.device, pending_cap=1)
+            ws._slog = s
+            per_shard.append(slog_to_arrays(ws)[0])
+        out["slog"] = tuple(np.stack(c) for c in zip(*per_shard))
+    return out

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's static, dynamic-round, separate-call,
-set-algebra, ordered-membership, export and wide-K paths, and its CLI,
-on one NVIDIA GPU.
+set-algebra, ordered-membership, export, wide-K and sharded paths, and
+its CLI, on one NVIDIA GPU.
 
 Run from the repository root, on a machine with one CUDA card, `nvcc` and
 `g++`:
@@ -160,7 +160,26 @@ Phases (any failure raises and the script exits non-zero):
    and `inter` (B1, B2, B3), K=59 `build` and `query` (B1 wide, B3 at
    three columns), each `np_pack_stream` on the native packer, and the
    example `bench_necklace_throughput` (two launches of B1);
-13. require every kernel of each path to have been launched in that
+13. the sharded index (`cbl_tpu_torch.parallel.ShardedCBL`): BASELINE
+   config 5 (`bench.py --mode sharded-dynamic`, `run_tpu_sharded_dynamic`:
+   phase 5's 8 rounds of `pack_stream`ed segments, lazy, on
+   `make_mesh()[:1]`, D = 1), one warm-up and one timed run, `distinct`
+   and the summed `positive` against `bench/baseline.cpp dynamic`, its
+   ops/s beside phase 5's single index; the bulk build and self-query of
+   the 32 Mbp at D = 1 against `bench/baseline.cpp` (launches counted
+   from 0: B1, B2, B3 in the build and query, B4 once a round); then 4
+   shards on the one card: the build's words against a single index's,
+   the query, a remove of the first half against a single index's, a
+   checkpoint round trip, config 5's rounds against the baseline, the
+   four set operations of the two 16 Mbp halves against phase 7's
+   counts, an 8 Mbp insert under boundaries that send every word to
+   shard 0 (recovered, every word kept) and a remove of every word from
+   shard 0 (exact: count 0); then `python -m cbl_tpu_torch build
+   --sharded` (D = 1 and `--shards 4`), `query --sharded` and `--shards 4
+   repartition --sharded` on phase 12's corpus files against `bench/
+   baseline.cpp records`, and the examples `sharded_build` and
+   `repartition_recovery` (D = 1 and 4 shards) as subprocesses;
+14. require every kernel of each path to have been launched in that
    path's counted run, print the timings, the kernels' JSON line and,
    last, the device JSON line.
 
@@ -3268,6 +3287,284 @@ def cli_genome_check(exe: str) -> dict:
     return r
 
 
+# --- phase 13: the sharded index ------------------------------------------------
+
+SHARDS = 4  # shards on the one card in phase 13's D > 1 runs
+
+
+def sharded_dynamic_run(codes: np.ndarray, mesh: list, timed: bool) -> dict:
+    """`bench.py --mode sharded-dynamic` (`run_tpu_sharded_dynamic`,
+    BASELINE config 5) on the port's `ShardedCBL` over `mesh`: phase 5's
+    SEGS rounds over `pack_stream`ed segments, lazy, one sync for the
+    distinct count and the summed positives (staging inside the wall, as
+    `bench.py` times it), then `count()`, which also reads the deferred
+    overflow count.  With `timed`, the launch counters are set to 0 after
+    staging and read after the sync."""
+    import torch
+
+    from cbl_tpu_torch.parallel import ShardedCBL
+
+    sb = len(codes) // SEGS
+    off1 = np.array([0, sb], dtype=np.int64)
+    off_h = np.array([0, sb // 2], dtype=np.int64)
+    torch.cuda.synchronize()
+    idx = ShardedCBL(k=K, mesh=mesh)
+    t0 = time.perf_counter()
+    segs = [idx.pack_stream(codes[i * sb:(i + 1) * sb], off1)
+            for i in range(SEGS)]
+    halves = [idx.pack_stream(codes[i * sb:i * sb + sb // 2], off_h)
+              for i in range(SEGS)]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    if timed:
+        zero_launches()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    pos_dev = None
+    ops = 0
+    for i in range(SEGS):
+        _, p = idx.dynamic_round(segs[i], segs[i - 1 if i else 0], halves[i],
+                                 lazy=True)
+        pos_dev = p if pos_dev is None else pos_dev + p
+        ops += 2 * (sb - K + 1) + sb // 2 - K + 1
+    ev[1].record()
+    distinct, positive = torch.stack(
+        [idx._slog_live_dev.to(pos_dev.device), pos_dev]).tolist()
+    t2 = time.perf_counter()
+    launches = launches_now() if timed else None
+    assert idx.count() == distinct  # the overflow check, after the clock
+    return dict(ops=ops, distinct=distinct, positive=positive,
+                wall_s=t2 - t0, stage_s=t1 - t0, rounds_s=t2 - t1,
+                rounds_ms=ev[0].elapsed_time(ev[1]), launches=launches,
+                log_rows=idx._slog_dev[0].shape[-1], log_real=idx._slog_real,
+                seq=idx._slog_seq, shards=idx.D)
+
+
+def sharded_bulk_run(codes: np.ndarray, offsets: np.ndarray,
+                     mesh: list) -> dict:
+    """`insert_codes_stream` and the self-`query_codes_stream` of the
+    stream on a fresh `ShardedCBL`, launches counted from 0; the host
+    clock and device events around each call (the query ends in its one
+    sync)."""
+    import torch
+
+    from cbl_tpu_torch.parallel import ShardedCBL
+
+    torch.cuda.synchronize()
+    zero_launches()
+    idx = ShardedCBL(k=K, mesh=mesh)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    t0 = time.perf_counter()
+    ev[0].record()
+    idx.insert_codes_stream(codes, offsets)
+    ev[1].record()
+    total, positive = idx.query_codes_stream(codes, offsets)
+    ev[2].record()
+    wall_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = launches_now()
+    return dict(idx=idx, distinct=idx.count(), total=total,
+                positive=positive, wall_s=wall_s,
+                insert_ms=ev[0].elapsed_time(ev[1]),
+                query_ms=ev[1].elapsed_time(ev[2]), launches=launches)
+
+
+def sharded_mesh_check(codes: np.ndarray, offsets: np.ndarray, base: dict,
+                       base_dyn: dict, alg_counts: dict) -> dict:
+    """Phase 13 (c): SHARDS shards on the one card against single indexes
+    of the same streams (every word and count), `bench/baseline.cpp` and
+    phase 7's counts."""
+    import torch
+
+    from cbl_tpu_torch import CBL
+    from cbl_tpu_torch.limbs import SENTINEL
+    from cbl_tpu_torch.parallel import ShardedCBL
+
+    mesh = [torch.device(DEVICE, 0)] * SHARDS
+    r = {}
+    n_kmers = len(codes) - K + 1
+    half = len(codes) // 2
+
+    def one(c):
+        return c, np.array([0, len(c)], dtype=np.int64)
+
+    # the build, the self-query, a remove of the first half
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x = ShardedCBL(k=K, mesh=mesh)
+    x.insert_codes_stream(codes, offsets)
+    r["distinct"] = x.count()
+    r["build_s"] = time.perf_counter() - t0
+    r["balance"] = x.shard_balance().tolist()
+    t0 = time.perf_counter()
+    r["query"] = x.query_codes_stream(codes, offsets)
+    r["query_s"] = time.perf_counter() - t0
+    assert r["distinct"] == base["distinct"], (r, base)
+    assert r["query"] == (n_kmers, n_kmers), r
+    assert max(r["balance"]) <= 2 * min(r["balance"]), r["balance"]
+    single = CBL(k=K, device=DEVICE)
+    single.insert_codes_stream(codes, offsets)
+    assert np.array_equal(x.words_array(), single.wordset.words_array())
+    for idx in (x, single):
+        idx.remove_codes_stream(*one(codes[:half]))
+    want = single.wordset.words_array()
+    assert np.array_equal(x.words_array(), want)
+    r["after_remove"] = len(want)
+    del single
+
+    # a checkpoint round trip of what is left
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "sharded.npz")
+        t0 = time.perf_counter()
+        x.save_to_file(path)
+        back = ShardedCBL.load_from_file(path, mesh=mesh)
+        r["serde_s"] = time.perf_counter() - t0
+        r["serde_bytes"] = os.path.getsize(path)
+    assert np.array_equal(back.words_array(), want)
+    assert np.array_equal(back.boundaries, x.boundaries)
+    del back, x, want
+
+    # config 5's rounds on SHARDS shards
+    r["rounds"] = sharded_dynamic_run(codes, mesh, timed=True)
+    for key in ("distinct", "positive"):
+        assert r["rounds"][key] == base_dyn[key], (r["rounds"], base_dyn)
+
+    # the four set operations of the two halves, against phase 7's counts
+    a, b = ShardedCBL(k=K, mesh=mesh), ShardedCBL(k=K, mesh=mesh)
+    a.insert_codes_stream(*one(codes[:half]))
+    b.insert_codes_stream(*one(codes[half:]))
+    counts = {"a": a.count(), "b": b.count()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for name, op in ALGEBRA_OPS:
+        counts[name] = op(a, b).count()
+    r["algebra_s"] = time.perf_counter() - t0
+    for name in ("a", "b") + tuple(n for n, _ in ALGEBRA_OPS):
+        assert counts[name] == alg_counts[name], (name, counts, alg_counts)
+    r["algebra"] = counts
+    del a, b
+
+    # a forced overflow: every word routed to shard 0 during an 8 Mbp
+    # insert; the stream recovers with every word
+    quarter = codes[: len(codes) // 4]
+    single = CBL(k=K, device=DEVICE)
+    single.insert_codes_stream(*one(quarter))
+    want_n = single.count()
+    x = ShardedCBL(k=K, mesh=mesh)
+    x.boundaries = np.full_like(x.boundaries, SENTINEL)
+    x._boundaries_from_data = True
+    t0 = time.perf_counter()
+    x.insert_codes_stream(*one(quarter))
+    r["recovery_s"] = time.perf_counter() - t0
+    assert x.count() == want_n and (x.boundaries != SENTINEL).all()
+    r["recovered"] = (want_n, x.shard_balance().tolist())
+    # a skewed remove: every word on shard 0 (`insert_words` under
+    # boundaries that send every word there), then the same bases removed
+    # (`cbl_tpu` loses words here silently)
+    y = ShardedCBL(k=K, mesh=mesh)
+    y.boundaries = np.full_like(y.boundaries, SENTINEL)
+    y._boundaries_from_data = True
+    y.insert_words(single.wordset.export_keys())
+    assert y.shard_balance().tolist() == [want_n] + [0] * (SHARDS - 1)
+    t0 = time.perf_counter()
+    y.remove_codes_stream(*one(quarter))
+    r["skewed_remove_s"] = time.perf_counter() - t0
+    assert y.count() == 0, y.count()
+    return r
+
+
+def sharded_cli_check(gen: dict) -> dict:
+    """Phase 13 (d): `python -m cbl_tpu_torch` with `--sharded` on phase
+    12's genome corpus files, counts against `bench/baseline.cpp
+    records`, and the two sharded examples, as subprocesses."""
+    from cbl_tpu_torch.ops._build import BUILD_DIR
+
+    work = BUILD_DIR / "cli"
+    fa, fq, idx_i = work / "insert.fa", work / "query.fq.gz", work / "i.npz"
+    sh, sh2 = work / "sharded.npz", work / "sharded2.npz"
+    base = gen["baseline"][False]
+    examples = start_cli([[]], "cbl_tpu_torch.examples.sharded_build")
+    examples += start_cli([[], ["--shards", SHARDS]],
+                          "cbl_tpu_torch.examples.repartition_recovery")
+    t0 = time.perf_counter()
+    (_, b_err), (_, q_err), (_, b4_err) = cli_waves(
+        [["build", fa, "--sharded"], ["query", idx_i, fq, "--sharded"],
+         ["--shards", SHARDS, "build", fa, "--sharded", "-o", sh]])
+    (_, p_err), = cli_waves(
+        [["--shards", SHARDS, "repartition", sh, "--sharded", "-o", sh2]])
+    r = {"cli_s": time.perf_counter() - t0}
+    ex_out = finish_cli(examples)
+    for err, shards in ((b_err, 1), (b4_err, SHARDS)):
+        assert (f"Sharding the prefix space across {shards} device(s)"
+                in err), err
+        n = int(stderr_value(err, "Built in ").split("(")[1].split()[0])
+        assert n == base["distinct"], (n, base)
+    r["balance"] = stderr_value(b4_err, "Built in ").split("balance ")[1][:-1]
+    assert "Index sharded across 1 device(s)" in q_err, q_err
+    r["query"] = query_counts(q_err)
+    assert r["query"] == (base["n_kmers_query"], base["positive"]), r
+    after = json.loads(stderr_value(p_err, "Shard balance after:  "))
+    assert sum(after) == base["distinct"], after
+    with np.load(sh2) as z:
+        rows = np.concatenate([z[f"rows_{d}"] for d in range(SHARDS)])
+    assert np.array_equal(rows, index_words(idx_i))
+    r["repartition"] = (stderr_value(p_err, "Shard balance before: "),
+                        after)
+    ex_err = ex_out[0][1].splitlines()
+    assert ex_err[0] == "devices: 1" and ex_err[-1] == (
+        "checkpoint round-trip OK"), ex_err
+    for so, _ in ex_out[1:]:
+        lines = so.splitlines()
+        built = int(lines[1].split()[1])
+        assert f"overflow recovery: {built} k-mers (= {built} expected)" in (
+            lines[4]), lines
+    r["examples"] = [ex_err[1]] + [so.splitlines()[4] for so, _ in ex_out[1:]]
+    return r
+
+
+def sharded_summary(card: str, dyn: dict, base_dyn: dict, static_plain: dict,
+                    n_kmers: int, sdyn: dict, sbulk: dict, smesh: dict,
+                    scli: dict) -> None:
+    """Phase 14's lines of phase 13: config 5 beside phase 5's single
+    index, the D = 1 bulk path beside phase 3's, the SHARDS-shard runs and
+    the CLI."""
+    single_ops_s = dyn["ops"] / dyn["wall_s"]
+    for label, r in (("D=1 (config 5)", sdyn),
+                     (f"{SHARDS} shards on one card", smesh["rounds"])):
+        log(f"[{card}] K={K} {MAIN_BASES / 1e6:.0f} Mbp sharded dynamic, "
+            f"{label}, {SEGS} rounds, {r['ops']} ops: wall with staging "
+            f"{r['wall_s'] * 1e3:.2f} ms = {r['ops'] / r['wall_s']:.4g} ops/s"
+            f" = {r['ops'] / r['wall_s'] / single_ops_s:.3f} x phase 5's "
+            f"single index in this call ({single_ops_s:.4g}); stage "
+            f"{r['stage_s'] * 1e3:.1f} ms; device rounds "
+            f"{r['rounds_s'] * 1e3:.2f} ms ({r['rounds_ms']:.2f} ms by device "
+            f"events; phase 5: {dyn['rounds_ms']:.2f}); final log "
+            f"{r['log_rows']} rows a shard ({r['log_real']} real bound, seq "
+            f"{r['seq']}); baseline.cpp 1 core {base_dyn['ops_per_s']:.4g} "
+            f"ops/s; launches "
+            f"{ {n: c for n, c in r['launches'].items() if c} }")
+    log(f"[{card}] K={K} {MAIN_BASES / 1e6:.0f} Mbp sharded bulk, D=1: "
+        f"insert {sbulk['insert_ms']:.2f} ms, query {sbulk['query_ms']:.2f} "
+        f"ms (device events; phase 3: {static_plain['insert_ms']:.2f} / "
+        f"{static_plain['query_ms']:.2f}), wall "
+        f"{sbulk['wall_s'] * 1e3:.2f} ms = "
+        f"{2 * n_kmers / sbulk['wall_s']:.4g} k-mers/s (staging inside); "
+        f"launches { {n: c for n, c in sbulk['launches'].items() if c} }")
+    log(f"[{card}] K={K} {MAIN_BASES / 1e6:.0f} Mbp on {SHARDS} shards of "
+        f"one card: build + count {smesh['build_s'] * 1e3:.1f} ms, balance "
+        f"{smesh['balance']}, self-query {smesh['query_s'] * 1e3:.1f} ms; "
+        f"after removing the first half {smesh['after_remove']} words, "
+        f"checkpoint round-trip {smesh['serde_s']:.3f} s "
+        f"({smesh['serde_bytes']} bytes); set operations of 2 x "
+        f"{MAIN_BASES / 2e6:.0f} Mbp with counts {smesh['algebra']} in "
+        f"{smesh['algebra_s'] * 1e3:.1f} ms; forced overflow of "
+        f"{MAIN_BASES / 4e6:.0f} Mbp recovered in "
+        f"{smesh['recovery_s'] * 1e3:.1f} ms {smesh['recovered']}; skewed "
+        f"remove {smesh['skewed_remove_s'] * 1e3:.1f} ms to 0 words (host "
+        f"clock)")
+    log(f"[{card}] sharded CLI on the genome corpus: {scli}")
+
+
 def profile_algebra() -> int:
     """`--profile-algebra`: the set-algebra runs under `torch.profiler`
     in the ("bitonic", "bitonic") and the default modes; prints the
@@ -3710,7 +4007,53 @@ def main() -> int:
     gen = cli_genome_check(exe)
 
     stamp(13)
-    # phase 13
+    # phase 13: the sharded index: BASELINE config 5 (D = 1), the bulk
+    # path at D = 1, SHARDS shards on the one card, the CLI's --sharded
+    # and the sharded examples
+    from cbl_tpu_torch.parallel import make_mesh
+
+    mesh1 = make_mesh()[:1]  # bench.py's sharded-dynamic mesh: D = 1
+    sharded_dynamic_run(codes, mesh1, timed=False)  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    sdyn = sharded_dynamic_run(codes, mesh1, timed=True)
+    sdyn["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    log(f"sharded dynamic path (config 5, D=1): "
+        f"{ {n: v for n, v in sdyn.items() if n != 'launches'} } baseline "
+        f"{base_dyn}")
+    assert sdyn["ops"] == base_dyn["ops"], (sdyn, base_dyn)
+    assert sdyn["distinct"] == base_dyn["distinct"], (sdyn, base_dyn)
+    assert sdyn["positive"] == base_dyn["positive"], (sdyn, base_dyn)
+    sdyn_launches = sdyn["launches"]
+    # a round merges three times (the first into the index's rows too)
+    # and scans once; each of the 2 SEGS staged streams runs its word
+    # pipeline once (the memo)
+    assert sdyn_launches["merge"] == 3 * SEGS, sdyn_launches
+    assert sdyn_launches["slog_scan"] == SEGS, sdyn_launches
+    assert sdyn_launches["necklace"] == sdyn_launches["blank"] == 2 * SEGS
+    static_plain, base_static = runs["plain"]
+    sbulk = sharded_bulk_run(codes, offsets, mesh1)
+    sbulk.pop("idx")
+    log(f"sharded bulk path (D=1): "
+        f"{ {n: v for n, v in sbulk.items() if n != 'launches'} }")
+    assert sbulk["distinct"] == base_static["distinct"], sbulk
+    assert sbulk["total"] == sbulk["positive"] == n_kmers, sbulk
+    sbulk_launches = sbulk["launches"]
+    for name in STATIC_KERNELS:
+        assert sbulk_launches[name] >= 1, (
+            f"kernel {name} never launched on the sharded bulk path")
+    smesh = sharded_mesh_check(codes, offsets, base_static, base_dyn,
+                               alg[ALGEBRA_MODES[2]]["counts"])
+    log(f"{SHARDS} shards on one card: "
+        f"{ {n: v for n, v in smesh.items() if n != 'rounds'} }")
+    mesh_launches = smesh["rounds"]["launches"]
+    assert mesh_launches["slog_scan"] == SEGS * SHARDS, mesh_launches
+    for name in ROUND_KERNELS:
+        assert mesh_launches[name] >= 1, mesh_launches
+    scli = sharded_cli_check(gen)
+    log(f"sharded CLI and examples: {scli}")
+
+    stamp(14)
+    # phase 14
     for name in STATIC_KERNELS:
         assert main_launches[name] >= 1, name
     for label, (r, base) in runs.items():
@@ -3927,6 +4270,8 @@ def main() -> int:
         f"{gen['files_s']:.1f} s")
     log(f"[{card}] examples: {gen['dynamic_twin']}; {gen['necklace_twin']} "
         f"(launches {gen['necklace_twin_launches']['necklace']} of B1)")
+    sharded_summary(card, dyn, base_dyn, static_plain, n_kmers, sdyn, sbulk,
+                    smesh, scli)
 
     src = {
         "necklace": ("cbl_tpu_torch/csrc/necklace.cu",
@@ -3957,14 +4302,18 @@ def main() -> int:
     # (config 3's timed build and self-query in each mode; at K=31 the
     # sequence calls, the set operations in each mode pair and the
     # contains mask in two) and the rounds at wide K (K=59 and 27, and
-    # K=59 under "bitonic"), each counted from 0
+    # K=59 under "bitonic"), the CLI in this process, the necklace
+    # example, and the sharded index (config 5's rounds at D = 1, the
+    # bulk build and query at D = 1, the rounds on SHARDS shards), each
+    # counted from 0
     paths = (main_launches, dyn_launches, b7_launches, sep["A"]["launches"],
              sep["B"]["launches"], alg_launches,
              alg[ALGEBRA_MODES[1]]["launches"], om["default"]["launches"],
              om["bitonic"]["launches"], om["holes"]["launches"],
              seq_launches, ex_launches, *wide["launches"].values(),
              *wdyn["launches"].values(), *gen["launches"].values(),
-             gen["necklace_twin_launches"])
+             gen["necklace_twin_launches"], sdyn_launches, sbulk_launches,
+             mesh_launches)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src[name][0],
          "replaces": src[name][1],

@@ -11,7 +11,9 @@ examples.
   words;
 - K=59 `build` + `list` against a Python set (port only: `cbl_tpu`'s
   K=59 programs take seconds each to trace);
-- `--sharded` is refused, `--trace` writes a Chrome trace, the module runs
+- `--sharded` `build`, `query` and `repartition` on eight CPU shards
+  against `cbl_tpu`'s on its eight virtual devices, `--trace` writes a
+  Chrome trace, the module runs
   as `python -m cbl_tpu_torch`, and without a card the default device
   exits non-zero;
 - the examples under `cbl_tpu_torch/examples/` at a tiny size.
@@ -34,7 +36,8 @@ from cbl_tpu import CBL as RefCBL
 from cbl_tpu import cli as ref_cli
 from cbl_tpu_torch import CBL, cli
 from cbl_tpu_torch.examples import (bench_necklace_throughput,
-                                    build_from_fastx, dynamic_rounds)
+                                    build_from_fastx, dynamic_rounds,
+                                    repartition_recovery, sharded_build)
 
 torch.set_num_threads(2)
 
@@ -202,10 +205,41 @@ def test_cli_large_k59(tmp_path, monkeypatch, capsysbinary):
     ["repartition", "a.npz", "--sharded", "-o", "x"],
 ], ids=["build", "query", "repartition"])
 def test_sharded_is_refused(dirs, argv, monkeypatch, capsysbinary):
-    monkeypatch.chdir(dirs["plain"][1])
-    rc, out, err = _run(_port_main, argv, capsysbinary)
-    assert rc != 0 and out == b""
-    assert len(err) == 1 and "--sharded" in err[0] and "parallel" in err[0]
+    """`--sharded` was refused until `parallel` was ported; now each
+    command runs as `cbl_tpu`'s does on its eight virtual devices, the
+    port on `--shards 8` CPU shards: stderr line for line (shard balances
+    included, times masked) and the checkpoints written equal.  The
+    repartition reads a sharded checkpoint that each package's sharded
+    build wrote under boundaries from the data."""
+    ref, port = dirs["plain"]
+    argv = list(argv)
+    if argv[0] == "build":
+        argv += ["-o", "sharded.npz"]
+    files = [a for a in argv if a in ("sharded.npz", "x")]
+    if argv[0] == "repartition":
+        argv[1] = "sharded_in.npz"
+    for d, main in ((ref, ref_cli.main), (port, _port_sharded_main)):
+        monkeypatch.chdir(d)
+        if argv[0] == "repartition":
+            assert main(["build", "a.fa", "--sharded", "-o",
+                         "sharded_in.npz"]) == 0
+        capsysbinary.readouterr()
+    monkeypatch.chdir(ref)
+    want = _run(ref_cli.main, argv, capsysbinary)
+    monkeypatch.chdir(port)
+    got = _run(_port_sharded_main, argv, capsysbinary)
+    assert got[0] == want[0] == 0 and got[1] == want[1] == b""
+    assert got[2] == want[2] and any("8 device(s)" in line or "balance" in
+                                     line for line in got[2])
+    for name in files:
+        w, g = _words(ref / name), _words(port / name)
+        assert sorted(w) == sorted(g)
+        for key in w:
+            np.testing.assert_array_equal(g[key], w[key], err_msg=key)
+
+
+def _port_sharded_main(argv):
+    return cli.main(["--device", "cpu", "--shards", "8", *argv])
 
 
 def test_trace_writes_chrome_trace(dirs, tmp_path, monkeypatch, capsysbinary):
@@ -274,3 +308,31 @@ def test_example_bench_necklace_throughput(k, capsys):
         ["2000", str(k), "--device", "cpu"]) == 0
     out = capsys.readouterr().out
     assert out.startswith(f"2000 necklaces (K={k}, {2 * k} bits) in ")
+
+
+def test_example_sharded_build(dirs, capsys):
+    """Four CPU shards on a.fa: the build's count is the single index's,
+    the self-query all positive, the checkpoint round-trips."""
+    port = dirs["plain"][1]
+    assert sharded_build.main([str(port / "a.fa"), "--device", "cpu",
+                               "--shards", "4"]) == 0
+    err = capsys.readouterr().err.splitlines()
+    n = CBL.load_from_file(str(port / "a.npz"), device="cpu").count()
+    assert err[0] == "devices: 4"
+    assert err[1].startswith(f"built {n} distinct 25-mers in ")
+    assert re.fullmatch(r"self-query: (\d+)/\1 positive", err[2]), err[2]
+    assert err[-1] == "checkpoint round-trip OK"
+
+
+def test_example_repartition_recovery(capsys):
+    """Eight CPU shards at a small size: the skewed growth is re-balanced
+    and the overflowed insert recovers every word."""
+    assert repartition_recovery.main(
+        ["--device", "cpu", "--shards", "8", "--bases", "40000",
+         "--skew", "20000"]) == 0
+    out = capsys.readouterr().out.splitlines()
+    assert out[0] == "mesh: 8 device(s)"
+    built = int(re.match(r"built (\d+) k-mers", out[1]).group(1))
+    after = json.loads(out[3].split("balance ")[1])
+    assert sum(after) == built + 20_000 and max(after) <= 2 * min(after)
+    assert f"overflow recovery: {built} k-mers (= {built} expected)" in out[4]

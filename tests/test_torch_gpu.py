@@ -1200,3 +1200,71 @@ def test_wide_rounds_on_cuda_match_cpu(cuda, monkeypatch, k, prefix_bits,
         # one a round and one for the query; `count()` reads the last
         # round's scan
         assert cpu[2] == 0 and card[2] == 4 + 1
+
+
+def _same_tree(a, b) -> bool:
+    """Equal nested lists / tuples / dicts of arrays and scalars."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_same_tree(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(map(_same_tree, a, b))
+    return np.array_equal(np.asarray(a), np.asarray(b))
+
+
+@pytest.mark.parametrize("D", [1, 4])
+@pytest.mark.parametrize("k,prefix_bits", [(25, 24), (59, 28)])
+def test_sharded_on_cuda_matches_cpu(cuda, monkeypatch, tmp_path, D, k,
+                                     prefix_bits):
+    """`parallel.ShardedCBL` on D shards of the card against D shards of
+    the CPU: the state after the bulk build (every shard's rows, the
+    boundaries, the counts), a query and masks of a foreign multi-record
+    stream, a bulk remove, three rounds over the sharded log and the
+    state they leave, a set operation and a checkpoint round trip.  The
+    card runs B1, B2, B3 and B4 (B1 wide and B4's three-column form at
+    K=59); the CPU launches no kernel."""
+    from cbl_tpu_torch import state
+    from cbl_tpu_torch.parallel import ShardedCBL
+
+    rng = np.random.default_rng(D * 100 + k)
+    codes = rng.integers(0, 4, size=60_000, dtype=np.uint8)
+    other = rng.integers(0, 4, size=8_000, dtype=np.uint8)
+    one = lambda c: (c, np.array([0, len(c)], dtype=np.int64))
+    q = np.concatenate([codes[:6_000], other])
+    q_off = np.array([0, 6_000, 9_000, len(q)], dtype=np.int64)
+    sb = 6_000
+    got = {}
+    for device in ("cpu", cuda):
+        for name in LAUNCHES:
+            monkeypatch.setitem(LAUNCHES, name, 0)
+        mesh = [device] * D
+        x = ShardedCBL(k=k, prefix_bits=prefix_bits, mesh=mesh,
+                       batch_per_device=1024)
+        x.insert_codes_stream(*one(codes[:36_000]))
+        r = [state.sharded_to_arrays(x), x.query_codes_stream(q, q_off),
+             x.contains_codes_stream(q, q_off)]
+        x.remove_codes_stream(*one(codes[:5_000]))
+        r.append(x.words_array())
+        segs = [x.pack_stream(*one(codes[36_000 + i * sb:
+                                         36_000 + (i + 1) * sb]))
+                for i in range(3)]
+        r.append([x.dynamic_round(segs[i], segs[max(i - 1, 0)], segs[0])
+                  for i in range(3)])
+        r += [state.sharded_to_arrays(x), x.count()]
+        y = ShardedCBL(k=k, prefix_bits=prefix_bits, mesh=mesh,
+                       batch_per_device=1024)
+        y.insert_codes_stream(*one(codes[20_000:50_000]))
+        r += [(x & y).words_array(), (x | y).count()]
+        x.save_to_file(tmp_path / f"{device}.npz")
+        back = ShardedCBL.load_from_file(tmp_path / f"{device}.npz",
+                                         mesh=mesh)
+        r.append(back.words_array())
+        got[str(device)] = (r, dict(LAUNCHES))
+    (cpu, cpu_n), (card, card_n) = got["cpu"], got[str(cuda)]
+    assert _same_tree(card, cpu)
+    assert 0 < cpu[1][1] < cpu[1][0]
+    assert not any(cpu_n.values())
+    scan_key = "slog_scan" if k == 25 else "slog_scan_tag_3col"
+    for name in ("necklace_wide" if k == 59 else "necklace", "blank",
+                 "merge" if k == 25 else "merge_3col", scan_key):
+        assert card_n[name] > 0, (name, card_n)
+    assert card_n[scan_key] == 3 * D  # once a round a shard

@@ -42,6 +42,9 @@ def test_imports_without_jax():
         "import cbl_tpu_torch.examples.build_from_fastx\n"
         "import cbl_tpu_torch.examples.dynamic_rounds\n"
         "import cbl_tpu_torch.examples.bench_necklace_throughput\n"
+        "import cbl_tpu_torch.parallel, cbl_tpu_torch.parallel.shard\n"
+        "import cbl_tpu_torch.examples.sharded_build\n"
+        "import cbl_tpu_torch.examples.repartition_recovery\n"
         "assert cbl_tpu_torch.io._load_native() is not None\n"
         "import chip_smoke, bench, runpy\n"  # phase 12 imports bench
         "sys.argv = ['cbl_tpu_torch', '--help']\n"
@@ -64,6 +67,21 @@ def test_cuda_device_required():
         CBL(k=25, device="cuda")
     with pytest.raises(RuntimeError, match="CUDA"):
         CBL(k=25)  # the default device is "cuda"
+
+
+def test_mesh_defaults_to_the_cards():
+    """`make_mesh()` (and so a `ShardedCBL` without a mesh) shards over
+    the CUDA cards and raises without one; a named device does not fall
+    back either."""
+    from cbl_tpu_torch.parallel import ShardedCBL, make_mesh
+
+    _no_cuda()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_mesh()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ShardedCBL(k=25)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_mesh(["cuda", "cuda"])
 
 
 @pytest.mark.parametrize("alone", [False, True])
