@@ -1,11 +1,15 @@
-"""The index partitioned over a mesh of torch devices (`shard`).
+"""The index partitioned over a mesh of torch devices (`shard`), in one
+process or across the ranks of a `torch.distributed` group
+(`distributed`).
 
-Counterpart of `cbl_tpu/parallel` for one process: `ShardedCBL` holds a
-shard of the word space on each device of the mesh, `make_mesh` lists the
-devices.  The multi-process layer (`cbl_tpu/parallel/distributed.py`) is
-not ported yet.
+Counterpart of `cbl_tpu/parallel`: `ShardedCBL` holds a shard of the word
+space on each device of the mesh, `make_mesh` lists the devices;
+`distributed` joins processes (`init_distributed`), stages each rank's
+slice of the records (`multihost_*`) and holds the reference's
+two-process check (`launch_multihost_dryrun`).
 """
 
+from . import distributed
 from .shard import ShardedCBL, make_mesh
 
-__all__ = ["ShardedCBL", "make_mesh"]
+__all__ = ["ShardedCBL", "distributed", "make_mesh"]

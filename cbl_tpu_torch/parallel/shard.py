@@ -1,13 +1,23 @@
 """The k-mer set partitioned over a mesh of torch devices by word range.
 
-Counterpart of `cbl_tpu/parallel/shard.py` for one process.  Where
-`cbl_tpu` runs one `jax.shard_map` program over a 1-D device mesh, this
-port runs the same local step on each shard in turn, as eager PyTorch on
-that shard's device:
+Counterpart of `cbl_tpu/parallel/shard.py`.  Where `cbl_tpu` runs one
+`jax.shard_map` program over a 1-D device mesh, this port runs the same
+local step on each shard in turn, as eager PyTorch on that shard's
+device:
 
 - the mesh is a list of `torch.device`, one per shard (`make_mesh`: every
   CUDA card by default; a device may be named for several shards, as the
   tests name the CPU eight times for `cbl_tpu`'s eight virtual devices);
+- a mesh made by `make_mesh(..., process_group=True)` (the default
+  devices under an initialised `torch.distributed` group of P > 1 ranks,
+  `distributed.init_distributed`) is this rank's part of a global mesh:
+  every rank lists as many shards (D_local), and the global mesh is the
+  ranks' parts in rank order: D = P D_local shards, rank r holding shards
+  r D_local to (r + 1) D_local - 1 (`_local_shard_ids`), as `cbl_tpu`'s
+  processes hold their addressable devices; a rank holds no tensor of
+  another rank's shard, and the lists below are its local shards.  A plain
+  list of devices stays a mesh of one process, also inside a group, as a
+  mesh of local devices does in `cbl_tpu`;
 - each shard holds one sorted, SENTINEL-padded key tensor on its device
   ([C] keys, or [2, C] rows from K=29, `limbs`), the same layout as
   `DeviceWordSet.data`; the state is a list of D such tensors, and while
@@ -22,8 +32,14 @@ that shard's device:
   by one gather, and `_all_to_all` is the one place where shards meet:
   destination d receives the concatenation over sources s of
   `sends[s][d]`, moved to `mesh[d]` (`jax.lax.all_to_all(tiled=True)`);
-- `cbl_tpu`'s `psum` is a host-side sum of the D shards' 0-d tensors on
-  the first shard's device, read only where `cbl_tpu` reads it.
+  across ranks that is one `all_to_all_single` of equal splits, and the
+  concatenation stays in global source-shard order;
+- `cbl_tpu`'s `psum` is a sum of the shards' 0-d tensors on the first
+  shard's device (`_total`), across ranks an `all_reduce`; the per-shard
+  counts of every rank are an `all_gather` (`_total_host`,
+  `cbl_tpu`'s `_gather_counts_fn`).  Both are read only where `cbl_tpu`
+  reads them, and every rank runs the same collectives in the same order:
+  every shape, cap and capacity comes from agreed values or global counts.
 
 Every local step reuses the single index's code: the word pipeline
 (`cbl._device_words`: B1, B2), the sort and merge seam (`ops.sort`: B3 by
@@ -37,11 +53,24 @@ and capacity equal `cbl_tpu`'s on the same input.
 One intended difference: a bulk remove whose routing overflows a bucket
 re-runs its stream with larger buckets (removing twice is a no-op), so it
 is exact under any partition; `cbl_tpu`'s drops the overflow silently.
-The multi-process layer (`cbl_tpu/parallel/distributed.py`, the
-`_multiproc` branches, per-process checkpoint files) is not ported yet.
+Under ranks the re-run decides on the all-reduced drop count, so every
+rank re-runs together.
+
+On a multi-process mesh each rank stages its own records through
+`distributed.multihost_*`, the word-level `insert_words` /
+`remove_words` take the same words on every rank, `iter_words_chunks`
+hands every rank every chunk (one `broadcast` from the owner), and
+checkpoints are one file a rank (`_shard_file`).  The calls that read
+every shard's rows or masks into one process (`words_array`, `to_cbl`,
+`contains_words`, `count_hits`, the ordered masks) raise `ValueError`
+there, as `cbl_tpu`'s raise; so do the record-stream calls of one
+process, which stage every shard's rows in each process and where
+`cbl_tpu` returns counts that are not the single index's.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -51,6 +80,7 @@ from ..cbl import (
     _device_words,
     _round_batch,
     _round_into_log,
+    _stream_len,
     host_to_device,
 )
 from ..config import get_config
@@ -100,10 +130,53 @@ _SETOPS = {"union": "union", "intersection": "inter",
            "difference": "diff", "symmetric_difference": "symdiff"}
 
 
-def make_mesh(devices=None) -> list:
+def _group_initialised() -> bool:
+    import torch.distributed as dist
+
+    return dist.is_available() and dist.is_initialized()
+
+
+def _process_group() -> tuple:
+    """(rank, ranks) of the initialised `torch.distributed` group, or
+    (0, 1) without one."""
+    import torch.distributed as dist
+
+    if _group_initialised():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+class Mesh(list):
+    """The shards' devices, one entry a shard (`make_mesh`).  With
+    `ranks` > 1 it is rank `rank`'s part of a global mesh of `ranks`
+    equal parts in rank order; else a mesh of one process."""
+
+    def __init__(self, devices, rank: int = 0, ranks: int = 1):
+        super().__init__(devices)
+        self.rank, self.ranks = rank, ranks
+
+
+def make_mesh(devices=None, process_group: bool | None = None) -> Mesh:
     """The shards' devices: `devices` (torch devices or names; one may
-    repeat), or every CUDA card.  With no card the default raises; it
-    never falls back to the CPU."""
+    repeat), or every CUDA card.  With `process_group` the mesh is this
+    rank's part of a global mesh over the ranks of the initialised
+    `torch.distributed` group, every rank with as many shards: `devices`,
+    or one shard on `cuda:(LOCAL_RANK % cards)` (LOCAL_RANK from the
+    environment, else the rank).  `process_group` defaults to True for
+    the default devices under a group of several ranks (`cbl_tpu`'s
+    `make_mesh()` takes every global device) and to False for named
+    devices, which stay a mesh of one process; a `Mesh` passed in is
+    kept.  With no card the default raises; it never falls back to the
+    CPU."""
+    if isinstance(devices, Mesh) and process_group is None:
+        return devices
+    rank, ranks = _process_group()
+    if process_group is None:
+        process_group = devices is None and ranks > 1
+    if process_group and not _group_initialised():
+        raise ValueError("a mesh over a process group needs an initialised "
+                         "torch.distributed group "
+                         "(distributed.init_distributed)")
     if devices is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -111,28 +184,98 @@ def make_mesh(devices=None) -> list:
                 "available; pass devices=[torch.device('cpu')] * D for the "
                 "plain tensor path"
             )
-        return [torch.device("cuda", i)
-                for i in range(torch.cuda.device_count())]
+        cards = torch.cuda.device_count()
+        if process_group:
+            local = int(os.environ.get("LOCAL_RANK", rank))
+            devices = [torch.device("cuda", local % cards)]
+        else:
+            devices = [torch.device("cuda", i) for i in range(cards)]
     mesh = [resolve_device(d) for d in devices]
     if not mesh:
         raise ValueError("a mesh needs at least one device")
-    return mesh
+    return Mesh(mesh, rank, ranks) if process_group else Mesh(mesh)
 
 
 def _all_to_all(sends: list, mesh: list) -> list:
     """The exchange: `sends[s]` is source shard s's [..., D, cap] buffer;
     destination d receives [..., D * cap], the concatenation over s of
-    `sends[s][..., d, :]`, on `mesh[d]`."""
-    D = len(mesh)
-    return [
-        torch.cat([sends[s][..., d, :].to(mesh[d]) for s in range(D)], dim=-1)
-        for d in range(D)
-    ]
+    `sends[s][..., d, :]`, on `mesh[d]`.  On a mesh over several ranks
+    (`Mesh.ranks`) the lists hold a rank's local shards, and one
+    `all_to_all_single` of equal splits moves the buffers laid out by
+    destination rank; each local destination
+    still receives the concatenation over the GLOBAL sources in shard-id
+    order.  Under gloo the tensors stay on the card: gloo copies them
+    through host memory itself, and explicit pinned copies measured no
+    faster on one H100 (`chip_smoke.py` phase 13 (e))."""
+    ranks = getattr(mesh, "ranks", 1)
+    if ranks == 1:
+        D = len(mesh)
+        return [
+            torch.cat([sends[s][..., d, :].to(mesh[d]) for s in range(D)],
+                      dim=-1)
+            for d in range(D)
+        ]
+    import torch.distributed as dist
+
+    n = len(mesh)  # local shards a rank: sources and destinations
+    x = torch.stack([s.to(mesh[0]) for s in sends])  # [n, ..., D, cap]
+    lead, cap = tuple(x.shape[1:-2]), x.shape[-1]
+    nl = len(lead)
+    is_bool = x.dtype == torch.bool
+    if is_bool:  # gloo moves no bool
+        x = x.to(torch.uint8)
+    # [n src, ..., ranks, n dst, cap] -> [ranks, n src, ..., n dst, cap]
+    x = x.reshape(n, *lead, ranks, n, cap).permute(
+        1 + nl, 0, *range(1, 1 + nl), 2 + nl, 3 + nl).contiguous()
+    y = torch.empty_like(x)
+    dist.all_to_all_single(y, x)  # dim 0: the source rank now
+    if is_bool:
+        y = y.bool()
+    # destination j: [ranks, n src, ..., cap] -> [..., ranks n cap]
+    order = (*range(2, 2 + nl), 0, 1, 2 + nl)
+    return [y[..., j, :].permute(order).reshape(*lead, ranks * n * cap)
+            .to(dev) for j, dev in enumerate(mesh)]
 
 
-def _total(parts: list, device) -> torch.Tensor:
-    """`psum`: the sum of the shards' 0-d tensors on `device`, unsynced."""
-    return torch.stack([p.to(device) for p in parts]).sum()
+def _total(parts: list, device, ranks: int = 1) -> torch.Tensor:
+    """`psum`: the sum of the shards' 0-d tensors (or of equal-shape
+    vectors, elementwise) on `device`, int64, unsynced; across `ranks` an
+    `all_reduce` of the local sums."""
+    s = torch.stack([p.to(device).to(torch.int64) for p in parts]).sum(0)
+    if ranks > 1:
+        import torch.distributed as dist
+
+        s = s.reshape(-1)
+        dist.all_reduce(s)
+        s = s.reshape(parts[0].shape)
+    return s
+
+
+def _total_host(parts: list, device, ranks: int = 1) -> np.ndarray:
+    """The shards' 0-d counts read into one int64 numpy array of every
+    shard of the mesh (across `ranks` an `all_gather`, rank-major:
+    `cbl_tpu`'s `_gather_counts_fn`)."""
+    local = torch.stack([p.to(device).to(torch.int64) for p in parts])
+    if ranks > 1:
+        import torch.distributed as dist
+
+        out = [torch.empty_like(local) for _ in range(ranks)]
+        dist.all_gather(out, local)
+        local = torch.cat(out)
+    return local.cpu().numpy()
+
+
+def _agree_max(values, device, ranks: int) -> list:
+    """The elementwise maximum over the ranks of a list of ints (one
+    `all_reduce(MAX)` of an int64 tensor on `device`; `cbl_tpu`'s
+    `process_allgather` then max)."""
+    t = torch.tensor([int(v) for v in values], dtype=torch.int64,
+                     device=device)
+    if ranks > 1:
+        import torch.distributed as dist
+
+        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return t.cpu().tolist()
 
 
 def _route_sorted(s: torch.Tensor, bnd: torch.Tensor, cap: int,
@@ -170,22 +313,29 @@ def _slog_bounds(bnd: torch.Tensor, packed: bool) -> torch.Tensor:
 
 
 def build_slab_groups(front: CBL, codes: np.ndarray, offsets: np.ndarray,
-                      nk_sub: int, rows: int):
+                      nk_sub: int, rows: int, icap: int | None = None,
+                      n_groups: int | None = None):
     """Stack uniform sub-slabs (`CBL._fused_slabs(uniform=True)`) into
     groups of `rows` shards: yield (nk_sub, stream [rows, Sw] uint32,
     starts [rows, S] int32, ends [rows, S] int32) numpy arrays; missing
-    sub-slabs become all-blank dummies.  (`cbl_tpu`'s `icap` and
-    `n_groups`, which give every process equal shapes, belong to the
-    multi-process layer, not ported yet.)"""
+    sub-slabs become all-blank dummies.  `icap` fixes the interval length
+    S and `n_groups` the number of groups (pads with all-blank groups, or
+    cuts), as `cbl_tpu`'s do, so that every rank stages equal shapes; an
+    empty slice then yields dummies only."""
     slabs = list(front._fused_slabs(codes, offsets, slab=nk_sub,
                                     uniform=True))
     drop = nk_sub + 1
-    for g0 in range(0, len(slabs), rows):
-        group = slabs[g0 : g0 + rows]
-        cap = max(s[2].shape[0] for s in group)
-        sw = group[0][1].shape[0]  # uniform slabs: one stream width
+    total = n_groups if n_groups is not None else -(-len(slabs) // rows)
+    sw = None
+    for g0 in range(total):
+        group = slabs[g0 * rows : (g0 + 1) * rows]
+        cap = icap if icap is not None else max(
+            (s[2].shape[0] for s in group), default=16)
         streams, starts, ends = [], [], []
         for _, stream, s_arr, e_arr, _ in group:
+            if len(s_arr) > cap:
+                raise ValueError(f"interval cap {cap} < {len(s_arr)} "
+                                 "intervals; raise icap")
             s_pad = np.full(cap, drop, dtype=np.int32)
             s_pad[: len(s_arr)] = s_arr
             e_pad = np.full(cap, drop, dtype=np.int32)
@@ -193,8 +343,11 @@ def build_slab_groups(front: CBL, codes: np.ndarray, offsets: np.ndarray,
             streams.append(stream)
             starts.append(s_pad)
             ends.append(e_pad)
+            sw = stream.shape[0]  # uniform slabs: one stream width
         while len(streams) < rows:  # an all-blank dummy sub-slab
-            streams.append(np.zeros(sw, dtype=np.uint32))
+            streams.append(np.zeros(
+                sw if sw is not None else _stream_len(nk_sub, front.cfg.k)
+                // 16, dtype=np.uint32))
             s_pad = np.full(cap, drop, dtype=np.int32)
             e_pad = np.full(cap, drop, dtype=np.int32)
             s_pad[0], e_pad[0] = 0, nk_sub
@@ -226,7 +379,9 @@ class ShardedCBL:
     calls, as in `cbl_tpu.parallel.ShardedCBL`.  The word-level calls
     (`insert_words`, `remove_words`, `contains_words`, `count_hits`) take
     the port's int64 keys ([N], or [2, N] from K=29; a tensor or a numpy
-    array); exports give `cbl_tpu`'s [n, L] uint32 limbs."""
+    array); exports give `cbl_tpu`'s [n, L] uint32 limbs.  Under a process
+    group of several ranks, `mesh` is this rank's part of the global mesh
+    (see the module's notes) and every rank makes the same calls."""
 
     _SUB_SLAB_MAX = 1 << 24  # k-mers a shard a bulk step, at most
 
@@ -237,7 +392,15 @@ class ShardedCBL:
         self.cfg = get_config(k=k, prefix_bits=prefix_bits)
         self.canonical = canonical
         self.mesh = make_mesh(mesh)
-        self.D = len(self.mesh)
+        self._rank, self._ranks = self.mesh.rank, self.mesh.ranks
+        self.D = len(self.mesh) * self._ranks
+        if self._ranks > 1:
+            n = len(self.mesh)
+            hi, neg_lo = _agree_max([n, -n], self.mesh[0], self._ranks)
+            if hi != n or -neg_lo != n:
+                raise ValueError(
+                    f"the ranks' meshes hold {-neg_lo} to {hi} shards; "
+                    "every rank must hold as many")
         self.C = shard_capacity
         self.B = batch_per_device
         self.L = self.cfg.word_limbs
@@ -272,6 +435,27 @@ class ShardedCBL:
         self._slog_seq = 0
         self._slog_real = 0  # per-shard bound on non-sentinel log rows
         self._slog_live_dev = None  # distinct live words, summed
+
+    # --- the process group ---------------------------------------------
+
+    @property
+    def _multiproc(self) -> bool:
+        return self._ranks > 1
+
+    def _local_shard_ids(self) -> list:
+        """The global ids of this rank's shards, in mesh order."""
+        n = len(self.mesh)
+        return list(range(self._rank * n, (self._rank + 1) * n))
+
+    def _single_process(self, what: str, instead: str) -> None:
+        """Raise on a multi-process mesh: `what` reads every shard's rows
+        or masks into one process (`cbl_tpu` raises there too), or stages
+        every shard's rows in each process (`cbl_tpu`'s counts there are
+        not the single index's)."""
+        if self._multiproc:
+            raise ValueError(
+                f"{what} runs on a mesh of one process; on a multi-process "
+                f"mesh use {instead}")
 
     # --- boundaries -----------------------------------------------------
 
@@ -368,7 +552,8 @@ class ShardedCBL:
         """The counts without the overflow check, for callers that run
         while a drop count may legitimately be pending."""
         if self._counts_host is None:
-            self._counts_host = _total_host(self._counts_dev, self.mesh[0])
+            self._counts_host = _total_host(self._counts_dev, self.mesh[0],
+                                            self._ranks)
             if not self._dups:
                 self._count_upper = int(self._counts_host.max())
         return self._counts_host
@@ -439,10 +624,14 @@ class ShardedCBL:
 
     @property
     def _stream_key(self):
-        return (self.cfg, self.canonical, tuple(self.mesh))
+        return (self.cfg, self.canonical, tuple(self.mesh), self._ranks)
 
     def _put_rows(self, rows: np.ndarray, mask32: bool = False) -> list:
-        """[D, ...] numpy rows -> one int64 tensor a shard on its device."""
+        """[D_local, ...] numpy rows (this rank's shards: all D in one
+        process) -> one int64 tensor a shard on its device."""
+        if rows.shape[0] != len(self.mesh):
+            raise ValueError(f"expected rows for {len(self.mesh)} local "
+                             f"shards, got {rows.shape[0]}")
         return [host_to_device(rows[d], dev, mask32)
                 for d, dev in enumerate(self.mesh)]
 
@@ -472,6 +661,8 @@ class ShardedCBL:
                     offsets: np.ndarray) -> ShardedStream:
         """Stage a record stream's sub-slab groups on the shards once;
         rounds then reuse them and the memo of their sorted words."""
+        self._single_process("pack_stream",
+                             "distributed.multihost_pack_stream")
         groups, host0 = [], None
         for nk_sub, stream, starts, ends in self._sub_slab_groups(codes,
                                                                   offsets):
@@ -501,7 +692,8 @@ class ShardedCBL:
                                       self.canonical)
                 words.append(sort_rows(w))
                 n_valid.append(nv)
-            cached = ss._words[0] = (words, _total(n_valid, self.mesh[0]))
+            cached = ss._words[0] = (words, _total(n_valid, self.mesh[0],
+                                                   self._ranks))
         return cached
 
     # --- the sharded sorted log (interleaved dynamic rounds) --------------
@@ -539,6 +731,10 @@ class ShardedCBL:
         (`cbl_tpu`'s deferred check); only the sticky flag is read now."""
         if self._corrupt:
             self._check_dropped()
+        if self._multiproc and not self._partition_set():
+            raise ValueError("the ranks have not agreed on boundaries: on a "
+                             "multi-process mesh use "
+                             "distributed.multihost_dynamic_round")
         fallback = (not isinstance(ins, ShardedStream)
                     and self._n_groups(ins[0]) != 1)
         ps = [self._resolve_sharded_stream(x) for x in (ins, qry, rm)]
@@ -580,7 +776,7 @@ class ShardedCBL:
             ]
             del batches
             recv = _all_to_all([r[0] for r in routed], self.mesh)
-            dropped = _total([r[2] for r in routed], self.mesh[0])
+            dropped = [r[2] for r in routed]
             del routed
             batches = [sort_rows(r) for r in recv]
             del recv
@@ -590,11 +786,17 @@ class ShardedCBL:
         self._slog_dev = [o[0] for o in out]
         self._slog_seq = seq
         self._slog_real = new_real
-        self._slog_live_dev = _total([o[2] for o in out], self.mesh[0])
+        # the live count, the hits and the drops: one sum (one all_reduce)
+        i64 = torch.int64
+        live, hits, drops = _total(
+            [torch.stack([o[2].to(i64), o[1].to(i64),
+                          dropped[i] if self.D > 1
+                          else torch.zeros((), dtype=i64, device=o[1].device)])
+             for i, o in enumerate(out)], self.mesh[0], self._ranks)
+        self._slog_live_dev = live
         self._counts_host = None
         if self.D > 1:
-            self._add_dropped(dropped)
-        hits = _total([o[1] for o in out], self.mesh[0])
+            self._add_dropped(drops)
         if lazy:
             return nv_q, hits
         t, p = torch.stack([nv_q.to(torch.int64), hits]).tolist()
@@ -613,16 +815,17 @@ class ShardedCBL:
         return t
 
     def _word_batches(self, words: torch.Tensor):
-        """Yield (rows in the batch, one [B] or [2, B] slice a shard on its
-        device): the words in steps of D B rows, SENTINEL padded."""
+        """Yield (rows in the batch, one [B] or [2, B] slice a local shard
+        on its device): the words in steps of D B rows, SENTINEL padded,
+        shard g taking rows g B to (g + 1) B - 1 of a step."""
         step = self.D * self.B
         for start in range(0, words.shape[-1], step):
             batch = words[..., start : start + step]
             buf = sentinel_rows(step, self._cols, batch.device)
             buf[..., : batch.shape[-1]] = batch
             yield batch.shape[-1], [
-                buf[..., d * self.B : (d + 1) * self.B].contiguous().to(dev)
-                for d, dev in enumerate(self.mesh)
+                buf[..., g * self.B : (g + 1) * self.B].contiguous().to(dev)
+                for g, dev in zip(self._local_shard_ids(), self.mesh)
             ]
 
     def _route_exchange(self, srcs: list, cap: int) -> list:
@@ -635,7 +838,8 @@ class ShardedCBL:
     def insert_words(self, words) -> None:
         """Insert keys ([N] or [2, N]; SENTINEL rows ignored): D B rows a
         step, split evenly over the shards, routed to their owners and
-        folded with duplicates dropped."""
+        folded with duplicates dropped.  On a multi-process mesh every
+        rank passes the same words and stages its own shards' part."""
         self._fold_slog()
         words = self._as_keys(words)
         self._maybe_init_boundaries(words)
@@ -652,7 +856,7 @@ class ShardedCBL:
 
     def remove_words(self, words) -> None:
         """Remove keys (SENTINEL rows and absent words are no-ops), routed
-        as `insert_words` routes them."""
+        as `insert_words` routes them (the same words on every rank)."""
         self._fold_slog()
         words = self._as_keys(words)
         for _, srcs in self._word_batches(words):
@@ -693,6 +897,8 @@ class ShardedCBL:
     def contains_words(self, words) -> np.ndarray:
         """[N] bool numpy: which keys are in the set (SENTINEL rows
         False), in the order given."""
+        self._single_process("contains_words",
+                             "the counting query multihost_query_stream")
         self._check_dropped()
         self._fold_slog()
         words = self._as_keys(words)
@@ -717,6 +923,8 @@ class ShardedCBL:
     def count_hits(self, words) -> int:
         """Keys of `words` in the set (SENTINEL rows ignored): routed to
         their owners and joined there."""
+        self._single_process("count_hits",
+                             "the counting query multihost_query_stream")
         self._check_dropped()
         self._fold_slog()
         words = self._as_keys(words)
@@ -742,13 +950,14 @@ class ShardedCBL:
                 "One of the index is canonical while the other isn't")
         if self.cfg != other.cfg:
             raise ValueError("Mismatched CBL configurations")
-        if self.mesh != other.mesh:
+        if self.mesh != other.mesh or self._ranks != other._ranks:
             raise ValueError("sharded indexes on two meshes")
 
     def _shard_keys(self) -> list:
         """Each shard's valid keys (clean shards), on its device."""
         counts = self.shard_counts
-        return [d[..., : int(c)] for d, c in zip(self.data, counts)]
+        return [d[..., : int(counts[g])]
+                for d, g in zip(self.data, self._local_shard_ids())]
 
     def _resharded_copy(self, other: "ShardedCBL") -> "ShardedCBL":
         """`other`'s words in a copy on this index's partition (set
@@ -766,14 +975,15 @@ class ShardedCBL:
         fresh._boundaries_from_data = True
         other._ensure_clean()
         keys = other._shard_keys()
-        cap = max(1, max(k.shape[-1] for k in keys))
+        cap = max(1, int(other.shard_counts.max()))  # global: equal buckets
         routed = [_route_sorted(k, fresh._bnd_on(dev), cap)
                   for k, dev in zip(keys, self.mesh)]
         recv = _all_to_all([r[0] for r in routed], self.mesh)
         del routed
         rows = [sort_rows(r) for r in recv]
         del recv
-        counts = _total_host([is_valid(r).sum() for r in rows], self.mesh[0])
+        counts = _total_host([is_valid(r).sum() for r in rows], self.mesh[0],
+                             self._ranks)
         fresh.C = max(MIN_CAP, _next_pow2(int(counts.max())))
         fresh.data = [_fit(r, fresh.C) for r in rows]
         fresh.shard_counts = counts
@@ -799,7 +1009,8 @@ class ShardedCBL:
         res = [_setop_sort_kernel_packed(a, b, _SETOPS[op], cout)
                for a, b in zip(self.data, other.data)]
         out.data = [r[0] for r in res]
-        out.shard_counts = _total_host([r[1] for r in res], self.mesh[0])
+        out.shard_counts = _total_host([r[1] for r in res], self.mesh[0],
+                                       self._ranks)
         return out
 
     def union(self, other: "ShardedCBL") -> "ShardedCBL":
@@ -841,11 +1052,12 @@ class ShardedCBL:
         out.boundaries = first.boundaries.copy()
         out._boundaries_from_data = first._boundaries_from_data
         res = []
-        for d in range(first.D):
+        for d in range(len(first.mesh)):
             cat = torch.cat([s.data[d] for s in aligned], dim=-1)
             res.append(_merge_sortcompact_kernel(cat, cat[..., :0], cout))
         out.data = [r[0] for r in res]
-        out.shard_counts = _total_host([r[1] for r in res], first.mesh[0])
+        out.shard_counts = _total_host([r[1] for r in res], first.mesh[0],
+                                       first._ranks)
         return out
 
     @staticmethod
@@ -880,7 +1092,8 @@ class ShardedCBL:
         routed = [_route_sorted(sort_rows(w), self._bnd_on(dev), cap)
                   for w, dev in zip(words, self.mesh)]
         recv = _all_to_all([r[0] for r in routed], self.mesh)
-        return recv, _total([r[2] for r in routed], self.mesh[0])
+        return recv, _total([r[2] for r in routed], self.mesh[0],
+                            self._ranks)
 
     def _insert_group(self, nk_sub: int, streams, starts, ends,
                       bucket_scale: int = 1) -> None:
@@ -918,6 +1131,8 @@ class ShardedCBL:
         is repartitioned and the stream re-run with buckets twice as
         large, up to a bucket of a whole sub-slab, which cannot drop; a
         recovered stream ends with a repartition on the full contents."""
+        self._single_process("insert_codes_stream",
+                             "distributed.multihost_insert_stream")
         self._fold_slog()
         for attempt in range(max(self.D.bit_length(), 1) + 1):
             for nk_sub, stream, starts, ends in self._sub_slab_groups(
@@ -960,11 +1175,19 @@ class ShardedCBL:
         whose routing overflowed a bucket is re-run with buckets twice as
         large, up to a whole sub-slab (one read of the overflow count a
         stream at D > 1).  `cbl_tpu` drops such words silently."""
+        self._single_process("remove_codes_stream",
+                             "distributed.multihost_remove_stream")
         self._fold_slog()
+        self._remove_rerun(lambda: self._sub_slab_groups(codes, offsets))
+
+    def _remove_rerun(self, groups) -> None:
+        """The remove steps of the numpy groups that `groups()` yields
+        (this rank's rows), all run again with buckets twice as large
+        while one dropped words; the drop count is summed over the ranks,
+        so every rank re-runs together."""
         for attempt in range(max(self.D.bit_length(), 1) + 1):
             dropped = None
-            for nk_sub, stream, starts, ends in self._sub_slab_groups(
-                    codes, offsets):
+            for nk_sub, stream, starts, ends in groups():
                 d = self._remove_group(nk_sub, self._put_rows(stream, True),
                                        self._put_rows(starts),
                                        self._put_rows(ends),
@@ -982,14 +1205,18 @@ class ShardedCBL:
         a shard (B3)."""
         piped = self._pipeline(nk_sub, streams, starts, ends)
         batches, _ = self._routed_batches([w for w, _ in piped], nk_sub)
-        local = [_count_hits_merge_kernel(d, b)
-                 for d, b in zip(self.data, batches)]
-        return (_total([nv for _, nv in piped], self.mesh[0]),
-                _total(local, self.mesh[0]))
+        sums = _total([torch.stack([nv.to(torch.int64),
+                                    _count_hits_merge_kernel(d, b).to(
+                                        torch.int64)])
+                       for (_, nv), d, b in zip(piped, self.data, batches)],
+                      self.mesh[0], self._ranks)
+        return sums[0], sums[1]
 
     def query_codes_stream(self, codes: np.ndarray, offsets: np.ndarray):
         """(total k-mers, positive k-mers) over a record stream; the
         counters add up on the device and are read once."""
+        self._single_process("query_codes_stream",
+                             "distributed.multihost_query_stream")
         self._check_dropped()
         self._fold_slog()
         total = positive = None
@@ -1002,7 +1229,13 @@ class ShardedCBL:
             positive = p if positive is None else positive + p
         if total is None:
             return 0, 0
-        t, p = torch.stack([total.to(torch.int64), positive]).tolist()
+        return self._reduce_query(total, positive)
+
+    def _reduce_query(self, total, positive) -> tuple:
+        """(total, positive) as ints: one read of the two summed 0-d
+        tensors (every rank holds the sums)."""
+        t, p = torch.stack([total.to(torch.int64),
+                            positive.to(torch.int64)]).tolist()
         return t, p
 
     def contains_codes_stream(self, codes: np.ndarray,
@@ -1012,6 +1245,8 @@ class ShardedCBL:
         its words route to their owners with their positions, are joined
         there (`_contains_sortjoin_kernel`) and their answers route back.
         The masks cross to the host once."""
+        self._single_process("contains_codes_stream",
+                             "the counting query multihost_query_stream")
         self._check_dropped()
         self._fold_slog()
         k = self.cfg.k
@@ -1056,7 +1291,8 @@ class ShardedCBL:
 
     @classmethod
     def from_cbl(cls, cbl: CBL, mesh=None, **kw) -> "ShardedCBL":
-        """Distribute a port `CBL`'s words over the mesh."""
+        """Distribute a port `CBL`'s words over the mesh (on a multi-process
+        mesh every rank passes the same words, as to `insert_words`)."""
         out = cls(k=cbl.cfg.k, prefix_bits=cbl.cfg.prefix_bits,
                   canonical=cbl.canonical, mesh=mesh, **kw)
         keys = cbl.wordset.export_keys()
@@ -1067,6 +1303,7 @@ class ShardedCBL:
     def to_cbl(self) -> CBL:
         """The words gathered into a port `CBL` on the first shard's
         device."""
+        self._single_process("to_cbl", "local_shard_rows or save_to_file")
         self._ensure_clean()
         out = CBL(k=self.cfg.k, prefix_bits=self.cfg.prefix_bits,
                   canonical=self.canonical, device=self.mesh[0])
@@ -1078,62 +1315,100 @@ class ShardedCBL:
         return out
 
     def local_shard_rows(self) -> dict:
-        """{shard: its [count, L] uint32 limb rows}; shard-major
-        concatenation is the global sorted order."""
+        """{global shard id: its [count, L] uint32 limb rows} of this
+        rank's shards (every shard in one process); shard-major
+        concatenation over the ranks is the global sorted order."""
         self._ensure_clean()
-        return {d: host_limbs(k, self.L)
-                for d, k in enumerate(self._shard_keys())}
+        return {g: host_limbs(k, self.L)
+                for g, k in zip(self._local_shard_ids(), self._shard_keys())}
 
     def words_array(self) -> np.ndarray:
         """[n, L] uint32 rows in global sorted order."""
+        self._single_process("words_array",
+                             "iter_words_chunks or local_shard_rows")
         rows = list(self.local_shard_rows().values())
         return np.concatenate(rows) if rows else np.zeros((0, self.L),
                                                           np.uint32)
 
     def iter_words_chunks(self, chunk_rows: int = 1 << 22):
         """Yield [<= chunk_rows, L] uint32 arrays in global sorted order,
-        shard by shard, one chunk's copy at a time."""
+        shard by shard, one chunk's copy at a time.  On a multi-process
+        mesh every rank gets every chunk, each a `broadcast` from the rank
+        that owns its shard, so every rank must take the whole sequence."""
         self._ensure_clean()
-        for keys in self._shard_keys():
-            for lo in range(0, keys.shape[-1], chunk_rows):
-                yield host_limbs(keys[..., lo : lo + chunk_rows], self.L)
+        keys = self._shard_keys()
+        if not self._multiproc:
+            for k in keys:
+                for lo in range(0, k.shape[-1], chunk_rows):
+                    yield host_limbs(k[..., lo : lo + chunk_rows], self.L)
+            return
+        import torch.distributed as dist
+
+        counts, n = self.shard_counts, len(self.mesh)
+        for g in range(self.D):
+            owner, j = divmod(g, n)
+            for lo in range(0, int(counts[g]), chunk_rows):
+                m = min(chunk_rows, int(counts[g]) - lo)
+                buf = (keys[j][..., lo : lo + m].to(self.mesh[0]).contiguous()
+                       if owner == self._rank
+                       else sentinel_rows(m, self._cols, self.mesh[0]))
+                dist.broadcast(buf, owner)
+                yield host_limbs(buf, self.L)
 
     def shard_balance(self) -> np.ndarray:
         """Words per shard."""
         return self.shard_counts.copy()
 
+    @staticmethod
+    def _shard_file(path, process_index: int, process_count: int) -> str:
+        """The checkpoint file of one rank: `path` itself in one process,
+        else `path.procNNNNN-of-MMMMM.npz`."""
+        if process_count == 1:
+            return str(path)
+        return f"{path}.proc{process_index:05d}-of-{process_count:05d}.npz"
+
     def save_to_file(self, path) -> None:
-        """`cbl_tpu`'s CBLXSHRD checkpoint of one process: the header, the
-        boundaries as [D-1, L] uint32 limbs and each shard's live rows
-        (`rows_<d>`), written to exactly `path`."""
+        """`cbl_tpu`'s CBLXSHRD checkpoint: each rank writes one file
+        (`_shard_file`) with the header, the boundaries as [D-1, L] uint32
+        limbs, the global counts and its own shards' live rows
+        (`rows_<i>` for the i-th id of `shard_ids`); one process writes
+        exactly `path`."""
         local = self.local_shard_rows()  # cleans and reads the counts
+        ids = self._local_shard_ids()
         arrs = {
             "magic": np.frombuffer(_MAGIC, dtype=np.uint8),
             "k": np.int64(self.cfg.k),
             "prefix_bits": np.int64(self.cfg.prefix_bits),
             "canonical": np.bool_(self.canonical),
             "n_shards": np.int64(self.D),
-            "process_count": np.int64(1),
+            "process_count": np.int64(self._ranks),
             "boundaries": self.boundary_limbs(),
-            "shard_ids": np.arange(self.D, dtype=np.int64),
+            "shard_ids": np.asarray(ids, dtype=np.int64),
             "counts": self.shard_counts.astype(np.int64),
         }
-        for d, rows in local.items():
-            arrs[f"rows_{d}"] = rows
-        with open(path, "wb") as f:  # np.savez must not append ".npz"
+        for i, g in enumerate(ids):
+            arrs[f"rows_{i}"] = local[g]
+        fname = self._shard_file(path, self._rank, self._ranks)
+        with open(fname, "wb") as f:  # np.savez must not append ".npz"
             np.savez(f, **arrs)
 
     @classmethod
     def load_from_file(cls, path, mesh=None, **kw) -> "ShardedCBL":
-        """A CBLXSHRD checkpoint of one process on a mesh of as many
-        shards; a single-index CBLX file is distributed by `from_cbl`."""
-        with np.load(_npz_path(path)) as z:
+        """A CBLXSHRD checkpoint on a mesh of as many shards and ranks as
+        wrote it: each rank reads its own file (`_shard_file`), else
+        `path` itself (a checkpoint of one file); a single-index CBLX file
+        is distributed by `from_cbl`."""
+        mesh = make_mesh(mesh)
+        fname = (_npz_path(path) if mesh.ranks == 1
+                 else cls._shard_file(path, mesh.rank, mesh.ranks))
+        if not os.path.exists(fname):
+            fname = _npz_path(path)
+        with np.load(fname) as z:
             if "magic" not in z or bytes(z["magic"]) != _MAGIC:
                 sharded = None
             else:
                 sharded = {name: z[name] for name in z.files}
         if sharded is None:
-            mesh = make_mesh(mesh)
             return cls.from_cbl(CBL.load_from_file(path, device=mesh[0]),
                                 mesh=mesh, **kw)
         z = sharded
@@ -1145,16 +1420,18 @@ class ShardedCBL:
         if out.D != int(z["n_shards"]):
             raise ValueError(f"checkpoint has {int(z['n_shards'])} shards; "
                              f"mesh has {out.D}")
-        if int(z["process_count"]) != 1:
+        if int(z["process_count"]) != out._ranks:
             raise ValueError(
                 f"checkpoint written by {int(z['process_count'])} processes; "
-                "this one reads the files of one process")
-        if list(z["shard_ids"]) != list(range(out.D)):
-            raise ValueError(f"checkpoint holds shards {list(z['shard_ids'])}")
+                f"running with {out._ranks}")
+        ids = out._local_shard_ids()
+        if list(z["shard_ids"]) != ids:
+            raise ValueError(f"process owns shards {ids} but checkpoint "
+                             f"holds {list(z['shard_ids'])}")
         data = []
-        for d, dev in enumerate(out.mesh):
+        for i, dev in enumerate(out.mesh):
             keys = sentinel_rows(cap, out._cols, "cpu")
-            rows = z[f"rows_{d}"]
+            rows = z[f"rows_{i}"]
             keys[..., : rows.shape[0]] = torch.from_numpy(
                 from_limbs(rows, out._cols))
             data.append(keys.to(dev))
@@ -1169,7 +1446,9 @@ class ShardedCBL:
         D-1 exact global quantiles from the counts' prefix sums (the
         shards in order are the sorted words), then every row moves once
         to its new owner with buckets of total / D + 2 rows, which no
-        destination can exceed; a drop raises."""
+        destination can exceed; a drop raises.  Under ranks each quantile
+        row is read by the rank that owns its shard and one `all_gather`
+        hands every rank all of them."""
         self._fold_slog()
         if self.D == 1:
             return
@@ -1183,15 +1462,31 @@ class ShardedCBL:
                               for j in range(1, self.D)])
             si = np.searchsorted(cum, ranks, side="right") - 1
             li = ranks - cum[si]
-            self.boundaries = np.stack(
-                [self.data[s][..., int(r)].cpu().numpy()
-                 for s, r in zip(si, li)], axis=-1)
+            n = len(self.mesh)
+            first = self._rank * n
+            mine = [(j, self.data[s - first][..., int(r)])
+                    for j, (s, r) in enumerate(zip(si, li))
+                    if first <= s < first + n]
+            rows = torch.zeros((self._cols, self.D - 1), dtype=torch.int64,
+                               device=self.mesh[0])
+            for j, row in mine:
+                rows[:, j] = row.reshape(-1).to(self.mesh[0])
+            if self._multiproc:  # each row from the rank that owns it
+                import torch.distributed as dist
+
+                parts = [torch.empty_like(rows) for _ in range(self._ranks)]
+                dist.all_gather(parts, rows)
+                owner = torch.as_tensor(si // n, device=self.mesh[0])
+                rows = torch.stack(parts)[owner, :, torch.arange(
+                    self.D - 1, device=self.mesh[0])].T
+            bnd = rows.cpu().numpy()
+            self.boundaries = bnd[0] if self._cols == 1 else bnd
             self._boundaries_from_data = True
         bucket_cap = max(4096, _next_pow2(total // self.D + 2))
         routed = [_route_sorted(d, self._bnd_on(dev), bucket_cap)
                   for d, dev in zip(self.data, self.mesh)]
         recv = _all_to_all([r[0] for r in routed], self.mesh)
-        dropped = _total([r[2] for r in routed], self.mesh[0])
+        dropped = _total([r[2] for r in routed], self.mesh[0], self._ranks)
         del routed
         out = [_fit(sort_rows(r), self.C) for r in recv]
         del recv
@@ -1203,9 +1498,3 @@ class ShardedCBL:
             raise RuntimeError(f"repartition dropped {n} words (bug)")
         self._set_counts_dev([is_valid(o).sum() for o in out],
                              self._count_upper)
-
-
-def _total_host(parts: list, device) -> np.ndarray:
-    """The shards' 0-d counts read into one int64 numpy array."""
-    return torch.stack([p.to(device) for p in parts]).cpu().numpy().astype(
-        np.int64)

@@ -179,6 +179,24 @@ Phases (any failure raises and the script exits non-zero):
    repartition --sharded` on phase 12's corpus files against `bench/
    baseline.cpp records`, and the examples `sharded_build` and
    `repartition_recovery` (D = 1 and 4 shards) as subprocesses;
+   (e) the multi-process layer (`cbl_tpu_torch.parallel.distributed`):
+   the single index of the genome corpus in this process (its words
+   after the build, after removing each rank's first record and after 8
+   rounds: config 2's schedule over the insert records in 8 groups of
+   390 or 391, round i inserting group i, querying group max(i-1, 0)
+   and removing the first half of group i), then 2 ranks, each a fresh
+   process with 2 shards on the card and gloo between them (and NCCL,
+   one card a rank, where there are 2 cards): each rank's slice of the
+   corpus (`host_record_slice`) through `multihost_insert_stream` (count
+   against `bench/baseline.cpp records`), `multihost_query_stream`
+   (queries and positives against it), a checkpoint round trip of one
+   file a rank, a remove of each rank's first record, an intersection
+   with the loaded copy, a repartition and the 8 rounds (each round's
+   (total, positive) against the single index's), each step's shard rows
+   against the single index's words; under gloo, after the counted run,
+   an `all_to_all_single` of 64 MiB a rank on the CUDA tensors and
+   through pinned host copies (equal rows, both timed); each rank's
+   launches and the ms inside `_all_to_all` come back as a JSON line;
 14. require every kernel of each path to have been launched in that
    path's counted run, print the timings, the kernels' JSON line and,
    last, the device JSON line.
@@ -3565,6 +3583,289 @@ def sharded_summary(card: str, dyn: dict, base_dyn: dict, static_plain: dict,
     log(f"[{card}] sharded CLI on the genome corpus: {scli}")
 
 
+# --- phase 13 (e): ranks on the card ---------------------------------------------
+
+RANKS = 2  # processes of phase 13 (e), each with RANK_SHARDS shards
+RANK_SHARDS = 2
+RANK_NK_SUB = 1 << 22  # k-mers a sub-slab of the ranks' bulk build and query
+
+
+def rank_round_streams(ci: np.ndarray, oi: np.ndarray, i: int) -> list:
+    """Round i's full (insert, query, remove) streams of phase 13 (e):
+    config 2's schedule over the genome corpus's insert records cut into
+    SEGS groups (390 or 391 records): insert group i, query group
+    max(i-1, 0), remove the first half of group i's records."""
+    from cbl_tpu_torch.parallel.distributed import slice_codes
+
+    n = len(oi) - 1
+    b = [(j * n) // SEGS for j in range(SEGS + 1)]
+    return [slice_codes(ci, oi, b[i], b[i + 1]),
+            slice_codes(ci, oi, b[max(i - 1, 0)], b[max(i - 1, 0) + 1]),
+            slice_codes(ci, oi, b[i], b[i] + (b[i + 1] - b[i]) // 2)]
+
+
+def ranks_oracle(path) -> dict:
+    """The single index's answers for phase 13 (e), in this process on
+    the card: the corpus's words after the build, after removing each
+    rank's first record, and after SEGS rounds, and each round's (total,
+    positive); the words are written to `path` for the ranks."""
+    import bench
+    from cbl_tpu_torch import CBL
+    from cbl_tpu_torch.parallel.distributed import (host_record_slice,
+                                                    slice_codes)
+
+    t0 = time.perf_counter()
+    ci, oi, _, _ = bench.make_genome_corpus(GENOME_BASES)
+    single = CBL(k=K, device=DEVICE)
+    single.insert_codes_stream(ci, oi)
+    w_build = single.wordset.words_array()
+    for p in range(RANKS):
+        sub, so = slice_codes(ci, oi, *host_record_slice(oi, p, RANKS))
+        single.remove_codes_stream(sub[: so[1]], so[:2])
+    w_rm = single.wordset.words_array()
+    tps = [single.dynamic_round(*rank_round_streams(ci, oi, i))
+           for i in range(SEGS)]
+    single.flush()
+    w_rounds = single.wordset.words_array()
+    np.savez(path, build=w_build, rm=w_rm, rounds=w_rounds,
+             tps=np.array(tps, dtype=np.int64))
+    return dict(distinct=len(w_build), after_remove=len(w_rm),
+                after_rounds=len(w_rounds), tps=tps,
+                oracle_s=time.perf_counter() - t0)
+
+
+def rank_worker(coordinator: str, pid: int, oracle: str,
+                backend: str) -> None:
+    """One rank of phase 13 (e), a process of its own: RANK_SHARDS shards
+    on `cuda:(pid % cards)` of a global mesh of RANKS x RANK_SHARDS,
+    `backend` between the ranks.  Its slice of the genome corpus goes
+    through the multi-process calls, each step held to the single
+    index's words of `oracle` shard by shard (`_assert_local_shards_match`);
+    prints one JSON line: its launches (counted from 0 just before the
+    main path), the host clock of each part after a sync, and the time
+    inside `_all_to_all` in all and in each part."""
+    import torch
+    import torch.distributed as dist
+
+    from cbl_tpu_torch.ops import _build
+    from cbl_tpu_torch.parallel import distributed as d
+    from cbl_tpu_torch.parallel import shard
+    from cbl_tpu_torch.parallel.shard import ShardedCBL, make_mesh
+
+    import bench
+
+    d.init_distributed(coordinator, RANKS, pid, backend=backend,
+                       timeout_s=600.0, device=DEVICE)
+    try:
+        mesh = make_mesh([make_mesh()[0]] * RANK_SHARDS, process_group=True)
+        if mesh[0].type == "cuda":
+            _build.library()  # built by phase 1: loads
+        ci, oi, cq, oq = bench.make_genome_corpus(GENOME_BASES)
+        want = dict(np.load(oracle))
+        mine = [d.slice_codes(c, o, *d.host_record_slice(o, pid, RANKS))
+                for c, o in ((ci, oi), (cq, oq))]
+        icap = [1 << max(4, (len(o) + 2).bit_length()) for o in (oi, oq)]
+        inner, ex = shard._all_to_all, {"s": 0.0, "calls": 0}
+
+        def timed(*args):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = inner(*args)
+            torch.cuda.synchronize()
+            ex["s"] += time.perf_counter() - t
+            ex["calls"] += 1
+            return out
+
+        shard._all_to_all = timed
+        r = {"pid": pid, "backend": dist.get_backend(),
+             "device": str(mesh[0])}
+
+        def clock(name, fn):
+            """Host clock of `fn` after a sync, and its time inside
+            `_all_to_all` (`<name>_ms` and `<name>_exchange_ms`)."""
+            dist.barrier()
+            torch.cuda.synchronize()
+            t, e = time.perf_counter(), ex["s"]
+            out = fn()
+            torch.cuda.synchronize()
+            r[name + "_ms"] = (time.perf_counter() - t) * 1e3
+            r[name + "_exchange_ms"] = (ex["s"] - e) * 1e3
+            return out
+
+        zero_launches()
+        idx = ShardedCBL(k=K, mesh=mesh)
+        clock("build", lambda: d.multihost_insert_stream(
+            idx, *mine[0], nk_sub=RANK_NK_SUB, icap=icap[0]))
+        r["distinct"] = idx.count()
+        r["query"] = clock("query", lambda: d.multihost_query_stream(
+            idx, *mine[1], nk_sub=RANK_NK_SUB, icap=icap[1]))
+        d._assert_local_shards_match(idx, want["build"], "build")
+        r["balance"] = idx.shard_balance().tolist()
+        ck = os.path.join(os.path.dirname(oracle), "ranks_ck.npz")
+        idx.save_to_file(ck)
+        back = ShardedCBL.load_from_file(ck, mesh=mesh)
+        d._assert_local_shards_match(back, want["build"], "checkpoint")
+        os.remove(ShardedCBL._shard_file(ck, pid, RANKS))
+        codes_l, off_l = mine[0]
+        d.multihost_remove_stream(idx, codes_l[: off_l[1]], off_l[:2].copy(),
+                                  nk_sub=RANK_NK_SUB)
+        r["after_remove"] = idx.count()
+        d._assert_local_shards_match(idx, want["rm"], "remove")
+        inter = idx & back
+        d._assert_local_shards_match(inter, want["rm"], "intersect")
+        del back, inter
+        clock("repartition", idx.repartition)
+        d._assert_local_shards_match(idx, want["rm"], "repartition")
+        r["balance_after_repartition"] = idx.shard_balance().tolist()
+        rounds = [[d.slice_codes(c, o, *d.host_record_slice(o, pid, RANKS))
+                   for c, o in rank_round_streams(ci, oi, i)]
+                  for i in range(SEGS)]
+
+        def stage():
+            return [[d.multihost_pack_stream(idx, *s) for s in streams]
+                    for streams in rounds]
+
+        staged = clock("stage", stage)
+        r["tps"] = clock("rounds", lambda: [
+            list(d.multihost_dynamic_round(idx, *s)) for s in staged])
+        assert r["tps"] == want["tps"].tolist(), (r["tps"], want["tps"])
+        idx._fold_slog()
+        d._assert_local_shards_match(idx, want["rounds"], "rounds")
+        r["after_rounds"] = idx.count()
+        r["launches"] = launches_now()
+        r["exchange_ms"] = ex["s"] * 1e3
+        r["exchanges"] = ex["calls"]
+        if backend == "gloo":
+            r["transport"] = gloo_transport(mesh[0])
+        dist.barrier()
+        print("RANK_RESULT " + json.dumps(r), flush=True)
+    finally:
+        dist.destroy_process_group()
+
+
+def gloo_transport(device, reps: int = 3) -> dict:
+    """One rank's part of phase 13 (e)'s transport check: an
+    `all_to_all_single` of 64 MiB a rank over gloo on CUDA tensors as they
+    are, and the same through explicit copies to and from pinned host
+    buffers, `reps` times each in turn (host clock after a barrier and a
+    sync); both must deliver the same rows."""
+    import torch
+    import torch.distributed as dist
+
+    n = 8 << 20  # int64 rows: 64 MiB
+    x = torch.arange(n, dtype=torch.int64, device=device) * (dist.get_rank()
+                                                             + 1)
+    got = {"cuda": torch.empty_like(x), "pinned": torch.empty_like(x)}
+    hx = torch.empty(n, dtype=torch.int64, pin_memory=True)
+    hy = torch.empty_like(hx)
+    out = {"cuda_ms": [], "pinned_ms": []}
+    for _ in range(reps):
+        for name in ("cuda", "pinned"):
+            dist.barrier()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            if name == "cuda":
+                dist.all_to_all_single(got[name], x)
+            else:
+                hx.copy_(x)
+                dist.all_to_all_single(hy, hx)
+                got[name].copy_(hy)
+            torch.cuda.synchronize()
+            out[name + "_ms"].append((time.perf_counter() - t) * 1e3)
+    assert torch.equal(got["cuda"], got["pinned"])
+    return out
+
+
+def ranks_check(gen: dict) -> dict:
+    """Phase 13 (e): RANKS processes x RANK_SHARDS shards on the card over
+    gloo (and, where there are RANKS cards, one card a rank over NCCL),
+    each rank's slice of the genome corpus against `bench/baseline.cpp
+    records` and the single index of `ranks_oracle`."""
+    import torch
+
+    from cbl_tpu_torch.ops._build import BUILD_DIR
+    from cbl_tpu_torch.parallel.distributed import launch
+
+    work = BUILD_DIR / "ranks"
+    work.mkdir(parents=True, exist_ok=True)
+    oracle = work / "oracle.npz"
+    out = {"oracle": ranks_oracle(oracle)}
+    base = gen["baseline"][False]
+    assert out["oracle"]["distinct"] == base["distinct"], (out, base)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()  # the ranks share the card
+    backends = ["gloo"]
+    if torch.cuda.device_count() >= RANKS:
+        backends.append("nccl")
+    else:
+        log(f"nccl: not run ({torch.cuda.device_count()} card)")
+    for backend in backends:
+        t0 = time.perf_counter()
+        outs = launch(f"import chip_smoke as c; c.rank_worker("
+                      f"'{{coordinator}}', {{pid}}, {str(oracle)!r}, "
+                      f"{backend!r})", RANKS, timeout=900)
+        ranks = [json.loads(next(line for line in o.splitlines()
+                                 if line.startswith("RANK_RESULT "))[12:])
+                 for o in outs]
+        for r in ranks:
+            assert r["distinct"] == base["distinct"], (r, base)
+            assert tuple(r["query"]) == (base["n_kmers_query"],
+                                         base["positive"]), (r, base)
+            assert r["after_remove"] == out["oracle"]["after_remove"], r
+            assert r["after_rounds"] == out["oracle"]["after_rounds"], r
+        launches = {n: sum(r["launches"][n] for r in ranks)
+                    for n in ranks[0]["launches"]}
+        for name in ROUND_KERNELS:
+            assert launches[name] >= 1, (backend, launches)
+        out[backend] = dict(ranks=ranks, launches=launches,
+                            wall_s=time.perf_counter() - t0)
+    oracle.unlink()
+    return out
+
+
+def ex_share(r: dict) -> float:
+    """The share (%) of a rank's clocked build, query, repartition and
+    rounds spent inside their own calls of `_all_to_all`."""
+    parts = ("build", "query", "repartition", "rounds")
+    return (100 * sum(r[p + "_exchange_ms"] for p in parts)
+            / sum(r[p + "_ms"] for p in parts))
+
+
+def ranks_summary(card: str, rk: dict) -> None:
+    """Phase 14's lines of phase 13 (e)."""
+    o = rk["oracle"]
+    for backend in ("gloo", "nccl"):
+        if backend not in rk:
+            continue
+        for r in rk[backend]["ranks"]:
+            log(f"[{card}] K={K} genome corpus ({GENOME_BASES / 1e6:.0f} "
+                f"Mbp) on {RANKS} ranks x {RANK_SHARDS} shards, {backend}, "
+                f"rank {r['pid']} on {r['device']}: "
+                + ", ".join(f"{p} {r[p + '_ms']:.1f} ms "
+                            f"({r[p + '_exchange_ms']:.1f} "
+                            "inside _all_to_all)" for p in
+                            ("build", "query", "repartition", "stage",
+                             "rounds"))
+                + f" (host clock after a sync; {SEGS} rounds); inside "
+                f"_all_to_all {r['exchange_ms']:.1f} ms over "
+                f"{r['exchanges']} exchanges, {ex_share(r):.1f} % of build + "
+                f"query + repartition + rounds inside their exchanges; "
+                f"distinct {r['distinct']}, "
+                f"query {r['query']}, balance {r['balance']} -> "
+                f"{r['balance_after_repartition']}; launches "
+                f"{ {n: c for n, c in r['launches'].items() if c} }")
+            if "transport" in r:
+                t = r["transport"]
+                log(f"[{card}] rank {r['pid']}: gloo all_to_all_single of "
+                    f"64 MiB a rank: CUDA tensors "
+                    f"{', '.join(f'{v:.2f}' for v in t['cuda_ms'])} ms, "
+                    f"through pinned host copies "
+                    f"{', '.join(f'{v:.2f}' for v in t['pinned_ms'])} ms")
+        log(f"[{card}] {backend} ranks' wall {rk[backend]['wall_s']:.1f} s "
+            f"(spawn to exit); single index oracle {o['oracle_s']:.1f} s, "
+            f"rounds' (total, positive) {o['tps']}")
+
+
 def profile_algebra() -> int:
     """`--profile-algebra`: the set-algebra runs under `torch.profiler`
     in the ("bitonic", "bitonic") and the default modes; prints the
@@ -4051,6 +4352,11 @@ def main() -> int:
         assert mesh_launches[name] >= 1, mesh_launches
     scli = sharded_cli_check(gen)
     log(f"sharded CLI and examples: {scli}")
+    # phase 13 (e): RANKS processes on the card, the multi-process layer
+    t0 = time.perf_counter()
+    rk = ranks_check(gen)
+    log(f"phase 13 (e), {RANKS} ranks: {time.perf_counter() - t0:.1f} s; "
+        f"launches { {b: rk[b]['launches'] for b in ('gloo', 'nccl') if b in rk} }")
 
     stamp(14)
     # phase 14
@@ -4272,6 +4578,7 @@ def main() -> int:
         f"(launches {gen['necklace_twin_launches']['necklace']} of B1)")
     sharded_summary(card, dyn, base_dyn, static_plain, n_kmers, sdyn, sbulk,
                     smesh, scli)
+    ranks_summary(card, rk)
 
     src = {
         "necklace": ("cbl_tpu_torch/csrc/necklace.cu",
@@ -4303,9 +4610,10 @@ def main() -> int:
     # sequence calls, the set operations in each mode pair and the
     # contains mask in two) and the rounds at wide K (K=59 and 27, and
     # K=59 under "bitonic"), the CLI in this process, the necklace
-    # example, and the sharded index (config 5's rounds at D = 1, the
-    # bulk build and query at D = 1, the rounds on SHARDS shards), each
-    # counted from 0
+    # example, the sharded index (config 5's rounds at D = 1, the bulk
+    # build and query at D = 1, the rounds on SHARDS shards) and the
+    # ranks of phase 13 (e) (each rank's whole run, summed), each counted
+    # from 0
     paths = (main_launches, dyn_launches, b7_launches, sep["A"]["launches"],
              sep["B"]["launches"], alg_launches,
              alg[ALGEBRA_MODES[1]]["launches"], om["default"]["launches"],
@@ -4313,7 +4621,8 @@ def main() -> int:
              seq_launches, ex_launches, *wide["launches"].values(),
              *wdyn["launches"].values(), *gen["launches"].values(),
              gen["necklace_twin_launches"], sdyn_launches, sbulk_launches,
-             mesh_launches)
+             mesh_launches,
+             *(rk[b]["launches"] for b in ("gloo", "nccl") if b in rk))
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src[name][0],
          "replaces": src[name][1],

@@ -43,6 +43,7 @@ def test_imports_without_jax():
         "import cbl_tpu_torch.examples.dynamic_rounds\n"
         "import cbl_tpu_torch.examples.bench_necklace_throughput\n"
         "import cbl_tpu_torch.parallel, cbl_tpu_torch.parallel.shard\n"
+        "import cbl_tpu_torch.parallel.distributed\n"
         "import cbl_tpu_torch.examples.sharded_build\n"
         "import cbl_tpu_torch.examples.repartition_recovery\n"
         "assert cbl_tpu_torch.io._load_native() is not None\n"
