@@ -10,10 +10,11 @@ and export, checkpoints and stats (`words_array`, `kmers_limbs`,
 `iter_nucs`, `save_to_file` / `load_from_file` in `serialize`, the
 bucket stats in `stats`, the reference's `.cbl` files in `interop`),
 FASTA/Q input and the native 2-bit packer (`io`), the command line
-(`python -m cbl_tpu_torch`, `cli`), `profiling`, and the index
+(`python -m cbl_tpu_torch`, `cli`), `profiling`, the index
 partitioned over a mesh of devices (`parallel`: `ShardedCBL`,
-`make_mesh`), in one process or across the ranks of a
-`torch.distributed` group (`parallel.distributed`).
+`make_mesh`, `dryrun_multichip`), in one process or across the ranks of
+a `torch.distributed` group (`parallel.distributed`), and the benchmark
+(`python -m cbl_tpu_torch.bench`, `bench.py`'s six modes and JSON line).
 It imports neither JAX nor `cbl_tpu`; `cbl_tpu` stays the reference the
 port is tested against.  Every odd K up to 59 is held: a word is one
 int64 key for K <= 27 and two int64 columns from K=29 (see `limbs`);

@@ -55,6 +55,8 @@ Differences from `cbl_tpu.CBL`:
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
@@ -226,13 +228,23 @@ class PackedStream:
     transform is a pure function of the staged stream, so an insert fills
     the memo with sorted words and a later query of the same stream merges
     them with the index without a sort; a remove or a query against the
-    pending log fills it with the words in stream order."""
+    pending log fills it with the words in stream order.  With
+    CBL_TORCH_NO_WORDS_CACHE set when the stream is built (`cbl_tpu`'s
+    CBL_TPU_NO_WORDS_CACHE), the memo stays empty and every pass runs
+    the word pipeline, for timings of the whole pipeline."""
 
     def __init__(self, cfg: CBLConfig, canonical: bool, slabs: list):
         self.cfg = cfg
         self.canonical = canonical
         self.slabs = slabs
         self._words: dict = {}
+        self._cache_on = not os.environ.get("CBL_TORCH_NO_WORDS_CACHE")
+
+    def _memo(self, i: int, entry: tuple) -> tuple:
+        """Keep slab i's (words, n_valid, sorted) when the memo is on."""
+        if self._cache_on:
+            self._words[i] = entry
+        return entry
 
     @property
     def n_kmers(self) -> int:
@@ -469,9 +481,9 @@ class CBL:
         cached = ps._words.get(i)
         if cached is None:
             nk_pad, stream, s_arr, e_arr, _ = ps.slabs[i]
-            cached = _device_words(stream, s_arr, e_arr, nk_pad, self.cfg,
-                                   self.canonical) + (False,)
-            ps._words[i] = cached
+            cached = ps._memo(i, _device_words(
+                stream, s_arr, e_arr, nk_pad, self.cfg, self.canonical)
+                + (False,))
         return cached
 
     def insert_codes_stream(self, codes, offsets: np.ndarray | None = None):
@@ -489,13 +501,13 @@ class CBL:
                     stream, s_arr, e_arr, nk_pad, self.cfg, self.canonical
                 )
                 # the memo shares `data`: nothing updates it in place
-                ps._words[i] = (data, n_valid, True)
+                ps._memo(i, (data, n_valid, True))
                 ws.adopt_built(data, n_dev, n_here)
                 continue
             words, n_valid = _fused_words_sorted(
                 stream, s_arr, e_arr, nk_pad, self.cfg, self.canonical
             )
-            ps._words[i] = (words, n_valid, True)
+            ps._memo(i, (words, n_valid, True))
             if words.shape[-1] + ws.n_pending <= ws.pending_cap:
                 ws.insert_words(words)
             else:
@@ -615,8 +627,7 @@ class CBL:
                                          self.cfg, self.canonical) + (True,)
         elif not cached[2]:
             cached = (sort_rows(cached[0]), cached[1], True)
-        ps._words[0] = cached
-        return cached[:2]
+        return ps._memo(0, cached)[:2]
 
     def _resolve_round_stream(self, x) -> PackedStream:
         if isinstance(x, PackedStream):

@@ -197,14 +197,26 @@ Phases (any failure raises and the script exits non-zero):
    an `all_to_all_single` of 64 MiB a rank on the CUDA tensors and
    through pinned host copies (equal rows, both timed); each rank's
    launches and the ms inside `_all_to_all` come back as a JSON line;
-14. require every kernel of each path to have been launched in that
+14. the port's benchmark as a user runs it, each a process of its own:
+   `python -m cbl_tpu_torch.bench --repeats 2` (the static headline and
+   every extra of `bench.py`'s default line: canonical, dynamic,
+   sharded-dynamic, genome, algebra and serde) must exit 0 with every
+   key of `bench.py`'s line non-null, every count held to
+   `bench/baseline.cpp` (its stderr names each check) and B1, B2, B3 and
+   B4 launched; `--mode largek --repeats 2` must exit 0 having launched B1
+   wide; both lines are printed; then
+   `cbl_tpu_torch.parallel.dryrun_multichip(4)`: 4 shards on the card,
+   2^20 k-mers a shard of the seed-5 genome corpus, every step against a
+   single index;
+15. require every kernel of each path to have been launched in that
    path's counted run, print the timings, the kernels' JSON line and,
    last, the device JSON line.
 
-The script imports no JAX and nothing of `cbl_tpu` (phase 12 imports
-`bench.py` for its corpus, which imports neither at module level).  The
-kernels, the native decoder and the baseline are built into
-`cbl_tpu_torch/_build/`, phase 12's files written under it.
+The script imports no JAX, nothing of `cbl_tpu` and not the root
+`bench.py` (the genome corpus is `cbl_tpu_torch.bench.
+make_genome_corpus`).  The kernels, the native decoder and the baselines
+are built into `cbl_tpu_torch/_build/`, phase 12's files written under
+it.
 """
 
 from __future__ import annotations
@@ -1199,32 +1211,6 @@ def check_slog_tag(rng, card: str) -> dict:
 
 
 # --- phase 3 and 4: the static path ------------------------------------------
-
-
-def build_baseline() -> str:
-    from cbl_tpu_torch.ops._build import BUILD_DIR
-
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    exe = BUILD_DIR / "baseline"
-    subprocess.run(
-        ["g++", "-O3", "-std=c++17",
-         os.path.join(REPO, "bench", "baseline.cpp"), "-o", str(exe)],
-        check=True,
-    )
-    return str(exe)
-
-
-def run_baseline(exe: str, codes: np.ndarray, mode: str | None) -> dict:
-    """`bench/baseline.cpp` on `codes`; mode None (static), "canonical" or
-    "dynamic"."""
-    from cbl_tpu_torch.ops._build import BUILD_DIR
-
-    path = BUILD_DIR / "codes.bin"
-    codes.tofile(path)
-    cmd = [exe, str(path)] + ([mode] if mode else [])
-    out = subprocess.run(cmd, capture_output=True, check=True, timeout=600)
-    path.unlink()
-    return json.loads(out.stdout)
 
 
 def static_run(codes: np.ndarray, offsets: np.ndarray, canonical: bool):
@@ -2950,10 +2936,13 @@ def write_fastq_gz(path, codes: np.ndarray, offsets: np.ndarray) -> None:
             f.write(b"@q%d\n%s\n+\n%s\n" % (r, s, b"I" * len(s)))
 
 
-def start_baseline_records(exe: str, work, ci, oi, cq, oq) -> dict:
+def start_baseline_records(work, ci, oi, cq, oq) -> dict:
     """`bench/baseline.cpp records` on the corpus, plain and canonical, as
-    processes that run beside the commands (`bench.py`'s
-    `run_baseline_records` call)."""
+    processes that run beside the commands (the bench's
+    `run_baseline_records` call, on its executable)."""
+    from cbl_tpu_torch.bench import build_baseline
+
+    exe = build_baseline()
     paths = []
     for name, arr in (("gcodes", ci), ("goff", oi), ("gqcodes", cq),
                       ("gqoff", oq)):
@@ -3107,17 +3096,17 @@ def index_words(path) -> np.ndarray:
     return CBL.load_from_file(path).wordset.words_array()
 
 
-def cli_genome_check(exe: str) -> dict:
+def cli_genome_check() -> dict:
     """Phase 12: the genome corpus through `python -m cbl_tpu_torch`."""
     import contextlib
     import io as pyio
     import shutil
     from concurrent.futures import ThreadPoolExecutor
 
-    import bench
     from cbl_tpu_torch import cli
     from cbl_tpu_torch import io as tio
     from cbl_tpu_torch import kmer as tkmer
+    from cbl_tpu_torch.bench import make_genome_corpus
     from cbl_tpu_torch.examples import bench_necklace_throughput
     from cbl_tpu_torch.ops._build import BUILD_DIR
 
@@ -3126,7 +3115,7 @@ def cli_genome_check(exe: str) -> dict:
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
     t0 = time.perf_counter()
-    ci, oi, cq, oq = bench.make_genome_corpus(GENOME_BASES)
+    ci, oi, cq, oq = make_genome_corpus(GENOME_BASES)
     n59 = int(np.searchsorted(oi, K59_CLI_BASES, "right")) - 1
     c59, o59 = ci[: oi[n59]], oi[: n59 + 1]
     fa, fq, fa59 = work / "insert.fa", work / "query.fq.gz", work / "i59.fa"
@@ -3173,7 +3162,7 @@ def cli_genome_check(exe: str) -> dict:
     # commands at once, the baseline and the numpy oracles beside them
     (_, b_err), (_, q_err) = cli_waves(
         [["build", fa, "-o", idx_i]], [["query", idx_i, fq]])
-    base = start_baseline_records(exe, work, ci, oi, cq, oq)
+    base = start_baseline_records(work, ci, oi, cq, oq)
     pool = ThreadPoolExecutor(1)
     oracle = pool.submit(genome_oracles, ci, oi, cq, oq, c59, o59)
     wave3 = [["build", fa, "-c", "-o", idx_ic],
@@ -3543,7 +3532,7 @@ def sharded_cli_check(gen: dict) -> dict:
 def sharded_summary(card: str, dyn: dict, base_dyn: dict, static_plain: dict,
                     n_kmers: int, sdyn: dict, sbulk: dict, smesh: dict,
                     scli: dict) -> None:
-    """Phase 14's lines of phase 13: config 5 beside phase 5's single
+    """Phase 15's lines of phase 13: config 5 beside phase 5's single
     index, the D = 1 bulk path beside phase 3's, the SHARDS-shard runs and
     the CLI."""
     single_ops_s = dyn["ops"] / dyn["wall_s"]
@@ -3609,13 +3598,13 @@ def ranks_oracle(path) -> dict:
     the card: the corpus's words after the build, after removing each
     rank's first record, and after SEGS rounds, and each round's (total,
     positive); the words are written to `path` for the ranks."""
-    import bench
     from cbl_tpu_torch import CBL
+    from cbl_tpu_torch.bench import make_genome_corpus
     from cbl_tpu_torch.parallel.distributed import (host_record_slice,
                                                     slice_codes)
 
     t0 = time.perf_counter()
-    ci, oi, _, _ = bench.make_genome_corpus(GENOME_BASES)
+    ci, oi, _, _ = make_genome_corpus(GENOME_BASES)
     single = CBL(k=K, device=DEVICE)
     single.insert_codes_stream(ci, oi)
     w_build = single.wordset.words_array()
@@ -3647,12 +3636,11 @@ def rank_worker(coordinator: str, pid: int, oracle: str,
     import torch
     import torch.distributed as dist
 
+    from cbl_tpu_torch.bench import make_genome_corpus
     from cbl_tpu_torch.ops import _build
     from cbl_tpu_torch.parallel import distributed as d
     from cbl_tpu_torch.parallel import shard
     from cbl_tpu_torch.parallel.shard import ShardedCBL, make_mesh
-
-    import bench
 
     d.init_distributed(coordinator, RANKS, pid, backend=backend,
                        timeout_s=600.0, device=DEVICE)
@@ -3660,7 +3648,7 @@ def rank_worker(coordinator: str, pid: int, oracle: str,
         mesh = make_mesh([make_mesh()[0]] * RANK_SHARDS, process_group=True)
         if mesh[0].type == "cuda":
             _build.library()  # built by phase 1: loads
-        ci, oi, cq, oq = bench.make_genome_corpus(GENOME_BASES)
+        ci, oi, cq, oq = make_genome_corpus(GENOME_BASES)
         want = dict(np.load(oracle))
         mine = [d.slice_codes(c, o, *d.host_record_slice(o, pid, RANKS))
                 for c, o in ((ci, oi), (cq, oq))]
@@ -3832,7 +3820,7 @@ def ex_share(r: dict) -> float:
 
 
 def ranks_summary(card: str, rk: dict) -> None:
-    """Phase 14's lines of phase 13 (e)."""
+    """Phase 15's lines of phase 13 (e)."""
     o = rk["oracle"]
     for backend in ("gloo", "nccl"):
         if backend not in rk:
@@ -3864,6 +3852,72 @@ def ranks_summary(card: str, rk: dict) -> None:
         log(f"[{card}] {backend} ranks' wall {rk[backend]['wall_s']:.1f} s "
             f"(spawn to exit); single index oracle {o['oracle_s']:.1f} s, "
             f"rounds' (total, positive) {o['tps']}")
+
+
+# --- phase 14: the benchmark and the multi-device dryrun ----------------------
+
+BENCH_REPEATS = 2
+
+
+def bench_run(argv: list) -> tuple:
+    """`python -m cbl_tpu_torch.bench ARGV` as a user runs it, a process
+    of its own; it must exit 0.  -> (its last line, the count checks it
+    reported, its peak memory lines, seconds)."""
+    t0 = time.perf_counter()
+    (out, err), = finish_cli(start_cli([argv], module="cbl_tpu_torch.bench"))
+    line = json.loads(out.splitlines()[-1])
+    checks = {ln[len("check: "):].split(" equals ")[0].rsplit(" ", 1)[0]
+              for ln in err.splitlines() if ln.startswith("check: ")}
+    peaks = [ln for ln in err.splitlines() if "peak device memory" in ln]
+    return line, checks, peaks, time.perf_counter() - t0
+
+
+def bench_check(card: str) -> dict:
+    """Phase 14: the port's benchmark in its default run (every extra)
+    and `--mode largek`, then `parallel.dryrun_multichip(SHARDS)` on the
+    card at 2^20 k-mers a shard, launches counted from 0."""
+    import torch
+
+    from cbl_tpu_torch.bench import DEFAULT_CHECKS, DEFAULT_KEYS, RATE_KEYS
+    from cbl_tpu_torch.parallel import dryrun_multichip
+
+    torch.cuda.empty_cache()  # the bench processes share the card
+    r = {}
+    line, checks, peaks, secs = bench_run(["--repeats", BENCH_REPEATS])
+    keys = (*DEFAULT_KEYS, "device", "launches",
+            *(f"{k}_repeats" for k in RATE_KEYS))
+    missing = [k for k in keys if line.get(k) is None]
+    assert not missing, (missing, line)
+    assert checks == DEFAULT_CHECKS, sorted(checks ^ DEFAULT_CHECKS)
+    assert line["device"]["name"] + ", " + line["device"]["power_limit"] \
+        == card, (line["device"], card)
+    for name in ROUND_KERNELS:
+        assert line["launches"][name] >= 1, (
+            f"kernel {name} never launched by the bench's default run")
+    for key in RATE_KEYS:
+        assert len(line[f"{key}_repeats"]) == BENCH_REPEATS, key
+    r["default"] = dict(line=line, peaks=peaks, s=secs)
+    line, checks, peaks, secs = bench_run(["--mode", "largek", "--repeats",
+                                           BENCH_REPEATS])
+    assert all(line.get(k) is not None for k in ("metric", "value", "unit",
+                                                 "value_repeats")), line
+    assert line["launches"]["necklace_wide"] >= 1, line["launches"]
+    r["largek"] = dict(line=line, peaks=peaks, s=secs)
+    for name, v in r.items():
+        log(f"bench {name} ({v['s']:.1f} s): {json.dumps(v['line'])}")
+        for p in v["peaks"]:
+            log(f"  bench {name}: {p}")
+    zero_launches()
+    t0 = time.perf_counter()
+    r["dryrun"] = dryrun_multichip(SHARDS)
+    r["dryrun_s"] = time.perf_counter() - t0
+    r["dryrun_launches"] = launches_now()
+    for name in ROUND_KERNELS:
+        assert r["dryrun_launches"][name] >= 1, r["dryrun_launches"]
+    log(f"dryrun_multichip({SHARDS}) on the card: {r['dryrun']} in "
+        f"{r['dryrun_s']:.1f} s; launches "
+        f"{ {n: c for n, c in r['dryrun_launches'].items() if c} }")
+    return r
 
 
 def profile_algebra() -> int:
@@ -4033,6 +4087,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, REPO)
     from cbl_tpu_torch import CBL
+    from cbl_tpu_torch.bench import run_baseline, run_baseline_dynamic
     from cbl_tpu_torch.ops import LAUNCHES, _build
     from cbl_tpu_torch.ops.sort import use_merge_mode, use_sort_mode
 
@@ -4079,7 +4134,6 @@ def main() -> int:
 
     stamp(3)
     # phase 3
-    exe = build_baseline()
     rng = np.random.default_rng(0)
     codes = rng.integers(0, 4, size=MAIN_BASES, dtype=np.uint8)
     offsets = np.array([0, len(codes)], dtype=np.int64)
@@ -4088,7 +4142,7 @@ def main() -> int:
     main_launches = None
     for canonical in (False, True):
         label = "canonical" if canonical else "plain"
-        base = run_baseline(exe, codes, "canonical" if canonical else None)
+        base = run_baseline(codes, canonical)
         static_run(codes, offsets, canonical)  # warm-up
         torch.cuda.reset_peak_memory_stats()
         for name in LAUNCHES:
@@ -4148,7 +4202,7 @@ def main() -> int:
     off2 = np.array([0, len(codes2)], dtype=np.int64)
     n_merge = LAUNCHES["merge"]
     idx2, ps2, r2 = static_run(codes2, off2, canonical=False)
-    base2 = run_baseline(exe, codes2, None)
+    base2 = run_baseline(codes2)
     log(f"two-slab build: slabs {[s[0] for s in ps2.slabs]} {r2} "
         f"baseline distinct {base2['distinct']} merge launches "
         f"{LAUNCHES['merge'] - n_merge}")
@@ -4161,7 +4215,7 @@ def main() -> int:
 
     stamp(5)
     # phase 5: the dynamic workload at full size
-    base_dyn = run_baseline(exe, codes, "dynamic")
+    base_dyn = run_baseline_dynamic(codes)
     dynamic_run(codes, timed=False)  # warm-up
     torch.cuda.reset_peak_memory_stats()
     idx, segs, dyn = dynamic_run(codes, timed=True)
@@ -4215,7 +4269,7 @@ def main() -> int:
     # phase 6: the separate calls, every sort through B5 ("mergepath"),
     # then run A once more in the default mode
     half_codes = codes[: MAIN_BASES // 2]
-    base_b = run_baseline(exe, half_codes, "dynamic")
+    base_b = run_baseline_dynamic(half_codes)
     sep = {}
     for label, run_codes, mode, log_at_query, base in (
             ("A", codes, "mergepath", False, base_dyn),
@@ -4305,7 +4359,7 @@ def main() -> int:
 
     stamp(12)
     # phase 12: the genome corpus through the CLI
-    gen = cli_genome_check(exe)
+    gen = cli_genome_check()
 
     stamp(13)
     # phase 13: the sharded index: BASELINE config 5 (D = 1), the bulk
@@ -4359,7 +4413,14 @@ def main() -> int:
         f"launches { {b: rk[b]['launches'] for b in ('gloo', 'nccl') if b in rk} }")
 
     stamp(14)
-    # phase 14
+    # phase 14: python -m cbl_tpu_torch.bench (the default run and largek)
+    # as a user runs it, then the multi-device dryrun on the card
+    t0 = time.perf_counter()
+    bch = bench_check(card)
+    log(f"phase 14: {time.perf_counter() - t0:.1f} s")
+
+    stamp(15)
+    # phase 15
     for name in STATIC_KERNELS:
         assert main_launches[name] >= 1, name
     for label, (r, base) in runs.items():
@@ -4612,8 +4673,8 @@ def main() -> int:
     # K=59 under "bitonic"), the CLI in this process, the necklace
     # example, the sharded index (config 5's rounds at D = 1, the bulk
     # build and query at D = 1, the rounds on SHARDS shards) and the
-    # ranks of phase 13 (e) (each rank's whole run, summed), each counted
-    # from 0
+    # ranks of phase 13 (e) (each rank's whole run, summed) and the
+    # bench's default run and largek run (phase 14), each counted from 0
     paths = (main_launches, dyn_launches, b7_launches, sep["A"]["launches"],
              sep["B"]["launches"], alg_launches,
              alg[ALGEBRA_MODES[1]]["launches"], om["default"]["launches"],
@@ -4622,7 +4683,9 @@ def main() -> int:
              *wdyn["launches"].values(), *gen["launches"].values(),
              gen["necklace_twin_launches"], sdyn_launches, sbulk_launches,
              mesh_launches,
-             *(rk[b]["launches"] for b in ("gloo", "nccl") if b in rk))
+             *(rk[b]["launches"] for b in ("gloo", "nccl") if b in rk),
+             bch["default"]["line"]["launches"],
+             bch["largek"]["line"]["launches"])
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src[name][0],
          "replaces": src[name][1],
