@@ -66,6 +66,23 @@ def np_pack_stream(codes: np.ndarray) -> np.ndarray:
     return word
 
 
+def pack_stream(codes: torch.Tensor) -> torch.Tensor:
+    """[S] uint8 base codes 0-3 (S % 16 == 0) on any device -> [S/16]
+    int64 holding the uint32 words `np_pack_stream` gives, the dtype
+    `extract_kmers` reads: a [S/16, 16] view shifted by 30, 28, ..., 0
+    and summed (the bit fields are disjoint)."""
+    if codes.dtype != torch.uint8 or codes.dim() != 1:
+        raise ValueError(f"expected [S] uint8 codes, got {codes.dtype} "
+                         f"{tuple(codes.shape)}")
+    if codes.shape[0] % BASES_PER_WORD:
+        raise ValueError(f"{codes.shape[0]} codes are not a multiple of "
+                         f"{BASES_PER_WORD}")
+    shifts = torch.arange(2 * BASES_PER_WORD - 2, -1, -2, dtype=torch.int64,
+                          device=codes.device)
+    c = codes.reshape(-1, BASES_PER_WORD).to(torch.int64)
+    return (c << shifts).sum(dim=1)
+
+
 def extract_kmers(stream: torch.Tensor, n_kmers: int, cfg: CBLConfig):
     """Every k-mer of a packed base stream: [n_kmers] int64 values, or
     [2, n_kmers] for W > 62 (`limbs.kmer_cols`).

@@ -27,6 +27,8 @@ from ..cbl import CBL
 from ..limbs import from_limbs, key_cols
 from .shard import ShardedCBL, make_mesh
 
+KMERS_PER_SHARD = 1 << 20  # the reference's CBL_TPU_DRYRUN_KMERS_PER_DEV
+
 
 def check(ok: bool, what) -> None:
     """An assert that `python -O` keeps."""
@@ -35,7 +37,7 @@ def check(ok: bool, what) -> None:
 
 
 def dryrun_multichip(n_shards: int, devices=None,
-                     kmers_per_shard: int = 1 << 20) -> dict:
+                     kmers_per_shard: int = KMERS_PER_SHARD) -> dict:
     """Run the check on `n_shards` shards placed on `devices` in turn
     (default: `make_mesh()`'s cards); raise on the first miss.  -> the
     small step's count, the at-scale final count and the k-mers driven."""

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's static, dynamic-round, separate-call,
-set-algebra, ordered-membership, export, wide-K and sharded paths, and
-its CLI, on one NVIDIA GPU.
+set-algebra, ordered-membership, export, wide-K and sharded paths, its
+CLI, its benchmark and its flagship forward step, on one NVIDIA GPU.
 
 Run from the repository root, on a machine with one CUDA card, `nvcc` and
 `g++`:
@@ -208,6 +208,20 @@ Phases (any failure raises and the script exits non-zero):
    `cbl_tpu_torch.parallel.dryrun_multichip(4)`: 4 shards on the card,
    2^20 k-mers a shard of the seed-5 genome corpus, every step against a
    single index;
+   (b) the flagship forward step (`cbl_tpu_torch.entry`, the counterpart
+   of `__graft_entry__.entry()`): `python -m cbl_tpu_torch.entry` as a
+   user runs it (the step on the reference's args, then
+   `dryrun_multichip(8)`); `entry()`'s args on the card, the mask (all
+   False: an index of 2^15 sentinels) against the step on the CPU, once
+   more under `torch.cuda.set_sync_debug_mode("error")` (no host sync),
+   exactly one B1 launch a call; then 256 windows of 16,416 codes at
+   k-mer offsets that are multiples of 2^14, half from the 32 Mbp stream
+   and half from phase 4's foreign stream, against the canonical index of
+   the 32 Mbp (its `export_keys()`, as many rows as `bench/baseline.cpp`
+   counts), every mask against numpy's canonical words and the same keys
+   (one window with a band of rows not valid, which read False); the
+   host clock, the device time by CUDA events and the device launches of
+   one step at both index sizes;
 15. require every kernel of each path to have been launched in that
    path's counted run, print the timings, the kernels' JSON line and,
    last, the device JSON line.
@@ -3920,6 +3934,148 @@ def bench_check(card: str) -> dict:
     return r
 
 
+# --- phase 14 (b): the flagship forward step ----------------------------------
+
+ENTRY_WINDOWS = 256  # forward steps against the 32 Mbp index, half inserted
+ENTRY_REPS = 200  # forward steps a timing by the host clock
+# steps a batch queued behind one sleep kernel: ~190 launches a step, and
+# a stream's queue holds about a thousand before the host blocks
+ENTRY_QUEUED = 4
+ENTRY_BATCHES = 25
+SLEEP_CYCLES_S = 2e9  # SM cycles a second at most (H100 SXM boost 1.98 GHz)
+
+
+def forward_times(fwd, args) -> dict:
+    """One forward step's times on the card: the host clock a call (a
+    sync before and after ENTRY_REPS calls); the device time a call by
+    CUDA events around ENTRY_QUEUED calls enqueued behind a sleep kernel
+    that outlasts their enqueue, so that the device runs them back to
+    back (the median of ENTRY_BATCHES batches; `covered`: in every batch
+    the first event had not been reached when the enqueue ended); the
+    device's work a call by `torch.profiler` (kernels, copies, fills:
+    count and busy time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fwd(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(ENTRY_REPS):
+        fwd(*args)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / ENTRY_REPS
+    sleep = int(4 * host_ms * 1e-3 * ENTRY_QUEUED * SLEEP_CYCLES_S)
+    device, covered = [], True
+    for _ in range(ENTRY_BATCHES):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(sleep)
+        e0.record()
+        for _ in range(ENTRY_QUEUED):
+            fwd(*args)
+        e1.record()
+        covered &= not e0.query()
+        e1.synchronize()
+        device.append(e0.elapsed_time(e1) / ENTRY_QUEUED)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            fwd(*args)
+        torch.cuda.synchronize()
+    work = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    return dict(host_ms=host_ms, device_ms=float(np.median(device)),
+                device_ms_range=(min(device), max(device)), covered=covered,
+                device_launches=sum(e.count for e in work) / 10,
+                busy_ms=sum(e.self_device_time_total for e in work) / 1e4)
+
+
+def entry_check(codes: np.ndarray, qcodes: np.ndarray,
+                distinct: int) -> dict:
+    """Phase 14 (b): `cbl_tpu_torch.entry`, the flagship forward step.
+    `python -m cbl_tpu_torch.entry` as a user runs it (forward on the
+    reference's args, then `dryrun_multichip(8)`); `entry()`'s args on
+    the card, the mask against the CPU's (all False: an index of
+    sentinels), once more under `set_sync_debug_mode("error")`, one B1
+    launch a call; then ENTRY_WINDOWS windows of STREAM_LEN codes at
+    k-mer offsets that are multiples of CHUNK, half from the 32 Mbp
+    stream `codes` and half from phase 4's foreign stream `qcodes`,
+    against the canonical index of `codes` (`export_keys()`, its rows
+    `distinct`, `bench/baseline.cpp`'s canonical count), each mask
+    against numpy's canonical words and the same keys (one window with a
+    band of `valid` False); then the times of one step at both index
+    sizes."""
+    import torch
+
+    from cbl_tpu_torch import CBL
+    from cbl_tpu_torch import entry as tentry
+
+    r = {}
+    t0 = time.perf_counter()
+    (out, _), = finish_cli(start_cli([[]], module="cbl_tpu_torch.entry"))
+    r["cli_s"] = time.perf_counter() - t0
+    r["cli"] = out.strip().splitlines()
+    assert r["cli"][0].startswith("entry() runs on cuda") and r["cli"][0] \
+        .endswith(", 0 hits"), r["cli"]
+    assert r["cli"][-1].startswith("dryrun_multichip(8) on cuda"), r["cli"]
+
+    fwd, args = tentry.entry()
+    assert all(a.device.type == "cuda" for a in args), args
+    want = fwd(*(a.cpu() for a in args))
+    fwd(*args)  # warm-up
+    torch.cuda.synchronize()
+    zero_launches()
+    got = fwd(*args)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = fwd(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    r["launches"] = launches_now()
+    assert {n: c for n, c in r["launches"].items() if c} == {"necklace": 2}
+    assert got.dtype == torch.bool and got.shape == (tentry.CHUNK,)
+    assert torch.equal(got.cpu(), want) and torch.equal(again, got)
+    assert not want.any()
+
+    S, C, half = tentry.STREAM_LEN, tentry.CHUNK, ENTRY_WINDOWS // 2
+    idx = CBL(k=K, prefix_bits=24, canonical=True, device=DEVICE)
+    idx.insert_codes_stream(codes, np.array([0, len(codes)]))
+    keys = idx.wordset.export_keys()
+    r["index_rows"] = keys.shape[0]
+    assert r["index_rows"] == distinct, (r["index_rows"], distinct)
+    rng = np.random.default_rng(7)
+    starts = [rng.choice((len(c) - S) // C + 1, half, replace=False) * C
+              for c in (codes, qcodes)]
+    win = np.stack([c[s : s + S] for c, ss in zip((codes, qcodes), starts)
+                    for s in ss])
+    valid = np.ones((ENTRY_WINDOWS, C), dtype=bool)
+    valid[0, C // 4 : C // 2] = False  # a band of an inserted window
+    win_t = torch.from_numpy(win).to(DEVICE)
+    valid_t = torch.from_numpy(valid).to(DEVICE)
+    torch.cuda.synchronize()
+    zero_launches()
+    masks = torch.stack([fwd(win_t[w], valid_t[w], keys)
+                         for w in range(ENTRY_WINDOWS)]).cpu().numpy()
+    r["windows_launches"] = launches_now()
+    assert {n: c for n, c in r["windows_launches"].items() if c} == {
+        "necklace": ENTRY_WINDOWS}, r["windows_launches"]
+    t0 = time.perf_counter()
+    words, _ = np_stream_words(win.reshape(-1), np.array([0, win.size]),
+                               canonical=True)
+    at = np.arange(ENTRY_WINDOWS)[:, None] * S + np.arange(C)
+    oracle = np_isin_sorted(words[at.reshape(-1)].astype(np.int64),
+                            keys.cpu().numpy()).reshape(ENTRY_WINDOWS, C)
+    r["oracle_s"] = time.perf_counter() - t0
+    assert np.array_equal(masks, oracle & valid)
+    assert masks[:half][valid[:half]].all() and not masks[~valid].any()
+    r["foreign_hits"] = int(masks[half:].sum())
+    assert 0 < r["foreign_hits"] < half * C, r["foreign_hits"]
+
+    r["small"] = forward_times(fwd, args)
+    r["large"] = forward_times(fwd, (win_t[1], valid_t[1], keys))
+    del idx, keys
+    return r
+
+
 def profile_algebra() -> int:
     """`--profile-algebra`: the set-algebra runs under `torch.profiler`
     in the ("bitonic", "bitonic") and the default modes; prints the
@@ -3987,16 +4143,25 @@ def profile_separate() -> int:
     return 0
 
 
-def _np_record_words(codes: np.ndarray) -> np.ndarray:
+def _np_record_words(codes: np.ndarray, canonical: bool = False):
     """The packed necklace words of every k-mer start of `codes` (uint64
     arithmetic: min rotation << pos_bits | pos, independent of the
-    port)."""
+    port); `canonical`: of the even-popcount one of each k-mer and its
+    reverse complement (bases reversed, each XOR 0b10)."""
     W, pos_bits = 2 * K, 6
     mask = np.uint64((1 << W) - 1)
     nk = len(codes) - K + 1
     rot = np.zeros(nk, dtype=np.uint64)
     for j in range(K):
         rot = (rot << np.uint64(2)) | codes[j : j + nk].astype(np.uint64)
+    if canonical:
+        rc = np.zeros(nk, dtype=np.uint64)
+        for j in range(K):
+            rc |= (codes[j : j + nk] ^ 2).astype(np.uint64) << np.uint64(2 * j)
+        par = rot.copy()
+        for sh in (32, 16, 8, 4, 2, 1):
+            par ^= par >> np.uint64(sh)
+        rot = np.where((par & np.uint64(1)) == 0, rot, rc)
     best = rot.copy()
     pos = np.zeros(nk, dtype=np.uint64)
     hi, better = np.empty_like(rot), np.empty(nk, dtype=bool)
@@ -4011,7 +4176,8 @@ def _np_record_words(codes: np.ndarray) -> np.ndarray:
     return (best << np.uint64(pos_bits)) | pos
 
 
-def np_stream_words(codes: np.ndarray, offsets: np.ndarray):
+def np_stream_words(codes: np.ndarray, offsets: np.ndarray,
+                    canonical: bool = False):
     """Host oracle: (words [nk] uint64 of every k-mer start of the
     stream, valid [nk]: the k-mer lies inside one record), the words
     computed in eight threads over pieces of the stream (numpy releases
@@ -4030,7 +4196,7 @@ def np_stream_words(codes: np.ndarray, offsets: np.ndarray):
 
     def piece(i):
         lo, hi = edges[i], edges[i + 1]
-        words[lo:hi] = _np_record_words(codes[lo : hi + K - 1])
+        words[lo:hi] = _np_record_words(codes[lo : hi + K - 1], canonical)
 
     with ThreadPoolExecutor(8) as ex:
         list(ex.map(piece, range(8)))
@@ -4418,11 +4584,22 @@ def main() -> int:
     t0 = time.perf_counter()
     bch = bench_check(card)
     log(f"phase 14: {time.perf_counter() - t0:.1f} s")
+    # phase 14 (b): the flagship forward step (cbl_tpu_torch.entry) on the
+    # reference's args, then on windows against the canonical 32 Mbp index
+    t0 = time.perf_counter()
+    ent = entry_check(codes, qcodes, runs["canonical"][1]["distinct"])
+    log(f"phase 14 (b): {time.perf_counter() - t0:.1f} s; python -m "
+        f"cbl_tpu_torch.entry {ent['cli_s']:.1f} s: {ent['cli'][0]}; "
+        f"{ent['index_rows']} index rows, foreign hits "
+        f"{ent['foreign_hits']}; numpy oracle {ent['oracle_s']:.1f} s")
 
     stamp(15)
     # phase 15
     for name in STATIC_KERNELS:
         assert main_launches[name] >= 1, name
+    for launches in (ent["launches"], ent["windows_launches"]):
+        assert launches["necklace"] >= 1, (
+            "kernel necklace never launched on the forward step's path")
     for label, (r, base) in runs.items():
         rate = 2 * n_kmers / r["wall_s"]
         base_rate = 2 * n_kmers / (base["insert_s"] + base["query_s"])
@@ -4640,6 +4817,18 @@ def main() -> int:
     sharded_summary(card, dyn, base_dyn, static_plain, n_kmers, sdyn, sbulk,
                     smesh, scli)
     ranks_summary(card, rk)
+    for size, rows in (("small", "2^15 sentinel"),
+                       ("large", f"{ent['index_rows']} canonical")):
+        t = ent[size]
+        log(f"[{card}] K={K} entry() forward step, 2^14 k-mers against "
+            f"{rows} index rows: host clock {t['host_ms']:.4f} ms a call, "
+            f"device {t['device_ms']:.4f} ms a call by CUDA events (median "
+            f"of {ENTRY_BATCHES} batches of {ENTRY_QUEUED} calls queued "
+            f"behind a sleep, {t['device_ms_range'][0]:.4f}-"
+            f"{t['device_ms_range'][1]:.4f}; covered: {t['covered']}), "
+            f"profiler "
+            f"{t['device_launches']:.1f} device launches and "
+            f"{t['busy_ms']:.4f} ms busy a call; B1 once a call")
 
     src = {
         "necklace": ("cbl_tpu_torch/csrc/necklace.cu",
@@ -4673,8 +4862,10 @@ def main() -> int:
     # K=59 under "bitonic"), the CLI in this process, the necklace
     # example, the sharded index (config 5's rounds at D = 1, the bulk
     # build and query at D = 1, the rounds on SHARDS shards) and the
-    # ranks of phase 13 (e) (each rank's whole run, summed) and the
-    # bench's default run and largek run (phase 14), each counted from 0
+    # ranks of phase 13 (e) (each rank's whole run, summed), the
+    # bench's default run and largek run (phase 14) and the forward step
+    # (phase 14 (b): two calls on the reference's args, ENTRY_WINDOWS
+    # windows), each counted from 0
     paths = (main_launches, dyn_launches, b7_launches, sep["A"]["launches"],
              sep["B"]["launches"], alg_launches,
              alg[ALGEBRA_MODES[1]]["launches"], om["default"]["launches"],
@@ -4685,7 +4876,8 @@ def main() -> int:
              mesh_launches,
              *(rk[b]["launches"] for b in ("gloo", "nccl") if b in rk),
              bch["default"]["line"]["launches"],
-             bch["largek"]["line"]["launches"])
+             bch["largek"]["line"]["launches"], ent["launches"],
+             ent["windows_launches"])
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src[name][0],
          "replaces": src[name][1],

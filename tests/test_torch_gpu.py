@@ -21,6 +21,8 @@ import pytest
 import torch
 
 from cbl_tpu_torch import CBL, LAUNCHES
+from cbl_tpu_torch import entry as tentry
+from cbl_tpu_torch import kmer as tkmer
 from cbl_tpu_torch.ops._build import PASSES
 from cbl_tpu_torch import wordset as tws
 from cbl_tpu_torch.limbs import SENTINEL
@@ -1268,3 +1270,47 @@ def test_sharded_on_cuda_matches_cpu(cuda, monkeypatch, tmp_path, D, k,
                  "merge" if k == 25 else "merge_3col", scan_key):
         assert card_n[name] > 0, (name, card_n)
     assert card_n[scan_key] == 3 * D  # once a round a shard
+
+
+@pytest.mark.parametrize("S", [0, 16, 16_416, (1 << 20) + 16])
+def test_pack_stream_on_cuda_matches_cpu(cuda, S):
+    codes = torch.from_numpy(
+        np.random.default_rng(S).integers(0, 4, size=S, dtype=np.uint8))
+    got = tkmer.pack_stream(codes.to(cuda))
+    assert got.device.type == "cuda"
+    assert torch.equal(got.cpu(), tkmer.pack_stream(codes))
+
+
+def test_entry_forward_on_cuda_matches_cpu(cuda):
+    """The flagship step on the card against the step on the CPU (held to
+    `cbl_tpu` by tests/test_torch_entry.py): the reference's args, then an
+    index of a random half of the chunk's words and a `valid` with rows
+    False; no host sync, one B1 launch a call."""
+    fwd, args = tentry.entry()
+    assert all(a.device.type == "cuda" for a in args)
+    assert not fwd(*args).any()
+    codes, valid, _ = tentry.reference_arrays()
+    rng = np.random.default_rng(1)
+    words = tentry.words(torch.from_numpy(codes),
+                         torch.from_numpy(valid)).numpy()
+    keys = np.unique(words[rng.random(tentry.CHUNK) < 0.5])
+    index = np.full(tentry.INDEX_ROWS, SENTINEL, dtype=np.int64)
+    index[: len(keys)] = keys
+    valid = rng.random(tentry.CHUNK) >= 0.05
+    valid[1000:1500] = False
+    on_cpu = tuple(torch.from_numpy(a) for a in (codes, valid, index))
+    want = tentry.forward(*on_cpu)
+    args = tuple(a.to(cuda) for a in on_cpu)
+    fwd(*args)  # warm-up
+    torch.cuda.synchronize()
+    before = dict(LAUNCHES)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = fwd(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    moved = {n: c - before[n] for n, c in LAUNCHES.items() if c != before[n]}
+    assert moved == {"necklace": 1}
+    assert torch.equal(got.cpu(), want)
+    assert 0 < int(want.sum()) < tentry.CHUNK
+    assert not want[torch.from_numpy(~valid)].any()

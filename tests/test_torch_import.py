@@ -47,16 +47,19 @@ def test_imports_without_jax():
         "import cbl_tpu_torch.examples.sharded_build\n"
         "import cbl_tpu_torch.examples.repartition_recovery\n"
         "import cbl_tpu_torch.bench, cbl_tpu_torch.parallel.dryrun\n"
+        "import cbl_tpu_torch.entry\n"
         "assert cbl_tpu_torch.io._load_native() is not None\n"
         "import chip_smoke, runpy\n"
-        "for mod in ('cbl_tpu_torch', 'cbl_tpu_torch.bench'):\n"
+        "for mod in ('cbl_tpu_torch', 'cbl_tpu_torch.bench',\n"
+        "            'cbl_tpu_torch.entry'):\n"
         "    sys.argv = [mod, '--help']\n"
         "    try:\n"
         "        runpy.run_module(mod, run_name='__main__')\n"
         "    except SystemExit as e:\n"
         "        assert e.code == 0, e\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'cbl_tpu', 'bench') and sys.modules[m] is not None]\n"
+        "('jax', 'jaxlib', 'cbl_tpu', 'bench', '__graft_entry__') and "
+        "sys.modules[m] is not None]\n"
         "assert not bad, bad\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
