@@ -34,8 +34,17 @@
 //      does; a short or missing last run needs no padding.
 // The input is only read; the passes ping-pong between `out` and `tmp`,
 // starting so that the last pass writes `out`.
+//
+// Three columns (PR 17): a tile sort of 4096 rows on a keyed tile
+// (`tile_sort_keyed`), then multiway passes (multiway.cuh) that each merge
+// every kMaxFan = 16 neighbouring runs, four levels of the merge tree a
+// pass, after one pass of 2, 4 or 8 runs where the number of levels is no
+// multiple of four: a tile sort and four merge passes at 2^25 rows, where
+// the two- and four-way passes made eight (5.54 ms against 11.75 at 2^25
+// rows of the K=59 sort-join's queries; NVIDIA H100 80GB HBM3, 700 W).
 
 #include "merge_path.cuh"
+#include "multiway.cuh"
 
 namespace cbl {
 namespace {
@@ -130,6 +139,119 @@ tile_sort(Cols<C> in, long long n, MutCols<C> out) {
     }
 }
 
+// Three columns: the sort of `tile_sort` on a keyed tile (multiway.cuh
+// `MultiTile`: column 0 and the rows' places move, columns 1 and 2 stay
+// until the store), held to 64 registers a thread, so that two blocks share
+// an SM (109 KB of shared memory each) and one's loads overlap the other's
+// merges.  PR 10's `tile_sort<3>`, 74 registers and one block an SM, took
+// 1.96 ms for 2^25 rows, the same at 64 registers 1.67 (NVIDIA H100 80GB
+// HBM3, 700 W).
+constexpr int kKeyedSortRows = kSortRows<3>;
+constexpr int kKeyedSortThreads = kSortThreads<3>;
+constexpr int kKeyedSortSlots = kSortSlots<3>;
+constexpr int kKeyedSortSmem = keyed_tile_bytes(kKeyedSortRows,
+                                                kKeyedSortSlots);
+static_assert(kKeyedSortSmem <= 232448 / 2, "two keyed sort tiles an SM");
+
+// `multi_corank` on the sort's tile (its own slot count).
+__device__ __forceinline__ int sort_corank(const MultiTile& t, int a0, int la,
+                                           int b0, int lb, int d) {
+  int lo = d - lb > 0 ? d - lb : 0;
+  int hi = d < la ? d : la;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    const int si = slot<true>(a0 + mid), sj = slot<true>(b0 + d - mid - 1);
+    if (multi_le(t, t.key[si], t.idx[si], t.key[sj], t.idx[sj]))
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  return lo;
+}
+
+__global__ void __launch_bounds__(kKeyedSortThreads, 2)
+tile_sort_keyed(Cols<3> in, long long n, MutCols<3> out) {
+  constexpr int T = kKeyedSortRows;
+  const MultiTile t = multi_tile<T, kKeyedSortSlots>();
+  const long long base = (long long)blockIdx.x * T;
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) {
+    const int r = threadIdx.x + k * kKeyedSortThreads;
+    const bool here = base + r < n;
+    t.key[slot<true>(r)] = here ? in.p[0][base + r] : kPadRow;
+    t.rest1[r] = here ? in.p[1][base + r] : kPadRow;
+    t.rest2[r] = here ? in.p[2][base + r] : kPadRow;
+    t.idx[slot<true>(r)] = (unsigned short)r;
+  }
+  __syncthreads();
+  // this thread's rows [di, di + kItems), by Batcher's network for eight
+  const int di = threadIdx.x * kItems;
+  long long vk[kItems];
+  int vi[kItems];
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) {
+    vk[k] = t.key[slot<true>(di + k)];
+    vi[k] = t.idx[slot<true>(di + k)];
+  }
+  constexpr int kNet[19][2] = {
+      {0, 1}, {2, 3}, {4, 5}, {6, 7}, {0, 2}, {1, 3}, {4, 6}, {5, 7}, {1, 2},
+      {5, 6}, {0, 4}, {1, 5}, {2, 6}, {3, 7}, {2, 4}, {3, 5}, {1, 2}, {3, 4},
+      {5, 6}};
+#pragma unroll
+  for (int e = 0; e < 19; ++e) {
+    const int a = kNet[e][0], b = kNet[e][1];
+    const bool swap = !multi_le(t, vk[a], vi[a], vk[b], vi[b]);
+    const long long k = swap ? vk[b] : vk[a];
+    vk[b] = swap ? vk[a] : vk[b];
+    vk[a] = k;
+    const int i = swap ? vi[b] : vi[a];
+    vi[b] = swap ? vi[a] : vi[b];
+    vi[a] = i;
+  }
+  for (int run = kItems;; run <<= 1) {
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+      t.key[slot<true>(di + k)] = vk[k];
+      t.idx[slot<true>(di + k)] = (unsigned short)vi[k];
+    }
+    __syncthreads();
+    if (run == T) break;
+    // merge the runs [first, first + run) and [first + run, first + 2 run)
+    const int first = di & ~(2 * run - 1);
+    int pa = first, pb = first + run;
+    const int ea = pb, eb = pb + run;
+    const int ia = sort_corank(t, pa, run, pb, run, di - first);
+    pb += di - first - ia;
+    pa += ia;
+    long long ka = t.key[slot<true>(pa)], kb = t.key[slot<true>(pb)];
+    int xa = t.idx[slot<true>(pa)], xb = t.idx[slot<true>(pb)];
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+      const bool take_a = pb >= eb || (pa < ea && multi_le(t, ka, xa, kb, xb));
+      vk[k] = take_a ? ka : kb;
+      vi[k] = take_a ? xa : xb;
+      const int nx = slot<true>(take_a ? ++pa : ++pb);
+      const long long kn = t.key[nx];
+      const int in_ = t.idx[nx];
+      ka = take_a ? kn : ka;
+      xa = take_a ? in_ : xa;
+      kb = take_a ? kb : kn;
+      xb = take_a ? xb : in_;
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) {
+    const int r = threadIdx.x + k * kKeyedSortThreads;
+    if (base + r < n) {
+      const int i = t.idx[slot<true>(r)];
+      out.p[0][base + r] = t.key[slot<true>(r)];
+      out.p[1][base + r] = t.rest1[i];
+      out.p[2][base + r] = t.rest2[i];
+    }
+  }
+}
+
 template <int C>
 int sort_keys(const void* const* in, void* const* out, void* const* tmp,
               long long n, void* scratch, cudaStream_t s, int* passes) {
@@ -179,14 +301,66 @@ int sort_keys(const void* const* in, void* const* out, void* const* tmp,
   return (int)cudaSuccess;
 }
 
+// Three columns: `tile_sort`, then `multiway_pass`es.  = ops/merge.py
+// `mergepath_passes(n, tile, ways=16)`
+template <int C>
+int sort_keys_multiway(const void* const* in, void* const* out,
+                       void* const* tmp, long long n, void* scratch,
+                       cudaStream_t s, int* passes) {
+  constexpr long long kSortTile = kSortRows<C>;
+  static_assert(kSortTile % kTile == 0, "runs are whole merge tiles");
+  const long long n_tiles = (n + kTile - 1) / kTile;
+  const long long sort_tiles = (n + kSortTile - 1) / kSortTile;
+  if (n_tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  int levels = 0;
+  while ((kSortTile << levels) < n) ++levels;
+  const int merges = (levels + 3) / 4;
+  Cols<C> src;
+  MutCols<C> cur, other;
+  for (int c = 0; c < C; ++c) {
+    src.p[c] = (const long long*)in[c];
+    cur.p[c] = (long long*)(merges % 2 == 0 ? out[c] : tmp[c]);
+    other.p[c] = (long long*)(merges % 2 == 0 ? tmp[c] : out[c]);
+  }
+  static_assert(C == 3, "the keyed tile holds columns 1 and 2 apart");
+  cudaError_t err = cudaFuncSetAttribute(
+      tile_sort_keyed, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kKeyedSortSmem);
+  if (err != cudaSuccess) return (int)err;
+  tile_sort_keyed<<<(unsigned)sort_tiles, kKeyedSortThreads, kKeyedSortSmem,
+                    s>>>(src, n, cur);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  *passes = 1;
+  long long run = kSortTile;
+  int left = levels;
+  while (left > 0) {
+    // the pass of fewer runs first, then kMaxFan = 2^4 runs a pass
+    const int step = left % 4 ? left % 4 : 4;
+    Cols<C> a;
+    for (int c = 0; c < C; ++c) a.p[c] = cur.p[c];
+    err = multiway_pass<C>(a, run, 1 << step, n, n_tiles,
+                           (long long*)scratch, other, s);
+    if (err != cudaSuccess) return (int)err;
+    ++*passes;
+    run <<= step;
+    left -= step;
+    const MutCols<C> done = other;
+    other = cur;
+    cur = done;
+  }
+  return (int)cudaSuccess;
+}
+
 }  // namespace
 }  // namespace cbl
 
 // in, out and tmp are C-element arrays of column pointers (C = 1 to 3).
 // n >= 1.  `tmp` is scratch of the input's size (unused, and may hold
 // nulls, when n fits one sort tile), `scratch` holds four int64 per 2048
-// rows.  `*passes` receives the number of kernels launched that read and
-// write every row (the partition kernels do not).
+// rows for one or two columns and sixteen for three.  `*passes` receives
+// the number of kernels launched that read and write every row (the
+// partition kernels do not).
 extern "C" int cbl_sort_keys(const void* const* in, void* const* out,
                              void* const* tmp, int C, long long n,
                              void* scratch, int* passes, void* stream) {
@@ -197,7 +371,7 @@ extern "C" int cbl_sort_keys(const void* const* in, void* const* out,
     case 2:
       return cbl::sort_keys<2>(in, out, tmp, n, scratch, s, passes);
     case 3:
-      return cbl::sort_keys<3>(in, out, tmp, n, scratch, s, passes);
+      return cbl::sort_keys_multiway<3>(in, out, tmp, n, scratch, s, passes);
   }
   return (int)cudaErrorInvalidValue;
 }

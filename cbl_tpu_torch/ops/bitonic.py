@@ -29,7 +29,12 @@ B6 carries many steps of the network through one pass over device
 memory: `network_passes` lists the passes (a tile sort, fused cross
 passes of up to `fuse_log(tile)` strides, in-tile passes) and
 `bitonic_sort_passes_plain` walks that list, gathering each block's rows
-by the index map the kernel uses.  `bitonic_sort_plain` /
+by the index map the kernel uses.  At three columns the kernel runs the
+passes chunk by chunk where it can (`CHUNKS`): every stage up to the
+chunk, and in each later stage the strides below the chunk, for one chunk
+after another (a "chunks" entry of the list, one pass through device
+memory, the chunk held in the L2 cache); only the strides at or above the
+chunk are whole-array passes.  `bitonic_sort_plain` /
 `bitonic_merge_plain` walk the networks one step at a time and are their
 reference.
 
@@ -62,6 +67,10 @@ from .merge import (
 # B7's output tiles (csrc/bitonic_merge.cu kMergeRows)
 TILES = {1: 8192, 2: 4096, 3: 4096}
 MERGE_TILES = {1: 2048, 2: 1024, 3: 1024}
+# rows of a chunk of B6's chunk-by-chunk passes, by number of columns
+# (csrc/bitonic_sort.cu kChunkLog; 24 MB of three columns); one and two
+# columns run every pass over the whole array
+CHUNKS = {3: 1 << 20}
 
 
 def fuse_log(tile: int) -> int:
@@ -111,7 +120,8 @@ def _padded(cols: tuple, rows: int) -> tuple:
 # --- the passes --------------------------------------------------------------
 
 
-def network_passes(rows: int, tile: int, fuse: int) -> list:
+def network_passes(rows: int, tile: int, fuse: int,
+                   chunk: int | None = None) -> list:
     """The passes over device memory of B6, a sort of `rows` padded rows,
     as (kind, dir_bit, hi_log, lo_log): the steps with strides 2^hi_log
     ... 2^lo_log of the stage whose pairs are ascending iff bit `dir_bit`
@@ -120,24 +130,45 @@ def network_passes(rows: int, tile: int, fuse: int) -> list:
       stage's);
     - "cross": up to `fuse` strides >= tile of one stage in one pass; a
       stage's shorter pass comes first;
-    - "intile": the strides tile / 2 ... 1 of one stage."""
+    - "intile": the strides tile / 2 ... 1 of one stage.
+    With `chunk` (a power of two, at least the tile; cut to `rows`), the
+    passes that stay inside chunks of `chunk` rows are grouped as
+    ("chunks", chunk, [passes]), which the kernel runs for one chunk
+    after another, all of the group's passes on a chunk before the next:
+    first the tile sort and every stage k <= chunk, then for each later
+    stage its strides >= chunk as "cross" passes over the whole array and
+    its strides below the chunk as one group."""
     t_log, p_log = tile.bit_length() - 1, rows.bit_length() - 1
     assert rows == 1 << p_log and tile == 1 << t_log and fuse >= 1
 
-    def cross(dir_bit, hi_log):
-        out, left = [], hi_log - t_log + 1
+    def cross(dir_bit, hi_log, lo_log=t_log):
+        out, left = [], hi_log - lo_log + 1
         while left > 0:
             f = left % fuse or fuse
-            out.append(("cross", dir_bit, t_log + left - 1,
-                        t_log + left - f))
+            out.append(("cross", dir_bit, lo_log + left - 1,
+                        lo_log + left - f))
             left -= f
         return out
 
     assert rows >= tile
-    passes = [("tile", t_log, t_log - 1, 0)]
-    for k_log in range(t_log + 1, p_log + 1):
-        passes += cross(k_log, k_log - 1)
-        passes.append(("intile", k_log, t_log - 1, 0))
+    if chunk is None:
+        passes = [("tile", t_log, t_log - 1, 0)]
+        for k_log in range(t_log + 1, p_log + 1):
+            passes += cross(k_log, k_log - 1)
+            passes.append(("intile", k_log, t_log - 1, 0))
+        return passes
+    chunk = min(chunk, rows)
+    c_log = chunk.bit_length() - 1
+    assert chunk == 1 << c_log and chunk >= tile
+    group = [("tile", t_log, t_log - 1, 0)]
+    for k_log in range(t_log + 1, c_log + 1):
+        group += cross(k_log, k_log - 1)
+        group.append(("intile", k_log, t_log - 1, 0))
+    passes = [("chunks", chunk, group)]
+    for k_log in range(c_log + 1, p_log + 1):
+        passes += cross(k_log, k_log - 1, c_log)
+        passes.append(("chunks", chunk, cross(k_log, c_log - 1) + [
+            ("intile", k_log, t_log - 1, 0)]))
     return passes
 
 
@@ -148,8 +179,16 @@ def _directions(first: torch.Tensor, dir_bit: int):
 
 def _walk_pass(cols: tuple, tile: int, pas: tuple) -> tuple:
     """One pass of `network_passes` over columns of P rows."""
-    kind, dir_bit, hi_log, lo_log = pas
     rows, dev = cols[0].shape[0], cols[0].device
+    if pas[0] == "chunks":
+        # the kernel runs the group's passes for one chunk after another;
+        # each pass acts on every chunk alone (its blocks over the whole
+        # array are the chunks' blocks, `cross_block_rows`), so walking
+        # each over the whole array in turn gives the same rows
+        for sub in pas[2]:
+            cols = _walk_pass(cols, tile, sub)
+        return cols
+    kind, dir_bit, hi_log, lo_log = pas
     t_log = tile.bit_length() - 1
     if kind != "cross":  # contiguous rows: "tile", "intile"
         stages = [(dir_bit, hi_log, lo_log)]
@@ -212,20 +251,28 @@ def bitonic_sort_plain(keys):
     return _like(keys, tuple(c[:n] for c in cols))
 
 
+_KERNEL = object()  # `chunk`'s default: the kernel's (`CHUNKS`)
+
+
 def bitonic_sort_passes_plain(keys, tile: int | None = None,
-                              fuse: int | None = None):
+                              fuse: int | None = None, chunk=_KERNEL):
     """Kernel B6's plain version: the network as the kernel schedules it,
     one `_walk_pass` per pass of `network_passes` over the rows padded to
-    max(tile, the next power of two)."""
+    max(tile, the next power of two).  `tile`, `fuse` and `chunk` default
+    to the kernel's (`TILES`, `fuse_log`, `CHUNKS`; `chunk=None` runs
+    every pass over the whole array).  It moves whole rows; the kernel's
+    three-column form moves (column 0, tile row) pairs through the same
+    exchanges, which gives the same rows."""
     cols = as_cols(keys)
     n = cols[0].shape[0]
     if n <= 1:
         return _like(keys, tuple(c.clone() for c in cols))
     tile = TILES[len(cols)] if tile is None else tile
     fuse = fuse_log(tile) if fuse is None else fuse
+    chunk = CHUNKS.get(len(cols)) if chunk is _KERNEL else chunk
     rows = max(tile, _next_pow2(n))
     cols = _padded(cols, rows)
-    for pas in network_passes(rows, tile, fuse):
+    for pas in network_passes(rows, tile, fuse, chunk):
         cols = _walk_pass(cols, tile, pas)
     return _like(keys, tuple(c[:n] for c in cols))
 
@@ -243,7 +290,8 @@ def bitonic_sort(keys):
         return _like(keys, tuple(c.clone() for c in cols))
     tile = TILES[len(cols)]
     rows = max(tile, _next_pow2(n))
-    planned = network_passes(rows, tile, fuse_log(tile))
+    planned = network_passes(rows, tile, fuse_log(tile),
+                             CHUNKS.get(len(cols)))
     out = _new_cols(len(cols), n, cols[0].device)
     # the network runs in a scratch of the padded length; one tile needs none
     work_rows = rows if rows > tile else 0

@@ -14,12 +14,16 @@ returns their merge, equal to a sort of their concatenation.
 
 B5 replaces `cbl_tpu/ops/merge_pallas.py` `sort_cols_mergepath`: a sort
 of every tile of `SORT_TILES` rows, then merge-path passes that each merge
-every four neighbouring runs into one (two levels of the merge tree a
-pass), after one two-way pass when the number of levels is odd
-(`mergepath_passes`).  It equals `torch.sort` (equal rows are identical).
-Its plain version walks the same passes with `torch.sort` per tile, per
-run pair and per quad; `quad_split_plain` is the four-run partition the
-kernel's blocks rest on, in plain Python.
+every `SORT_WAYS` neighbouring runs into one: at one and two columns four
+(two levels of the merge tree a pass, after one two-way pass when the
+number of levels is odd), at three columns sixteen (four levels a pass,
+after one pass of 2, 4 or 8 runs when the number of levels is no multiple
+of four) (`mergepath_passes`).  It equals `torch.sort` (equal rows are
+identical).  Its plain version walks the same passes with `torch.sort`
+per tile and per level of each pass's merge tree; `quad_split_plain` is
+the four-run partition of the one- and two-column kernel's blocks, and
+`multiway_split_plain` the F-run partition of the three-column kernel's,
+in plain Python.
 
 `merge_sorted` and `sort_mergepath` take the plain version for CPU
 tensors and launch the CUDA kernel (`csrc/merge.cu`, `csrc/sort.cu`, both
@@ -37,6 +41,10 @@ from . import _build
 MERGE_TILE = 2048  # rows per block of csrc/merge_path.cuh (256 threads x 8)
 # rows per sort tile of B5 by number of columns (csrc/sort.cu kSortRows)
 SORT_TILES = {1: 8192, 2: 4096, 3: 4096}
+# the most runs a merge pass of B5 merges, by number of columns (four-way
+# passes, csrc/merge_path.cuh `quad_pass`; multiway passes of up to
+# csrc/multiway.cuh kMaxFan runs)
+SORT_WAYS = {1: 4, 2: 4, 3: 16}
 MAX_COLS = 3
 _PAD = (1 << 63) - 1  # INT64_MAX in every column sorts last
 
@@ -151,36 +159,41 @@ def merge_sorted(a, b):
 def mergepath_passes(n: int, tile: int, ways: int = 4) -> list:
     """B5's passes over device memory for n rows: ("tile_sort", tile),
     then ("merge", run, fan) passes that merge every `fan` neighbouring
-    runs of `run` rows.  With ways=4 every pass is four-way but the first,
-    which is two-way when the number of levels ceil(log2(n / tile)) is
-    odd; with ways=2 there is one two-way pass a level."""
-    if ways not in (2, 4):
-        raise ValueError(f"ways={ways}: expected 2 or 4")
+    runs of `run` rows.  Of the L = ceil(log2(n / tile)) levels of the
+    merge tree a pass does log2(ways), but the first, which does L mod
+    log2(ways) when that is not 0: with ways=4 every pass is four-way but
+    the first, two-way when L is odd; with ways=16 every pass merges 16
+    runs but the first, which merges 2, 4 or 8; with ways=2 there is one
+    two-way pass a level."""
+    if ways not in (2, 4, 16):
+        raise ValueError(f"ways={ways}: expected 2, 4 or 16")
     passes = [("tile_sort", tile)]
     levels = (max(-(-n // tile), 1) - 1).bit_length()
+    per = ways.bit_length() - 1
     run = tile
-    if ways == 2 or levels % 2 == 1:
-        fans = [2] * (levels if ways == 2 else 1)
-    else:
-        fans = []
-    fans += [4] * ((levels - len(fans)) // 2)
-    for fan in fans:
-        passes.append(("merge", run, fan))
-        run *= fan
+    while levels > 0:
+        step = levels % per or per
+        passes.append(("merge", run, 1 << step))
+        run <<= step
+        levels -= step
     return passes
 
 
-def sort_mergepath_plain(keys, tile: int | None = None, ways: int = 4):
+def sort_mergepath_plain(keys, tile: int | None = None,
+                         ways: int | None = None):
     """B5's passes (`mergepath_passes`) in plain tensor code: pad with
     INT64_MAX rows to `tile` times a power of two, sort every tile of the
     [n / tile, tile] view, then per pass merge every pair of runs (the
-    plain merge, a sort of the pair) and, in a four-way pass, every pair
-    of those; the pads sort last and are cut."""
+    plain merge, a sort of the pair) and, for each further level of the
+    pass's merge tree, every pair of those; the pads sort last and are
+    cut.  `tile` and `ways` default to the kernel's (`SORT_TILES`,
+    `SORT_WAYS`)."""
     cols = as_cols(keys)
     n = cols[0].shape[0]
     if n <= 1:
         return _like(keys, tuple(c.clone() for c in cols))
     tile = SORT_TILES[len(cols)] if tile is None else tile
+    ways = SORT_WAYS[len(cols)] if ways is None else ways
     passes = mergepath_passes(n, tile, ways)
     padded = tile
     for _, run, fan in passes[1:]:
@@ -195,9 +208,10 @@ def sort_mergepath_plain(keys, tile: int | None = None, ways: int = 4):
 
     cols = sort_runs(cols, tile)
     for _, run, fan in passes[1:]:
-        cols = sort_runs(cols, 2 * run)
-        if fan == 4:
-            cols = sort_runs(cols, 4 * run)
+        width = 2 * run
+        while width <= fan * run:
+            cols = sort_runs(cols, width)
+            width *= 2
     return _like(keys, tuple(c[:n] for c in cols))
 
 
@@ -259,6 +273,69 @@ def merge_quad_tile_plain(runs, d0: int, d1: int):
                                              merge_sorted_plain(c, e)))
 
 
+def multiway_split_plain(runs, d: int, run_rows: int | None = None) -> tuple:
+    """How many of the first d outputs of the merge of the sorted `runs`
+    come from each, ties in run order (the order (row, run, index)), found
+    as csrc/multiway.cuh `multiway_split` finds it: walking down the levels
+    l = run_rows, run_rows / 2, ..., 1 (run_rows, a power of two at least
+    the longest run, defaults to the least), the level-l samples of a run
+    being its rows k l - 1, holding at each level the t_l smallest samples
+    (t_l = d // l - F // 2, clamped to [0, the samples]; d at l = 1) as a
+    prefix of every run; going down a level a run takes its new sample
+    after its taken ones iff it precedes the largest taken sample, then the
+    smallest untaken or the largest taken sample of all moves, one at a
+    time, until t_l are taken."""
+    rows = [_rows(r) for r in runs]
+    F = len(rows)
+    lens = [len(r) for r in rows]
+    top = max(lens + [1])
+    l = run_rows if run_rows is not None else 1 << (top - 1).bit_length()
+    assert l & (l - 1) == 0 and l >= top
+
+    def key(r, j):  # the order of the split; None: no such row
+        return (rows[r][j], r, j) if 0 <= j < lens[r] else None
+
+    b = [0] * F
+    while True:
+        cnt = [n // l for n in lens]
+        t = d // l
+        if l > 1:
+            t = max(t - F // 2, 0)
+        t = min(t, sum(cnt))
+        while sum(b) < t:
+            r = min((r for r in range(F) if b[r] < cnt[r]),
+                    key=lambda r: key(r, (b[r] + 1) * l - 1))
+            b[r] += 1
+        while sum(b) > t:
+            r = max((r for r in range(F) if b[r] > 0),
+                    key=lambda r: key(r, b[r] * l - 1))
+            b[r] -= 1
+        if l == 1:
+            return tuple(b)
+        tops = [key(r, b[r] * l - 1) for r in range(F) if b[r] > 0]
+        l //= 2
+        for r in range(F):
+            b[r] *= 2
+            odd = key(r, (b[r] + 1) * l - 1)
+            if odd is not None and tops and odd < max(tops):
+                b[r] += 1
+
+
+def merge_multi_tile_plain(runs, d0: int, d1: int, run_rows=None):
+    """The outputs [d0, d1) of the merge of the sorted `runs` (a power of
+    two of them), as a block of csrc/multiway.cuh `merge_multi` makes
+    them: the segments between the splits of d0 and of d1
+    (`multiway_split_plain`), merged pairwise level by level."""
+    lo = multiway_split_plain(runs, d0, run_rows)
+    hi = multiway_split_plain(runs, d1, run_rows)
+    segs = [tuple(c[a:b] for c in as_cols(r))
+            for r, a, b in zip(runs, lo, hi)]
+    while len(segs) > 1:
+        segs = [merge_sorted_plain(segs[i], segs[i + 1])
+                for i in range(0, len(segs), 2)]
+    return _like(runs[0], segs[0])
+
+
 def sort_mergepath(keys):
     """`sort_mergepath_plain` on the CPU; on CUDA, kernel B5.  Empty and
     one-row inputs return without a launch."""
@@ -269,12 +346,14 @@ def sort_mergepath(keys):
     n = cols[0].shape[0]
     if n <= 1:
         return _like(keys, tuple(c.clone() for c in cols))
-    planned = mergepath_passes(n, SORT_TILES[len(cols)])
+    ways = SORT_WAYS[len(cols)]
+    planned = mergepath_passes(n, SORT_TILES[len(cols)], ways)
     out = _new_cols(len(cols), n, cols[0].device)
     # the passes ping-pong between `out` and `tmp`; one tile needs no pass
     tmp = (_new_cols(len(cols), n, cols[0].device) if len(planned) > 1
            else (None,) * len(cols))
-    scratch = _scratch(n, cols[0].device, per_tile=4)
+    # a four-way pass keeps 4 values a tile, a multiway pass one a run
+    scratch = _scratch(n, cols[0].device, per_tile=ways)
     passes = ctypes.c_int(0)
     p_in, p_out, p_tmp = _col_ptrs(cols), _col_ptrs(out), _col_ptrs(tmp)
     lib = _build.library()

@@ -932,6 +932,20 @@ def once_ms(fn):
     return out, e0.elapsed_time(e1)
 
 
+def kernel_device_us(fn) -> list:
+    """(kernel name, device us, launches) of one run of `fn`, by
+    `torch.profiler`."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [(e.key[:90], e.self_device_time_total, e.count)
+            for e in prof.key_averages() if e.self_device_time_total > 0]
+
+
 def wide_join_rows(rng, n: int):
     """The two sides of a full-size sort-join at K=59
     (`wordset._sortjoin_rows` on two-column words): (index rows, query
@@ -972,7 +986,7 @@ def check_wide_kernels(rng, card: str) -> dict:
     `torch.sort` passes, the library's way to the same sort."""
     import torch
 
-    from cbl_tpu_torch.ops import bitonic, merge, necklace
+    from cbl_tpu_torch.ops import _build, bitonic, merge, necklace
 
     dev = torch.device(DEVICE)
     results = {}
@@ -1017,11 +1031,20 @@ def check_wide_kernels(rng, card: str) -> dict:
     lib_sort_ms = time_ms(lambda: merge.sort_cols_plain(q), 3)
     n3 = SLAB
     sort_bound = bound(2 * 24 * n3, n3 * 25 * 3)
+    rows3 = max(bitonic.TILES[3], 1 << (n3 - 1).bit_length())
+    schedules = {
+        "sort_3col": ("sort", merge.mergepath_passes(
+            n3, merge.SORT_TILES[3], merge.SORT_WAYS[3])),
+        "bitonic_sort_3col": ("bitonic_sort", bitonic.network_passes(
+            rows3, bitonic.TILES[3], bitonic.fuse_log(bitonic.TILES[3]),
+            bitonic.CHUNKS[3]))}
     for name, kernel, plain in (
             ("sort_3col", merge.sort_mergepath, merge.sort_mergepath_plain),
             ("bitonic_sort_3col", bitonic.bitonic_sort,
              bitonic.bitonic_sort_passes_plain)):
         got = kernel(q)
+        key, planned = schedules[name]
+        passes = _build.PASSES[key]
         err = cols_equal(got, want_sorted)
         plain_got, plain_ms = once_ms(lambda: plain(q))
         err = max(err, cols_equal(plain_got, want_sorted),
@@ -1031,11 +1054,19 @@ def check_wide_kernels(rng, card: str) -> dict:
         label = "B5 sort" if name == "sort_3col" else "B6 bitonic sort"
         log(f"{label}, three columns, {n3} (the K=59 sort-join's queries):"
             f" kernel == plain == torch.sort, input kept: {err == 0}; "
-            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, three stable torch.sort "
-            f"passes {lib_sort_ms:.4f} ms, bound "
-            f"{sort_bound['bound_ms']:.4f} ms [{card}]")
+            f"{passes} passes through device memory launched, the Python "
+            f"schedule has {len(planned)}; {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, three stable torch.sort passes "
+            f"{lib_sort_ms:.4f} ms, bound {sort_bound['bound_ms']:.4f} ms, "
+            f"the schedule's floor {len(planned) * sort_bound['bound_ms']:.4f}"
+            f" ms [{card}]")
+        assert passes == len(planned), (name, passes, planned)
+        for kname, us, count in kernel_device_us(lambda: kernel(q)):
+            log(f"  {label} device time by kernel: {us:.1f} us, {count} x "
+                f"{kname}")
         results[name] = dict(err=err, ms=ms, plain_ms=plain_ms,
-                             library_ms=lib_sort_ms, **sort_bound)
+                             library_ms=lib_sort_ms, passes=passes,
+                             **sort_bound)
     del before
     qs = want_sorted
     cat = tuple(torch.cat([x, y]) for x, y in zip(d, q))
@@ -1066,13 +1097,33 @@ def check_wide_kernels(rng, card: str) -> dict:
                      for _ in range(3))
 
     edge = []
+    tile, chunk = merge.SORT_TILES[3], bitonic.CHUNKS[3]
+    group = tile * 2 * merge.SORT_WAYS[3]  # runs after a pass of 2, then 16
     for n in (1, 2, bitonic.TILES[3] - 1, bitonic.TILES[3],
-              bitonic.TILES[3] + 1, 4 * merge.SORT_TILES[3] + 123,
-              7 * merge.SORT_TILES[3] + 123):
+              bitonic.TILES[3] + 1, 4 * tile + 123, 7 * tile + 123,
+              2 * tile + 1, group - 1, group + 1, chunk - 1, chunk + 1,
+              chunk + tile, (1 << 21) + 3):
         x = rows3(n, 1 << 20)
         want = merge.sort_cols_plain(x)
         edge.append(cols_equal(merge.sort_mergepath(x), want))
         edge.append(cols_equal(bitonic.bitonic_sort(x), want))
+    # skewed rows at a chunk plus a tile: every row equal, sorted,
+    # reverse-sorted, column 0 below 2^20 (as necklace words are)
+    n = chunk + tile
+    x = rows3(n, 1 << 40)
+    srt = merge.sort_cols_plain(x)
+    skewed = {"equal": tuple(torch.full_like(c, 7) for c in x),
+              "sorted": srt,
+              "reverse": tuple(c.flip(0).contiguous() for c in srt),
+              "small0": (torch.from_numpy(rng.integers(0, 1 << 20, size=n))
+                         .to(dev),) + x[1:]}
+    for label, x in skewed.items():
+        want = merge.sort_cols_plain(x)
+        got = (cols_equal(merge.sort_mergepath(x), want),
+               cols_equal(bitonic.bitonic_sort(x), want))
+        log(f"B5, B6 at three columns, {n} rows {label}: kernel == "
+            f"torch.sort: {got[0] == 0}, {got[1] == 0}")
+        edge.extend(got)
     t = bitonic.MERGE_TILES[3]
     for na, nb in ((0, 5), (t - 1, 1), (t, t), (3 * t + 1, t - 1),
                    (merge.MERGE_TILE + 1, 3), (5, 0)):

@@ -244,15 +244,22 @@ def test_passes_plain_merge_equals_the_network(na, nb, tile, two):
 
 
 def test_default_tiles_follow_the_sources():
-    """`TILES` and `fuse_log` are the constants of csrc/bitonic.cuh."""
+    """`TILES` and `fuse_log` are the constants of csrc/bitonic.cuh,
+    `CHUNKS` csrc/bitonic_sort.cu's `kChunkLog`."""
     src = (bitonic._build.SRC_DIR / "bitonic.cuh").read_text()
     assert "kTileLog = C == 1 ? 13 : 12;" in src
     assert "kFuseLog = kTileLog<C> - 4;" in src
+    sort_cu = (bitonic._build.SRC_DIR / "bitonic_sort.cu").read_text()
+    assert "constexpr int kChunkLog = 20;" in sort_cu
+    assert "return cbl::bitonic_sort_keyed(" in sort_cu
     assert bitonic.TILES == {1: 1 << 13, 2: 1 << 12, 3: 1 << 12}
+    assert bitonic.CHUNKS == {3: 1 << 20}
     assert [bitonic.fuse_log(t) for t in (1 << 13, 1 << 12)] == [9, 8]
     # one sort of 2^25 one-column keys: 28 passes (105 with one stride a
-    # pass over tiles of 2^12 rows)
+    # pass over tiles of 2^12 rows); three columns: 11 through device
+    # memory (32 without chunks)
     assert len(bitonic.network_passes(1 << 25, 1 << 13, 9)) == 28
+    assert len(bitonic.network_passes(1 << 25, 1 << 12, 8, 1 << 20)) == 11
 
 
 def test_merge_tiles_follow_the_source():
@@ -557,3 +564,143 @@ def test_merge_mode_of_the_environment(monkeypatch):
     assert torch.equal(results["sort"], results["bitonic"])
     assert torch.equal(results["sort"], results["mergepath"])
     assert 0 < len(results["sort"]) < x.count()
+
+
+# --- three columns: the chunked schedule ---------------------------------------
+
+
+@pytest.mark.parametrize("p_log,t_log,fuse,c_log,want", [
+    (25, 12, 8, 20, 11), (26, 12, 8, 20, 13), (21, 12, 8, 20, 3),
+    (22, 12, 8, 20, 5), (20, 12, 8, 20, 1), (12, 12, 8, 20, 1),
+    (14, 4, 2, 6, None), (12, 4, 1, 4, None), (11, 4, 3, 8, None),
+])
+def test_chunked_pass_list_length(p_log, t_log, fuse, c_log, want):
+    """The chunked schedule: one group for every stage up to the chunk,
+    then per later stage ceil((k - chunk) / fuse) whole-array cross
+    passes and one group (11 passes through device memory at 2^25 rows,
+    32 unchunked).  Every stride of every stage appears once, in
+    descending order; a group holds strides below the chunk only, a
+    whole-array pass strides at or above it."""
+    passes = bitonic.network_passes(1 << p_log, 1 << t_log, fuse,
+                                    1 << c_log)
+    c_log = min(c_log, p_log)
+    assert len(passes) == 1 + sum(-(-(k - c_log) // fuse) + 1
+                                  for k in range(c_log + 1, p_log + 1))
+    if want is not None:
+        assert len(passes) == want
+    assert passes[0][0] == "chunks" and passes[0][2][0] == (
+        "tile", t_log, t_log - 1, 0)
+    strides = {}
+    for pas in passes:
+        if pas[0] == "chunks":
+            assert pas[1] == 1 << c_log
+            for kind, k_log, hi_log, lo_log in pas[2]:
+                assert hi_log < c_log or kind == "tile"
+                if kind != "tile":
+                    strides.setdefault(k_log, []).extend(
+                        range(hi_log, lo_log - 1, -1))
+        else:
+            kind, k_log, hi_log, lo_log = pas
+            assert kind == "cross" and lo_log >= c_log
+            assert hi_log - lo_log < fuse
+            strides.setdefault(k_log, []).extend(
+                range(hi_log, lo_log - 1, -1))
+    assert strides == {k: list(range(k - 1, -1, -1))
+                       for k in range(t_log + 1, p_log + 1)}
+
+
+@pytest.mark.parametrize("rows_log,t_log,c_log,f", [
+    (12, 4, 8, 3), (12, 4, 8, 4), (14, 6, 10, 2), (10, 4, 6, 2),
+])
+def test_chunk_blocks_are_whole_array_blocks(rows_log, t_log, c_log, f):
+    """A cross pass over one chunk, its blocks numbered from the chunk's
+    first (the kernel's `block0`), owns the rows the whole-array pass's
+    blocks of that number own: the chunk passes need no index map of
+    their own."""
+    rows, tile, chunk = 1 << rows_log, 1 << t_log, 1 << c_log
+    per = chunk // tile
+    for a_log in range(t_log, c_log - f + 1):
+        _, every = bitonic.cross_block_rows(rows, tile, a_log, f)
+        _, local = bitonic.cross_block_rows(chunk, tile, a_log, f)
+        for q in range(rows // chunk):
+            assert torch.equal(every[q * per:(q + 1) * per],
+                               local + q * chunk)
+
+
+def _three_limb_cols(n, seed, hi, sent_frac, sent_tail=0):
+    cols = _limb_cols(n, seed, 4, hi, sent_frac)
+    for c in cols:
+        c[n - sent_tail:] = 0xFFFFFFFF
+    return cols
+
+
+def _three_keys(cols):
+    """Three int64 columns of four limb columns: the first two limbs make
+    column 0, INT64_MAX in every column of a sentinel row."""
+    major = from_limbs(np.stack(cols[:2], axis=-1))
+    out = [major]
+    for c in cols[2:]:
+        v = c.astype(np.int64)
+        v[major == SENTINEL] = SENTINEL
+        out.append(v)
+    return tuple(torch.from_numpy(c) for c in out)
+
+
+# lengths one below, at and above the scaled-down tile (16) and chunk (64),
+# a chunk plus a tile, two chunks and more
+_THREE_LENGTHS = [15, 16, 17, 63, 64, 65, 80, 131, 257, 1025]
+
+
+@pytest.mark.parametrize("n", _THREE_LENGTHS)
+@pytest.mark.parametrize("hi", [2, 1 << 24], ids=["dups", "wide"])
+def test_plain_sort_matches_pallas_three_columns(n, hi):
+    """B6 at three columns: the chunked plain schedule (tile 16, two
+    strides a cross pass, chunks of 64 rows) against the unchunked one,
+    the step-by-step network, numpy's lexsort, `torch.sort` in three
+    stable passes and `cbl_tpu`'s Pallas network in interpret mode
+    (padded to 1024 rows with all-ones rows, which sort last); duplicate
+    columns, 5 % sentinels, a sentinel tail of 7 rows; the keys kept."""
+    cols = _three_limb_cols(n, n * 5 + hi % 7, hi, 0.05, 7)
+    keys = _three_keys(cols)
+    before = [c.clone() for c in keys]
+    want = _lexsorted(keys)
+    got = bitonic.bitonic_sort_passes_plain(keys, 16, 2, 64)
+    _assert_cols_equal(got, want)
+    _assert_cols_equal(bitonic.bitonic_sort_passes_plain(keys, 16, 2, None),
+                       want)
+    _assert_cols_equal(merge.sort_cols_plain(keys), want)
+    _assert_cols_equal(keys, [c.numpy() for c in before])
+    if n in (17, 65, 257):
+        _assert_cols_equal(bitonic.bitonic_sort_plain(keys), want)
+        rows = 1024
+        padded = [np.concatenate([c, np.full(rows - n, 0xFFFFFFFF,
+                                             np.uint32)]) for c in cols]
+        out = sort_pallas.sort_cols_pallas(_jnp(padded), t_log=8,
+                                           interpret=True)
+        _assert_cols_equal(got, _as_numpy(_three_keys(
+            [np.asarray(c)[:n] for c in out])))
+    assert (want[0][-7:] == SENTINEL).all()
+
+
+@pytest.mark.parametrize("kind", ["equal", "sorted", "reverse", "small0"])
+def test_chunked_schedule_on_skewed_rows(kind):
+    """The chunked plain schedule (tile 16, chunks of 64) on every row
+    equal, sorted, reverse-sorted and column 0 below 2^20, 300 rows,
+    against numpy's lexsort; and the CPU dispatch with the kernel's
+    constants."""
+    rng = np.random.default_rng(len(kind) + 40)
+    n = 300
+    cols = [rng.integers(0, 1 << 40, size=n) for _ in range(3)]
+    if kind == "equal":
+        cols = [np.full(n, 7) for _ in range(3)]
+    elif kind == "small0":
+        cols[0] = rng.integers(0, 1 << 20, size=n)
+    keys = tuple(torch.from_numpy(c) for c in cols)
+    if kind in ("sorted", "reverse"):
+        keys = merge.sort_cols_plain(keys)
+        if kind == "reverse":
+            keys = tuple(c.flip(0).contiguous() for c in keys)
+    want = _lexsorted(keys)
+    _assert_cols_equal(bitonic.bitonic_sort_passes_plain(keys, 16, 2, 64),
+                       want)
+    _assert_cols_equal(bitonic.bitonic_sort(keys), want)

@@ -977,20 +977,57 @@ def _rows3(cuda, n, hi, seed):
     return tuple(torch.from_numpy(c).to(cuda) for c in cols)
 
 
-@pytest.mark.parametrize("n", [1, 2, 2047, 2048, 2049, 4095, 4096, 4097,
-                               4 * 4096 + 123, 7 * 4096 + 123,
-                               (1 << 20) + 3])
-@pytest.mark.parametrize("hi", [2, 1 << 40])
-def test_three_column_sorts_match_plain(cuda, n, hi):
-    """B5 and B6 at three columns around their tiles (4096 rows, a quad's
-    last short run) against `torch.sort` in three stable passes and the
-    plain versions, the input kept."""
-    x = _rows3(cuda, n, hi, n)
+def _skewed_rows3(cuda, n, kind, seed):
+    """Three int64 columns of n rows: "dups" (every column below 2, 5 %
+    sentinels), "wide" (below 2^40, 5 % sentinels), "equal" (every row
+    the same), "sorted", "reverse" (sorted descending) or "small0"
+    (column 0 below 2^20, as necklace words are)."""
+    if kind == "equal":
+        return tuple(torch.full((n,), 7, dtype=torch.int64, device=cuda)
+                     for _ in range(3))
+    x = _rows3(cuda, n, 2 if kind == "dups" else 1 << 40, seed)
+    if kind == "small0":
+        rng = np.random.default_rng(seed + 1)
+        x = (torch.from_numpy(rng.integers(0, 1 << 20, size=n)).to(cuda),
+             ) + x[1:]
+    if kind in ("sorted", "reverse"):
+        x = merge.sort_cols_plain(x)
+        if kind == "reverse":
+            x = tuple(c.flip(0).contiguous() for c in x)
+    return x
+
+
+@pytest.mark.parametrize("n", [
+    1, 2, 2047, 2048, 2049, 4095, 4096, 4097, 4 * 4096 + 123,
+    7 * 4096 + 123,
+    # B5: the first pass's doubled runs, a group of 16 runs, two groups
+    2 * 4096 + 1, 16 * 4096 - 1, 16 * 4096 + 1, 32 * 4096 + 1,
+    # B6: a chunk - 1, + 1, a chunk plus a tile; both: 2^21 + 3
+    (1 << 20) - 1, (1 << 20) + 1, (1 << 20) + 4096, (1 << 21) + 3,
+])
+@pytest.mark.parametrize("kind", ["dups", "wide", "equal", "sorted",
+                                  "reverse", "small0"])
+def test_three_column_sorts_match_plain(cuda, n, kind):
+    """B5 and B6 at three columns around their tiles (4096 rows), B5's
+    groups of 16 runs and B6's chunks of 2^20 rows, on random and skewed
+    rows, against `torch.sort` in three stable passes, the input kept;
+    each kernel's count of passes through device memory equals its Python
+    schedule's."""
+    x = _skewed_rows3(cuda, n, kind, n + len(kind))
     before = [c.clone() for c in x]
     want = merge.sort_cols_plain(x)
-    for got in (merge.sort_mergepath(x), bitonic.bitonic_sort(x)):
+    rows = max(bitonic.TILES[3], 1 << (n - 1).bit_length())
+    for fn, key, planned in (
+            (merge.sort_mergepath, "sort", merge.mergepath_passes(
+                n, merge.SORT_TILES[3], merge.SORT_WAYS[3])),
+            (bitonic.bitonic_sort, "bitonic_sort", bitonic.network_passes(
+                rows, bitonic.TILES[3], bitonic.fuse_log(bitonic.TILES[3]),
+                bitonic.CHUNKS[3]))):
+        got = fn(x)
         torch.cuda.synchronize()
         assert all(torch.equal(g, w) for g, w in zip(got, want, strict=True))
+        if n > 1:
+            assert PASSES[key] == len(planned)
     assert all(torch.equal(c, b) for c, b in zip(x, before))
 
 

@@ -100,21 +100,30 @@ def test_plain_sort_matches_pallas(n_log, t_log, two, hi):
     ((1 << 26) + (1 << 21), 8192, 4, 8), ((1 << 22) + (1 << 21), 4096, 4, 7),
     (8192, 8192, 4, 1), (8193, 8192, 4, 2), (1, 8192, 4, 1),
     (5 * 8192 + 123, 8192, 4, 3), (1 << 20, 64, 2, 15), (1 << 20, 64, 4, 8),
+    # three columns: up to 16 runs a pass
+    (1 << 25, 4096, 16, 5), ((1 << 26) + (1 << 21), 4096, 16, 5),
+    (4096, 4096, 16, 1), (4097, 4096, 16, 2), (2 * 4096, 4096, 16, 2),
+    (2 * 4096 + 1, 4096, 16, 2), (16 * 4096, 4096, 16, 2),
+    (16 * 4096 + 1, 4096, 16, 3), (1 << 20, 4096, 16, 3),
+    ((1 << 20) + 1, 4096, 16, 4), ((1 << 21) + 3, 4096, 16, 4),
+    (1 << 20, 64, 16, 5),
 ])
 def test_pass_list_length(n, tile, ways, want):
-    """1 tile sort + one pass a level (two-way) or a pass for every two
-    levels after one two-way pass when their number is odd (four-way): 7
-    passes at 2^25 one-column keys, where 2048-row tiles and two-way
-    passes made 15."""
+    """1 tile sort + one pass a level (two-way), or a pass for every
+    log2(ways) levels after one pass of the rest when their number is no
+    multiple of log2(ways) (four-way: 7 passes at 2^25 one-column keys,
+    where 2048-row tiles and two-way passes made 15; 16-way at three
+    columns: 5 at 2^25, where four-way passes made 8)."""
     passes = merge.mergepath_passes(n, tile, ways)
     levels = (-(-n // tile) - 1).bit_length()
-    assert len(passes) == want == 1 + (levels if ways == 2
-                                       else (levels + 1) // 2)
+    per = ways.bit_length() - 1
+    assert len(passes) == want == 1 + -(-levels // per)
     assert passes[0] == ("tile_sort", tile)
     run = tile
     for i, (kind, at, fan) in enumerate(passes[1:]):
         assert kind == "merge" and at == run
-        assert fan == 2 if ways == 2 or (levels % 2 and i == 0) else fan == 4
+        first = 1 << (levels % per) if levels % per else ways
+        assert fan == (first if i == 0 else ways)
         run *= fan
     assert run >= n and (len(passes) == 1 or run // passes[-1][2] < n)
     with pytest.raises(ValueError, match="ways"):
@@ -188,16 +197,23 @@ def test_four_way_passes_equal_two_way(n, tile, two):
 
 
 def test_default_tiles_follow_the_sources():
-    """`SORT_TILES` and `MERGE_TILE` are the constants of the sources; the
-    runs a tile sort leaves are whole merge tiles."""
+    """`SORT_TILES`, `SORT_WAYS` and `MERGE_TILE` are the constants of the
+    sources; the runs a tile sort leaves are whole merge tiles; three
+    columns sort 2^25 rows in 5 passes (8 before the multiway passes)."""
     src = merge._build.SRC_DIR
-    assert "kSortRows = C == 1 ? 1 << 13 : 1 << 12;" in (
-        src / "sort.cu").read_text()
+    sort_cu = (src / "sort.cu").read_text()
+    assert "kSortRows = C == 1 ? 1 << 13 : 1 << 12;" in sort_cu
+    assert "return cbl::sort_keys_multiway<3>(" in sort_cu
+    assert "const int step = left % 4 ? left % 4 : 4;" in sort_cu
     assert "kTile = kThreads * kItems;  // 2048" in (
         src / "merge_path.cuh").read_text()
+    assert "constexpr int kMaxFan = 16;" in (src / "multiway.cuh").read_text()
     assert merge.SORT_TILES == {1: 1 << 13, 2: 1 << 12, 3: 1 << 12}
+    assert merge.SORT_WAYS == {1: 4, 2: 4, 3: 16}
     assert all(t % merge.MERGE_TILE == 0 for t in merge.SORT_TILES.values())
     assert len(merge.mergepath_passes(1 << 25, merge.SORT_TILES[1])) == 7
+    assert len(merge.mergepath_passes(1 << 25, merge.SORT_TILES[3],
+                                      merge.SORT_WAYS[3])) == 5
 
 
 def test_plain_sort_equal_prefix_runs():
@@ -337,3 +353,147 @@ def test_two_column_merge_with_unsorted(mode):
                            _lexsorted(sort.cat_cols(a, u)))
         _assert_cols_equal(sort.merge_with_unsorted(empty, u), _lexsorted(u))
         _assert_cols_equal(sort.merge_with_unsorted(a, empty), _as_numpy(a))
+
+
+# --- three columns: the multiway passes ---------------------------------------
+
+
+def _three_limb_cols(n, seed, hi, sent_frac, sent_tail=0):
+    """Four uint32 limb columns for `cbl_tpu`: all-ones sentinel rows at
+    random (`sent_frac`) and as a tail of `sent_tail` rows."""
+    cols = _limb_cols(n, seed, 4, hi, sent_frac)
+    for c in cols:
+        c[n - sent_tail:] = 0xFFFFFFFF
+    return cols
+
+
+def _three_keys(cols):
+    """The port's three int64 columns of four limb columns: the first two
+    limbs make column 0 (`limbs.from_limbs`), the others columns 1 and 2,
+    INT64_MAX in every column of a sentinel row.  Row order is the limbs'."""
+    major = from_limbs(np.stack(cols[:2], axis=-1))
+    out = [major]
+    for c in cols[2:]:
+        v = c.astype(np.int64)
+        v[major == SENTINEL] = SENTINEL
+        out.append(v)
+    return tuple(torch.from_numpy(c) for c in out)
+
+
+def _jax_sorted_three(cols, t_log):
+    """`sort_cols_mergepath` of the limb rows in interpret mode, padded
+    with all-ones rows to a power of two of at least 1024 (they sort
+    last and are cut)."""
+    n = len(cols[0])
+    rows = max(1024, 1 << max(n - 1, 1).bit_length())
+    padded = [np.concatenate([c, np.full(rows - n, 0xFFFFFFFF, np.uint32)])
+              for c in cols]
+    got = merge_pallas.sort_cols_mergepath(
+        tuple(jnp.asarray(c) for c in padded), t_log=min(t_log, 10),
+        interpret=True)
+    return _as_numpy(_three_keys([np.asarray(c)[:n] for c in got]))
+
+
+# lengths one below, at and above the scaled-down tile (64), the first
+# pass's doubled runs (128), a 16-run group (1024) and two groups
+_THREE_LENGTHS = [63, 64, 65, 127, 128, 129, 1023, 1024, 1025, 2049]
+
+
+@pytest.mark.parametrize("n", _THREE_LENGTHS)
+@pytest.mark.parametrize("hi", [2, 1 << 24], ids=["dups", "wide"])
+def test_plain_sort_matches_pallas_three_columns(n, hi):
+    """B5 at three columns: the plain multiway schedule at a tile of 64
+    rows and 16 runs a pass against numpy's lexsort, `torch.sort` in three
+    stable passes and `cbl_tpu`'s Pallas merge sort in interpret mode on
+    the same limb rows; duplicate-heavy columns, 5 % sentinels and a
+    sentinel tail of 10 rows."""
+    cols = _three_limb_cols(n, n * 3 + hi % 7, hi, 0.05, 10)
+    keys = _three_keys(cols)
+    want = _lexsorted(keys)
+    got = merge.sort_mergepath_plain(keys, tile=64, ways=16)
+    _assert_cols_equal(got, want)
+    _assert_cols_equal(merge.sort_cols_plain(keys), want)
+    _assert_cols_equal(merge.sort_mergepath(keys), want)  # the CPU dispatch
+    if n in (65, 1024, 2049):
+        _assert_cols_equal(got, _jax_sorted_three(cols, 10))
+    assert (want[0][-10:] == SENTINEL).all()
+
+
+def _tagged_runs(rng, lens, hi):
+    """Sorted three-column runs and the stable oracle of their merge: the
+    rows laid end to end with their run and their index."""
+    runs = [merge.sort_cols_plain(tuple(
+        torch.from_numpy(rng.integers(0, h, size=n))
+        for h in (hi, 3, 2))) for n in lens]
+    cols = [np.concatenate([r[c].numpy() for r in runs]) for c in range(3)]
+    src = np.concatenate([np.full(n, i) for i, n in enumerate(lens)])
+    idx = np.concatenate([np.arange(n) for n in lens])
+    order = np.lexsort((idx, src, cols[2], cols[1], cols[0]))
+    return runs, cols, src, order
+
+
+@pytest.mark.parametrize("fan", [2, 4, 8, 16])
+@pytest.mark.parametrize("hi", [1, 3, 1000], ids=["constant", "3-valued",
+                                                 "random"])
+@pytest.mark.parametrize("shape", ["full", "short-last", "gaps"])
+def test_multiway_split_matches_numpy(fan, hi, shape):
+    """The F-run split (csrc/multiway.cuh `multiway_split`'s walk, in
+    plain Python) at every diagonal of 2 to 16 runs of up to 16 rows
+    against a stable numpy sort with run tags: ties go by run, then by
+    row.  Runs are full, the last one short, or of random lengths with
+    empty ones among them."""
+    rng = np.random.default_rng(fan * 100 + hi + len(shape))
+    run = 16
+    lens = {"full": [run] * fan,
+            "short-last": [run] * (fan - 1) + [5],
+            "gaps": [int(x) for x in rng.integers(0, run + 1, size=fan)]}
+    lens = lens[shape]
+    if shape == "gaps":
+        lens[0] = 0
+    runs, _, src, order = _tagged_runs(rng, lens, hi)
+    for d in range(sum(lens) + 1):
+        want = np.bincount(src[order[:d]], minlength=fan)[:fan]
+        got = merge.multiway_split_plain(runs, d, run)
+        assert got == tuple(int(x) for x in want), (lens, d)
+    # a longer top level than the runs need finds the same splits
+    for d in (0, sum(lens) // 3, sum(lens)):
+        assert merge.multiway_split_plain(runs, d, 4 * run) == \
+            merge.multiway_split_plain(runs, d, run)
+
+
+@pytest.mark.parametrize("fan,lens", [
+    (16, [16] * 15 + [9]), (8, [16, 0, 16, 3, 16, 16, 0, 1]), (2, [16, 16]),
+])
+def test_multiway_tiles_make_the_merge(fan, lens):
+    """Tiles of 8 outputs merged as `merge_multi` merges them (the
+    segments between two splits, pairwise level by level) lay end to end
+    into the stable sort of the runs, duplicates across tile edges and
+    runs too."""
+    rng = np.random.default_rng(fan + len(lens))
+    runs, cols, _, order = _tagged_runs(rng, lens, 4)
+    n = sum(lens)
+    tiles = [merge.merge_multi_tile_plain(runs, d0, min(d0 + 8, n), 16)
+             for d0 in range(0, n, 8)]
+    got = [np.concatenate([t[c].numpy() for t in tiles]) for c in range(3)]
+    _assert_cols_equal(got, [c[order] for c in cols])
+
+
+@pytest.mark.parametrize("kind", ["equal", "sorted", "reverse", "small0"])
+def test_three_column_schedule_on_skewed_rows(kind):
+    """The plain multiway schedule (tile 64, 16 runs a pass) on every row
+    equal, sorted, reverse-sorted and column 0 below 2^20 (as necklace
+    words are), 2049 rows, against numpy's lexsort."""
+    rng = np.random.default_rng(len(kind))
+    n = 2049
+    cols = [rng.integers(0, 1 << 40, size=n) for _ in range(3)]
+    if kind == "equal":
+        cols = [np.full(n, 7) for _ in range(3)]
+    elif kind == "small0":
+        cols[0] = rng.integers(0, 1 << 20, size=n)
+    keys = tuple(torch.from_numpy(c) for c in cols)
+    if kind in ("sorted", "reverse"):
+        keys = merge.sort_cols_plain(keys)
+        if kind == "reverse":
+            keys = tuple(c.flip(0).contiguous() for c in keys)
+    _assert_cols_equal(merge.sort_mergepath_plain(keys, tile=64, ways=16),
+                       _lexsorted(keys))

@@ -2,7 +2,7 @@
 """Compare the scan, merge and sort kernels (B2, B3, B4, B5, B6, B7) of
 several versions of `cbl_tpu_torch` on one CUDA card, in one run.
 
-    python3 tools/probe_torch_kernels.py [--scans | --merges] PATH [PATH ...]
+    python3 tools/probe_torch_kernels.py [--scans | --merges | --wide] PATH [PATH ...]
 
 Each PATH is a directory that holds a `cbl_tpu_torch/` package (`.` for
 this checkout, or a copy of another commit's package unpacked under a
@@ -36,6 +36,12 @@ With `--merges` it runs only the merges of two sorted runs: B3 and B7 on
 runs at 2^25 + 2^25 and 2^24 + 2^24: CUDA events, three means of 20
 launches, B7 held equal to B3, and B7's device time by kernel name
 (`torch.profiler`, mean of 5); then the merge kernels' lines.
+With `--wide` it runs only the three-column sorts and merges: B5 and B6
+on 2^25 rows of `chip_smoke.wide_join_rows` queries (the K=59
+sort-join's) beside three stable `torch.sort` passes (CUDA events, three
+means of 5 sorts; the passes through device memory each launched; device
+time by kernel name, mean of 3), then B3 and B7 on the sort-join's
+2^25 + 2^25 rows (three means of 10); then the sort kernels' lines.
 Last it prints the card's name and power limit.
 """
 
@@ -55,7 +61,8 @@ SCAN_KERNELS = ("lookback", "tile_sums", "apply", "slog_tile_max",
 SCAN_NAMES = ("::apply(", "tile_sums(", "slog_tile_max(", "slog_scan_tiles(",
               "slog_count(", "_lookback(")
 SORT_KERNELS = ("merge_tiles", "merge_quads", "partition", "tile_sort",
-                "cross_pass", "cross_fused", "intile_pass", "first_pass")
+                "cross_pass", "cross_fused", "intile_pass", "first_pass",
+                "merge_multi", "keyed_cross", "keyed_intile")
 MERGE_KERNELS = ("merge_tiles", "partition", "cross_fused", "intile_pass",
                  "first_pass", "merge_small", "merge_tile", "tile_coranks")
 
@@ -89,6 +96,10 @@ def probe(path: str, only: str | None) -> None:
     if only == "--merges":
         probe_merges(path, rng, device_us)
         print_kernels(path, MERGE_KERNELS)
+        return
+    if only == "--wide":
+        probe_wide(path, device_us)
+        print_kernels(path, SORT_KERNELS)
         return
 
     def blank_delta(n, n_records):
@@ -231,6 +242,37 @@ def probe_merges(path: str, rng, device_us) -> None:
         device_us(lambda: bitonic.bitonic_merge(a, b), f"B7 {label}")
 
 
+def probe_wide(path: str, device_us) -> None:
+    """B5 and B6 at three columns on 2^25 rows, beside three stable
+    `torch.sort` passes; B3 and B7 at three columns on 2^25 + 2^25."""
+    import numpy as np
+    import torch
+
+    from chip_smoke import time_ms, wide_join_rows
+
+    from cbl_tpu_torch.ops import _build, bitonic, merge
+
+    d, q = wide_join_rows(np.random.default_rng(12), 1 << 25)
+    want = merge.sort_cols_plain(q)
+    ms = [round(time_ms(lambda: merge.sort_cols_plain(q), 3), 4)
+          for _ in range(2)]
+    print(f"{path}: three stable torch.sort passes, three columns 2^25 ms: "
+          f"{ms}")
+    for kernel, fn, key in (("B5", merge.sort_mergepath, "sort"),
+                            ("B6", bitonic.bitonic_sort, "bitonic_sort")):
+        same = all(torch.equal(a, b)
+                   for a, b in zip(fn(q), want, strict=True))
+        passes = _build.PASSES[key]
+        ms = [round(time_ms(lambda: fn(q), 5), 4) for _ in range(3)]
+        print(f"{path}: {kernel} three columns 2^25 ms: {ms}, {passes} "
+              f"passes through device memory, == torch.sort: {same}")
+        device_us(lambda: fn(q), f"{kernel} three columns 2^25")
+    for kernel, fn in (("B3", merge.merge_sorted),
+                       ("B7", bitonic.bitonic_merge)):
+        ms = [round(time_ms(lambda: fn(d, want), 10), 4) for _ in range(3)]
+        print(f"{path}: {kernel} three columns 2^25 + 2^25 ms: {ms}")
+
+
 def print_kernels(path: str, wanted: tuple) -> None:
     """Registers and spills (`nvcc`'s log) and load, store and barrier
     counts (the machine code) of the kernels whose names hold one of
@@ -274,7 +316,8 @@ def main() -> int:
     if args[:1] == ["--one"]:
         probe(args[-1], only=args[1] if len(args) == 3 else None)
         return 0
-    only = args[:1] if args[:1] in (["--scans"], ["--merges"]) else []
+    only = (args[:1] if args[:1] in (["--scans"], ["--merges"], ["--wide"])
+            else [])
     paths = args[len(only):]
     if not paths:
         print(__doc__, file=sys.stderr)
