@@ -1,16 +1,17 @@
-// Multiway merge passes of kernel B5 at three columns (csrc/sort.cu): every
-// F neighbouring sorted runs of one buffer (F a power of two up to kMaxFan)
-// merged into one run in ONE pass over device memory, so that a sort of
-// 2^25 rows makes a tile sort and four merge passes (PR 5's two- and
-// four-way passes made eight at three columns).
+// Multiway merge passes of kernel B5 (csrc/sort.cu): every F neighbouring
+// sorted runs of one buffer (F a power of two up to kMaxFan) merged into one
+// run in ONE pass over device memory, so that a sort of 2^25 rows makes a
+// tile sort and four merge passes at three columns (two- and four-way
+// passes made eight) and a tile sort and three at one column (four-way
+// passes: six).
 //
 // Rows compare lexicographically, column 0 major.  A "group" is F
 // neighbouring runs R_0 ... R_{F-1} of `run` rows (the last ones cut at n);
-// output tile g of a group holds its outputs [t kTile, (t + 1) kTile).  Ties
-// go by run, then by row: the order is (row, r, j) for row j of run r, a
-// strict total order, and the first d outputs of the group are its d
-// smallest rows in that order.  Since equal rows are equal in every column,
-// the output is a plain sort of the group's rows.
+// output tile g of a group holds its outputs [t T, (t + 1) T), T =
+// kMultiRows.  Ties go by run, then by row: the order is (row, r, j) for row
+// j of run r, a strict total order, and the first d outputs of the group
+// are its d smallest rows in that order.  Since equal rows are equal in
+// every column, the output is a plain sort of the group's rows.
 //   1. `multiway_partition`: for the first diagonal d of every output tile,
 //      how many of the group's first d outputs come from each run (the
 //      split), found by F lanes together, lane r on run r.  The search
@@ -35,22 +36,23 @@
 //      log2(F) levels in shared memory (`merge_level`: the co-rank rule and
 //      the register-held run heads of merge_path.cuh's `merge_shared`,
 //      pairs of any length, a thread's outputs crossing pair ends), and
-//      stores the tile coalesced.  The levels move (column 0, loaded row)
-//      pairs and read columns 1 and 2 only where columns 0 tie
-//      (`MultiTile`); the store takes them in the merged order.  A tile's
+//      stores the tile coalesced.  At two and three columns the levels move
+//      (column 0, loaded row) pairs and read the other columns only where
+//      columns 0 tie (`MultiTile`); the store takes them in the merged
+//      order.  At one column the levels move the keys themselves.  A tile's
 //      segments end where the next tile's begin, so neighbouring tiles
 //      cannot disagree.
 // Empty or short runs, runs of equal rows across tiles and runs, and
 // INT64_MAX sentinel rows need no special case.
 //
 // What bounds it on the H100: a pass reads and writes every row once (0.48
-// ms for 2^25 rows of three columns at 3.35 TB/s); the merge levels in
-// shared memory and the partition's chains of dependent loads come on top.
-// At 2^25 rows of the K=59 sort-join's queries (NVIDIA H100 80GB HBM3,
-// 700 W) the four merge passes took 2.79 ms in `merge_multi` (3.73 with
-// whole rows moved at every level) and 1.37 ms in `multiway_partition`;
-// PR 5's four-way pass alone spent 1.31 ms a pass in `merge_quads`, its
-// loads one at a time a thread.
+// ms for 2^25 rows of three columns at 3.35 TB/s, 0.16 of one); the merge
+// levels in shared memory and the partition's chains of dependent loads
+// come on top.  At 2^25 rows of the K=59 sort-join's queries (NVIDIA H100
+// 80GB HBM3, 700 W) the four merge passes took 2.79 ms in `merge_multi`
+// (3.73 with whole rows moved at every level) and 1.37 ms in
+// `multiway_partition`; a four-way pass alone spent 1.31 ms a pass in
+// `merge_quads`, its loads one at a time a thread.
 
 #pragma once
 
@@ -59,11 +61,26 @@
 namespace cbl {
 namespace {
 
-constexpr int kMaxFan = 16;  // = ops/merge.py SORT_WAYS[3]
+constexpr int kMaxFan = 16;  // = ops/merge.py SORT_WAYS
+
+// Output rows of a block of `merge_multi`, kItems a thread; at least kTile,
+// by which ops/merge.py `_scratch` sizes the splits.  At one column 4096
+// rows, 512 threads: half as many splits as 2048 (2.82 against 3.02 ms for
+// 2^25 keys; two columns ran 0.975 against 0.945 for 2^22 + 2^21 rows;
+// NVIDIA H100 80GB HBM3, 700 W).
+template <int C>
+constexpr int kMultiRows = C == 1 ? 2 * kTile : kTile;
+static_assert(kMultiRows<1> >= kTile && kMultiRows<2> >= kTile &&
+                  kMultiRows<3> >= kTile,
+              "the splits' scratch is sized by kTile");
+template <int C>
+constexpr int kMultiThreads = kMultiRows<C> / kItems;
+template <int C>
+constexpr int kMultiSlots = kMultiRows<C> + kMultiRows<C> / 8 + 1;
 
 // The rows [0, n) of one buffer hold sorted runs of `run` rows (a multiple
-// of kTile); group q is the runs [F q run, +run), ..., [(F q + F - 1) run,
-// +run), all cut at n.
+// of the output tile); group q is the runs [F q run, +run), ...,
+// [(F q + F - 1) run, +run), all cut at n.
 struct Groups {
   long long run;
   long long n;
@@ -76,18 +93,19 @@ __device__ __forceinline__ long long run_length(const Groups& gs,
   return left <= 0 ? 0 : (left < gs.run ? left : gs.run);
 }
 
-// Output tile g -> its group's first row, the tile's first diagonal d0 in
-// the group and the group's rows.
+// Output tile g of T rows -> its group's first row, the tile's first
+// diagonal d0 in the group and the group's rows.
+template <int T>
 __device__ __forceinline__ void tile_in_group(const Groups& gs, long long g,
                                               long long* base, long long* d0,
                                               long long* rows) {
   const long long full = (long long)gs.fan * gs.run;
-  const long long per_group = full / kTile;
+  const long long per_group = full / T;
   const long long q = g / per_group;
   *base = q * full;
   const long long left = gs.n - *base;
   *rows = left < full ? left : full;
-  *d0 = (g - q * per_group) * kTile;
+  *d0 = (g - q * per_group) * T;
 }
 
 // A row of a run as the split sees it: its values, its run and its index.
@@ -222,7 +240,7 @@ multiway_partition(Cols<C> buf, Groups gs, long long* __restrict__ splits,
   const int lane = threadIdx.x & 31, sub = lane & (F - 1);
   const unsigned mask = ((1u << F) - 1u) << (lane - sub);
   long long base, d0, rows;
-  tile_in_group(gs, g, &base, &d0, &rows);
+  tile_in_group<kMultiRows<C>>(gs, g, &base, &d0, &rows);
   long long s = 0;
   if (d0 > 0)
     s = multiway_split<C>(offset<C>(buf, base + (long long)sub * gs.run),
@@ -238,61 +256,84 @@ __device__ __forceinline__ void cp_async8(long long* dst,
                "l"(src));
 }
 
-// A keyed shared tile at three columns (`merge_multi`, sort.cu's
-// `tile_sort_keyed`): column 0 and the rows' places in the tile as loaded
-// (16-bit), padded as `slot<true>` pads, which the merges move; columns 1
-// and 2 as loaded, which stay where they are until the store.  A merge step
-// then moves 10 bytes a row, not 24.
+// A keyed shared tile (`merge_multi`, sort.cu's `tile_sort_keyed`): column
+// 0 padded as `slot<true>` pads, which the merges move; at two and three
+// columns also the rows' places in the tile as loaded (16-bit, padded),
+// which move with column 0, and the other columns as loaded, which stay
+// where they are until the store.  A merge step then moves 10 bytes a row,
+// not 16 or 24.
+template <int C>
 struct MultiTile {
   long long* key;
-  long long* rest1;
-  long long* rest2;
-  unsigned short* idx;
+  long long* rest[C > 1 ? C - 1 : 1];
+  unsigned short* idx;  // C > 1
 };
 
 // The bytes of a keyed tile of `rows` rows and `slots` padded slots.
+template <int C>
 __host__ __device__ constexpr int keyed_tile_bytes(int rows, int slots) {
-  return slots * (int)(sizeof(long long) + sizeof(unsigned short)) +
-         2 * rows * (int)sizeof(long long);
+  return slots * (int)sizeof(long long) +
+         (C > 1 ? slots * (int)sizeof(unsigned short) +
+                      (C - 1) * rows * (int)sizeof(long long)
+                : 0);
 }
 
-// `merge_multi`'s tile: 55.8 KB, four blocks an SM.
-constexpr int kMultiSmem = keyed_tile_bytes(kTile, kTileSlots<true>);
+// `merge_multi`'s tile: 36 KB at one column, 37 KB at two, 55.8 KB at three.
+template <int C>
+constexpr int kMultiSmem = keyed_tile_bytes<C>(kMultiRows<C>, kMultiSlots<C>);
 
-template <int kRows = kTile, int kSlots = kTileSlots<true>>
-__device__ __forceinline__ MultiTile multi_tile() {
+template <int C, int kRows, int kSlots>
+__device__ __forceinline__ MultiTile<C> multi_tile() {
   extern __shared__ long long multi_s[];
-  MultiTile t;
+  MultiTile<C> t;
   t.key = multi_s;
-  t.rest1 = multi_s + kSlots;
-  t.rest2 = t.rest1 + kRows;
-  t.idx = reinterpret_cast<unsigned short*>(t.rest2 + kRows);
+  long long* p = multi_s + kSlots;
+#pragma unroll
+  for (int c = 0; c < C - 1; ++c, p += kRows) t.rest[c] = p;
+  t.idx = reinterpret_cast<unsigned short*>(p);
   return t;
 }
 
-// Row (kx, loaded as row ix) <= row (ky, iy): column 0, then columns 1 and
-// 2, read only where column 0 ties.
-__device__ __forceinline__ bool multi_le(const MultiTile& t, long long kx,
+// Row (kx, loaded as row ix) <= row (ky, iy): column 0, then the others,
+// read only where column 0 ties.
+template <int C>
+__device__ __forceinline__ bool multi_le(const MultiTile<C>& t, long long kx,
                                          int ix, long long ky, int iy) {
-  if (kx != ky) return kx < ky;
-  const long long x1 = t.rest1[ix], y1 = t.rest1[iy];
-  if (x1 != y1) return x1 < y1;
-  return t.rest2[ix] <= t.rest2[iy];
+  if (kx != ky || C == 1) return kx <= ky;
+#pragma unroll
+  for (int c = 0; c < C - 2; ++c) {
+    const long long x = t.rest[c][ix], y = t.rest[c][iy];
+    if (x != y) return x < y;
+  }
+  return t.rest[C > 1 ? C - 2 : 0][ix] <= t.rest[C > 1 ? C - 2 : 0][iy];
 }
 
-__device__ __forceinline__ bool multi_le_at(const MultiTile& t, int i, int j) {
+// The tile row loaded into slot `sl` (C > 1; 0 at one column, unused).
+template <int C>
+__device__ __forceinline__ int multi_idx(const MultiTile<C>& t, int sl) {
+  if constexpr (C > 1)
+    return t.idx[sl];
+  else
+    return 0;
+}
+
+template <int C>
+__device__ __forceinline__ bool multi_le_at(const MultiTile<C>& t, int i,
+                                            int j) {
   const int si = slot<true>(i), sj = slot<true>(j);
-  return multi_le(t, t.key[si], t.idx[si], t.key[sj], t.idx[sj]);
+  return multi_le<C>(t, t.key[si], multi_idx<C>(t, si), t.key[sj],
+                     multi_idx<C>(t, sj));
 }
 
 // `corank_shared` over the tile's (column 0, row) pairs.
-__device__ __forceinline__ int multi_corank(const MultiTile& t, int a0,
+template <int C>
+__device__ __forceinline__ int multi_corank(const MultiTile<C>& t, int a0,
                                             int la, int b0, int lb, int d) {
   int lo = d - lb > 0 ? d - lb : 0;
   int hi = d < la ? d : la;
   while (lo < hi) {
     const int mid = (lo + hi) >> 1;
-    if (multi_le_at(t, a0 + mid, b0 + d - mid - 1))
+    if (multi_le_at<C>(t, a0 + mid, b0 + d - mid - 1))
       lo = mid + 1;
     else
       hi = mid;
@@ -307,7 +348,8 @@ __device__ __forceinline__ int multi_corank(const MultiTile& t, int a0,
 // the next pair (past empty ones) where its pair ends; the runs' heads are
 // held in registers (`merge_step`'s rule, A's head on ties).  Ends on a
 // barrier.
-__device__ __forceinline__ void merge_level(const MultiTile& t,
+template <int C>
+__device__ __forceinline__ void merge_level(const MultiTile<C>& t,
                                             const int* seg, int F, int w,
                                             int total) {
   const int di = min((int)threadIdx.x * kItems, total);
@@ -318,12 +360,13 @@ __device__ __forceinline__ void merge_level(const MultiTile& t,
   int ea = seg[p * 2 * w + w], eb = seg[(p + 1) * 2 * w];
   int pa = s, pb = ea;
   {
-    const int ia = multi_corank(t, s, ea - s, ea, eb - ea, di - s);
+    const int ia = multi_corank<C>(t, s, ea - s, ea, eb - ea, di - s);
     pb += di - s - ia;
     pa += ia;
   }
   long long ka = t.key[slot<true>(pa)], kb = t.key[slot<true>(pb)];
-  int ia = t.idx[slot<true>(pa)], ib = t.idx[slot<true>(pb)];
+  int ia = multi_idx<C>(t, slot<true>(pa));
+  int ib = multi_idx<C>(t, slot<true>(pb));
   long long mk[kItems];
   int mi[kItems];
 #pragma unroll
@@ -340,15 +383,16 @@ __device__ __forceinline__ void merge_level(const MultiTile& t,
         pb = ea;
         ka = t.key[slot<true>(pa)];
         kb = t.key[slot<true>(pb)];
-        ia = t.idx[slot<true>(pa)];
-        ib = t.idx[slot<true>(pb)];
+        ia = multi_idx<C>(t, slot<true>(pa));
+        ib = multi_idx<C>(t, slot<true>(pb));
       }
-      const bool take_a = pb >= eb || (pa < ea && multi_le(t, ka, ia, kb, ib));
+      const bool take_a =
+          pb >= eb || (pa < ea && multi_le<C>(t, ka, ia, kb, ib));
       mk[k] = take_a ? ka : kb;
       mi[k] = take_a ? ia : ib;
       const int nx = slot<true>(take_a ? ++pa : ++pb);
       const long long kn = t.key[nx];
-      const int in = t.idx[nx];
+      const int in = multi_idx<C>(t, nx);
       ka = take_a ? kn : ka;
       ia = take_a ? in : ia;
       kb = take_a ? kb : kn;
@@ -360,24 +404,24 @@ __device__ __forceinline__ void merge_level(const MultiTile& t,
   for (int k = 0; k < kItems; ++k) {
     if (di + k < total) {
       t.key[slot<true>(di + k)] = mk[k];
-      t.idx[slot<true>(di + k)] = (unsigned short)mi[k];
+      if constexpr (C > 1) t.idx[slot<true>(di + k)] = (unsigned short)mi[k];
     }
   }
   __syncthreads();
 }
 
 template <int C>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kMultiThreads<C>)
 merge_multi(Cols<C> buf, Groups gs, const long long* __restrict__ splits,
             MutCols<C> out) {
-  static_assert(C == 3, "the tile holds columns 1 and 2 apart");
-  const MultiTile t = multi_tile();
+  constexpr int T = kMultiRows<C>, N = kMultiThreads<C>;
+  const MultiTile<C> t = multi_tile<C, T, kMultiSlots<C>>();
   __shared__ int seg[kMaxFan + 1];
   __shared__ long long from[kMaxFan];
   const int F = gs.fan;
   long long base, d0, rows;
-  tile_in_group(gs, blockIdx.x, &base, &d0, &rows);
-  const long long d1 = d0 + kTile < rows ? d0 + kTile : rows;
+  tile_in_group<T>(gs, blockIdx.x, &base, &d0, &rows);
+  const long long d1 = d0 + T < rows ? d0 + T : rows;
   const int total = (int)(d1 - d0);
   if (threadIdx.x < 32) {
     const int r = threadIdx.x;
@@ -403,32 +447,35 @@ merge_multi(Cols<C> buf, Groups gs, const long long* __restrict__ splits,
   for (int r = 0; r < F; ++r) {
     const int s = seg[r], len = seg[r + 1] - s;
     const long long at = from[r];
-    for (int j = threadIdx.x; j < len; j += kThreads) {
+    for (int j = threadIdx.x; j < len; j += N) {
       cp_async8(&t.key[slot<true>(s + j)], buf.p[0] + at + j);
-      cp_async8(&t.rest1[s + j], buf.p[1] + at + j);
-      cp_async8(&t.rest2[s + j], buf.p[2] + at + j);
-      t.idx[slot<true>(s + j)] = (unsigned short)(s + j);
+#pragma unroll
+      for (int c = 1; c < C; ++c)
+        cp_async8(&t.rest[c - 1][s + j], buf.p[c] + at + j);
+      if constexpr (C > 1) t.idx[slot<true>(s + j)] = (unsigned short)(s + j);
     }
   }
   asm volatile("cp.async.wait_all;\n" ::);
   __syncthreads();
-  for (int w = 1; w < F; w <<= 1) merge_level(t, seg, F, w, total);
+  for (int w = 1; w < F; w <<= 1) merge_level<C>(t, seg, F, w, total);
   const long long o = base + d0;
 #pragma unroll
   for (int k = 0; k < kItems; ++k) {
-    const int j = threadIdx.x + k * kThreads;
+    const int j = threadIdx.x + k * N;
     if (j < total) {
-      const int i = t.idx[slot<true>(j)];
       out.p[0][o + j] = t.key[slot<true>(j)];
-      out.p[1][o + j] = t.rest1[i];
-      out.p[2][o + j] = t.rest2[i];
+      if constexpr (C > 1) {
+        const int i = t.idx[slot<true>(j)];
+#pragma unroll
+        for (int c = 1; c < C; ++c) out.p[c][o + j] = t.rest[c - 1][i];
+      }
     }
   }
 }
 
 // One pass over the runs of `buf` (n rows, runs of `run` rows), `fan` runs
-// into one: `multiway_partition`, then `merge_multi`.  `splits` holds
-// fan * n_tiles values.
+// into one: `multiway_partition`, then `merge_multi`, over n_tiles output
+// tiles of kMultiRows rows.  `splits` holds fan * n_tiles values.
 template <int C>
 cudaError_t multiway_pass(const Cols<C>& buf, long long run, int fan,
                           long long n, long long n_tiles, long long* splits,
@@ -444,10 +491,10 @@ cudaError_t multiway_pass(const Cols<C>& buf, long long run, int fan,
   if (err != cudaSuccess) return err;
   err = cudaFuncSetAttribute(merge_multi<C>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kMultiSmem);
+                             kMultiSmem<C>);
   if (err != cudaSuccess) return err;
-  merge_multi<C><<<(unsigned)n_tiles, kThreads, kMultiSmem, s>>>(buf, gs,
-                                                                 splits, out);
+  merge_multi<C><<<(unsigned)n_tiles, kMultiThreads<C>, kMultiSmem<C>, s>>>(
+      buf, gs, splits, out);
   return cudaGetLastError();
 }
 

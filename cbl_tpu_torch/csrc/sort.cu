@@ -1,4 +1,5 @@
-// Kernel B5: full sort of int64 key rows, a tile sort and merge-path passes.
+// Kernel B5: full sort of int64 key rows, a tile sort and multiway merge
+// passes.
 //
 // Replaces the TPU kernel cbl_tpu/ops/merge_pallas.py `sort_cols_mergepath`
 // (`_tilesort_call(alternating=False)`, `_coranks_runs`, `_merge_call`).
@@ -8,40 +9,42 @@
 //
 // What bounds it on the H100: device memory.  The least traffic is one read
 // and one write of every row; this design moves
-// 1 + ceil(ceil(log2(n / sort tile)) / 2) times that: one tile sort, then
-// one pass per FOUR-fold growth of the run length (7 passes at 2^25
-// one-column keys, where a pass per doubling over tiles of 2048 rows made
-// 15).
-//   1. `tile_sort`: each block loads one sort tile (2^13 rows of one
-//      column, 2^12 of two or three; a short last tile is padded with INT64_MAX
-//      rows, which sort last and are not written back) into shared memory;
-//      each thread sorts its own eight rows in registers with a fixed
-//      network of 19 exchanges, then the block merges the threads' runs in
-//      shared memory, doubling the run each round, by the same co-rank
-//      rule and the same step as the merge passes (merge_path.cuh), and
-//      writes the tile back ascending.  The TPU kernel's [H, 128] vector
-//      layout, its roll-based compare-exchange and its bitmask select are
-//      not copied; nor is its bitonic network, which kernel B6's tile sort
-//      runs over the same tile in 1.04 ms for 2^25 keys where this one
-//      takes 0.88 (0.50 against 0.25 ms for 2^22 + 2^21 two-column rows;
-//      NVIDIA H100 80GB HBM3, 700 W).
+// 1 + ceil(ceil(log2(n / sort tile)) / 4) times that: one tile sort, then
+// one pass per SIXTEEN-fold growth of the run length (4 passes at 2^25
+// one-column keys, where four-way passes made 7 and two-way
+// passes over tiles of 2048 rows 15).
+//   1. The tile sort: each block loads one sort tile (2^13 rows of one
+//      column, 2^12 of two or three; a short last tile is padded with
+//      INT64_MAX rows, which sort last and are not written back) into shared
+//      memory; each thread sorts its own eight rows in registers with a
+//      fixed network of 19 exchanges, then the block merges the threads'
+//      runs in shared memory, doubling the run each round, by the co-rank
+//      rule and the step of the merge passes (merge_path.cuh), and writes
+//      the tile back ascending.  At one and two columns whole rows move
+//      (`tile_sort`); at three the tile is keyed (`tile_sort_keyed`:
+//      column 0 and the rows' places move, columns 1 and 2 stay until the
+//      store).  The TPU kernel's [H, 128] vector layout, its roll-based
+//      compare-exchange and its bitmask select are not copied; nor is its
+//      bitonic network, which kernel B6's tile sort runs over the same tile
+//      in 1.04 ms for 2^25 keys where this one takes 0.88 (0.50 against
+//      0.25 ms for 2^22 + 2^21 two-column rows; NVIDIA H100 80GB HBM3,
+//      700 W).
 //   2. With L = ceil(log2(number of sort tiles)) levels of the merge tree
-//      to go: if L is odd, one two-way merge-path pass (merge_path.cuh,
-//      shared with kernel B3) merges every pair of neighbouring runs; then
-//      L / 2 four-way passes (`quad_pass`) each merge every four
-//      neighbouring runs, two levels a pass.  Every co-rank is searched
-//      inside its own pair or quad, ties in run order, as `_coranks_runs`
-//      does; a short or missing last run needs no padding.
+//      to go: multiway passes (multiway.cuh) that each merge every kMaxFan
+//      = 16 neighbouring runs, four levels of the merge tree a pass, after
+//      one pass of 2, 4 or 8 runs where L is no multiple of four.  Every
+//      split is searched inside its own group, ties in run order, as
+//      `_coranks_runs` does; a short or missing last run needs no padding.
 // The input is only read; the passes ping-pong between `out` and `tmp`,
 // starting so that the last pass writes `out`.
 //
-// Three columns (PR 17): a tile sort of 4096 rows on a keyed tile
-// (`tile_sort_keyed`), then multiway passes (multiway.cuh) that each merge
-// every kMaxFan = 16 neighbouring runs, four levels of the merge tree a
-// pass, after one pass of 2, 4 or 8 runs where the number of levels is no
-// multiple of four: a tile sort and four merge passes at 2^25 rows, where
-// the two- and four-way passes made eight (5.54 ms against 11.75 at 2^25
-// rows of the K=59 sort-join's queries; NVIDIA H100 80GB HBM3, 700 W).
+// Measured (NVIDIA H100 80GB HBM3, 700 W), two- and four-way passes in
+// brackets: 2^25 one-column keys 2.8 ms (3.8), 2^26 + 2^21 keys with 75 %
+// sentinels 5.7 (6.7), 2^22 + 2^21 two-column rows 0.95 (1.34); at three
+// columns 5.6 against 11.75 at 2^25 rows of the K=59 sort-join's
+// queries.  At 2^25 one-column keys: the tile sort 0.88 ms, three splits
+// 0.44 and three merge passes 1.44 (0.48 a pass where the bytes take
+// 0.16).
 
 #include "merge_path.cuh"
 #include "multiway.cuh"
@@ -57,13 +60,12 @@ template <int C>
 constexpr int kSortRows = C == 1 ? 1 << 13 : 1 << 12;
 template <int C>
 constexpr int kSortThreads = kSortRows<C> / kItems;
-// padded as `merge_quads` pads its tile, and one slot more
+// padded as `slot<true>` pads, and one slot more
 template <int C>
 constexpr int kSortSlots = kSortRows<C> + kSortRows<C> / 8 + 1;
 template <int C>
 constexpr int kSortSmemBytes = C * kSortSlots<C> * (int)sizeof(long long);
-// three columns: 110.6 KB, of the 227 KB a block may ask for
-static_assert(kSortSmemBytes<3> <= 232448, "a sort tile exceeds 227 KB");
+static_assert(kSortSmemBytes<2> <= 232448, "a sort tile exceeds 227 KB");
 
 // Order two rows held in registers.
 template <int C>
@@ -139,29 +141,41 @@ tile_sort(Cols<C> in, long long n, MutCols<C> out) {
     }
 }
 
-// Three columns: the sort of `tile_sort` on a keyed tile (multiway.cuh
-// `MultiTile`: column 0 and the rows' places move, columns 1 and 2 stay
-// until the store), held to 64 registers a thread, so that two blocks share
-// an SM (109 KB of shared memory each) and one's loads overlap the other's
-// merges.  PR 10's `tile_sort<3>`, 74 registers and one block an SM, took
-// 1.96 ms for 2^25 rows, the same at 64 registers 1.67 (NVIDIA H100 80GB
-// HBM3, 700 W).
-constexpr int kKeyedSortRows = kSortRows<3>;
-constexpr int kKeyedSortThreads = kSortThreads<3>;
-constexpr int kKeyedSortSlots = kSortSlots<3>;
-constexpr int kKeyedSortSmem = keyed_tile_bytes(kKeyedSortRows,
-                                                kKeyedSortSlots);
-static_assert(kKeyedSortSmem <= 232448 / 2, "two keyed sort tiles an SM");
+// The sort of `tile_sort` on a keyed tile (multiway.cuh `MultiTile`:
+// column 0 and the rows' places move, the other columns stay until the
+// store), held to 64 registers a thread, so that two blocks share an SM
+// (109 KB of shared memory each at three columns) and one's loads overlap
+// the other's merges.  The unkeyed `tile_sort<3>`, 74 registers and one block
+// an SM, took 1.96 ms for 2^25 rows, the same at 64 registers 1.67 (NVIDIA
+// H100 80GB HBM3, 700 W).
+template <int C>
+constexpr int kKeyedSortSmem =
+    keyed_tile_bytes<C>(kSortRows<C>, kSortSlots<C>);
+static_assert(kKeyedSortSmem<3> <= 232448 / 2, "two keyed sort tiles an SM");
+// Which tile sort a number of columns takes: keyed at three.  At two the
+// keyed tile sort measured even with `tile_sort<2>` (0.94 ms for 2^22 +
+// 2^21 rows either way; NVIDIA H100 80GB HBM3, 700 W), which stays.
+template <int C>
+constexpr bool kKeyedSort = C == 3;
+// log2 of the most runs a merge pass merges.  = ops/merge.py SORT_WAYS.
+// Eight-run passes measured even at one column (2.76 ms for 2^25 keys in
+// five passes, against 2.79 in four) and slower at two (0.975 against
+// 0.945 for 2^22 + 2^21 rows; same card).
+template <int C>
+constexpr int kWaysLog = 4;
+static_assert((1 << kWaysLog<1>) <= kMaxFan && (1 << kWaysLog<2>) <= kMaxFan,
+              "a pass merges at most kMaxFan runs");
 
 // `multi_corank` on the sort's tile (its own slot count).
-__device__ __forceinline__ int sort_corank(const MultiTile& t, int a0, int la,
-                                           int b0, int lb, int d) {
+template <int C>
+__device__ __forceinline__ int sort_corank(const MultiTile<C>& t, int a0,
+                                           int la, int b0, int lb, int d) {
   int lo = d - lb > 0 ? d - lb : 0;
   int hi = d < la ? d : la;
   while (lo < hi) {
     const int mid = (lo + hi) >> 1;
     const int si = slot<true>(a0 + mid), sj = slot<true>(b0 + d - mid - 1);
-    if (multi_le(t, t.key[si], t.idx[si], t.key[sj], t.idx[sj]))
+    if (multi_le<C>(t, t.key[si], t.idx[si], t.key[sj], t.idx[sj]))
       lo = mid + 1;
     else
       hi = mid;
@@ -169,18 +183,21 @@ __device__ __forceinline__ int sort_corank(const MultiTile& t, int a0, int la,
   return lo;
 }
 
-__global__ void __launch_bounds__(kKeyedSortThreads, 2)
-tile_sort_keyed(Cols<3> in, long long n, MutCols<3> out) {
-  constexpr int T = kKeyedSortRows;
-  const MultiTile t = multi_tile<T, kKeyedSortSlots>();
+template <int C>
+__global__ void __launch_bounds__(kSortThreads<C>, 2)
+tile_sort_keyed(Cols<C> in, long long n, MutCols<C> out) {
+  static_assert(C > 1, "one column has nothing to key");
+  constexpr int T = kSortRows<C>;
+  const MultiTile<C> t = multi_tile<C, T, kSortSlots<C>>();
   const long long base = (long long)blockIdx.x * T;
 #pragma unroll
   for (int k = 0; k < kItems; ++k) {
-    const int r = threadIdx.x + k * kKeyedSortThreads;
+    const int r = threadIdx.x + k * kSortThreads<C>;
     const bool here = base + r < n;
     t.key[slot<true>(r)] = here ? in.p[0][base + r] : kPadRow;
-    t.rest1[r] = here ? in.p[1][base + r] : kPadRow;
-    t.rest2[r] = here ? in.p[2][base + r] : kPadRow;
+#pragma unroll
+    for (int c = 1; c < C; ++c)
+      t.rest[c - 1][r] = here ? in.p[c][base + r] : kPadRow;
     t.idx[slot<true>(r)] = (unsigned short)r;
   }
   __syncthreads();
@@ -200,7 +217,7 @@ tile_sort_keyed(Cols<3> in, long long n, MutCols<3> out) {
 #pragma unroll
   for (int e = 0; e < 19; ++e) {
     const int a = kNet[e][0], b = kNet[e][1];
-    const bool swap = !multi_le(t, vk[a], vi[a], vk[b], vi[b]);
+    const bool swap = !multi_le<C>(t, vk[a], vi[a], vk[b], vi[b]);
     const long long k = swap ? vk[b] : vk[a];
     vk[b] = swap ? vk[a] : vk[b];
     vk[a] = k;
@@ -220,14 +237,15 @@ tile_sort_keyed(Cols<3> in, long long n, MutCols<3> out) {
     const int first = di & ~(2 * run - 1);
     int pa = first, pb = first + run;
     const int ea = pb, eb = pb + run;
-    const int ia = sort_corank(t, pa, run, pb, run, di - first);
+    const int ia = sort_corank<C>(t, pa, run, pb, run, di - first);
     pb += di - first - ia;
     pa += ia;
     long long ka = t.key[slot<true>(pa)], kb = t.key[slot<true>(pb)];
     int xa = t.idx[slot<true>(pa)], xb = t.idx[slot<true>(pb)];
 #pragma unroll
     for (int k = 0; k < kItems; ++k) {
-      const bool take_a = pb >= eb || (pa < ea && multi_le(t, ka, xa, kb, xb));
+      const bool take_a =
+          pb >= eb || (pa < ea && multi_le<C>(t, ka, xa, kb, xb));
       vk[k] = take_a ? ka : kb;
       vi[k] = take_a ? xa : xb;
       const int nx = slot<true>(take_a ? ++pa : ++pb);
@@ -242,27 +260,54 @@ tile_sort_keyed(Cols<3> in, long long n, MutCols<3> out) {
   }
 #pragma unroll
   for (int k = 0; k < kItems; ++k) {
-    const int r = threadIdx.x + k * kKeyedSortThreads;
+    const int r = threadIdx.x + k * kSortThreads<C>;
     if (base + r < n) {
       const int i = t.idx[slot<true>(r)];
       out.p[0][base + r] = t.key[slot<true>(r)];
-      out.p[1][base + r] = t.rest1[i];
-      out.p[2][base + r] = t.rest2[i];
+#pragma unroll
+      for (int c = 1; c < C; ++c) out.p[c][base + r] = t.rest[c - 1][i];
     }
   }
 }
 
+// The tile sort of every sort tile of `in` into `out`.
+template <int C>
+cudaError_t launch_tile_sort(const Cols<C>& in, long long n,
+                             const MutCols<C>& out, long long sort_tiles,
+                             cudaStream_t s) {
+  if constexpr (kKeyedSort<C>) {
+    cudaError_t err = cudaFuncSetAttribute(
+        tile_sort_keyed<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kKeyedSortSmem<C>);
+    if (err != cudaSuccess) return err;
+    tile_sort_keyed<C><<<(unsigned)sort_tiles, kSortThreads<C>,
+                         kKeyedSortSmem<C>, s>>>(in, n, out);
+  } else {
+    cudaError_t err = cudaFuncSetAttribute(
+        tile_sort<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kSortSmemBytes<C>);
+    if (err != cudaSuccess) return err;
+    tile_sort<C><<<(unsigned)sort_tiles, kSortThreads<C>, kSortSmemBytes<C>,
+                   s>>>(in, n, out);
+  }
+  return cudaGetLastError();
+}
+
+// The tile sort, then `multiway_pass`es.  = ops/merge.py
+// `mergepath_passes(n, SORT_TILES[C], SORT_WAYS[C])`
 template <int C>
 int sort_keys(const void* const* in, void* const* out, void* const* tmp,
               long long n, void* scratch, cudaStream_t s, int* passes) {
   constexpr long long kSortTile = kSortRows<C>;
-  static_assert(kSortTile % kTile == 0, "runs are whole merge tiles");
-  const long long n_tiles = (n + kTile - 1) / kTile;
+  constexpr long long T = kMultiRows<C>;
+  static_assert(kSortTile % T == 0, "runs are whole output tiles");
+  const long long n_tiles = (n + T - 1) / T;
   const long long sort_tiles = (n + kSortTile - 1) / kSortTile;
   if (n_tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  constexpr int W = kWaysLog<C>;
   int levels = 0;
   while ((kSortTile << levels) < n) ++levels;
-  const int merges = (levels + 1) / 2;
+  const int merges = (levels + W - 1) / W;
   Cols<C> src;
   MutCols<C> cur, other;
   for (int c = 0; c < C; ++c) {
@@ -270,73 +315,14 @@ int sort_keys(const void* const* in, void* const* out, void* const* tmp,
     cur.p[c] = (long long*)(merges % 2 == 0 ? out[c] : tmp[c]);
     other.p[c] = (long long*)(merges % 2 == 0 ? tmp[c] : out[c]);
   }
-  cudaError_t err = cudaFuncSetAttribute(
-      tile_sort<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kSortSmemBytes<C>);
-  if (err != cudaSuccess) return (int)err;
-  tile_sort<C><<<(unsigned)sort_tiles, kSortThreads<C>, kSortSmemBytes<C>,
-                 s>>>(src, n, cur);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  *passes = 1;
-  long long run = kSortTile;
-  while (run < n) {
-    Cols<C> a;
-    for (int c = 0; c < C; ++c) a.p[c] = cur.p[c];
-    if (levels % 2 == 1 && run == kSortTile) {
-      const Pairs ps{run, n, 0, 0};
-      err = merge_pass<C>(a, offset<C>(a, run), ps, n_tiles,
-                          (long long*)scratch, other, s);
-      run *= 2;
-    } else {
-      err = quad_pass<C>(a, run, n, n_tiles, (long long*)scratch, other, s);
-      run *= 4;
-    }
-    if (err != cudaSuccess) return (int)err;
-    ++*passes;
-    const MutCols<C> done = other;
-    other = cur;
-    cur = done;
-  }
-  return (int)cudaSuccess;
-}
-
-// Three columns: `tile_sort`, then `multiway_pass`es.  = ops/merge.py
-// `mergepath_passes(n, tile, ways=16)`
-template <int C>
-int sort_keys_multiway(const void* const* in, void* const* out,
-                       void* const* tmp, long long n, void* scratch,
-                       cudaStream_t s, int* passes) {
-  constexpr long long kSortTile = kSortRows<C>;
-  static_assert(kSortTile % kTile == 0, "runs are whole merge tiles");
-  const long long n_tiles = (n + kTile - 1) / kTile;
-  const long long sort_tiles = (n + kSortTile - 1) / kSortTile;
-  if (n_tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  int levels = 0;
-  while ((kSortTile << levels) < n) ++levels;
-  const int merges = (levels + 3) / 4;
-  Cols<C> src;
-  MutCols<C> cur, other;
-  for (int c = 0; c < C; ++c) {
-    src.p[c] = (const long long*)in[c];
-    cur.p[c] = (long long*)(merges % 2 == 0 ? out[c] : tmp[c]);
-    other.p[c] = (long long*)(merges % 2 == 0 ? tmp[c] : out[c]);
-  }
-  static_assert(C == 3, "the keyed tile holds columns 1 and 2 apart");
-  cudaError_t err = cudaFuncSetAttribute(
-      tile_sort_keyed, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kKeyedSortSmem);
-  if (err != cudaSuccess) return (int)err;
-  tile_sort_keyed<<<(unsigned)sort_tiles, kKeyedSortThreads, kKeyedSortSmem,
-                    s>>>(src, n, cur);
-  err = cudaGetLastError();
+  cudaError_t err = launch_tile_sort<C>(src, n, cur, sort_tiles, s);
   if (err != cudaSuccess) return (int)err;
   *passes = 1;
   long long run = kSortTile;
   int left = levels;
   while (left > 0) {
-    // the pass of fewer runs first, then kMaxFan = 2^4 runs a pass
-    const int step = left % 4 ? left % 4 : 4;
+    // the pass of fewer runs first, then 2^W runs a pass
+    const int step = left % W ? left % W : W;
     Cols<C> a;
     for (int c = 0; c < C; ++c) a.p[c] = cur.p[c];
     err = multiway_pass<C>(a, run, 1 << step, n, n_tiles,
@@ -357,10 +343,9 @@ int sort_keys_multiway(const void* const* in, void* const* out,
 
 // in, out and tmp are C-element arrays of column pointers (C = 1 to 3).
 // n >= 1.  `tmp` is scratch of the input's size (unused, and may hold
-// nulls, when n fits one sort tile), `scratch` holds four int64 per 2048
-// rows for one or two columns and sixteen for three.  `*passes` receives
-// the number of kernels launched that read and write every row (the
-// partition kernels do not).
+// nulls, when n fits one sort tile), `scratch` holds sixteen int64 per 2048
+// rows.  `*passes` receives the number of kernels launched that read and
+// write every row (the partition kernels do not).
 extern "C" int cbl_sort_keys(const void* const* in, void* const* out,
                              void* const* tmp, int C, long long n,
                              void* scratch, int* passes, void* stream) {
@@ -371,7 +356,7 @@ extern "C" int cbl_sort_keys(const void* const* in, void* const* out,
     case 2:
       return cbl::sort_keys<2>(in, out, tmp, n, scratch, s, passes);
     case 3:
-      return cbl::sort_keys_multiway<3>(in, out, tmp, n, scratch, s, passes);
+      return cbl::sort_keys<3>(in, out, tmp, n, scratch, s, passes);
   }
   return (int)cudaErrorInvalidValue;
 }

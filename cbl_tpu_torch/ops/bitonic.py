@@ -29,12 +29,12 @@ B6 carries many steps of the network through one pass over device
 memory: `network_passes` lists the passes (a tile sort, fused cross
 passes of up to `fuse_log(tile)` strides, in-tile passes) and
 `bitonic_sort_passes_plain` walks that list, gathering each block's rows
-by the index map the kernel uses.  At three columns the kernel runs the
-passes chunk by chunk where it can (`CHUNKS`): every stage up to the
-chunk, and in each later stage the strides below the chunk, for one chunk
-after another (a "chunks" entry of the list, one pass through device
-memory, the chunk held in the L2 cache); only the strides at or above the
-chunk are whole-array passes.  `bitonic_sort_plain` /
+by the index map the kernel uses.  The kernel runs the passes chunk by
+chunk where it can (`CHUNKS`, at every number of columns): every stage up
+to the chunk, and in each later stage the strides below the chunk, for
+one chunk after another (a "chunks" entry of the list, one pass through
+device memory, the chunk held in the L2 cache); only the strides at or
+above the chunk are whole-array passes.  `bitonic_sort_plain` /
 `bitonic_merge_plain` walk the networks one step at a time and are their
 reference.
 
@@ -68,9 +68,9 @@ from .merge import (
 TILES = {1: 8192, 2: 4096, 3: 4096}
 MERGE_TILES = {1: 2048, 2: 1024, 3: 1024}
 # rows of a chunk of B6's chunk-by-chunk passes, by number of columns
-# (csrc/bitonic_sort.cu kChunkLog; 24 MB of three columns); one and two
-# columns run every pass over the whole array
-CHUNKS = {3: 1 << 20}
+# (csrc/bitonic_sort.cu kChunkLog): 16 MB of one or two columns, 24 MB of
+# three
+CHUNKS = {1: 1 << 21, 2: 1 << 20, 3: 1 << 20}
 
 
 def fuse_log(tile: int) -> int:
@@ -211,7 +211,7 @@ def _walk_pass(cols: tuple, tile: int, pas: tuple) -> tuple:
 
 
 def cross_block_rows(rows: int, tile: int, a_log: int, f: int) -> tuple:
-    """The rows a block of `cross_fused` owns in a pass over the strides
+    """The rows a block of `keyed_cross` owns in a pass over the strides
     2^(a_log+f-1) ... 2^a_log, by the kernel's own index map: block
     b = (hi << (a_log - c)) | mid holds 2^f slices of 2^c rows, c =
     log2(tile) - f, slice q at first + (q << a_log) with first =
@@ -260,16 +260,16 @@ def bitonic_sort_passes_plain(keys, tile: int | None = None,
     one `_walk_pass` per pass of `network_passes` over the rows padded to
     max(tile, the next power of two).  `tile`, `fuse` and `chunk` default
     to the kernel's (`TILES`, `fuse_log`, `CHUNKS`; `chunk=None` runs
-    every pass over the whole array).  It moves whole rows; the kernel's
-    three-column form moves (column 0, tile row) pairs through the same
-    exchanges, which gives the same rows."""
+    every pass over the whole array).  It moves whole rows; the kernel
+    moves (column 0, tile row) pairs through the same exchanges at two and
+    three columns, which gives the same rows."""
     cols = as_cols(keys)
     n = cols[0].shape[0]
     if n <= 1:
         return _like(keys, tuple(c.clone() for c in cols))
     tile = TILES[len(cols)] if tile is None else tile
     fuse = fuse_log(tile) if fuse is None else fuse
-    chunk = CHUNKS.get(len(cols)) if chunk is _KERNEL else chunk
+    chunk = CHUNKS[len(cols)] if chunk is _KERNEL else chunk
     rows = max(tile, _next_pow2(n))
     cols = _padded(cols, rows)
     for pas in network_passes(rows, tile, fuse, chunk):
@@ -290,8 +290,7 @@ def bitonic_sort(keys):
         return _like(keys, tuple(c.clone() for c in cols))
     tile = TILES[len(cols)]
     rows = max(tile, _next_pow2(n))
-    planned = network_passes(rows, tile, fuse_log(tile),
-                             CHUNKS.get(len(cols)))
+    planned = network_passes(rows, tile, fuse_log(tile), CHUNKS[len(cols)])
     out = _new_cols(len(cols), n, cols[0].device)
     # the network runs in a scratch of the padded length; one tile needs none
     work_rows = rows if rows > tile else 0

@@ -14,20 +14,18 @@ returns their merge, equal to a sort of their concatenation.
 
 B5 replaces `cbl_tpu/ops/merge_pallas.py` `sort_cols_mergepath`: a sort
 of every tile of `SORT_TILES` rows, then merge-path passes that each merge
-every `SORT_WAYS` neighbouring runs into one: at one and two columns four
-(two levels of the merge tree a pass, after one two-way pass when the
-number of levels is odd), at three columns sixteen (four levels a pass,
-after one pass of 2, 4 or 8 runs when the number of levels is no multiple
-of four) (`mergepath_passes`).  It equals `torch.sort` (equal rows are
-identical).  Its plain version walks the same passes with `torch.sort`
-per tile and per level of each pass's merge tree; `quad_split_plain` is
-the four-run partition of the one- and two-column kernel's blocks, and
-`multiway_split_plain` the F-run partition of the three-column kernel's,
-in plain Python.
+every `SORT_WAYS` = 16 neighbouring runs into one (four levels of the
+merge tree a pass, after one pass of 2, 4 or 8 runs when the number of
+levels is no multiple of four; `mergepath_passes`).  It equals
+`torch.sort` (equal rows are identical).  Its plain version walks the same
+passes with `torch.sort` per tile and per level of each pass's merge
+tree; `multiway_split_plain` is the F-run partition of the kernel's
+blocks, and `merge_multi_tile_plain` a block's merge, in plain Python.
 
 `merge_sorted` and `sort_mergepath` take the plain version for CPU
 tensors and launch the CUDA kernel (`csrc/merge.cu`, `csrc/sort.cu`, both
-on `csrc/merge_path.cuh`) for CUDA tensors, whatever the size.
+on `csrc/merge_path.cuh`, B5 also on `csrc/multiway.cuh`) for CUDA
+tensors, whatever the size.
 """
 
 from __future__ import annotations
@@ -41,10 +39,9 @@ from . import _build
 MERGE_TILE = 2048  # rows per block of csrc/merge_path.cuh (256 threads x 8)
 # rows per sort tile of B5 by number of columns (csrc/sort.cu kSortRows)
 SORT_TILES = {1: 8192, 2: 4096, 3: 4096}
-# the most runs a merge pass of B5 merges, by number of columns (four-way
-# passes, csrc/merge_path.cuh `quad_pass`; multiway passes of up to
-# csrc/multiway.cuh kMaxFan runs)
-SORT_WAYS = {1: 4, 2: 4, 3: 16}
+# the most runs a merge pass of B5 merges, by number of columns (multiway
+# passes of up to csrc/multiway.cuh kMaxFan runs)
+SORT_WAYS = {1: 16, 2: 16, 3: 16}
 MAX_COLS = 3
 _PAD = (1 << 63) - 1  # INT64_MAX in every column sorts last
 
@@ -110,9 +107,9 @@ def launch_key(name: str, n_cols: int) -> str:
 
 
 def _scratch(n_rows: int, device, per_tile: int = 1) -> torch.Tensor:
-    """Co-rank scratch: `per_tile` int64 per output tile (a two-way pass
-    keeps one co-rank a tile, a four-way pass that table and three
-    splits)."""
+    """Co-rank scratch: `per_tile` int64 per output tile of `MERGE_TILE`
+    rows (a two-way pass keeps one co-rank a tile, a multiway pass of F
+    runs F splits)."""
     n_tiles = (n_rows + MERGE_TILE - 1) // MERGE_TILE
     return torch.empty(max(n_tiles, 1) * per_tile, dtype=torch.int64,
                        device=device)
@@ -161,10 +158,10 @@ def mergepath_passes(n: int, tile: int, ways: int = 4) -> list:
     then ("merge", run, fan) passes that merge every `fan` neighbouring
     runs of `run` rows.  Of the L = ceil(log2(n / tile)) levels of the
     merge tree a pass does log2(ways), but the first, which does L mod
-    log2(ways) when that is not 0: with ways=4 every pass is four-way but
-    the first, two-way when L is odd; with ways=16 every pass merges 16
-    runs but the first, which merges 2, 4 or 8; with ways=2 there is one
-    two-way pass a level."""
+    log2(ways) when that is not 0: with ways=16 (the kernel's) every pass
+    merges 16 runs but the first, which merges 2, 4 or 8; with ways=4
+    every pass is four-way but the first, two-way when L is odd; with
+    ways=2 there is one two-way pass a level."""
     if ways not in (2, 4, 16):
         raise ValueError(f"ways={ways}: expected 2, 4 or 16")
     passes = [("tile_sort", tile)]
@@ -219,58 +216,6 @@ def _rows(keys) -> list:
     """The rows of a run as Python tuples (they compare as the kernels'
     `le`: lexicographic, column 0 major)."""
     return list(zip(*(c.tolist() for c in as_cols(keys))))
-
-
-def _corank_plain(a: list, b: list, d: int) -> int:
-    """How many of the first d outputs of merge(a, b) come from a, a
-    before b on ties: the smallest i with a[i] > b[d - i - 1]."""
-    lo, hi = max(0, d - len(b)), min(d, len(a))
-    while lo < hi:
-        mid = (lo + hi) // 2
-        if a[mid] <= b[d - mid - 1]:
-            lo = mid + 1
-        else:
-            hi = mid
-    return lo
-
-
-def _merged_at(a: list, b: list, i: int):
-    """Output i of merge(a, b), found by a co-rank."""
-    ia = _corank_plain(a, b, i)
-    ib = i - ia
-    take_a = ib >= len(b) or (ia < len(a) and a[ia] <= b[ib])
-    return a[ia] if take_a else b[ib]
-
-
-def quad_split_plain(runs, d: int) -> tuple:
-    """How many of the first d outputs of the merge of one to four sorted
-    runs A, B, C, D come from each, ties in run order: the co-rank of d in
-    (AB, CD), where AB[i] is itself found by a co-rank in (A, B), then the
-    co-ranks of the two halves (csrc/merge_path.cuh `partition_quads`)."""
-    a, b, c, e = ([_rows(r) for r in runs] + [[]] * 3)[:4]
-    nab, ncd = len(a) + len(b), len(c) + len(e)
-    lo, hi = max(0, d - ncd), min(d, nab)
-    while lo < hi:
-        mid = (lo + hi) // 2
-        if _merged_at(a, b, mid) <= _merged_at(c, e, d - mid - 1):
-            lo = mid + 1
-        else:
-            hi = mid
-    ia, ic = _corank_plain(a, b, lo), _corank_plain(c, e, d - lo)
-    return ia, lo - ia, ic, d - lo - ic
-
-
-def merge_quad_tile_plain(runs, d0: int, d1: int):
-    """The outputs [d0, d1) of the merge of one to four sorted runs, as a
-    block of `merge_quads` makes them: the four segments between the
-    splits of d0 and of d1, A merged with B, C with D, then the two."""
-    lo, hi = quad_split_plain(runs, d0), quad_split_plain(runs, d1)
-    cols = [as_cols(r) for r in runs]
-    empty = tuple(c[:0] for c in cols[0])
-    segs = [tuple(c[l:h] for c in r) for r, l, h in zip(cols, lo, hi)]
-    a, b, c, e = (segs + [empty] * 3)[:4]
-    return _like(runs[0], merge_sorted_plain(merge_sorted_plain(a, b),
-                                             merge_sorted_plain(c, e)))
 
 
 def multiway_split_plain(runs, d: int, run_rows: int | None = None) -> tuple:
@@ -352,7 +297,7 @@ def sort_mergepath(keys):
     # the passes ping-pong between `out` and `tmp`; one tile needs no pass
     tmp = (_new_cols(len(cols), n, cols[0].device) if len(planned) > 1
            else (None,) * len(cols))
-    # a four-way pass keeps 4 values a tile, a multiway pass one a run
+    # a multiway pass keeps one split a run and output tile
     scratch = _scratch(n, cols[0].device, per_tile=ways)
     passes = ctypes.c_int(0)
     p_in, p_out, p_tmp = _col_ptrs(cols), _col_ptrs(out), _col_ptrs(tmp)

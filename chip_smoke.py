@@ -20,7 +20,11 @@ Phases (any failure raises and the script exits non-zero):
    main paths' shapes (exact equality; B5, B6 and B7 also against
    `torch.sort`, their inputs unchanged, and the number of passes over
    device memory that B5, B6 and B7 launch against the Python
-   schedule's; B7 also at B3's shapes of a fold and a log join, timed
+   schedule's, with the device time of each sort by kernel name; B5 and
+   B6 at one and two columns also at the edges of their tiles, of B5's
+   groups of 16 runs and of B6's chunks, and on six kinds of rows (with
+   duplicates, wide, all equal, sorted, reversed, a small column 0);
+   B7 also at B3's shapes of a fold and a log join, timed
    beside B3; B3, B6 and B7 also at the sort-join's shapes: 2^25 index
    rows (word, 2^25) against 2^25 (word, position) queries, with
    realistic words and with heavy duplicates; at wide K, B1 on two-column
@@ -571,8 +575,8 @@ def check_kernels(card: str) -> dict:
     # the separate calls: a fold's merged index and log); 2^21 + 2^21
     # (word, seqtag) rows (a log join's sort of log and queries) and
     # 2^22 + 2^21; 2^25 - 4097 rows, one row, a constant column, half
-    # sentinels; last quads of one, two, three and four runs with a short
-    # last run (4 to 7 sort tiles + 123 rows), 2^25 keys of one value and
+    # sentinels; a first pass of 4 or 8 runs whose last run is short (4 to
+    # 7 sort tiles + 123 rows), 2^25 keys of one value and
     # 2^24 keys of three.  Against its plain version and against the
     # library sort, exact, the input kept
     def sort_case(label, keys, plain=True):
@@ -625,11 +629,18 @@ def check_kernels(card: str) -> dict:
             errs.append(sort_case(
                 f"n={n} ({tiles} tiles + 123), {c} column(s)", keys))
     merge.sort_mergepath(x1)
-    planned = len(merge.mergepath_passes(SLAB, merge.SORT_TILES[1]))
+    planned = len(merge.mergepath_passes(SLAB, merge.SORT_TILES[1],
+                                         merge.SORT_WAYS[1]))
     b5_passes = _build.PASSES["sort"]
     log(f"B5 sort n={SLAB} one column: {b5_passes} passes over device "
         f"memory launched, the Python schedule has {planned}")
-    assert b5_passes == planned <= 9
+    assert b5_passes == planned <= 4
+    merge.sort_mergepath(x2)
+    planned2 = len(merge.mergepath_passes(n_join, merge.SORT_TILES[2],
+                                          merge.SORT_WAYS[2]))
+    log(f"B5 sort n={n_join} two columns: {_build.PASSES['sort']} passes "
+        f"over device memory launched, the Python schedule has {planned2}")
+    assert _build.PASSES["sort"] == planned2 <= 4
     n_sort = LAUNCHES["sort"]
     with sort.use_sort_mode("library"):
         assert torch.equal(sort.sort_keys(x1), torch.sort(x1).values)
@@ -655,6 +666,12 @@ def check_kernels(card: str) -> dict:
     log(f"B5 sort, two columns, {1 << 22}: {ms4:.4f} ms, two stable "
         f"torch.sort passes {lib4:.4f} ms, bound "
         f"{bound(2 * 16 * (1 << 22), 0)['bound_ms']:.4f} ms [{card}]")
+    for label, x in ((f"one column, {SLAB}", x1),
+                     (f"two columns, {n_join}", x2)):
+        for kname, us, count in kernel_device_us(
+                lambda: merge.sort_mergepath(x)):
+            log(f"  B5 sort, {label}, device time by kernel: {us:.1f} us, "
+                f"{count} x {kname}")
     # every key read once and written once; n log2 n 64-bit compares
     results["sort"] = dict(
         err=max(errs), ms=ms, plain_ms=plain_ms, library_ms=library_ms,
@@ -664,6 +681,9 @@ def check_kernels(card: str) -> dict:
     del x1, x2, x3, x4
     results.update(check_bitonic(rng, results["merge"]["ms"], card, joins))
     del joins
+    edge_err = check_sort_edges(rng)
+    for name in ("sort", "bitonic_sort"):
+        results[name]["err"] = max(results[name]["err"], edge_err)
     results.update(check_wide_kernels(rng, card))
     results.update(check_slog_tag(rng, card))
 
@@ -676,6 +696,80 @@ def check_kernels(card: str) -> dict:
             raise AssertionError(f"kernel {name} disagrees with its plain "
                                  f"version (max abs err {r['err']})")
     return results
+
+
+def check_sort_edges(rng) -> float:
+    """B5 and B6 at one and two columns at the edges of their tiles, of
+    B5's groups of 16 runs and of B6's chunks, on random rows, and at a
+    chunk plus a tile on six kinds of rows: kernel == `torch.sort` (one
+    stable pass a column) == plain (up to a chunk plus a tile), the input
+    kept, and the passes through
+    device memory each kernel launched equal to its Python schedule.  ->
+    the largest difference (0 when all agree)."""
+    import torch
+
+    from cbl_tpu_torch.ops import _build, bitonic, merge
+
+    dev = torch.device(DEVICE)
+    pad = (1 << 63) - 1
+
+    def rows(n, c, kind):
+        """"dups" (below 2, 5 % sentinels), "wide" (below 2^40, 5 %
+        sentinels), "equal", "sorted", "reverse" or "small0" (column 0
+        below 2^20)."""
+        if kind == "equal":
+            cols = [np.full(n, 7) for _ in range(c)]
+        else:
+            hi = 2 if kind == "dups" else 1 << 40
+            cols = [rng.integers(0, hi, size=n) for _ in range(c)]
+            sent = rng.random(n) < 0.05
+            for v in cols:
+                v[sent] = pad
+            if kind == "small0":
+                cols[0] = rng.integers(0, 1 << 20, size=n)
+        x = tuple(torch.from_numpy(v).to(dev) for v in cols)
+        if kind in ("sorted", "reverse"):
+            x = merge.sort_cols_plain(x)
+            if kind == "reverse":
+                x = tuple(v.flip(0).contiguous() for v in x)
+        return x[0] if c == 1 else x
+
+    err = 0.0
+    for c in (1, 2):
+        st, bt, chunk = merge.SORT_TILES[c], bitonic.TILES[c], bitonic.CHUNKS[c]
+        cases = [(n, "wide") for n in sorted({
+            st - 1, st + 1, 2 * st + 1, 16 * st - 1, 16 * st + 1,
+            32 * st + 1, 256 * st + 3, bt + 1, chunk - 1, chunk + 1,
+            2 * chunk + 3})]
+        cases += [(chunk + bt, kind) for kind in (
+            "dups", "wide", "equal", "sorted", "reverse", "small0")]
+        for n, kind in cases:
+            x = rows(n, c, kind)
+            before = [v.clone() for v in merge.as_cols(x)]
+            want = merge.sort_cols_plain(merge.as_cols(x))
+            rows_p = max(bt, 1 << (n - 1).bit_length())
+            line = []
+            for name, fn, plain, key, planned in (
+                    ("B5", merge.sort_mergepath, merge.sort_mergepath_plain,
+                     "sort", merge.mergepath_passes(n, st,
+                                                    merge.SORT_WAYS[c])),
+                    ("B6", bitonic.bitonic_sort,
+                     bitonic.bitonic_sort_passes_plain, "bitonic_sort",
+                     bitonic.network_passes(rows_p, bt, bitonic.fuse_log(bt),
+                                            chunk))):
+                got = fn(x)
+                passes = _build.PASSES[key]
+                e = max(cols_equal(merge.as_cols(got), want),
+                        cols_equal(merge.as_cols(x), before))
+                if n <= chunk + bt:  # the plain walks cost seconds beyond
+                    e = max(e, cols_equal(merge.as_cols(plain(x)), want))
+                assert passes == len(planned), (name, c, n, passes, planned)
+                err = max(err, e)
+                line.append(f"{name} {e == 0}, {passes} passes (schedule "
+                            f"{len(planned)})")
+            log(f"B5, B6 at {c} column(s), n={n} {kind}: kernel == plain == "
+                f"torch.sort, input kept: {'; '.join(line)}")
+    return err
 
 
 def check_bitonic(rng, b3_ms: float, card: str, joins: dict) -> dict:
@@ -755,14 +849,23 @@ def check_bitonic(rng, b3_ms: float, card: str, joins: dict) -> dict:
         sort_case(f"n={SLAB} two columns (the sort-join's queries, words "
                   f"< 2^20)", joins[1 << 20][1]),
     ]
-    bitonic.bitonic_sort(x25)
-    n0 += 1
+    bitonic.bitonic_sort(joins[1 << 56][1])
     planned = len(bitonic.network_passes(
-        SLAB, bitonic.TILES[1], bitonic.fuse_log(bitonic.TILES[1])))
+        SLAB, bitonic.TILES[2], bitonic.fuse_log(bitonic.TILES[2]),
+        bitonic.CHUNKS[2]))
+    log(f"B6 bitonic sort n={SLAB} two columns (the sort-join's queries): "
+        f"{_build.PASSES['bitonic_sort']} passes over device memory "
+        f"launched, the Python schedule has {planned}")
+    assert _build.PASSES["bitonic_sort"] == planned <= 11
+    bitonic.bitonic_sort(x25)
+    n0 += 2
+    planned = len(bitonic.network_passes(
+        SLAB, bitonic.TILES[1], bitonic.fuse_log(bitonic.TILES[1]),
+        bitonic.CHUNKS[1]))
     b6_passes = _build.PASSES["bitonic_sort"]
     log(f"B6 bitonic sort n={SLAB} one column: {b6_passes} passes over "
         f"device memory launched, the Python schedule has {planned}")
-    assert b6_passes == planned <= 32
+    assert b6_passes == planned <= 9
     assert LAUNCHES["bitonic_sort"] == n0 + len(errs) - 1  # one row: none
     with sort.use_sort_mode("bitonic"):
         assert torch.equal(sort.sort_keys(x24), torch.sort(x24).values)
@@ -789,6 +892,13 @@ def check_bitonic(rng, b3_ms: float, card: str, joins: dict) -> dict:
     log(f"B6 bitonic sort, two columns, {SLAB} (the sort-join's queries): "
         f"{ms_join:.4f} ms, two stable torch.sort passes {lib_join:.4f} ms,"
         f" bound {bound(2 * 16 * SLAB, 0)['bound_ms']:.4f} ms [{card}]")
+    for label, x in ((f"one column, {SLAB}", x25),
+                     (f"two columns, {n_join}", x2),
+                     (f"two columns, {SLAB} (the sort-join's queries)", q)):
+        for kname, us, count in kernel_device_us(
+                lambda: bitonic.bitonic_sort(x)):
+            log(f"  B6 bitonic sort, {label}, device time by kernel: "
+                f"{us:.1f} us, {count} x {kname}")
     # every key read once and written once; n log2 n 64-bit compares
     out = {"bitonic_sort": dict(
         err=max(errs), ms=ms, plain_ms=plain_ms, library_ms=library_ms,

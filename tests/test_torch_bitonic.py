@@ -245,21 +245,29 @@ def test_passes_plain_merge_equals_the_network(na, nb, tile, two):
 
 def test_default_tiles_follow_the_sources():
     """`TILES` and `fuse_log` are the constants of csrc/bitonic.cuh,
-    `CHUNKS` csrc/bitonic_sort.cu's `kChunkLog`."""
+    `CHUNKS` csrc/bitonic_sort.cu's `kChunkLog`; every number of columns
+    runs the chunked schedule."""
     src = (bitonic._build.SRC_DIR / "bitonic.cuh").read_text()
     assert "kTileLog = C == 1 ? 13 : 12;" in src
     assert "kFuseLog = kTileLog<C> - 4;" in src
     sort_cu = (bitonic._build.SRC_DIR / "bitonic_sort.cu").read_text()
-    assert "constexpr int kChunkLog = 20;" in sort_cu
-    assert "return cbl::bitonic_sort_keyed(" in sort_cu
+    assert "constexpr int kChunkLog = C == 1 ? 21 : 20;" in sort_cu
+    for c in (1, 2, 3):
+        assert f"return cbl::bitonic_sort_keyed<{c}>(" in sort_cu
     assert bitonic.TILES == {1: 1 << 13, 2: 1 << 12, 3: 1 << 12}
-    assert bitonic.CHUNKS == {3: 1 << 20}
+    assert bitonic.CHUNKS == {1: 1 << 21, 2: 1 << 20, 3: 1 << 20}
     assert [bitonic.fuse_log(t) for t in (1 << 13, 1 << 12)] == [9, 8]
-    # one sort of 2^25 one-column keys: 28 passes (105 with one stride a
-    # pass over tiles of 2^12 rows); three columns: 11 through device
-    # memory (32 without chunks)
-    assert len(bitonic.network_passes(1 << 25, 1 << 13, 9)) == 28
-    assert len(bitonic.network_passes(1 << 25, 1 << 12, 8, 1 << 20)) == 11
+    # passes through device memory of one sort: 2^25 one-column keys 9
+    # (28 without chunks, 105 with one stride a pass over tiles of 2^12
+    # rows); 2^25 two- or three-column rows 11 (32); 2^22 + 2^21
+    # two-column rows (P = 2^23) 7 (26)
+    for p_log, c, want, whole in ((25, 1, 9, 28), (25, 2, 11, 32),
+                                  (23, 2, 7, 26), (25, 3, 11, 32)):
+        tile = bitonic.TILES[c]
+        fuse = bitonic.fuse_log(tile)
+        assert len(bitonic.network_passes(1 << p_log, tile, fuse,
+                                          bitonic.CHUNKS[c])) == want
+        assert len(bitonic.network_passes(1 << p_log, tile, fuse)) == whole
 
 
 def test_merge_tiles_follow_the_source():
@@ -518,11 +526,11 @@ def test_bitonic_modes_walk_the_network(monkeypatch):
                      "bitonic_merge_tiled_plain",
                      "bitonic_merge_tiled_plain",
                      "bitonic_merge_tiled_plain"]
-    # 5000 rows fit one sort tile of 8192; two runs of 5000 make 10,000
-    # rows: one merge pass over five output tiles of 2048 (ten of 1024
-    # with two columns)
-    assert walked == ["tile", "tile", ("tiles", 5), ("tiles", 5),
-                      ("tiles", 10)]
+    # 5000 rows fit one sort tile of 8192, one chunk that holds the tile
+    # sort; two runs of 5000 make 10,000 rows: one merge pass over five
+    # output tiles of 2048 (ten of 1024 with two columns)
+    assert walked == ["chunks", "tile", "chunks", "tile", ("tiles", 5),
+                      ("tiles", 5), ("tiles", 10)]
     assert torch.equal(got, want) and torch.equal(merged, want2)
     assert torch.equal(pair, want2) and torch.equal(two[1], want2)
     calls.clear()
@@ -573,12 +581,18 @@ def test_merge_mode_of_the_environment(monkeypatch):
     (25, 12, 8, 20, 11), (26, 12, 8, 20, 13), (21, 12, 8, 20, 3),
     (22, 12, 8, 20, 5), (20, 12, 8, 20, 1), (12, 12, 8, 20, 1),
     (14, 4, 2, 6, None), (12, 4, 1, 4, None), (11, 4, 3, 8, None),
+    # one column (tile 2^13, nine strides a cross pass, chunks of 2^21):
+    # 9 passes at 2^25 keys; two columns at P = 2^23 (2^22 + 2^21 rows)
+    (25, 13, 9, 21, 9), (24, 13, 9, 21, 7), (26, 13, 9, 21, 11),
+    (22, 13, 9, 21, 3), (21, 13, 9, 21, 1), (13, 13, 9, 21, 1),
+    (25, 13, 9, 20, 11), (25, 13, 9, 22, 7), (23, 12, 8, 20, 7),
+    (23, 12, 8, 21, 5), (15, 6, 2, 7, None),
 ])
 def test_chunked_pass_list_length(p_log, t_log, fuse, c_log, want):
     """The chunked schedule: one group for every stage up to the chunk,
     then per later stage ceil((k - chunk) / fuse) whole-array cross
-    passes and one group (11 passes through device memory at 2^25 rows,
-    32 unchunked).  Every stride of every stage appears once, in
+    passes and one group (at 2^25 rows 9 passes through device memory at
+    one column, 28 unchunked; 11 at two and three columns, 32).  Every stride of every stage appears once, in
     descending order; a group holds strides below the chunk only, a
     whole-array pass strides at or above it."""
     passes = bitonic.network_passes(1 << p_log, 1 << t_log, fuse,
@@ -651,25 +665,39 @@ def _three_keys(cols):
 _THREE_LENGTHS = [15, 16, 17, 63, 64, 65, 80, 131, 257, 1025]
 
 
-@pytest.mark.parametrize("n", _THREE_LENGTHS)
+@pytest.mark.parametrize("n_cols,n", [
+    pytest.param(3, n, id=str(n)) for n in _THREE_LENGTHS] + [
+    pytest.param(c, n, id=f"{n}-{c}col") for c in (1, 2)
+    for n in _THREE_LENGTHS])
 @pytest.mark.parametrize("hi", [2, 1 << 24], ids=["dups", "wide"])
-def test_plain_sort_matches_pallas_three_columns(n, hi):
-    """B6 at three columns: the chunked plain schedule (tile 16, two
-    strides a cross pass, chunks of 64 rows) against the unchunked one,
-    the step-by-step network, numpy's lexsort, `torch.sort` in three
-    stable passes and `cbl_tpu`'s Pallas network in interpret mode
-    (padded to 1024 rows with all-ones rows, which sort last); duplicate
-    columns, 5 % sentinels, a sentinel tail of 7 rows; the keys kept."""
-    cols = _three_limb_cols(n, n * 5 + hi % 7, hi, 0.05, 7)
-    keys = _three_keys(cols)
-    before = [c.clone() for c in keys]
+def test_plain_sort_matches_pallas_three_columns(n_cols, n, hi):
+    """B6 at one, two and three columns: the chunked plain schedule (tile
+    16, two strides a cross pass, chunks of 64 rows) against the
+    unchunked one, the step-by-step network, numpy's lexsort, `torch.sort`
+    (in one stable pass a column) and `cbl_tpu`'s Pallas network in
+    interpret mode (padded to 1024 rows with all-ones rows, which sort
+    last); duplicate columns, 5 % sentinels, a sentinel tail of 7 rows;
+    the keys kept."""
+    cols = _three_limb_cols(n, n * 5 + hi % 7 + 100 * (3 - n_cols), hi,
+                            0.05, 7)
+    if n_cols < 3:
+        cols = cols[:n_cols + 1]
+
+    def port(limbs):
+        return (_three_keys(limbs) if n_cols == 3
+                else _port_keys(limbs, n_cols == 2))
+
+    keys = port(cols)
+    before = [c.clone() for c in merge.as_cols(keys)]
     want = _lexsorted(keys)
     got = bitonic.bitonic_sort_passes_plain(keys, 16, 2, 64)
     _assert_cols_equal(got, want)
     _assert_cols_equal(bitonic.bitonic_sort_passes_plain(keys, 16, 2, None),
                        want)
-    _assert_cols_equal(merge.sort_cols_plain(keys), want)
+    _assert_cols_equal(merge.sort_cols_plain(merge.as_cols(keys)), want)
     _assert_cols_equal(keys, [c.numpy() for c in before])
+    if n_cols == 1:
+        assert torch.equal(got, torch.sort(keys).values)
     if n in (17, 65, 257):
         _assert_cols_equal(bitonic.bitonic_sort_plain(keys), want)
         rows = 1024
@@ -677,22 +705,27 @@ def test_plain_sort_matches_pallas_three_columns(n, hi):
                                              np.uint32)]) for c in cols]
         out = sort_pallas.sort_cols_pallas(_jnp(padded), t_log=8,
                                            interpret=True)
-        _assert_cols_equal(got, _as_numpy(_three_keys(
+        _assert_cols_equal(got, _as_numpy(port(
             [np.asarray(c)[:n] for c in out])))
     assert (want[0][-7:] == SENTINEL).all()
 
 
-@pytest.mark.parametrize("kind", ["equal", "sorted", "reverse", "small0"])
-def test_chunked_schedule_on_skewed_rows(kind):
+@pytest.mark.parametrize("n_cols,kind", [
+    pytest.param(3, k, id=k) for k in ("equal", "sorted", "reverse",
+                                       "small0")] + [
+    pytest.param(c, k, id=f"{k}-{c}col") for c in (1, 2)
+    for k in ("equal", "sorted", "reverse", "few")])
+def test_chunked_schedule_on_skewed_rows(n_cols, kind):
     """The chunked plain schedule (tile 16, chunks of 64) on every row
-    equal, sorted, reverse-sorted and column 0 below 2^20, 300 rows,
-    against numpy's lexsort; and the CPU dispatch with the kernel's
-    constants."""
-    rng = np.random.default_rng(len(kind) + 40)
+    equal, sorted, reverse-sorted, every column below 3 and column 0 below
+    2^20, 300 rows at one to three columns, against numpy's lexsort; and
+    the CPU dispatch with the kernel's constants."""
+    rng = np.random.default_rng(len(kind) + 40 + 10 * (3 - n_cols))
     n = 300
-    cols = [rng.integers(0, 1 << 40, size=n) for _ in range(3)]
+    cols = [rng.integers(0, 3 if kind == "few" else 1 << 40, size=n)
+            for _ in range(n_cols)]
     if kind == "equal":
-        cols = [np.full(n, 7) for _ in range(3)]
+        cols = [np.full(n, 7) for _ in range(n_cols)]
     elif kind == "small0":
         cols[0] = rng.integers(0, 1 << 20, size=n)
     keys = tuple(torch.from_numpy(c) for c in cols)
@@ -702,5 +735,7 @@ def test_chunked_schedule_on_skewed_rows(kind):
             keys = tuple(c.flip(0).contiguous() for c in keys)
     want = _lexsorted(keys)
     _assert_cols_equal(bitonic.bitonic_sort_passes_plain(keys, 16, 2, 64),
+                       want)
+    _assert_cols_equal(bitonic.bitonic_sort_passes_plain(keys, 16, 2, 32),
                        want)
     _assert_cols_equal(bitonic.bitonic_sort(keys), want)

@@ -185,23 +185,26 @@ def _edge_keys(cuda, n, two, hi, seed):
 
 
 @pytest.mark.parametrize("tiles,extra", [
-    (1, 0), (1, 1), (2, 0), (3, 5), (4, 0), (4, 1), (5, 123), (6, 123),
-    (7, 123), (8, 0), (9, 1), (16, 0), (17, 4095), (33, 7),
+    (1, 0), (1, 1), (2, 0), (2, 1), (3, 5), (4, 0), (4, 1), (8, 1),
+    (15, 123), (16, 0), (16, 1), (17, 4095), (32, 1), (33, 7), (256, 3),
+    (257, 1),
 ])
 @pytest.mark.parametrize("two", [False, True])
 @pytest.mark.parametrize("hi", [1, 3, 1 << 40])
-def test_sort_kernel_quads(cuda, tiles, extra, two, hi):
-    """B5 where the last quad holds one, two or three runs and a short
-    last run, at one and at several four-way passes: constant keys, three
+def test_sort_kernel_multiway(cuda, tiles, extra, two, hi):
+    """B5 where a pass of 2, 4, 8 or 16 runs has a short or missing last
+    run, at one and at several multiway passes: constant keys, three
     values with half sentinels, wide keys.  The kernel's count of passes
     over device memory equals the Python schedule's."""
-    tile = merge.SORT_TILES[2 if two else 1]
+    c = 2 if two else 1
+    tile = merge.SORT_TILES[c]
     n = tiles * tile + extra
     keys = _edge_keys(cuda, n, two, hi, tiles * 100 + extra + two)
     before = [c.clone() for c in merge.as_cols(keys)]
     got = merge.sort_mergepath(keys)
     torch.cuda.synchronize()
-    assert PASSES["sort"] == len(merge.mergepath_passes(n, tile))
+    assert PASSES["sort"] == len(
+        merge.mergepath_passes(n, tile, merge.SORT_WAYS[c]))
     want = merge.sort_cols_plain(merge.as_cols(keys))
     for g, w, p in zip(merge.as_cols(got), want,
                        merge.as_cols(merge.sort_mergepath_plain(keys)),
@@ -219,16 +222,17 @@ def test_sort_kernel_quads(cuda, tiles, extra, two, hi):
 @pytest.mark.parametrize("hi", [3, 1 << 40])
 def test_bitonic_sort_kernel_fused_passes(cuda, n, two, hi):
     """B6 just above one tile and at P / 2 + 1 and P - 1 rows, where the
-    fused cross passes are one and several a stage; against both plain
-    versions, with the kernel's pass count held to the schedule's."""
+    fused cross passes are one and several a stage and the chunks one and
+    several; against both plain versions, with the kernel's pass count held
+    to the schedule's."""
     keys = _edge_keys(cuda, n, two, hi, n + two)
     before = [c.clone() for c in merge.as_cols(keys)]
     got = bitonic.bitonic_sort(keys)
     torch.cuda.synchronize()
     tile = bitonic.TILES[2 if two else 1]
     rows = max(tile, 1 << (n - 1).bit_length())
-    assert PASSES["bitonic_sort"] == len(
-        bitonic.network_passes(rows, tile, bitonic.fuse_log(tile)))
+    assert PASSES["bitonic_sort"] == len(bitonic.network_passes(
+        rows, tile, bitonic.fuse_log(tile), bitonic.CHUNKS[2 if two else 1]))
     want = merge.sort_cols_plain(merge.as_cols(keys))
     plains = [bitonic.bitonic_sort_passes_plain(keys)]
     if n < (1 << 20):
@@ -967,25 +971,25 @@ def test_wide_necklace_kernel_matches_plain(cuda, W, n):
     assert torch.equal(neck, want_neck) and torch.equal(pos, want_pos)
 
 
-def _rows3(cuda, n, hi, seed):
-    """Three int64 columns of n rows below `hi`, 5 % sentinel rows."""
+def _rows3(cuda, n, hi, seed, n_cols=3):
+    """`n_cols` int64 columns of n rows below `hi`, 5 % sentinel rows."""
     rng = np.random.default_rng(seed)
-    cols = [rng.integers(0, hi, size=n) for _ in range(3)]
+    cols = [rng.integers(0, hi, size=n) for _ in range(n_cols)]
     sent = rng.random(n) < 0.05
     for c in cols:
         c[sent] = SENTINEL
     return tuple(torch.from_numpy(c).to(cuda) for c in cols)
 
 
-def _skewed_rows3(cuda, n, kind, seed):
-    """Three int64 columns of n rows: "dups" (every column below 2, 5 %
+def _skewed_rows3(cuda, n, kind, seed, n_cols=3):
+    """`n_cols` int64 columns of n rows: "dups" (every column below 2, 5 %
     sentinels), "wide" (below 2^40, 5 % sentinels), "equal" (every row
     the same), "sorted", "reverse" (sorted descending) or "small0"
     (column 0 below 2^20, as necklace words are)."""
     if kind == "equal":
         return tuple(torch.full((n,), 7, dtype=torch.int64, device=cuda)
-                     for _ in range(3))
-    x = _rows3(cuda, n, 2 if kind == "dups" else 1 << 40, seed)
+                     for _ in range(n_cols))
+    x = _rows3(cuda, n, 2 if kind == "dups" else 1 << 40, seed, n_cols)
     if kind == "small0":
         rng = np.random.default_rng(seed + 1)
         x = (torch.from_numpy(rng.integers(0, 1 << 20, size=n)).to(cuda),
@@ -1028,6 +1032,44 @@ def test_three_column_sorts_match_plain(cuda, n, kind):
         assert all(torch.equal(g, w) for g, w in zip(got, want, strict=True))
         if n > 1:
             assert PASSES[key] == len(planned)
+    assert all(torch.equal(c, b) for c, b in zip(x, before))
+
+
+@pytest.mark.parametrize("n_cols,n", [
+    (c, n) for c, tile, chunk in ((1, 8192, 1 << 21), (2, 4096, 1 << 20))
+    for n in (1, 2, tile - 1, tile, tile + 1, 2 * tile + 1, 16 * tile - 1,
+              16 * tile + 1, 32 * tile + 1, chunk - 1, chunk + 1,
+              chunk + tile, 2 * chunk + 3)])
+@pytest.mark.parametrize("kind", ["dups", "wide", "equal", "sorted",
+                                  "reverse", "small0"])
+def test_one_two_column_sorts_match_plain(cuda, n_cols, n, kind):
+    """B5 and B6 at one and two columns around their tiles (8192 and 4096
+    rows), B5's groups of 16 runs and B6's chunks (2^21 and 2^20 rows), on
+    random and skewed rows, against `torch.sort` (one stable pass a
+    column) and the plain versions, the input kept; each kernel's count of
+    passes through device memory equals its Python schedule's."""
+    assert merge.SORT_TILES[n_cols] == bitonic.TILES[n_cols]
+    x = _skewed_rows3(cuda, n, kind, n + len(kind) + n_cols, n_cols)
+    keys = x[0] if n_cols == 1 else x
+    before = [c.clone() for c in x]
+    want = merge.sort_cols_plain(x)
+    tile = bitonic.TILES[n_cols]
+    rows = max(tile, 1 << (n - 1).bit_length())
+    for fn, plain, key, planned in (
+            (merge.sort_mergepath, merge.sort_mergepath_plain, "sort",
+             merge.mergepath_passes(n, tile, merge.SORT_WAYS[n_cols])),
+            (bitonic.bitonic_sort, bitonic.bitonic_sort_passes_plain,
+             "bitonic_sort", bitonic.network_passes(
+                 rows, tile, bitonic.fuse_log(tile),
+                 bitonic.CHUNKS[n_cols]))):
+        got = merge.as_cols(fn(keys))
+        torch.cuda.synchronize()
+        assert all(torch.equal(g, w) for g, w in zip(got, want, strict=True))
+        if n > 1:
+            assert PASSES[key] == len(planned)
+        if n <= (1 << 20) + 1:
+            assert all(torch.equal(g, w) for g, w in zip(
+                merge.as_cols(plain(keys)), want, strict=True))
     assert all(torch.equal(c, b) for c, b in zip(x, before))
 
 

@@ -1,8 +1,9 @@
 """Parity of the port's merge-path sort (kernel B5's module) with `cbl_tpu`.
 
-`cbl_tpu_torch.ops.merge.sort_mergepath_plain` (two-way and four-way
-passes, `mergepath_passes`), the plain four-run partition
-`quad_split_plain` against numpy, the CPU dispatch of `sort_mergepath`
+`cbl_tpu_torch.ops.merge.sort_mergepath_plain` (two-way, four-way and
+16-way passes, `mergepath_passes`), the plain F-run partition
+`multiway_split_plain` and a block's merge `merge_multi_tile_plain` at
+one to three columns against numpy, the CPU dispatch of `sort_mergepath`
 and `ops.sort.sort_keys` under both sort modes, against
 `torch.sort`, a numpy lexsort and the Pallas kernel
 `cbl_tpu.ops.merge_pallas.sort_cols_mergepath` in interpret mode; and the
@@ -107,13 +108,19 @@ def test_plain_sort_matches_pallas(n_log, t_log, two, hi):
     (16 * 4096 + 1, 4096, 16, 3), (1 << 20, 4096, 16, 3),
     ((1 << 20) + 1, 4096, 16, 4), ((1 << 21) + 3, 4096, 16, 4),
     (1 << 20, 64, 16, 5),
+    # one and two columns: 16 runs a pass (4 passes at 2^25 keys, 7 with
+    # four-way passes)
+    (1 << 25, 8192, 16, 4), ((1 << 26) + (1 << 21), 8192, 16, 5),
+    ((1 << 22) + (1 << 21), 4096, 16, 4), (8193, 8192, 16, 2),
+    (16 * 8192, 8192, 16, 2), (16 * 8192 + 1, 8192, 16, 3),
+    (256 * 8192 + 1, 8192, 16, 4), ((1 << 22) + 1, 4096, 16, 4),
 ])
 def test_pass_list_length(n, tile, ways, want):
     """1 tile sort + one pass a level (two-way), or a pass for every
     log2(ways) levels after one pass of the rest when their number is no
     multiple of log2(ways) (four-way: 7 passes at 2^25 one-column keys,
-    where 2048-row tiles and two-way passes made 15; 16-way at three
-    columns: 5 at 2^25, where four-way passes made 8)."""
+    where 2048-row tiles and two-way passes made 15; 16-way: 4 there, 5
+    at three columns, where four-way passes made 8)."""
     passes = merge.mergepath_passes(n, tile, ways)
     levels = (-(-n // tile) - 1).bit_length()
     per = ways.bit_length() - 1
@@ -126,55 +133,9 @@ def test_pass_list_length(n, tile, ways, want):
         assert fan == (first if i == 0 else ways)
         run *= fan
     assert run >= n and (len(passes) == 1 or run // passes[-1][2] < n)
-    with pytest.raises(ValueError, match="ways"):
-        merge.mergepath_passes(n, tile, 3)
-
-
-def _sorted_runs(rng, lens, hi, two):
-    runs = []
-    for n in lens:
-        cols = [torch.from_numpy(rng.integers(0, hi, size=n))
-                for _ in range(2 if two else 1)]
-        cols = merge.sort_cols_plain(tuple(cols))
-        runs.append(cols if two else cols[0])
-    return runs
-
-
-@pytest.mark.parametrize("hi", [1, 3, 1000], ids=["constant", "3-valued",
-                                                 "random"])
-@pytest.mark.parametrize("lens", [
-    (40,), (40, 40), (40, 40, 40), (40, 40, 40, 40), (40, 40, 40, 7),
-    (40, 13), (40, 40, 1), (0, 40, 0, 40), (5, 0, 0, 0),
-])
-@pytest.mark.parametrize("two", [False, True], ids=["one-col", "two-col"])
-def test_quad_split_matches_numpy(hi, lens, two):
-    """The nested co-rank at every diagonal of one to four runs (a short
-    or empty last run too) against a stable numpy sort of the runs laid
-    end to end: ties go A before B before C before D.  A tile merged
-    from two such splits is that stretch of the sorted quad."""
-    rng = np.random.default_rng(hi + sum(lens) + two)
-    runs = _sorted_runs(rng, lens, hi, two)
-    cols = [np.concatenate([_as_numpy(r)[c] for r in runs])
-            for c in range(2 if two else 1)]
-    src = np.concatenate([np.full(n, i) for i, n in enumerate(lens)])
-    order = np.lexsort((src,) + tuple(cols[::-1]))  # stable in run order
-    n = len(src)
-    for d in range(n + 1):
-        want = np.bincount(src[order[:d]], minlength=4)[:4]
-        assert merge.quad_split_plain(runs, d) == tuple(want), d
-    if not two:
-        # every run gives all of its rows below the d-th key and none above
-        flat = np.sort(cols[0])
-        for d in {1, max(n // 3, 1), n}:
-            for r, got in zip(runs, merge.quad_split_plain(runs, d)):
-                r = _as_numpy(r)[0]
-                assert (np.searchsorted(r, flat[d - 1], "left") <= got
-                        <= np.searchsorted(r, flat[d - 1], "right"))
-    tiles = [merge.merge_quad_tile_plain(runs, d0, min(d0 + 16, n))
-             for d0 in range(0, n, 16)]
-    got = [np.concatenate([_as_numpy(t)[c] for t in tiles])
-           for c in range(len(cols))]
-    _assert_cols_equal(got, [c[order] for c in cols])
+    for bad in (3, 8, 32):
+        with pytest.raises(ValueError, match="ways"):
+            merge.mergepath_passes(n, tile, bad)
 
 
 @pytest.mark.parametrize("n", [2, 1000, 5 * 64 + 23, 6 * 64 + 23,
@@ -198,22 +159,34 @@ def test_four_way_passes_equal_two_way(n, tile, two):
 
 def test_default_tiles_follow_the_sources():
     """`SORT_TILES`, `SORT_WAYS` and `MERGE_TILE` are the constants of the
-    sources; the runs a tile sort leaves are whole merge tiles; three
-    columns sort 2^25 rows in 5 passes (8 before the multiway passes)."""
+    sources; the runs a tile sort leaves are whole merge tiles; every
+    number of columns goes through the multiway passes: 2^25 keys of one
+    column in 4 passes (7 with four-way passes), 2^26 + 2^21 in 5 (8),
+    2^22 + 2^21 two-column rows in 4 (7), 2^25 three-column rows in 5
+    (8)."""
     src = merge._build.SRC_DIR
     sort_cu = (src / "sort.cu").read_text()
     assert "kSortRows = C == 1 ? 1 << 13 : 1 << 12;" in sort_cu
-    assert "return cbl::sort_keys_multiway<3>(" in sort_cu
-    assert "const int step = left % 4 ? left % 4 : 4;" in sort_cu
+    for c in (1, 2, 3):
+        assert f"return cbl::sort_keys<{c}>(" in sort_cu
+    assert "constexpr int kWaysLog = 4;" in sort_cu
+    assert "const int step = left % W ? left % W : W;" in sort_cu
+    assert "quad" not in sort_cu
     assert "kTile = kThreads * kItems;  // 2048" in (
         src / "merge_path.cuh").read_text()
-    assert "constexpr int kMaxFan = 16;" in (src / "multiway.cuh").read_text()
+    multiway = (src / "multiway.cuh").read_text()
+    assert "constexpr int kMaxFan = 16;" in multiway
+    assert "constexpr int kMultiRows = C == 1 ? 2 * kTile : kTile;" in multiway
     assert merge.SORT_TILES == {1: 1 << 13, 2: 1 << 12, 3: 1 << 12}
-    assert merge.SORT_WAYS == {1: 4, 2: 4, 3: 16}
+    assert merge.SORT_WAYS == {1: 16, 2: 16, 3: 16}
     assert all(t % merge.MERGE_TILE == 0 for t in merge.SORT_TILES.values())
-    assert len(merge.mergepath_passes(1 << 25, merge.SORT_TILES[1])) == 7
-    assert len(merge.mergepath_passes(1 << 25, merge.SORT_TILES[3],
-                                      merge.SORT_WAYS[3])) == 5
+    for n, c, want, four_way in (
+            (1 << 25, 1, 4, 7), ((1 << 26) + (1 << 21), 1, 5, 8),
+            ((1 << 22) + (1 << 21), 2, 4, 7), (1 << 25, 3, 5, 8)):
+        tile = merge.SORT_TILES[c]
+        assert len(merge.mergepath_passes(n, tile, merge.SORT_WAYS[c])) == \
+            want
+        assert len(merge.mergepath_passes(n, tile, 4)) == four_way
 
 
 def test_plain_sort_equal_prefix_runs():
@@ -274,7 +247,8 @@ def test_sort_mode_selection(monkeypatch):
 def test_mergepath_mode_walks_the_passes(monkeypatch):
     """On the CPU the mergepath mode runs B5's plain version, never a
     whole-array `torch.sort`: 20_000 rows are 3 tiles of 8192, so a tile
-    sort and one four-way pass (a sort of the pairs, then of the quad)."""
+    sort and one pass that merges four runs (a sort of the pairs, then of
+    the four)."""
     calls, sorted_shapes = [], []
     real = merge.sort_mergepath_plain
     monkeypatch.setattr(merge, "sort_mergepath_plain",
@@ -292,7 +266,7 @@ def test_mergepath_mode_walks_the_passes(monkeypatch):
     with sort.use_sort_mode("mergepath"):
         merged = sort.merge_with_unsorted(got, x)
     assert len(calls) == 2
-    assert merge.mergepath_passes(20_000, 8192) == [
+    assert merge.mergepath_passes(20_000, 8192, merge.SORT_WAYS[1]) == [
         ("tile_sort", 8192), ("merge", 8192, 4)]
     assert torch.equal(got, torch.sort(x).values)
     assert torch.equal(merged, torch.sort(torch.cat([x, x])).values)
@@ -380,69 +354,92 @@ def _three_keys(cols):
     return tuple(torch.from_numpy(c) for c in out)
 
 
-def _jax_sorted_three(cols, t_log):
+# lengths one below, at and above the scaled-down tile (64), the first
+# pass's doubled runs (128), a 16-run group (1024) and two groups
+_THREE_LENGTHS = [63, 64, 65, 127, 128, 129, 1023, 1024, 1025, 2049]
+
+
+def _padded_pallas_sorted(cols, n, t_log):
     """`sort_cols_mergepath` of the limb rows in interpret mode, padded
     with all-ones rows to a power of two of at least 1024 (they sort
-    last and are cut)."""
-    n = len(cols[0])
+    last and are cut); -> the sorted limb columns, n rows."""
     rows = max(1024, 1 << max(n - 1, 1).bit_length())
     padded = [np.concatenate([c, np.full(rows - n, 0xFFFFFFFF, np.uint32)])
               for c in cols]
     got = merge_pallas.sort_cols_mergepath(
         tuple(jnp.asarray(c) for c in padded), t_log=min(t_log, 10),
         interpret=True)
-    return _as_numpy(_three_keys([np.asarray(c)[:n] for c in got]))
+    return [np.asarray(c)[:n] for c in got]
 
 
-# lengths one below, at and above the scaled-down tile (64), the first
-# pass's doubled runs (128), a 16-run group (1024) and two groups
-_THREE_LENGTHS = [63, 64, 65, 127, 128, 129, 1023, 1024, 1025, 2049]
-
-
-@pytest.mark.parametrize("n", _THREE_LENGTHS)
+@pytest.mark.parametrize("n_cols,n", [
+    pytest.param(3, n, id=str(n)) for n in _THREE_LENGTHS] + [
+    pytest.param(c, n, id=f"{n}-{c}col") for c in (1, 2)
+    for n in _THREE_LENGTHS])
 @pytest.mark.parametrize("hi", [2, 1 << 24], ids=["dups", "wide"])
-def test_plain_sort_matches_pallas_three_columns(n, hi):
-    """B5 at three columns: the plain multiway schedule at a tile of 64
-    rows and 16 runs a pass against numpy's lexsort, `torch.sort` in three
-    stable passes and `cbl_tpu`'s Pallas merge sort in interpret mode on
-    the same limb rows; duplicate-heavy columns, 5 % sentinels and a
-    sentinel tail of 10 rows."""
-    cols = _three_limb_cols(n, n * 3 + hi % 7, hi, 0.05, 10)
-    keys = _three_keys(cols)
+def test_plain_sort_matches_pallas_three_columns(n_cols, n, hi):
+    """B5 at one, two and three columns: the plain multiway schedule at a
+    tile of 64 rows and 16 runs a pass against numpy's lexsort,
+    `torch.sort` (in one stable pass a column) and `cbl_tpu`'s Pallas
+    merge sort in interpret mode on the same limb rows; duplicate-heavy
+    columns, 5 % sentinels and a sentinel tail of 10 rows."""
+    seed = n * 3 + hi % 7 + 100 * (3 - n_cols)
+    if n_cols == 3:
+        cols = _three_limb_cols(n, seed, hi, 0.05, 10)
+        keys = _three_keys(cols)
+    else:
+        cols = _three_limb_cols(n, seed, hi, 0.05, 10)[:n_cols + 1]
+        keys = _port_keys(cols, n_cols == 2)
     want = _lexsorted(keys)
     got = merge.sort_mergepath_plain(keys, tile=64, ways=16)
     _assert_cols_equal(got, want)
-    _assert_cols_equal(merge.sort_cols_plain(keys), want)
+    _assert_cols_equal(merge.sort_cols_plain(merge.as_cols(keys)), want)
     _assert_cols_equal(merge.sort_mergepath(keys), want)  # the CPU dispatch
+    if n_cols == 1:
+        assert torch.equal(got, torch.sort(keys).values)
     if n in (65, 1024, 2049):
-        _assert_cols_equal(got, _jax_sorted_three(cols, 10))
+        limbs = _padded_pallas_sorted(cols, n, 10)
+        _assert_cols_equal(got, _as_numpy(
+            _three_keys(limbs) if n_cols == 3
+            else _port_keys(limbs, n_cols == 2)))
     assert (want[0][-10:] == SENTINEL).all()
 
 
-def _tagged_runs(rng, lens, hi):
-    """Sorted three-column runs and the stable oracle of their merge: the
-    rows laid end to end with their run and their index."""
+def _tagged_runs(rng, lens, hi, n_cols=3):
+    """Sorted runs of `n_cols` columns (column 0 below `hi`, the others
+    below 3 and 2) and the stable oracle of their merge: the rows laid end
+    to end with their run and their index."""
+    highs = (hi, 3, 2)[:n_cols]
     runs = [merge.sort_cols_plain(tuple(
-        torch.from_numpy(rng.integers(0, h, size=n))
-        for h in (hi, 3, 2))) for n in lens]
-    cols = [np.concatenate([r[c].numpy() for r in runs]) for c in range(3)]
+        torch.from_numpy(rng.integers(0, h, size=n)) for h in highs))
+        for n in lens]
+    cols = [np.concatenate([r[c].numpy() for r in runs])
+            for c in range(n_cols)]
     src = np.concatenate([np.full(n, i) for i, n in enumerate(lens)])
     idx = np.concatenate([np.arange(n) for n in lens])
-    order = np.lexsort((idx, src, cols[2], cols[1], cols[0]))
+    order = np.lexsort((idx, src) + tuple(cols[::-1]))
     return runs, cols, src, order
 
 
-@pytest.mark.parametrize("fan", [2, 4, 8, 16])
+# (fan, columns): 16 runs a pass at one to three columns, and the fans of
+# a first pass; four runs at one and two columns stand where the four-run
+# partition of the earlier four-way pass was tested
+_FANS = [pytest.param(f, 3, id=str(f)) for f in (2, 4, 8, 16)] + [
+    pytest.param(f, c, id=f"{f}-{c}col")
+    for f, c in ((4, 1), (4, 2), (16, 1), (16, 2), (2, 1), (8, 2))]
+
+
+@pytest.mark.parametrize("fan,n_cols", _FANS)
 @pytest.mark.parametrize("hi", [1, 3, 1000], ids=["constant", "3-valued",
                                                  "random"])
 @pytest.mark.parametrize("shape", ["full", "short-last", "gaps"])
-def test_multiway_split_matches_numpy(fan, hi, shape):
+def test_multiway_split_matches_numpy(fan, n_cols, hi, shape):
     """The F-run split (csrc/multiway.cuh `multiway_split`'s walk, in
-    plain Python) at every diagonal of 2 to 16 runs of up to 16 rows
-    against a stable numpy sort with run tags: ties go by run, then by
-    row.  Runs are full, the last one short, or of random lengths with
-    empty ones among them."""
-    rng = np.random.default_rng(fan * 100 + hi + len(shape))
+    plain Python) at every diagonal of 2 to 16 runs of up to 16 rows of
+    one to three columns against a stable numpy sort with run tags: ties
+    go by run, then by row.  Runs are full, the last one short, or of
+    random lengths with empty ones among them."""
+    rng = np.random.default_rng(fan * 100 + hi + len(shape) + 7 * (3 - n_cols))
     run = 16
     lens = {"full": [run] * fan,
             "short-last": [run] * (fan - 1) + [5],
@@ -450,7 +447,7 @@ def test_multiway_split_matches_numpy(fan, hi, shape):
     lens = lens[shape]
     if shape == "gaps":
         lens[0] = 0
-    runs, _, src, order = _tagged_runs(rng, lens, hi)
+    runs, _, src, order = _tagged_runs(rng, lens, hi, n_cols)
     for d in range(sum(lens) + 1):
         want = np.bincount(src[order[:d]], minlength=fan)[:fan]
         got = merge.multiway_split_plain(runs, d, run)
@@ -461,33 +458,47 @@ def test_multiway_split_matches_numpy(fan, hi, shape):
             merge.multiway_split_plain(runs, d, run)
 
 
-@pytest.mark.parametrize("fan,lens", [
-    (16, [16] * 15 + [9]), (8, [16, 0, 16, 3, 16, 16, 0, 1]), (2, [16, 16]),
+@pytest.mark.parametrize("fan,lens,n_cols", [
+    pytest.param(16, [16] * 15 + [9], 3, id="16-lens0"),
+    pytest.param(8, [16, 0, 16, 3, 16, 16, 0, 1], 3, id="8-lens1"),
+    pytest.param(2, [16, 16], 3, id="2-lens2"),
+    pytest.param(16, [16] * 15 + [9], 1, id="16-lens0-1col"),
+    pytest.param(4, [16, 16, 16, 7], 1, id="4-short-last-1col"),
+    pytest.param(4, [16, 13, 0, 0], 2, id="4-two-runs-2col"),
+    pytest.param(4, [0, 16, 0, 16], 2, id="4-gaps-2col"),
+    pytest.param(8, [16, 0, 16, 3, 16, 16, 0, 1], 2, id="8-lens1-2col"),
 ])
-def test_multiway_tiles_make_the_merge(fan, lens):
+def test_multiway_tiles_make_the_merge(fan, lens, n_cols):
     """Tiles of 8 outputs merged as `merge_multi` merges them (the
     segments between two splits, pairwise level by level) lay end to end
     into the stable sort of the runs, duplicates across tile edges and
-    runs too."""
-    rng = np.random.default_rng(fan + len(lens))
-    runs, cols, _, order = _tagged_runs(rng, lens, 4)
+    runs too, at one to three columns."""
+    rng = np.random.default_rng(fan + len(lens) + 11 * (3 - n_cols))
+    runs, cols, _, order = _tagged_runs(rng, lens, 4, n_cols)
     n = sum(lens)
     tiles = [merge.merge_multi_tile_plain(runs, d0, min(d0 + 8, n), 16)
              for d0 in range(0, n, 8)]
-    got = [np.concatenate([t[c].numpy() for t in tiles]) for c in range(3)]
+    got = [np.concatenate([t[c].numpy() for t in tiles])
+           for c in range(n_cols)]
     _assert_cols_equal(got, [c[order] for c in cols])
 
 
-@pytest.mark.parametrize("kind", ["equal", "sorted", "reverse", "small0"])
-def test_three_column_schedule_on_skewed_rows(kind):
+@pytest.mark.parametrize("n_cols,kind", [
+    pytest.param(3, k, id=k) for k in ("equal", "sorted", "reverse",
+                                       "small0")] + [
+    pytest.param(c, k, id=f"{k}-{c}col") for c in (1, 2)
+    for k in ("equal", "sorted", "reverse", "few")])
+def test_three_column_schedule_on_skewed_rows(n_cols, kind):
     """The plain multiway schedule (tile 64, 16 runs a pass) on every row
-    equal, sorted, reverse-sorted and column 0 below 2^20 (as necklace
-    words are), 2049 rows, against numpy's lexsort."""
-    rng = np.random.default_rng(len(kind))
+    equal, sorted, reverse-sorted, every column below 3 and column 0 below
+    2^20 (as necklace words are), 2049 rows at one to three columns,
+    against numpy's lexsort and the CPU dispatch."""
+    rng = np.random.default_rng(len(kind) + 10 * (3 - n_cols))
     n = 2049
-    cols = [rng.integers(0, 1 << 40, size=n) for _ in range(3)]
+    cols = [rng.integers(0, 3 if kind == "few" else 1 << 40, size=n)
+            for _ in range(n_cols)]
     if kind == "equal":
-        cols = [np.full(n, 7) for _ in range(3)]
+        cols = [np.full(n, 7) for _ in range(n_cols)]
     elif kind == "small0":
         cols[0] = rng.integers(0, 1 << 20, size=n)
     keys = tuple(torch.from_numpy(c) for c in cols)
@@ -495,5 +506,9 @@ def test_three_column_schedule_on_skewed_rows(kind):
         keys = merge.sort_cols_plain(keys)
         if kind == "reverse":
             keys = tuple(c.flip(0).contiguous() for c in keys)
+    want = _lexsorted(keys)
     _assert_cols_equal(merge.sort_mergepath_plain(keys, tile=64, ways=16),
-                       _lexsorted(keys))
+                       want)
+    _assert_cols_equal(merge.sort_mergepath_plain(keys, tile=64, ways=4),
+                       want)
+    _assert_cols_equal(merge.sort_mergepath(keys), want)

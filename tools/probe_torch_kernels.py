@@ -2,7 +2,7 @@
 """Compare the scan, merge and sort kernels (B2, B3, B4, B5, B6, B7) of
 several versions of `cbl_tpu_torch` on one CUDA card, in one run.
 
-    python3 tools/probe_torch_kernels.py [--scans | --merges | --wide] PATH [PATH ...]
+    python3 tools/probe_torch_kernels.py [--scans | --sorts | --merges | --wide] PATH [PATH ...]
 
 Each PATH is a directory that holds a `cbl_tpu_torch/` package (`.` for
 this checkout, or a copy of another commit's package unpacked under a
@@ -20,15 +20,20 @@ version it prints
 - B3's time for 2^25 + 2^25, 2^24 + 2^24 and 2^25 + 2^22 one-column keys
   (CUDA events, three means of 20 launches);
 - where the version has B5, and where it has B6: the time of one sort
-  (CUDA events, mean of 5) and the device time by kernel name
-  (`torch.profiler`, mean of 5) for 2^25 and 2^24 one-column keys, a
-  fold's 2^26 + 2^21 keys with 75 % sentinels and 2^22 + 2^21 two-column
-  rows, and `torch.sort`'s time for the same inputs; where it has B7:
-  the same for one merge of 2^24 + 2^24 one-column keys;
+  (CUDA events, three means of 5), the passes through device memory it
+  launched, whether it equals `torch.sort`, and the device time by kernel
+  name (`torch.profiler`, mean of 5) for 2^25 and 2^24 one-column keys, a
+  fold's 2^26 + 2^21 keys with 75 % sentinels, 2^22 + 2^21 two-column
+  rows and the sort-join's 2^25 two-column (word, position) rows
+  (`chip_smoke.join_rows`), and `torch.sort`'s time for the same inputs
+  (one stable pass a column); where it has B7: the same for one merge of
+  2^24 + 2^24 one-column keys;
 - registers of, and the count of load, store and barrier operations in
   the machine code of, the merge and sort kernels (`nvcc`'s log and
   `cuobjdump -sass`).
-With `--scans` it runs only the B2 and B4 cases and their kernels' lines.
+With `--scans` it runs only the B2 and B4 cases and their kernels' lines;
+with `--sorts` only the one- and two-column sorts (B5, B6, `torch.sort`)
+and the sort kernels' lines.
 With `--merges` it runs only the merges of two sorted runs: B3 and B7 on
 2^24 + 2^24 and 2^25 + 2^24 one-column keys, on a fold's 2^26 + 2^21
 (word, seqtag) rows (three quarters of the index a sentinel tail) and on
@@ -62,7 +67,7 @@ SCAN_NAMES = ("::apply(", "tile_sums(", "slog_tile_max(", "slog_scan_tiles(",
               "slog_count(", "_lookback(")
 SORT_KERNELS = ("merge_tiles", "merge_quads", "partition", "tile_sort",
                 "cross_pass", "cross_fused", "intile_pass", "first_pass",
-                "merge_multi", "keyed_cross", "keyed_intile")
+                "merge_multi", "keyed_cross", "keyed_intile")  # old and new
 MERGE_KERNELS = ("merge_tiles", "partition", "cross_fused", "intile_pass",
                  "first_pass", "merge_small", "merge_tile", "tile_coranks")
 
@@ -99,6 +104,10 @@ def probe(path: str, only: str | None) -> None:
         return
     if only == "--wide":
         probe_wide(path, device_us)
+        print_kernels(path, SORT_KERNELS)
+        return
+    if only == "--sorts":
+        probe_sorts(path, rng, device_us)
         print_kernels(path, SORT_KERNELS)
         return
 
@@ -161,36 +170,66 @@ def probe(path: str, only: str | None) -> None:
         ms = [round(time_ms(lambda: merge.merge_sorted(a, b), 20), 4)
               for _ in range(3)]
         print(f"{path}: B3 {na} + {nb} ms: {ms}")
+    probe_sorts(path, rng, device_us)
+    print_kernels(path, SCAN_KERNELS + SORT_KERNELS)
+
+
+def probe_sorts(path: str, rng, device_us) -> None:
+    """B5 and B6 at one and two columns beside `torch.sort`, and B7 on
+    2^24 + 2^24 keys, where the version has them."""
+    import numpy as np
+    import torch
+
+    from chip_smoke import join_rows, time_ms
+
+    from cbl_tpu_torch.ops import _build, merge
+
+    dev = torch.device("cuda")
+
+    def keys(n, hi=1 << 57):
+        return torch.from_numpy(rng.integers(0, hi, size=n)).to(dev)
+
     n = (1 << 22) + (1 << 21)
     fold = keys((1 << 26) + (1 << 21))
     fold[torch.from_numpy(rng.random(fold.shape[0]) < 0.75).to(dev)] = (
         (1 << 63) - 1)
+    _, q = join_rows(np.random.default_rng(7), 1 << 25, 1 << 56)
     sort_inputs = (("one column 2^25", (keys(1 << 25),)),
                    ("one column 2^24", (keys(1 << 24),)),
                    ("one column 2^26 + 2^21, 75 % sentinels", (fold,)),
                    ("two columns 2^22 + 2^21",
-                    ((keys(n, 1 << 56), keys(n, 1 << 32)),)))
+                    ((keys(n, 1 << 56), keys(n, 1 << 32)),)),
+                   ("two columns 2^25, the sort-join's queries", (q,)))
     for label, (x,) in sort_inputs:
-        ms = time_ms(lambda: merge.sort_cols_plain(merge.as_cols(x)), 5)
-        print(f"{path}: torch.sort {label}: {ms:.4f} ms")
+        ms = [round(time_ms(lambda: merge.sort_cols_plain(merge.as_cols(x)),
+                            5), 4) for _ in range(2)]
+        print(f"{path}: torch.sort {label}: {ms} ms")
     half = torch.sort(keys(1 << 24)).values
-    cases = []  # (kernel, function, ((label, arguments), ...))
+    cases = []  # (kernel, function, passes key, ((label, arguments), ...))
     if hasattr(merge, "sort_mergepath"):
-        cases.append(("B5", merge.sort_mergepath, sort_inputs))
+        cases.append(("B5", merge.sort_mergepath, "sort", sort_inputs))
     try:
         from cbl_tpu_torch.ops import bitonic
     except ImportError:  # a version from before B6 and B7
         pass
     else:
-        cases.append(("B6", bitonic.bitonic_sort, sort_inputs))
-        cases.append(("B7", bitonic.bitonic_merge,
+        cases.append(("B6", bitonic.bitonic_sort, "bitonic_sort",
+                      sort_inputs))
+        cases.append(("B7", bitonic.bitonic_merge, "bitonic_merge",
                       (("2^24 + 2^24", (half, half + 1)),)))
-    for kernel, fn, inputs in cases:
+    for kernel, fn, key, inputs in cases:
         for label, args in inputs:
-            ms = time_ms(lambda: fn(*args), 5)
-            print(f"{path}: {kernel} {label}: {ms:.4f} ms")
+            got = merge.as_cols(fn(*args))
+            want = merge.as_cols(merge.sort_cols_plain(merge.as_cols(
+                torch.cat(args) if kernel == "B7" else args[0])))
+            same = all(torch.equal(a, b)
+                       for a, b in zip(got, want, strict=True))
+            passes = _build.PASSES.get(key)
+            del got, want
+            ms = [round(time_ms(lambda: fn(*args), 5), 4) for _ in range(3)]
+            print(f"{path}: {kernel} {label}: {ms} ms, {passes} passes "
+                  f"through device memory, == torch.sort: {same}")
             device_us(lambda: fn(*args), f"{kernel} {label}")
-    print_kernels(path, SCAN_KERNELS + SORT_KERNELS)
 
 
 def probe_merges(path: str, rng, device_us) -> None:
@@ -316,8 +355,8 @@ def main() -> int:
     if args[:1] == ["--one"]:
         probe(args[-1], only=args[1] if len(args) == 3 else None)
         return 0
-    only = (args[:1] if args[:1] in (["--scans"], ["--merges"], ["--wide"])
-            else [])
+    only = (args[:1] if args[:1] in (["--scans"], ["--sorts"], ["--merges"],
+                                     ["--wide"]) else [])
     paths = args[len(only):]
     if not paths:
         print(__doc__, file=sys.stderr)
