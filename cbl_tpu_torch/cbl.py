@@ -66,6 +66,7 @@ from .config import CBLConfig, get_config
 from .limbs import SENTINEL, cols, ints_to_keys, kmer_cols, stack, to_py_ints
 from .ops.scan import blank_mask, slog_counts, slog_is_packed
 from .ops.sort import merge_sorted_pair
+from .profiling import count, span, spanned, sync
 from . import wordset as wordset_mod
 from .wordset import (
     _SLOG_SEQ_MAX,
@@ -126,6 +127,7 @@ def _kmer_words(stream, n: int, cfg: CBLConfig, canonical: bool):
     return necklace.pack_word(best, pos, cfg)
 
 
+@spanned("words")
 def _device_words(stream, starts, ends, nk_pad: int, cfg: CBLConfig,
                   canonical: bool):
     """Packed stream -> ([nk_pad] (or [2, nk_pad]) int64 words, blanked
@@ -135,6 +137,7 @@ def _device_words(stream, starts, ends, nk_pad: int, cfg: CBLConfig,
     return torch.where(mask.bool(), SENTINEL, words), n_valid
 
 
+@spanned("words")
 def _pipeline_words(stream, validbits, chunk: int, cfg: CBLConfig,
                     canonical: bool):
     """One chunk of the sequence pipeline (`cbl_tpu.cbl._pipeline_fn`):
@@ -163,7 +166,9 @@ def _fused_build(stream, starts, ends, nk_pad, cfg, canonical):
     words, n_valid = _device_words(stream, starts, ends, nk_pad, cfg,
                                    canonical)
     s = sort_rows(words)
-    return s, _distinct_count(s), n_valid
+    with span("index"):
+        n_dev = _distinct_count(s)
+    return s, n_dev, n_valid
 
 
 def _fused_words_sorted(stream, starts, ends, nk_pad, cfg, canonical):
@@ -178,6 +183,7 @@ def _merge_slog(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return stack(merge_sorted_pair(cols(a), cols(b)))
 
 
+@spanned("join")
 def _fused_round_slog(a: torch.Tensor, seq: int, w_i, w_q, w_r,
                       out_cap: int):
     """One interleaved round over the sorted log (`cbl_tpu.cbl.
@@ -259,6 +265,7 @@ class CBL:
     the pending log) as in `cbl_tpu.CBL`.
     """
 
+    @spanned("cbl.__init__")
     def __init__(self, k: int = 25, prefix_bits: int = 24,
                  canonical: bool = False, device="cuda",
                  chunk_size: int = DEFAULT_CHUNK,
@@ -291,6 +298,7 @@ class CBL:
     def count(self) -> int:
         return self.wordset.count()
 
+    @spanned("cbl.count_device")
     def count_device(self):
         """`count` as an unsynced device 0-d tensor."""
         return self.wordset.count_device()
@@ -486,6 +494,7 @@ class CBL:
                 + (False,))
         return cached
 
+    @spanned("cbl.insert_codes_stream")
     def insert_codes_stream(self, codes, offsets: np.ndarray | None = None):
         """Insert every k-mer of a record stream (codes and offsets, or a
         PackedStream).  Pending work is folded first.  A slab that meets
@@ -513,6 +522,7 @@ class CBL:
             else:
                 ws._merge_into(words, n_new_upper=n_here, batch_sorted=True)
 
+    @spanned("cbl.remove_codes_stream")
     def remove_codes_stream(self, codes, offsets: np.ndarray | None = None):
         """Remove every k-mer of a record stream: one batch for the word
         set's log (`DeviceWordSet.remove_words`)."""
@@ -522,6 +532,7 @@ class CBL:
             self.wordset.remove_words(batches[0] if len(batches) == 1
                                       else torch.cat(batches, dim=-1))
 
+    @spanned("cbl.query_codes_stream")
     def query_codes_stream(self, codes, offsets: np.ndarray | None = None,
                            lazy: bool = False):
         """(total k-mers, k-mers present) over a record stream (codes and
@@ -550,7 +561,8 @@ class CBL:
             return (zero, zero) if lazy else (0, 0)
         if lazy:
             return total, positive
-        t, p = torch.stack([total.to(torch.int64), positive]).tolist()
+        with sync("query_codes_stream"):
+            t, p = torch.stack([total.to(torch.int64), positive]).tolist()
         return t, p
 
     def flush(self) -> None:
@@ -558,6 +570,7 @@ class CBL:
         index."""
         self.wordset.flush()
 
+    @spanned("cbl.dynamic_round")
     def dynamic_round(self, ins, qry, rm, lazy: bool = False):
         """One interleaved round: insert every k-mer of `ins`, count-query
         `qry` (it sees the inserts, not yet the removes), remove every
@@ -573,6 +586,7 @@ class CBL:
         was enqueued.  Any other streams take the separate insert, query
         and remove calls."""
         ws = self.wordset
+        count("rounds")
         streams = [self._resolve_round_stream(x) for x in (ins, qry, rm)]
         if any(len(ps.slabs) != 1 for ps in streams):
             self.insert_codes_stream(streams[0])
@@ -586,7 +600,8 @@ class CBL:
         if ws.n_pending > 0:
             ws.flush()
         if ws._slog_capped and ws._slog_seq >= _SLOG_SEQ_MAX:
-            ws._fold_slog()  # `cbl_tpu`'s 8-bit tag caps the seq at 62
+            # `cbl_tpu`'s 8-bit tag caps the seq at 62
+            ws._fold_slog("seq_cap")
         ws.maybe_autofold_slog()
         if ws._slog is None:
             ws._compact()  # the index's keys enter the log as a sorted run
@@ -610,9 +625,11 @@ class CBL:
         ws._slog_real = new_real
         ws._slog_count_dev = live_n  # free by-product of the round's scan
         ws._n_upper = min(ws._n_upper + nk_i, out_cap)
+        count("slog_rows", new_real)
         if lazy:
             return total, positive
-        t, p = torch.stack([total.to(torch.int64), positive]).tolist()
+        with sync("dynamic_round"):
+            t, p = torch.stack([total.to(torch.int64), positive]).tolist()
         return t, p
 
     def _sorted_slab_words(self, ps: PackedStream):
@@ -718,7 +735,8 @@ class CBL:
                 for words, n in self._stream_words(
                     codes, self._stream_valid(codes, offsets))
             ]
-        return torch.cat(masks).cpu().numpy()
+        with sync("contains"):
+            return torch.cat(masks).cpu().numpy()
 
     def contains_all(self, seq) -> bool:
         """True when every k-mer of `seq` is present (a counting query,
@@ -747,7 +765,9 @@ class CBL:
     def contains_kmers(self, kmers_int) -> np.ndarray:
         """[N] bool numpy mask, in the order given; never folds a log."""
         words = self._word_rows_of_kmers(kmers_int)
-        return self.wordset.contains_words(words).cpu().numpy()
+        found = self.wordset.contains_words(words)
+        with sync("contains"):
+            return found.cpu().numpy()
 
     def insert_kmers(self, kmers_int) -> None:
         self.wordset.insert_words(self._word_rows_of_kmers(kmers_int))
@@ -764,16 +784,22 @@ class CBL:
     def insert(self, kmer_int: int) -> bool:
         """True when the k-mer was absent."""
         words = self._word_rows_of_kmers([kmer_int])
-        absent = not bool(self.wordset.contains_words(words)[0])
+        absent = not self._found(words)
         self.wordset.insert_words(words)
         return absent
 
     def remove(self, kmer_int: int) -> bool:
         """True when the k-mer was present."""
         words = self._word_rows_of_kmers([kmer_int])
-        present = bool(self.wordset.contains_words(words)[0])
+        present = self._found(words)
         self.wordset.remove_words(words)
         return present
+
+    def _found(self, words) -> bool:
+        """Whether the one word of `words` is in the set (one sync)."""
+        found = self.wordset.contains_words(words)
+        with sync("contains"):
+            return bool(found[0])
 
     # --- set algebra ---
 
@@ -845,6 +871,7 @@ class CBL:
 
     # --- export ---
 
+    @spanned("cbl.kmers_limbs")
     def kmers_limbs(self) -> np.ndarray:
         """[n, L] uint32 k-mer limb rows in ascending word order, decoded
         on the device (`necklace.word_to_kmer`) and copied once."""

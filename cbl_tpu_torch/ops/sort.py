@@ -33,6 +33,7 @@ import os
 
 import torch
 
+from ..profiling import spanned
 from .bitonic import bitonic_merge, bitonic_sort
 from .merge import (
     _like,
@@ -101,6 +102,7 @@ def use_merge_combine() -> bool:
     return merge_mode() != "sort"
 
 
+@spanned("sort")
 def sort_keys(keys):
     """Sort keys ascending (one to three columns, lexicographic)."""
     mode = sort_mode()

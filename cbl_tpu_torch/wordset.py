@@ -88,6 +88,7 @@ from .ops.sort import (
     sort_keys,
     use_merge_combine,
 )
+from .profiling import count, spanned, sync
 
 MIN_CAP = 4096
 DEFAULT_PENDING_CAP = 1 << 21
@@ -121,7 +122,9 @@ def host_limbs(keys: torch.Tensor, L: int) -> np.ndarray:
     """[N] (or [2, N]) int64 keys of valid words -> [N, L] uint32 limb
     rows on the host, laid out on the keys' device (`limbs.keys_to_limbs`) and
     copied once into pageable memory."""
-    return keys_to_limbs(keys, L).cpu().numpy().view(np.uint32)
+    limbs = keys_to_limbs(keys, L)
+    with sync("host_limbs"):
+        return limbs.cpu().numpy().view(np.uint32)
 
 
 def resolve_device(device) -> torch.device:
@@ -145,6 +148,7 @@ def resolve_device(device) -> torch.device:
 # come back by `stack`, which copies nothing when a kernel made them.
 
 
+@spanned("sort")
 def sort_rows(keys: torch.Tensor) -> torch.Tensor:
     """Sort [N] or [C, N] keys ascending (sentinels last)."""
     return stack(sort_keys(cols(keys)))
@@ -752,7 +756,8 @@ class DeviceWordSet:
     def n(self) -> int:
         """Exact distinct count (waits for the device if one is pending)."""
         if self._n_host is None:
-            self._n_host = int(self._n_dev)
+            with sync("n"):
+                self._n_host = int(self._n_dev)
             if not self._dups:
                 self._n_upper = self._n_host
         return self._n_host
@@ -768,6 +773,7 @@ class DeviceWordSet:
         """The capacity a compacted index of `_n_upper` keys gets."""
         return _out_cap(self._n_upper)
 
+    @spanned("index")
     def _compact(self) -> None:
         """Make an index with holes contiguous again (one sort)."""
         if not self._holes:
@@ -778,6 +784,7 @@ class DeviceWordSet:
         self._holes = False
         self._set_count(n_dev)
 
+    @spanned("index")
     def _dedup(self) -> None:
         """Drop the duplicate keys a bulk build or a union by merge left
         behind (one sort).  Intersection and symmetric difference need it
@@ -794,6 +801,7 @@ class DeviceWordSet:
         self._set_count(n_dev)
         self._n_upper = n
 
+    @spanned("index")
     def adopt_built(self, data: torch.Tensor, n_dev, n_upper: int) -> None:
         """Take a fused build's result: `data` sorted ascending, valid keys
         first (duplicates allowed), sentinel padded; `n_dev` = device count
@@ -860,11 +868,13 @@ class DeviceWordSet:
         eff = min(_next_pow2(self.n_pending), self.pending_cap)
         return self.pending[..., :eff], self.pending_tags[:eff]
 
+    @spanned("index")
     def flush(self) -> None:
         """Fold an active slog, then the pending log, into `data`."""
         self._fold_slog()
         if self.n_pending == 0:
             return
+        count("folds.pending")
         n_pend = self.n_pending
         rows, tags = self._pending_prefix()
         had_rm = self._pending_rm
@@ -889,6 +899,7 @@ class DeviceWordSet:
         self._set_count(n_dev)
         self._n_upper = min(self._n_upper + n_pend, out_cap)
 
+    @spanned("index")
     def _merge_into(self, rows: torch.Tensor, n_new_upper: int,
                     batch_sorted: bool = False) -> None:
         """Fold a batch of words into `data`; `batch_sorted` skips the
@@ -933,11 +944,14 @@ class DeviceWordSet:
         self._n_host = None
         self._n_upper = min(self._n_upper, self.capacity)
 
-    def _fold_slog(self) -> None:
+    @spanned("index")
+    def _fold_slog(self, cause: str = "flush") -> None:
         """Collapse an active slog into a clean sorted `data` (one
-        compaction sort).  No-op when no slog is active."""
+        compaction sort).  No-op when no slog is active.  `cause` names
+        the fold in `COUNTERS` (`folds.slog.<cause>`)."""
         if self._slog is None:
             return
+        count("folds.slog." + cause)
         slog = self._slog
         self._slog = None
         self._slog_seq = 0
@@ -966,13 +980,16 @@ class DeviceWordSet:
             self._slog_real > self._SLOG_FOLD_MULT * self._live_cap()
             or self._slog_real > self._SLOG_HARD_CAP
         ):
-            self._fold_slog()
+            self._fold_slog("autofold")
             # one scalar sync tightens _n_upper to the exact live count
-            # (the fold's output has no duplicates); folds are rare
+            # (the fold's output has no duplicates).  Folds are not rare:
+            # rounds of three 2^24-row slabs pass the hard cap every third
+            # round, and this sync then waits for every round in flight
             _ = self.n
 
     # --- queries and removal ---
 
+    @spanned("join")
     def count_hits_device(self, words: torch.Tensor,
                           words_sorted: bool = False):
         """Stored words among `words` (SENTINEL rows ignored), as an
@@ -985,7 +1002,8 @@ class DeviceWordSet:
         if self._slog is not None:
             if self.n_pending == 0:
                 return _slog_join_count(self._slog, words, words_sorted)
-            self._fold_slog()  # rare: rounds and separate calls mixed
+            # rare: rounds and separate calls mixed
+            self._fold_slog("query")
         if self.n_pending > 0:
             log_join = (_count_hits_log_kernel if self._holes
                         else _count_hits_log_merge_kernel)
@@ -999,14 +1017,16 @@ class DeviceWordSet:
 
     def count_hits(self, words: torch.Tensor) -> int:
         """`count_hits_device`, waited for."""
-        return int(self.count_hits_device(words))
+        hits = self.count_hits_device(words)
+        with sync("count_hits"):
+            return int(hits)
 
     def contains_words(self, words: torch.Tensor) -> torch.Tensor:
         """[N] bool on the device (N query rows); SENTINEL rows are
         False.  With a
         pending log, the log's last op per word overrides the index's
         answer: a point query never forces a fold."""
-        self._fold_slog()
+        self._fold_slog("query")
         base = self._contains_base(words)
         if self.n_pending == 0:
             return base
@@ -1033,7 +1053,9 @@ class DeviceWordSet:
 
     def count(self) -> int:
         if self._slog is not None and self.n_pending == 0:
-            return int(self._slog_count())
+            live = self._slog_count()
+            with sync("count"):
+                return int(live)
         self.flush()
         return self.n
 
