@@ -2,8 +2,9 @@
 
 Counterpart of `cbl_tpu/cbl.py`.  A record stream is packed on the host
 (16 bases per uint32) and staged on the device once (`pack_stream`).  On
-the device each slab of up to 2^25 k-mers runs extract -> (canonicalize)
--> necklace (kernel B1) -> pack -> record-boundary blanking (kernel B2),
+the device each slab of up to 2^25 k-mers runs the record-boundary
+blanking (kernel B2), then extract -> (canonicalize) -> necklace -> pack
+-> blank in one kernel (B1 from the stream; plain steps on the CPU),
 then:
 - static: a sort builds an empty index (`insert_codes_stream`) and merge
   joins (kernel B3) answer `query_codes_stream`;
@@ -117,24 +118,26 @@ def host_to_device(arr: np.ndarray, device, mask32: bool = False):
     return t & 0xFFFFFFFF if mask32 else t
 
 
-def _kmer_words(stream, n: int, cfg: CBLConfig, canonical: bool):
+def _kmer_words(stream, n: int, cfg: CBLConfig, canonical: bool,
+                blank=None):
     """Packed stream -> [n] (or [2, n]) int64 words of its first n k-mer
-    starts: extract, (canonicalize), necklace (kernel B1), pack."""
-    kmers = kmod.extract_kmers(stream, n, cfg)
-    if canonical:
-        kmers, _ = kmod.canonicalize(kmers, cfg)
-    best, pos = necklace.necklace_pos_auto(kmers, cfg)
-    return necklace.pack_word(best, pos, cfg)
+    starts, SENTINEL where `blank` (an [n] int32 mask) is non-zero: on
+    CUDA kernel B1 from the stream, one launch, counted in
+    `COUNTERS["words.fused"]`; on the CPU extract, (canonicalize),
+    necklace, pack (`necklace.stream_words`)."""
+    if stream.device.type != "cpu":
+        count("words.fused")
+    return necklace.stream_words(stream, n, cfg, canonical, blank)
 
 
 @spanned("words")
 def _device_words(stream, starts, ends, nk_pad: int, cfg: CBLConfig,
                   canonical: bool):
     """Packed stream -> ([nk_pad] (or [2, nk_pad]) int64 words, blanked
-    rows = SENTINEL; n_valid int32 0-d)."""
-    words = _kmer_words(stream, nk_pad, cfg, canonical)
+    rows = SENTINEL; n_valid int32 0-d): the blanking scan (B2), then
+    the words (B1, which writes the blanked rows)."""
     mask, n_valid = blank_mask(blank_delta(starts, ends, nk_pad))
-    return torch.where(mask.bool(), SENTINEL, words), n_valid
+    return _kmer_words(stream, nk_pad, cfg, canonical, mask), n_valid
 
 
 @spanned("words")

@@ -4,10 +4,11 @@ cbl_tpu_torch.entry`.
 Counterpart of `__graft_entry__.py`'s `entry()` and its `__main__`.
 `forward(codes, valid, index)` takes one chunk of 2^14 k-mers through the
 word pipeline and answers membership against a device-resident index:
-`kmer.pack_stream` -> `extract_kmers` (K=25, prefix 24) ->
-`canonicalize` -> `necklace_pos_auto` (kernel B1 on a CUDA tensor) ->
-`pack_word` -> the rows `valid` leaves out made SENTINEL ->
-`wordset._contains_kernel`.  It makes no host sync (no `.item()`, no
+`kmer.pack_stream` -> the canonical words (K=25, prefix 24; on a CUDA
+tensor kernel B1 from the stream, which extracts, canonicalizes,
+rotates and packs; on the CPU `extract_kmers` -> `canonicalize` ->
+`necklace_pos` -> `pack_word`) -> the rows `valid` leaves out made
+SENTINEL -> `wordset._contains_kernel`.  It makes no host sync (no `.item()`, no
 copy to the host, no branch on a tensor's value), the port's
 counterpart of the reference's "jittable", and on a CUDA tensor it
 launches B1 exactly once.

@@ -13,8 +13,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import kmer as kmod
 from .config import CBLConfig
 from .limbs import (
+    SENTINEL,
     from_limbs,
     key_cols,
     kmer_cols,
@@ -38,6 +40,31 @@ def necklace_pos_auto(kmers: torch.Tensor, cfg: CBLConfig):
     """Device dispatch: kernel B1 for a CUDA tensor, the plain version for
     a CPU one.  Both equal `py_necklace_pos`."""
     return _kernel.necklace_pos(kmers, cfg.kmer_bits)
+
+
+def stream_words_plain(stream: torch.Tensor, n: int, cfg: CBLConfig,
+                       canonical: bool, blank=None) -> torch.Tensor:
+    """The word pipeline as plain tensor steps: `kmer.extract_kmers`,
+    (`kmer.canonicalize`), `necklace_pos`, `pack_word`, then `SENTINEL`
+    where `blank` (an [n] int32 mask) is non-zero."""
+    kmers = kmod.extract_kmers(stream, n, cfg)
+    if canonical:
+        kmers, _ = kmod.canonicalize(kmers, cfg)
+    words = pack_word(*necklace_pos(kmers, cfg), cfg)
+    return words if blank is None else torch.where(blank.bool(), SENTINEL,
+                                                   words)
+
+
+def stream_words(stream: torch.Tensor, n: int, cfg: CBLConfig,
+                 canonical: bool, blank=None) -> torch.Tensor:
+    """Packed stream -> [n] (or [2, n]) int64 words of its first n k-mer
+    starts, `SENTINEL` where `blank` is non-zero: `stream_words_plain`
+    for a CPU stream, kernel B1 from the stream (one launch) for a CUDA
+    one."""
+    if stream.device.type == "cpu":
+        return stream_words_plain(stream, n, cfg, canonical, blank)
+    return _kernel.stream_words(stream, n, cfg.kmer_bits, cfg.pos_bits,
+                                key_cols(cfg), canonical, blank)
 
 
 def pack_word(necklace: torch.Tensor, pos: torch.Tensor, cfg: CBLConfig):

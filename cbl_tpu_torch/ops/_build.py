@@ -61,6 +61,9 @@ _SIGNATURES = {
     # (in col 0, in col 1, necklace col 0, necklace col 1, pos out, n, W,
     # stream)
     "cbl_necklace_pos_wide": [_P, _P, _P, _P, _P, _N, _I, _P],
+    # (packed stream, its words, blank mask or null, word col 0, word col 1
+    # or null, n, W, pos_bits, canonical, stream)
+    "cbl_stream_words": [_P, _N, _P, _P, _P, _N, _I, _I, _I, _P],
     # (delta, mask out, n, scratch: n_valid out + ticket + tile statuses,
     # launches out, stream)
     "cbl_blank_mask": [_P, _P, _N, _P, _P, _P],

@@ -10,6 +10,12 @@ int64 columns, column 1 the low 63 bits (a [2, N] tensor, `limbs`).
 `necklace_pos` takes the plain version for a CPU tensor and launches the
 CUDA kernel (`csrc/necklace.cu`: `cbl_necklace_pos` for one column,
 `cbl_necklace_pos_wide` for two) for a CUDA tensor.
+
+`stream_words` is the word pipeline's form of the same kernel (CUDA only;
+`necklace.stream_words` dispatches, with the plain chain on the CPU): it
+reads the packed stream, builds each k-mer, canonicalizes it when asked,
+rotates and writes the packed word, `SENTINEL` where B2's mask blanks the
+row, in one launch.
 """
 
 from __future__ import annotations
@@ -18,7 +24,7 @@ import ctypes
 
 import torch
 
-from ..limbs import LOW_BITS, MAX_KMER_BITS, low_mask
+from ..limbs import LOW_BITS, MAX_KEY_BITS, MAX_KMER_BITS, low_mask
 from . import _build
 
 
@@ -105,3 +111,45 @@ def necklace_pos(kmers: torch.Tensor, W: int):
     _build.check_error(err, "necklace")
     _build.LAUNCHES["necklace"] += 1
     return neck, pos
+
+
+def stream_words(stream: torch.Tensor, n: int, W: int, pos_bits: int,
+                 n_cols: int, canonical: bool, blank=None) -> torch.Tensor:
+    """Kernel B1 from a packed stream (CUDA tensors): the packed words
+    (necklace << pos_bits) | pos of k-mer starts 0 .. n-1, [n] int64 for
+    n_cols = 1 and [2, n] (column 1 the low 63 bits) for 2, canonical
+    k-mers when `canonical`, `SENTINEL` where `blank` (B2's [n] int32
+    mask) is non-zero.  stream: [S/16] int64 holding uint32 words, as
+    `kmer.extract_kmers` reads it; words past its end read as 0."""
+    if stream.dtype != torch.int64 or stream.dim() != 1:
+        raise ValueError(f"expected a [S/16] int64 stream, got "
+                         f"{stream.dtype} {tuple(stream.shape)}")
+    if blank is not None and (blank.dtype != torch.int32 or
+                              tuple(blank.shape) != (n,)):
+        raise ValueError(f"expected a [{n}] int32 mask, got {blank.dtype} "
+                         f"{tuple(blank.shape)}")
+    if not 2 <= W <= 118 or W % 2 or W == 64:
+        raise ValueError(f"k-mer width {W} is not 2K for an odd K <= 59")
+    if n_cols not in (1, 2) or W + pos_bits > (
+            MAX_KEY_BITS if n_cols == 1 else LOW_BITS + 62) or (
+            W > MAX_KMER_BITS and n_cols == 1):
+        raise ValueError(f"{W + pos_bits}-bit words do not fit {n_cols} "
+                         f"int64 column(s)")
+    _build.check_cuda(stream, *(() if blank is None else (blank,)))
+    shape = (n,) if n_cols == 1 else (2, n)
+    out = torch.empty(shape, dtype=torch.int64, device=stream.device)
+    if n == 0:
+        return out
+    err = _build.library().cbl_stream_words(
+        ctypes.c_void_p(stream.data_ptr()),
+        ctypes.c_longlong(stream.shape[0]),
+        ctypes.c_void_p(None if blank is None else blank.data_ptr()),
+        ctypes.c_void_p(out.data_ptr() if n_cols == 1 else out[0].data_ptr()),
+        ctypes.c_void_p(None if n_cols == 1 else out[1].data_ptr()),
+        ctypes.c_longlong(n), ctypes.c_int(W), ctypes.c_int(pos_bits),
+        ctypes.c_int(int(canonical)), _build.stream_handle(stream.device),
+    )
+    key = "necklace_wide" if W > MAX_KMER_BITS else "necklace"
+    _build.check_error(err, key)
+    _build.LAUNCHES[key] += 1
+    return out

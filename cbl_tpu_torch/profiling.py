@@ -17,8 +17,9 @@ The port's own phases:
   shared no-op object.
 - `COUNTERS`, always on like `ops.LAUNCHES`: `syncs.<site>` (host reads
   of a device value), `folds.slog.<cause>` (`autofold`, `seq_cap`,
-  `flush`, `query`), `folds.pending`, `rounds` and `slog_rows` (the
-  sorted log's real-row bound summed over rounds).
+  `flush`, `query`), `folds.pending`, `rounds`, `slog_rows` (the
+  sorted log's real-row bound summed over rounds) and `words.fused` (the
+  word pipeline's calls that took B1 from the stream, one launch each).
 
 Span names: `cbl.<method>` (the public calls), `words` (the word
 pipeline), `sort` (the sort seam), `join` (query joins and a round's

@@ -27,7 +27,10 @@ Phases (any failure raises and the script exits non-zero):
    B7 also at B3's shapes of a fold and a log join, timed
    beside B3; B3, B6 and B7 also at the sort-join's shapes: 2^25 index
    rows (word, 2^25) against 2^25 (word, position) queries, with
-   realistic words and with heavy duplicates; at wide K, B1 on two-column
+   realistic words and with heavy duplicates; B1 from the packed stream
+   (the word pipeline's one kernel) at 2^25 rows of 150-base reads, W = 50
+   and 118, plain and canonical, against the plain chain and its launch
+   counted; at wide K, B1 on two-column
    k-mers of W = 118 and 66 bits at 2^25, and B3, B5, B6 and B7 at three
    columns at the K=59 sort-join's shapes and their tile edges; B4 on a
    log with a tag column, C = 2 and 3, at 2^26 rows, the dynamic rounds'
@@ -393,6 +396,7 @@ def check_kernels(card: str) -> dict:
         f"by bytes alone {bound(SLAB * 20, 0)['bound_ms']:.4f} ms")
     results["necklace"] = dict(
         err=max(errs), ms=ms, plain_ms=plain_ms, library_ms=None, **b1)
+    results["stream_words"] = check_stream_words(rng, K, 24, card)
 
     # B2: the delta arrays of a 2^25 slab (the static path's) and of a 2^22
     # slab (the dynamic rounds' and separate calls' 4 Mbp segments, 32 of
@@ -1042,6 +1046,62 @@ def once_ms(fn):
     return out, e0.elapsed_time(e1)
 
 
+def check_stream_words(rng, k: int, prefix_bits: int, card: str) -> dict:
+    """B1 from the packed stream (`necklace.stream_words`) at a 2^25-row
+    slab of K = k: 150-base reads, so B2's mask blanks the last k - 1
+    starts of every 150; against the plain chain (`stream_words_plain`:
+    extract, canonicalize, necklace, pack, blank) on the card, exact,
+    plain and canonical; one launch a call in `LAUNCHES`; timed beside
+    its bound and the plain chain."""
+    import torch
+
+    from cbl_tpu_torch import necklace
+    from cbl_tpu_torch.config import get_config
+    from cbl_tpu_torch.kmer import pack_stream
+    from cbl_tpu_torch.limbs import key_cols
+    from cbl_tpu_torch.ops import LAUNCHES
+
+    dev = torch.device(DEVICE)
+    cfg = get_config(k=k, prefix_bits=prefix_bits)
+    W, n_cols = cfg.kmer_bits, key_cols(cfg)
+    key = "necklace_wide" if W > 62 else "necklace"
+    n_codes = (SLAB + k - 1 + 15) // 16 * 16
+    stream = pack_stream(torch.from_numpy(
+        rng.integers(0, 4, size=n_codes, dtype=np.uint8)).to(dev))
+    blanked = np.arange(SLAB) % 150 > 150 - k
+    blank = torch.from_numpy(blanked.astype(np.int32)).to(dev)
+    errs = []
+    for canonical in (False, True):
+        before = LAUNCHES[key]
+        got = necklace.stream_words(stream, SLAB, cfg, canonical, blank)
+        torch.cuda.synchronize()
+        assert LAUNCHES[key] == before + 1, "the fused B1 was not launched"
+        want, chain_ms = once_ms(lambda: necklace.stream_words_plain(
+            stream, SLAB, cfg, canonical, blank))
+        errs.append(max_abs_err(got, want))
+        log(f"B1 from the stream K={k} W={W} canonical={canonical} "
+            f"n={SLAB}: kernel == plain chain: {errs[-1] == 0}")
+        if not canonical:
+            plain_ms = chain_ms
+        del got, want
+    ms = time_ms(lambda: necklace.stream_words(stream, SLAB, cfg, False,
+                                               blank), 10)
+    # 0.5 bytes of stream (int64 words of 16 bases) and 4 of mask read and
+    # 8 a word column written a k-mer; the rotation's INT32 operations
+    # (7 or 13 a step, as the value form's bounds count) on the rows the
+    # mask leaves
+    n_live = int((~blanked).sum())
+    b = bound(SLAB * (0.5 + 4 + 8 * n_cols),
+              n_live * (W - 1) * (7 if W <= 62 else 13))
+    log(f"B1 from the stream K={k} W={W}: {ms:.4f} ms, plain chain "
+        f"{plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms by "
+        f"{b['bound_by']} ({n_live} rows rotated of {SLAB}); by bytes alone "
+        f"{bound(SLAB * (0.5 + 4 + 8 * n_cols), 0)['bound_ms']:.4f} ms "
+        f"[{card}]")
+    return dict(err=max(errs), ms=ms, plain_ms=plain_ms, library_ms=None,
+                **b)
+
+
 def kernel_device_us(fn) -> list:
     """(kernel name, device us, launches) of one run of `fn`, by
     `torch.profiler`."""
@@ -1133,6 +1193,7 @@ def check_wide_kernels(rng, card: str) -> dict:
     results["necklace_wide"] = dict(err=max(errs), ms=ms,
                                     plain_ms=x118_plain_ms, library_ms=None,
                                     **b1)
+    results["stream_words_wide"] = check_stream_words(rng, 59, 28, card)
 
     # three columns at the K=59 sort-join's shapes
     d, q = wide_join_rows(np.random.default_rng(12), SLAB)
