@@ -6,8 +6,10 @@ the device each slab of up to 2^25 k-mers runs the record-boundary
 blanking (kernel B2), then extract -> (canonicalize) -> necklace -> pack
 -> blank in one kernel (B1 from the stream; plain steps on the CPU),
 then:
-- static: a sort builds an empty index (`insert_codes_stream`) and merge
-  joins (kernel B3) answer `query_codes_stream`;
+- static: a sort builds an empty index (`insert_codes_stream`; each
+  further slab of a long stream merges in, B3) and joins answer
+  `query_codes_stream`: merge joins (B3), or probe joins (B8) where the
+  index is much larger than the batch (`DeviceWordSet.count_hits_device`);
 - separate calls: `insert_codes_stream` into a non-empty index and
   `remove_codes_stream` append to the word set's pending log when the
   batch fits it (else they merge or remove at once), and
@@ -35,7 +37,9 @@ then:
   (`DeviceWordSet.union` and the rest).
 - export: `kmers_limbs`, `__iter__` and `iter_nucs` decode the sorted
   words (`DeviceWordSet.export_keys`) on the device and copy them out as
-  `cbl_tpu`'s limb rows, packed ints or ASCII; `save_to_file` /
+  `cbl_tpu`'s limb rows, packed ints or ASCII; `iter_kmers_limbs` hands
+  the same limb rows out in blocks on the device, for an index too large
+  to export at once; `save_to_file` /
   `load_from_file` write and read `cbl_tpu`'s CBLX checkpoints
   (`serialize`), `interop` the reference's `.cbl` files, and the stats
   methods (`stats`) report the prefix buckets.
@@ -64,7 +68,15 @@ import torch
 from . import kmer as kmod
 from . import necklace, stats
 from .config import CBLConfig, get_config
-from .limbs import SENTINEL, cols, ints_to_keys, kmer_cols, stack, to_py_ints
+from .limbs import (
+    SENTINEL,
+    cols,
+    ints_to_keys,
+    keys_to_limbs,
+    kmer_cols,
+    stack,
+    to_py_ints,
+)
 from .ops.scan import blank_mask, slog_counts, slog_is_packed
 from .ops.sort import merge_sorted_pair
 from .profiling import count, span, spanned, sync
@@ -86,6 +98,10 @@ from .wordset import (
 
 DEFAULT_CHUNK = 1 << 19  # k-mers per chunk of the sequence pipeline
 _FUSED_SLAB = 1 << 25  # max k-mers per slab
+# rows of words a PackedStream's memo holds at most (two full slabs, 512
+# MiB at one column): the words of a longer stream, an index build, would
+# take as much memory again as the index they build
+_MEMO_ROWS = 1 << 26
 
 
 def _stream_len(chunk: int, k: int) -> int:
@@ -228,6 +244,29 @@ def _round_into_log(a: torch.Tensor, b: torch.Tensor, qtag: int,
     return merged, positive, live
 
 
+def _unblanked(starts: np.ndarray, ends: np.ndarray, nk_pad: int) -> int:
+    """K-mer starts of a slab that its blank intervals [starts, ends)
+    (clipped to nk_pad; B2 blanks their union) leave valid."""
+    s = np.minimum(starts, nk_pad).astype(np.int64)
+    e = np.minimum(ends, nk_pad).astype(np.int64)
+    order = np.argsort(s, kind="stable")
+    s, e = s[order], e[order]
+    reach = np.concatenate([[0], np.maximum.accumulate(e)[:-1]])
+    return nk_pad - int(np.maximum(e - np.maximum(s, reach), 0).sum())
+
+
+class Slab(tuple):
+    """A staged slab, (nk_pad, stream, starts, ends, n_kmers), that also
+    carries `n_valid`: its k-mer starts left unblanked, counted on the
+    host when it was packed (`_unblanked`), so that a probe join can
+    count its valid rows without a wait for the device."""
+
+    def __new__(cls, fields, n_valid: int):
+        slab = super().__new__(cls, fields)
+        slab.n_valid = n_valid
+        return slab
+
+
 class PackedStream:
     """A record stream staged on the device: per slab (nk_pad, stream,
     starts, ends, n_kmers).  Build it once with `CBL.pack_stream` and pass
@@ -240,7 +279,9 @@ class PackedStream:
     pending log fills it with the words in stream order.  With
     CBL_TORCH_NO_WORDS_CACHE set when the stream is built (`cbl_tpu`'s
     CBL_TPU_NO_WORDS_CACHE), the memo stays empty and every pass runs
-    the word pipeline, for timings of the whole pipeline."""
+    the word pipeline, for timings of the whole pipeline.  The memo holds
+    at most `_MEMO_ROWS` rows: past them a slab's words are not kept (a
+    slab already kept is still replaced)."""
 
     def __init__(self, cfg: CBLConfig, canonical: bool, slabs: list):
         self.cfg = cfg
@@ -250,9 +291,13 @@ class PackedStream:
         self._cache_on = not os.environ.get("CBL_TORCH_NO_WORDS_CACHE")
 
     def _memo(self, i: int, entry: tuple) -> tuple:
-        """Keep slab i's (words, n_valid, sorted) when the memo is on."""
+        """Keep slab i's (words, n_valid, sorted) when the memo is on and
+        has room for it."""
         if self._cache_on:
-            self._words[i] = entry
+            held = sum(w.shape[-1] for j, (w, _, _) in self._words.items()
+                       if j != i)
+            if held + entry[0].shape[-1] <= _MEMO_ROWS:
+                self._words[i] = entry
         return entry
 
     @property
@@ -374,13 +419,13 @@ class CBL:
         """Pack a record stream (uint8 codes, record `offsets` [n+1]) and
         stage it on the device."""
         slabs = [
-            (
+            Slab((
                 nk_pad,
                 host_to_device(stream, self.device, mask32=True),
                 host_to_device(s_arr, self.device),
                 host_to_device(e_arr, self.device),
                 n_here,
-            )
+            ), _unblanked(s_arr, e_arr, nk_pad))
             for nk_pad, stream, s_arr, e_arr, n_here in self._fused_slabs(
                 codes, offsets, slab
             )
@@ -548,7 +593,8 @@ class CBL:
         ps = self._resolve_stream(codes, offsets)
         logged = ws.n_pending > 0 or ws._slog is not None
         total = positive = None
-        for i, (nk_pad, stream, s_arr, e_arr, _) in enumerate(ps.slabs):
+        for i, slab in enumerate(ps.slabs):
+            nk_pad, stream, s_arr, e_arr, _ = slab
             if logged or i in ps._words:
                 # a query against a log leaves its words in the memo
                 words, t, is_sorted = self._slab_words(ps, i)
@@ -556,7 +602,8 @@ class CBL:
                 words, t = _device_words(stream, s_arr, e_arr, nk_pad,
                                          self.cfg, self.canonical)
                 is_sorted = False
-            p = ws.count_hits_device(words, words_sorted=is_sorted)
+            p = ws.count_hits_device(words, words_sorted=is_sorted,
+                                     n_valid=getattr(slab, "n_valid", None))
             total = t if total is None else total + t
             positive = p if positive is None else positive + p
         if total is None:
@@ -880,6 +927,19 @@ class CBL:
         on the device (`necklace.word_to_kmer`) and copied once."""
         kmers = necklace.word_to_kmer(self.wordset.export_keys(), self.cfg)
         return host_limbs(kmers, self.cfg.kmer_limbs)
+
+    def iter_kmers_limbs(self, block_rows: int = 1 << 26):
+        """Yield `kmers_limbs`' rows in blocks, as [m, L] int32 tensors on
+        the device (uint32 bits: `.cpu().numpy().view(np.uint32)` on the
+        host): the same rows in the same order, decoded `block_rows` rows
+        of the word index at a time (`DeviceWordSet.iter_export_blocks`),
+        so that no tensor of the index's length is made."""
+        L = self.cfg.kmer_limbs
+        for keys in self.wordset.iter_export_blocks(block_rows):
+            with span("cbl.iter_kmers_limbs"):
+                limbs = keys_to_limbs(necklace.word_to_kmer(keys, self.cfg),
+                                      L)
+            yield limbs
 
     def __iter__(self):
         """The k-mers as packed Python ints, in ascending word order."""

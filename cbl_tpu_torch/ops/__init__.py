@@ -12,6 +12,8 @@
   `csrc/bitonic.cuh`;
 - `sort`: the sort selector (`torch.sort`, B5 or B6) and the merge
   selector (B3, B7 or one sort of both sides);
+- `probe`: kernel B8, the probe join's search of a sorted index through
+  a sample of its rows (`csrc/probe.cu`);
 - `_build`: the nvcc build, the ctypes binding and the launch counters.
 
 Each kernel module holds the plain tensor version beside the wrapper.  A

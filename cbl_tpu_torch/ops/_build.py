@@ -14,7 +14,9 @@ fallback to the plain tensor versions for CUDA tensors.
 
 `LAUNCHES` counts kernel launches per wrapper (a wrapper adds one where
 it launches its kernel, and nowhere else), so a run can show that its
-main path went through the kernels.
+main path went through the kernels; B8's wrapper also adds the rows its
+launch searched (`probe_rows`) and, where its caller knows them, the
+valid ones among them (`probe_valid_rows`).
 """
 
 from __future__ import annotations
@@ -45,7 +47,10 @@ LAUNCHES = {"necklace": 0, "blank": 0, "merge": 0, "slog_scan": 0,
             "bitonic_sort_3col": 0, "bitonic_merge_3col": 0,
             # B4 over a log with a tag column: C = 2 (a one-column word)
             # and C = 3 (a two-column word)
-            "slog_scan_tag": 0, "slog_scan_tag_3col": 0}
+            "slog_scan_tag": 0, "slog_scan_tag_3col": 0,
+            # B8, the probe join's search: launches, the query rows they
+            # searched and the valid (non-SENTINEL) rows among them
+            "probe": 0, "probe_rows": 0, "probe_valid_rows": 0}
 
 # passes over device memory (kernels that read and write every row) that the
 # last launch of each network, sort or scan reported
@@ -86,6 +91,9 @@ _SIGNATURES = {
     # (a cols, na, b cols, nb, out cols, C, co-rank scratch, passes out,
     # stream)
     "cbl_bitonic_merge": [_P, _N, _P, _N, _P, _I, _P, _P, _P],
+    # (index cols, n, sample cols, m, stride log, query cols, nq, C, hits
+    # out, stream)
+    "cbl_probe_hits": [_P, _N, _P, _N, _I, _P, _N, _I, _P, _P],
 }
 
 

@@ -9,11 +9,17 @@ build it may hold duplicate keys (the `_dups` state: one sort instead of
 two), while `_n_dev` counts DISTINCT keys on the device.  The host keeps only an upper bound on the valid rows
 (`_n_upper`), so building never waits for the device.
 
-Queries are merge joins: both sides get a one-bit tag below the word
-(data 1, query 0; `_shift_tag`: packed into the key's low bit for one
-column, a third column for two), the two sorted runs are merged by kernel
-B3, and a query row is a hit when a data row follows it within its word's
-run.
+Queries of a clean index take one of two joins, whichever the bytes it
+must move say (`_probe_cheaper`).  A merge join: both sides get a
+one-bit tag below the word (data 1, query 0; `_shift_tag`: packed into
+the key's low bit for one column, a third column for two), the two
+sorted runs are merged by kernel B3, and a query row is a hit when a data
+row follows it within its word's run; it moves every index row, a batch
+as large as the index or larger pays for that.  A probe join: the sorted
+queries are searched in the index (kernel B8, `ops.probe`) through a
+sample of its rows built once when the index changes (`_search`): a few
+sectors a query, nothing of the index's length, for an index much larger
+than the batch.
 
 Interleaved dynamic rounds keep the set as a (word, tag)-sorted log, the
 "slog" (`_slog`: one int64 key a row where the word and an 8-bit tag fit
@@ -80,6 +86,7 @@ from .limbs import (
     stack,
 )
 from .necklace import word_prefix
+from .ops.probe import probe_hits, search_layout
 from .ops.scan import slog_counts, slog_is_packed, slog_query_tag, slog_rows
 from .ops.sort import (
     cat_cols,
@@ -167,10 +174,31 @@ _valid_mask = is_valid
 _first_of_run = first_of_run
 
 
+# rows a distinct count reads at once: `sum` of a boolean mask casts it to
+# int64 first, 8 bytes a row, so a count over a whole index of 3.1e9 rows
+# would take 25 GB beside it
+_COUNT_ROWS = 1 << 28
+
+
+def _new_keys(s: torch.Tensor, lo: int, rows: int) -> torch.Tensor:
+    """[<= rows] bool over rows lo .. lo + rows - 1 of a sorted tensor:
+    True where a valid key differs from the row before it, across the
+    block's first edge too."""
+    blk = s[..., lo : lo + rows]
+    new = _first_of_run(blk) & _valid_mask(blk)
+    if lo:
+        new[:1] &= ~rows_eq(s[..., lo - 1 : lo], blk[..., :1])
+    return new
+
+
 def _distinct_count(s: torch.Tensor) -> torch.Tensor:
     """Distinct valid keys of a sorted (duplicates adjacent) tensor, as an
-    int64 0-d tensor."""
-    return (_first_of_run(s) & _valid_mask(s)).sum()
+    int64 0-d tensor, `_COUNT_ROWS` rows at a time."""
+    total = None
+    for lo in range(0, max(s.shape[-1], 1), _COUNT_ROWS):
+        c = _new_keys(s, lo, _COUNT_ROWS).sum()
+        total = c if total is None else total + c
+    return total
 
 
 def _run_ids(run_start: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
@@ -248,6 +276,69 @@ def _count_hits_merge_sorted_kernel(data: torch.Tensor, sorted_queries):
     stream's words memo after a build): one merge, no sort."""
     s = merge_sorted_pair(_shift_tag(data, 1), _shift_tag(sorted_queries, 0))
     return _packed_join_count(s)
+
+
+# What a join of Q query rows with an index of N rows moves through
+# device memory, in bytes a row of 8-byte keys (`_probe_cheaper`).  Both
+# joins sort the queries first; that sort is left out of both.
+#
+# The merge join (`_count_hits_merge_kernel`), a row of index and queries
+# alike: the tag shift 58 (`==`, `<<`, `|`, `where`), B3 16 (one read, one
+# write), the untag 50 (`>>`, `&`, `==`, `!=`), the run starts 20, the hit
+# scan 110 (`_run_ids`' cumsum, arange and where, the scatter-add and its
+# gather, the masks and the sum).
+_MERGE_JOIN_ROW_BYTES = 58 + 16 + 50 + 20 + 110
+# The probe join (`_count_hits_probe_kernel`), a query row: the row read
+# once, then one 32-byte sector a level of a binary search over the
+# index, the last two levels in one sector.  Reckoned with nothing
+# cached, as for an index far larger than the L2; B8's sample and block
+# windows let caches serve the upper levels, which this does not credit,
+# so against an index that fits the L2 the rule favours the merge join.
+_SECTOR_BYTES = 32
+
+
+def _join_bytes(n_index: int, n_queries: int, n_cols: int = 1) -> tuple:
+    """(merge join bytes, probe join bytes) of a join of `n_queries` rows
+    with an index of `n_index` rows of `n_cols` key columns (above)."""
+    merge = _MERGE_JOIN_ROW_BYTES * n_cols * (n_index + n_queries)
+    levels = max((max(n_index, 1) - 1).bit_length() - 2, 0)
+    probe = n_queries * n_cols * (8 + _SECTOR_BYTES * levels)
+    return merge, probe
+
+
+def _probe_cheaper(n_index: int, n_queries: int, n_cols: int = 1) -> bool:
+    """True when the probe join moves fewer bytes than the merge join
+    (`_join_bytes`).  At a batch of 2^24 rows the probe wins from an index
+    of 2^25 rows: a read batch against a bacterial genome's index (8.4M
+    rows) merges, against a human genome's (3.1e9) it probes.
+
+    Provisional: the byte counts are reckoned from the joins' operations,
+    not fitted to timings, and the timings disagree with them.  On an
+    H100 (`chip_smoke.py`'s `join_sweep`: a 2^24-row batch of sorted
+    words, one column) the probe join is the faster at every index size
+    from 2^16 to 2^29 rows: 0.19 against 2.18 ms at 2^16, 0.25 against
+    2.90 at 2^23, 0.27 against 3.82 at 2^24, 0.71 against 60.6 at 2^29.
+    The merge join of a clean index stays only while the benchmark cell
+    `k25_p24.query_reads` lists B3 among the kernels its window must
+    launch; once it does not, B8 becomes the one join of a clean index
+    and this rule goes."""
+    merge, probe = _join_bytes(n_index, n_queries, n_cols)
+    return probe < merge
+
+
+def _count_hits_probe_kernel(data: torch.Tensor, sample: tuple,
+                             stride_log: int, queries: torch.Tensor,
+                             queries_sorted: bool = False,
+                             n_valid: int | None = None):
+    """Hits of `queries` in sorted, contiguous `data` (duplicates allowed)
+    through its search layout (`ops.probe.search_layout`: the columns
+    `sample` of every 2^stride_log-th row): sort the queries, then one
+    search a row (kernel B8; `n_valid` the queries' valid rows, for its
+    counters).  No tensor of the index's length is made."""
+    if not queries_sorted:
+        queries = sort_rows(queries)
+    return probe_hits(cols(data), sample, stride_log, cols(queries),
+                      n_valid)
 
 
 def _merge_sortedbatch_kernel(data: torch.Tensor, batch: torch.Tensor):
@@ -744,6 +835,28 @@ class DeviceWordSet:
         self._slog_pack = slog_packed(cfg)
         self._slog_capped = slog_tag_in_limbs(cfg)
 
+    @property
+    def data(self) -> torch.Tensor:
+        """The index tensor.  Every assignment drops the probe join's
+        search layout, which is built again from the new index when a
+        probe needs it (`_search_layout`)."""
+        return self._data
+
+    @data.setter
+    def data(self, value: torch.Tensor) -> None:
+        self._data = value
+        self._search = None
+
+    @spanned("index")
+    def _search_layout(self, live: torch.Tensor) -> tuple:
+        """(sample, stride log) of the live index for the probe join,
+        built once for each index (and live length) and kept."""
+        n = live.shape[-1]
+        if self._search is None or self._search[0] != n:
+            count("index.search_layout")
+            self._search = (n, *search_layout(cols(live)))
+        return self._search[1:]
+
     def _reset_pending(self) -> None:
         self.pending = sentinel_rows(self.pending_cap, self._cols,
                                      self.device)
@@ -805,7 +918,9 @@ class DeviceWordSet:
     def adopt_built(self, data: torch.Tensor, n_dev, n_upper: int) -> None:
         """Take a fused build's result: `data` sorted ascending, valid keys
         first (duplicates allowed), sentinel padded; `n_dev` = device count
-        of DISTINCT keys; `n_upper` bounds the valid keys."""
+        of DISTINCT keys; `n_upper` bounds the valid keys.  Row counts are
+        Python ints and the count an int64 tensor: 64 bits, so an index
+        may pass 2^31 rows."""
         if self._n_upper != 0 or self._slog is not None or self.n_pending:
             raise ValueError("adopt_built needs an empty word set")
         self.data = data
@@ -903,7 +1018,11 @@ class DeviceWordSet:
     def _merge_into(self, rows: torch.Tensor, n_new_upper: int,
                     batch_sorted: bool = False) -> None:
         """Fold a batch of words into `data`; `batch_sorted` skips the
-        batch's sort."""
+        batch's sort.  A stream of many slabs comes here once a slab: the
+        index grows by a merge (B3) into a tensor of index + batch rows,
+        duplicates kept.  Rows are counted in 64 bits throughout (Python
+        ints, int64 tensors and B3's `long long` co-ranks), so the index
+        may pass 2^31 rows (a human genome's 3.1e9)."""
         out_cap = _out_cap(self._n_upper + n_new_upper)
         if self._n_upper == 0 and not self._holes:
             # fresh index: one sort of the batch, duplicates kept
@@ -991,29 +1110,50 @@ class DeviceWordSet:
 
     @spanned("join")
     def count_hits_device(self, words: torch.Tensor,
-                          words_sorted: bool = False):
+                          words_sorted: bool = False,
+                          n_valid: int | None = None):
         """Stored words among `words` (SENTINEL rows ignored), as an
-        unsynced int64 0-d tensor: a merge join with the index, with index
-        and pending log (last write wins), or with an active slog; a query
-        never folds a log, except the slog when both logs are active, and
-        never compacts an index with holes (it joins by a sort instead).
-        `words_sorted` skips the sort of the query side where the join has
-        one to skip."""
+        unsynced int64 0-d tensor.  A clean index (no log, no holes) takes
+        one of two joins, by the bytes each must move (`_probe_cheaper`):
+        the merge join (B3 over the tagged index and queries) when the
+        batch is not much smaller than the index, else the probe join
+        (the sorted queries searched in the index, kernel B8, through a
+        search layout built once for each index).  With a pending log the
+        query merges with index and log (last write wins), with an active
+        slog with the slog; an index with holes joins by one tagged sort.
+        A query never folds a log, except the slog when both logs are
+        active, and never compacts an index with holes.  `words_sorted`
+        skips the sort of the query side; `n_valid`, the valid rows of
+        `words` where the host knows them, goes to B8's counters.
+        `COUNTERS` counts each call's join: "join.probe" (and
+        "probe_rows", the rows it searched) or "join.merge" (every
+        other)."""
         if self._slog is not None:
             if self.n_pending == 0:
+                count("join.merge")
                 return _slog_join_count(self._slog, words, words_sorted)
             # rare: rounds and separate calls mixed
             self._fold_slog("query")
         if self.n_pending > 0:
+            count("join.merge")
             log_join = (_count_hits_log_kernel if self._holes
                         else _count_hits_log_merge_kernel)
             return log_join(self._live(), *self._pending_prefix(), words)
         if self._holes:
             # one tagged sort of index and queries, sorted or not
+            count("join.merge")
             return _count_hits_kernel_packed(self.data, words)
+        live = self._live()
+        if _probe_cheaper(live.shape[-1], words.shape[-1], self._cols):
+            count("join.probe")
+            count("probe_rows", words.shape[-1])
+            sample, s = self._search_layout(live)
+            return _count_hits_probe_kernel(live, sample, s, words,
+                                            words_sorted, n_valid)
+        count("join.merge")
         if words_sorted:
-            return _count_hits_merge_sorted_kernel(self._live(), words)
-        return _count_hits_merge_kernel(self._live(), words)
+            return _count_hits_merge_sorted_kernel(live, words)
+        return _count_hits_merge_kernel(live, words)
 
     def count_hits(self, words: torch.Tensor) -> int:
         """`count_hits_device`, waited for."""
@@ -1216,6 +1356,27 @@ class DeviceWordSet:
         self._compact()
         self._dedup()
         return self.data[..., : self.n]
+
+    def iter_export_blocks(self, block_rows: int = 1 << 26):
+        """Yield the set's keys, ascending and unique, in blocks: the rows
+        and order of `export_keys`, read `block_rows` rows of the index
+        at a time.  The logs are folded and holes compacted first; the
+        duplicates a build keeps are dropped block by block (a row equal
+        to the one before it, across block edges too), so no tensor of
+        the index's length is made, where `export_keys`' dedup sorts the
+        whole index.  A block is a new tensor on the device, fewer rows
+        where duplicates fell; each costs one wait for the device."""
+        if block_rows < 1:
+            raise ValueError(f"block_rows={block_rows}: need at least 1")
+        self.flush()
+        self._compact()
+        live = self._live()
+        n = min(live.shape[-1], self._n_upper)  # valid rows lie below
+        for lo in range(0, n, block_rows):
+            keep = _new_keys(live, lo, block_rows)
+            with sync("export_blocks"):
+                out = live[..., lo : lo + block_rows][..., keep]
+            yield out
 
     def words_array(self) -> np.ndarray:
         """[n, L] uint32 host array in ascending word order."""

@@ -266,7 +266,10 @@ WIDE_KERNELS = ("necklace_wide", "merge_3col", "sort_3col",
                 "bitonic_sort_3col", "bitonic_merge_3col")
 # B4 over a log with a tag column: a one-column word (C = 2), two (C = 3)
 TAG_KERNELS = ("slog_scan_tag", "slog_scan_tag_3col")
-NO_LAUNCHES = dict.fromkeys(KERNELS + WIDE_KERNELS + TAG_KERNELS, 0)
+# B8, the probe join's search: its launches and the rows they searched
+PROBE_KEYS = ("probe", "probe_rows", "probe_valid_rows")
+NO_LAUNCHES = dict.fromkeys(KERNELS + WIDE_KERNELS + TAG_KERNELS
+                            + PROBE_KEYS, 0)
 # Peaks of one H100 SXM (NVIDIA's data sheet): HBM3 at 3.35 TB/s; 67
 # TFLOP/s of float32 outside the tensor cores counts a fused multiply-add
 # as two, so its 128 float32 lanes an SM issue 33.5e12 operations a
@@ -690,6 +693,8 @@ def check_kernels(card: str) -> dict:
         results[name]["err"] = max(results[name]["err"], edge_err)
     results.update(check_wide_kernels(rng, card))
     results.update(check_slog_tag(rng, card))
+    results["probe"] = check_probe(card)
+    results["probe"]["sweep"] = join_sweep(card)
 
     for name, r in results.items():
         lib = r["library_ms"]
@@ -1446,6 +1451,149 @@ def check_slog_tag(rng, card: str) -> dict:
     return results
 
 
+# the host screen's batch: 2^24 rows, 14,092,848 of them valid k-mers of
+# 150-base reads, the rest blanked (SENTINEL); its index of the human
+# genome holds 3,120,562,176 rows, duplicates kept
+SCREEN_ROWS = 1 << 24
+SCREEN_VALID = 14_092_848
+SCREEN_INDEX = 3_120_562_176
+# B8's two-column check: an index past 2^31 rows (34.4 GB)
+WIDE_PROBE_INDEX = (1 << 31) + (1 << 20)
+# the join sweep's index sizes, log2 rows
+SWEEP_LOGS = (16, 18, 20, 22, 23, 24, 26, 28, 29)
+
+
+def probe_queries(cols: tuple, gen) -> tuple:
+    """The host screen's batch from query columns of SCREEN_ROWS rows:
+    SCREEN_ROWS - SCREEN_VALID rows at random places blanked (SENTINEL
+    in every column), then sorted as the join hands them over."""
+    import torch
+
+    from cbl_tpu_torch.limbs import SENTINEL
+    from cbl_tpu_torch.ops import merge
+
+    blank = torch.randperm(SCREEN_ROWS, device=cols[0].device,
+                           generator=gen)[: SCREEN_ROWS - SCREEN_VALID]
+    for c in cols:
+        c[blank] = SENTINEL
+    return merge.sort_cols_plain(cols)
+
+
+def check_probe(card: str) -> dict:
+    """B8 (`ops.probe.probe_hits`) at the host screen's shape against its
+    plain route (`probe_hits_plain`, `torch.searchsorted`) and against
+    the count the index's pattern gives, exact: the screen's batch
+    (`probe_queries`) against an index past 2^31 rows built from a cheap
+    pattern.  One column: SCREEN_INDEX rows, 2 * (i // 2) at row i (each
+    even number twice); a query hits when it is even and below the rows.
+    Two columns: WIDE_PROBE_INDEX rows, (i // 4, 2 * (i % 4)) at row i; a
+    query (a, b) hits when b is even and 4a + b / 2 is below the rows.
+    Timed with CUDA events beside the plain route; the bound is every
+    query row read once and one 32-byte sector of each column a valid
+    row (`kmerbench/metrics/probe_roofline.py`'s floor)."""
+    import torch
+
+    from cbl_tpu_torch.limbs import SENTINEL
+    from cbl_tpu_torch.ops import probe
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(24)
+    errs, out = [], {}
+    for n_cols, n in ((1, SCREEN_INDEX), (2, WIDE_PROBE_INDEX)):
+        torch.cuda.empty_cache()
+        rows = torch.arange(n, dtype=torch.int64, device=dev)
+        if n_cols == 1:
+            data = (rows.bitwise_and_(~1),)
+            q = torch.randint(0, n + n // 8, (SCREEN_ROWS,), device=dev,
+                              generator=gen)
+            q = probe_queries((q,), gen)
+            want = ((q[0] % 2 == 0) & (q[0] < n)).sum()
+        else:
+            data = (rows >> 2, rows.bitwise_and_(3).mul_(2))
+            a = torch.randint(0, n // 4 + n // 32, (SCREEN_ROWS,),
+                              device=dev, generator=gen)
+            b = torch.randint(0, 8, (SCREEN_ROWS,), device=dev,
+                              generator=gen)
+            q = probe_queries((a, b), gen)
+            want = ((q[0] != SENTINEL) & (q[1] % 2 == 0)
+                    & (4 * q[0] + q[1] // 2 < n)).sum()
+        del rows
+        sample, s = probe.search_layout(data)
+
+        def b8():
+            return probe.probe_hits(data, sample, s, q, SCREEN_VALID)
+
+        def plain():
+            return probe.probe_hits_plain(data, q)
+
+        got, ref = b8(), plain()
+        errs += [max_abs_err(got, want), max_abs_err(ref, want)]
+        log(f"B8 probe, {n_cols} column(s), {SCREEN_ROWS} sorted queries "
+            f"({SCREEN_VALID} valid) against {n} rows: hits {int(want)}, "
+            f"kernel == plain == the pattern's count: {max(errs[-2:]) == 0}")
+        assert 0 < int(want) < SCREEN_VALID
+        ms = time_ms(b8, 20)
+        plain_ms = time_ms(plain, 3)
+        b = bound(SCREEN_ROWS * 8 * n_cols + SCREEN_VALID * 32 * n_cols, 0)
+        log(f"B8 probe, {n_cols} column(s), against {n} rows: {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
+            f"[{card}]")
+        out[n_cols] = dict(ms=ms, plain_ms=plain_ms, **b)
+        del data, sample, q
+    one = out[1]
+    return dict(err=max(errs), ms=one["ms"], plain_ms=one["plain_ms"],
+                library_ms=one["plain_ms"], bound_ms=one["bound_ms"],
+                bound_by=one["bound_by"], two_col_ms=out[2]["ms"],
+                two_col_plain_ms=out[2]["plain_ms"],
+                two_col_bound_ms=out[2]["bound_ms"])
+
+
+def join_sweep(card: str) -> dict:
+    """The two joins of a clean index, one column, at a batch of the host
+    screen's shape (`probe_queries`) against indexes of 2^16 to 2^29 rows
+    (2 * (i // 2) at row i; queries drawn below 9/8 of the rows): device
+    ms of the merge join (`wordset._count_hits_merge_sorted_kernel`: tag,
+    B3, hit scan) and of the probe join (`_count_hits_probe_kernel`: B8;
+    its layout built once, outside the time), both on sorted queries,
+    their answers equal, beside the join `_probe_cheaper` picks.
+    -> {index rows: (merge ms, probe ms, picked)}."""
+    import torch
+
+    from cbl_tpu_torch import wordset
+    from cbl_tpu_torch.ops import probe
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(25)
+    out = {}
+    for log_n in SWEEP_LOGS:
+        n = 1 << log_n
+        data = torch.arange(n, dtype=torch.int64,
+                            device=dev).bitwise_and_(~1)
+        q = torch.randint(0, n + n // 8, (SCREEN_ROWS,), device=dev,
+                          generator=gen)
+        (q,) = probe_queries((q,), gen)
+        (sample,), s = probe.search_layout((data,))
+
+        def merge_join():
+            return wordset._count_hits_merge_sorted_kernel(data, q)
+
+        def probe_join():
+            return wordset._count_hits_probe_kernel(data, (sample,), s, q,
+                                                    True)
+
+        assert int(merge_join()) == int(probe_join()) > 0, n
+        reps = 20 if log_n <= 24 else 5
+        m_ms, p_ms = time_ms(merge_join, reps), time_ms(probe_join, reps)
+        picked = ("probe" if wordset._probe_cheaper(n, SCREEN_ROWS)
+                  else "merge")
+        log(f"join sweep: index 2^{log_n} rows, batch {SCREEN_ROWS} rows: "
+            f"merge join {m_ms:.4f} ms, probe join {p_ms:.4f} ms, the rule "
+            f"picks the {picked} join [{card}]")
+        out[n] = (m_ms, p_ms, picked)
+        del data, q, sample
+    return out
+
+
 # --- phase 3 and 4: the static path ------------------------------------------
 
 
@@ -1555,7 +1703,9 @@ def separate_run(codes: np.ndarray, sort_mode: str, log_at_query: bool):
     whether the inserts fit the pending log (then every query after round
     0 joins index and log) or exceed it (then every query sees an empty
     log); either way the removes stay in the log.  The launch counters
-    are set to 0 after staging and read after the sync.
+    are set to 0 after staging and read after the sync; `joins` holds, a
+    query, the rows of the index it meets and of its slab, and whether
+    the index is clean (no log, no holes).
     -> (index, segs, result dict)."""
     import torch
 
@@ -1583,11 +1733,16 @@ def separate_run(codes: np.ndarray, sort_mode: str, log_at_query: bool):
         ev[0].record()
         pos_dev = None
         ops = 0
+        joins = []
         for i in range(SEGS):
             idx.insert_codes_stream(segs[i])
             assert (ws.n_pending > 0) == (log_at_query and i > 0), (
                 i, ws.n_pending)
-            _, p = idx.query_codes_stream(segs[i - 1 if i else 0], lazy=True)
+            q = segs[i - 1 if i else 0]
+            joins.append((ws._live().shape[-1], q.slabs[0][0],
+                          not (ws.n_pending or ws._holes
+                               or ws._slog is not None)))
+            _, p = idx.query_codes_stream(q, lazy=True)
             idx.remove_codes_stream(halves[i])
             assert ws.n_pending > 0 and ws._pending_rm, i
             pos_dev = p if pos_dev is None else pos_dev + p
@@ -1600,16 +1755,22 @@ def separate_run(codes: np.ndarray, sort_mode: str, log_at_query: bool):
         mode=sort_mode, ops=ops, distinct=distinct, positive=positive,
         wall_s=t2 - t0, stage_s=t1 - t0, calls_s=t2 - t1,
         calls_ms=ev[0].elapsed_time(ev[1]), launches=dict(LAUNCHES),
-        index_rows=ws.data.shape[0], n_upper=ws._n_upper,
+        index_rows=ws.data.shape[0], n_upper=ws._n_upper, joins=joins,
     )
 
 
-def separate_launches(sort_mode: str, log_at_query: bool) -> dict:
-    """The launches of one `separate_run`, derived from the code.
+def separate_launches(sort_mode: str, log_at_query: bool, joins: list,
+                      seg_bases: int) -> dict:
+    """The launches of one `separate_run` over segments of `seg_bases`
+    bases, derived from the code and from the sizes of its joins
+    (`joins`: a query, the index rows it meets, its slab rows, whether the
+    index is clean).
 
     Every stream runs the word pipeline once (B1, B2): 2 a round.  Round
-    0 sorts its segment into the empty index, joins it with one merge and
-    appends its removes.  Every later round folds the logged removes at
+    0 sorts its segment into the empty index, joins it and appends its
+    removes.  A join of a clean index is the probe join (B8, one launch)
+    where `wordset._probe_cheaper` says so for its sizes, else one merge;
+    a join of index and log is a merge.  Every later round folds the logged removes at
     its insert (a sort of the log, a two-column merge with the index, a
     compaction sort), sorts its segment, joins with one merge, and
     - run A (inserts exceed the log): merges the segment into the index;
@@ -1617,12 +1778,18 @@ def separate_launches(sort_mode: str, log_at_query: bool) -> dict:
       and at the remove, which does not fit beside the inserts, sorts and
       merges the logged inserts into the index.
     `count_device()` folds the last removes (two sorts, one merge).  The
-    default mode does the same sorts with `torch.sort`."""
+    default mode does the same sorts with `torch.sort`.  Each query
+    segment is one record, so its valid rows are its k-mers."""
+    from cbl_tpu_torch.wordset import _probe_cheaper
+
     later = SEGS - 1
     sorts = 1 + later * (5 if log_at_query else 3) + 2
+    probes = [q for n, q, clean in joins if clean and _probe_cheaper(n, q)]
     return {**NO_LAUNCHES, "necklace": 2 * SEGS, "blank": 2 * SEGS,
-            "merge": 1 + later * 3 + 1,
-            "sort": sorts if sort_mode == "mergepath" else 0}
+            "merge": 1 + later * 3 + 1 - len(probes),
+            "sort": sorts if sort_mode == "mergepath" else 0,
+            "probe": len(probes), "probe_rows": sum(probes),
+            "probe_valid_rows": len(probes) * (seg_bases - K + 1)}
 
 
 def np_kmers(codes: np.ndarray) -> np.ndarray:
@@ -4571,9 +4738,11 @@ def main() -> int:
     parts.append(qrng.integers(0, 4, size=11, dtype=np.uint8))  # short tail
     qcodes = np.concatenate(parts)
     qoff = np.concatenate([[0], np.cumsum([len(p) for p in parts])])
-    n_merge = LAUNCHES["merge"]
+    n_join = LAUNCHES["merge"] + LAUNCHES["probe"]
     total, positive = q_idx.query_codes_stream(qcodes, qoff)
-    assert LAUNCHES["merge"] > n_merge
+    # a join a slab: the merge join (B3) or, for a batch much smaller than
+    # the index, the probe join (B8; `wordset._probe_cheaper`)
+    assert LAUNCHES["merge"] + LAUNCHES["probe"] > n_join
     t_o = time.perf_counter()
     q_words = np_necklace_words(qcodes, qoff)
     i_words = np_necklace_words(quarter, q_off)
@@ -4588,17 +4757,20 @@ def main() -> int:
     codes2 = np.random.default_rng(3).integers(
         0, 4, size=SLAB + SLAB // 32 + K - 1, dtype=np.uint8)
     off2 = np.array([0, len(codes2)], dtype=np.int64)
-    n_merge = LAUNCHES["merge"]
+    n_merge, n_probe = LAUNCHES["merge"], LAUNCHES["probe"]
     idx2, ps2, r2 = static_run(codes2, off2, canonical=False)
     base2 = run_baseline(codes2)
     log(f"two-slab build: slabs {[s[0] for s in ps2.slabs]} {r2} "
         f"baseline distinct {base2['distinct']} merge launches "
-        f"{LAUNCHES['merge'] - n_merge}")
+        f"{LAUNCHES['merge'] - n_merge}, probe launches "
+        f"{LAUNCHES['probe'] - n_probe}")
     assert len(ps2.slabs) == 2
     assert r2["positive"] == r2["total"] == len(codes2) - K + 1, r2
     assert r2["distinct"] == base2["distinct"], (r2, base2)
-    # one merge folds slab 2 into the index, two join the two slabs
-    assert LAUNCHES["merge"] - n_merge == 3
+    # one merge folds slab 2 into the index; slab 1 (2^25 rows) joins by
+    # a merge, slab 2 (2^20 rows against 2^25 + 2^20) by the probe
+    assert (LAUNCHES["merge"] - n_merge, LAUNCHES["probe"] - n_probe) \
+        == (2, 1)
     del idx2, ps2
 
     stamp(5)
@@ -4671,7 +4843,8 @@ def main() -> int:
         assert r["ops"] == base["ops"], (r, base)
         assert r["distinct"] == base["distinct"], (r, base)
         assert r["positive"] == base["positive"], (r, base)
-        want = separate_launches(mode, log_at_query)
+        want = separate_launches(mode, log_at_query, r["joins"],
+                                 len(run_codes) // SEGS)
         assert r["launches"] == want, (r["launches"], want)
         sep[label] = r
         del idx, segs
@@ -5071,6 +5244,8 @@ def main() -> int:
     for name in WIDE_KERNELS + TAG_KERNELS:
         src[name] = src[name.replace("_wide", "").replace("_3col", "")
                         .replace("_tag", "")]
+    src["probe"] = ("cbl_tpu_torch/csrc/probe.cu",
+                    "none: cbl_tpu merges each batch with the whole index")
     # launches: the counted runs of the static path (plain), the dynamic
     # rounds (in the default mode and under "bitonic"), the separate calls
     # (runs A and B under "mergepath"), set algebra (under ("bitonic",
@@ -5103,7 +5278,7 @@ def main() -> int:
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src[name][0],
          "replaces": src[name][1],
-         "launches": sum(p[name] for p in paths),
+         "launches": sum(p.get(name, 0) for p in paths),
          "max_abs_err": kern[name]["err"], "ms": kern[name]["ms"],
          "plain_ms": kern[name]["plain_ms"],
          "bound_ms": kern[name]["bound_ms"],
@@ -5111,7 +5286,7 @@ def main() -> int:
          "library_ms": kern[name]["library_ms"],
          **({"passes": kern[name]["passes"]} if "passes" in kern[name]
             else {})}
-        for name in KERNELS + WIDE_KERNELS + TAG_KERNELS
+        for name in KERNELS + WIDE_KERNELS + TAG_KERNELS + ("probe",)
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

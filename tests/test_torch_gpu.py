@@ -443,9 +443,10 @@ def test_slice_on_cuda_matches_cpu(cuda, monkeypatch, k, canonical, slab):
                         idx.query_codes_stream(q, qoff)))
         launched = dict(LAUNCHES)
     assert results[0] == results[1]
-    # the static path runs B1-B3; B4 belongs to the dynamic path
-    assert all(launched[n] >= 1 for n in ("necklace", "blank", "merge")), \
-        launched
+    # the static path runs B1, B2 and a join, B3 or (a batch much smaller
+    # than the index) B8; B4 belongs to the dynamic path
+    assert all(launched[n] >= 1 for n in ("necklace", "blank")), launched
+    assert launched["merge"] + launched["probe"] >= 1, launched
     assert launched["slog_scan"] == 0, launched
 
 

@@ -140,7 +140,8 @@ def test_cpu_path_never_counts_launches(monkeypatch):
                         "sort": 0, "bitonic_sort": 0, "bitonic_merge": 0,
                         "necklace_wide": 0, "merge_3col": 0, "sort_3col": 0,
                         "bitonic_sort_3col": 0, "bitonic_merge_3col": 0,
-                        "slog_scan_tag": 0, "slog_scan_tag_3col": 0}
+                        "slog_scan_tag": 0, "slog_scan_tag_3col": 0,
+                        "probe": 0, "probe_rows": 0, "probe_valid_rows": 0}
 
 
 def test_wrappers_check_inputs():

@@ -61,8 +61,12 @@ def test_off_by_default_keeps_nothing_and_counts():
     idx.insert_codes_stream(a)
     idx.query_codes_stream(b)
     idx.dynamic_round(a, b, c)
+    # the query of a slab as large as the index: a probe join (the merge
+    # join's bytes pass the probe's from 2^18 rows), its layout built once
     assert _delta(before) == {"syncs.query_codes_stream": 1, "rounds": 1,
                               "syncs.dynamic_round": 1,
+                              "join.probe": 1, "probe_rows": 4096,
+                              "index.search_layout": 1,
                               "slog_rows": idx.wordset._slog_real}
     assert profiling._records is None and profiling._open == []
 
@@ -92,7 +96,8 @@ def test_span_tree_of_the_benchmark_calls(k, pb):
             ("index", []),  # adopt_built
         ]),
         ("cbl.query_codes_stream", [
-            WORDS, ("join", [("sort", [])]),
+            # the probe join: its search layout, then the queries' sort
+            WORDS, ("join", [("index", []), SORT]),
             ("sync.query_codes_stream", [])]),
         ("cbl.dynamic_round", [
             WORDS, SORT, WORDS, SORT, WORDS, SORT,
