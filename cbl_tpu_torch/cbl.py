@@ -43,8 +43,10 @@ then:
   `load_from_file` write and read `cbl_tpu`'s CBLX checkpoints
   (`serialize`), `interop` the reference's `.cbl` files, and the stats
   methods (`stats`) report the prefix buckets.
-Every sort goes through `ops.sort.sort_keys` (`torch.sort`, kernel B5
-under the "mergepath" sort mode, kernel B6 under "bitonic") and every
+Every sort goes through `ops.sort.sort_keys` (kernel B5 for CUDA
+tensors and `torch.sort` for CPU tensors by default; a sort mode set by
+`CBL_TORCH_SORT` or `use_sort_mode` picks `torch.sort` ("library"), B5
+("mergepath") or kernel B6 ("bitonic") on either device) and every
 merge through `ops.sort.merge_sorted_pair` / `merge_with_unsorted`
 (kernel B3, kernel B7 under the "bitonic" merge mode, or one sort of both
 sides under "sort").

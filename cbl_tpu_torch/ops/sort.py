@@ -7,10 +7,10 @@ Counterpart of the dispatchers in `cbl_tpu/ops/sort_pallas.py`
 lexicographically with column 0 major (see `ops.merge`).
 
 The sort has three modes:
-- "library" (the default, as `xla` is `cbl_tpu`'s): `torch.sort`; for C
-  columns, C stable passes, the last column first;
-- "mergepath": kernel B5 for CUDA tensors, its plain version for CPU
-  tensors;
+- "library": `torch.sort`; for C columns, C stable passes, the last
+  column first (the default for CPU tensors, as `xla` is `cbl_tpu`'s);
+- "mergepath": kernel B5 for CUDA tensors (their default: keys only, no
+  index, no passes per column), its plain version for CPU tensors;
 - "bitonic": kernel B6 for CUDA tensors, its plain version for CPU tensors.
 The merge of two sorted runs has three modes:
 - "mergepath" (the default, as in `cbl_tpu`): kernel B3;
@@ -22,8 +22,10 @@ On CUDA a kernel mode engages at every size (the kernel runs or the call
 raises; there is no way back to `torch.sort`); on the CPU it runs the
 kernel's plain version.  A mode is read at every call: `use_sort_mode` /
 `use_merge_mode` override the environment variables `CBL_TORCH_SORT` /
-`CBL_TORCH_MERGE`.  `cbl_tpu`'s row floors, its `-force` modes and tile
-knobs are tuning for its own device and are not carried over.
+`CBL_TORCH_MERGE`; with neither, the sort's default follows the device
+of the keys (`sort_mode`).  `profiling.COUNTERS["sort.<mode>"]` counts
+the sorts each mode ran.  `cbl_tpu`'s row floors, its `-force` modes and
+tile knobs are tuning for its own device and are not carried over.
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ import os
 
 import torch
 
-from ..profiling import spanned
+from ..profiling import count, spanned
 from .bitonic import bitonic_merge, bitonic_sort
 from .merge import (
     _like,
@@ -57,10 +59,10 @@ def _check_mode(mode: str, modes: tuple, where: str) -> str:
     return mode
 
 
-def _mode(env: str, modes: tuple) -> str:
+def _mode(env: str, modes: tuple, default: str) -> str:
     if _override[env] is not None:
         return _override[env]
-    return _check_mode(os.environ.get(env, modes[0]), modes, env)
+    return _check_mode(os.environ.get(env, default), modes, env)
 
 
 @contextlib.contextmanager
@@ -73,10 +75,13 @@ def _use_mode(env: str, modes: tuple, mode: str, where: str):
         _override[env] = before
 
 
-def sort_mode() -> str:
-    """The sort mode in force: the `use_sort_mode` override, else the
-    environment variable `CBL_TORCH_SORT`, else "library"."""
-    return _mode(SORT_ENV, SORT_MODES)
+def sort_mode(device=None) -> str:
+    """The sort mode in force for keys on `device` (a torch device or its
+    name; None stands for the CPU): the `use_sort_mode` override, else
+    the environment variable `CBL_TORCH_SORT`, else "mergepath" (B5) on a
+    CUDA device and "library" elsewhere."""
+    cuda = device is not None and torch.device(device).type == "cuda"
+    return _mode(SORT_ENV, SORT_MODES, "mergepath" if cuda else "library")
 
 
 def use_sort_mode(mode: str):
@@ -87,7 +92,7 @@ def use_sort_mode(mode: str):
 def merge_mode() -> str:
     """The merge mode in force: the `use_merge_mode` override, else the
     environment variable `CBL_TORCH_MERGE`, else "mergepath"."""
-    return _mode(MERGE_ENV, MERGE_MODES)
+    return _mode(MERGE_ENV, MERGE_MODES, MERGE_MODES[0])
 
 
 def use_merge_mode(mode: str):
@@ -104,13 +109,17 @@ def use_merge_combine() -> bool:
 
 @spanned("sort")
 def sort_keys(keys):
-    """Sort keys ascending (one to three columns, lexicographic)."""
-    mode = sort_mode()
+    """Sort keys ascending (one to three columns, lexicographic) in the
+    sort mode in force for their device, counted in
+    `COUNTERS["sort.<mode>"]`."""
+    cols = as_cols(keys)
+    mode = sort_mode(cols[0].device)
+    count("sort." + mode)
     if mode == "mergepath":
         return sort_mergepath(keys)
     if mode == "bitonic":
         return bitonic_sort(keys)
-    return _like(keys, sort_cols_plain(as_cols(keys)))
+    return _like(keys, sort_cols_plain(cols))
 
 
 def merge_sorted_pair(sorted_a, sorted_b):

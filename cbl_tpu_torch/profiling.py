@@ -18,8 +18,10 @@ The port's own phases:
 - `COUNTERS`, always on like `ops.LAUNCHES`: `syncs.<site>` (host reads
   of a device value), `folds.slog.<cause>` (`autofold`, `seq_cap`,
   `flush`, `query`), `folds.pending`, `rounds`, `slog_rows` (the
-  sorted log's real-row bound summed over rounds) and `words.fused` (the
-  word pipeline's calls that took B1 from the stream, one launch each).
+  sorted log's real-row bound summed over rounds), `words.fused` (the
+  word pipeline's calls that took B1 from the stream, one launch each)
+  and `sort.<mode>` (the sorts of each mode: `mergepath` B5, `bitonic`
+  B6, `library` `torch.sort`; `ops.sort.sort_keys`).
 
 Span names: `cbl.<method>` (the public calls), `words` (the word
 pipeline), `sort` (the sort seam), `join` (query joins and a round's

@@ -64,8 +64,8 @@ Phases (any failure raises and the script exits non-zero):
    stay in the log and fold), run B on its first 16 Mbp (inserts fit the
    log, so every query joins index and log); counts must equal
    `bench/baseline.cpp dynamic`'s and the launches of every kernel the
-   numbers derived from the code; run A again in the default mode
-   (`torch.sort`, no B5 launch) must give the same counts; then point
+   numbers derived from the code; run A again under the "library" sort
+   mode (`torch.sort`, no B5 launch) must give the same counts; then point
    operations against a Python oracle with no fold in between, and a
    round over a two-slab stream (the fallback) against the same three
    calls on a second index;
@@ -76,7 +76,7 @@ Phases (any failure raises and the script exits non-zero):
    warm-up and one counted pass, under three pairs of
    (merge mode, sort mode): ("bitonic", "bitonic") (merges on kernel B7,
    sorts on B6), ("sort", "bitonic") (no merge kernel, every tagged and
-   compaction sort on B6) and the defaults (B3, `torch.sort`); the three
+   compaction sort on B6) and (B3, `torch.sort`); the three
    must give equal keys, the counts must obey the set identities and
    equal a build of both halves as two records, the operands must keep
    their counts and the launches must equal the numbers derived from the
@@ -651,7 +651,7 @@ def check_kernels(card: str) -> dict:
     n_sort = LAUNCHES["sort"]
     with sort.use_sort_mode("library"):
         assert torch.equal(sort.sort_keys(x1), torch.sort(x1).values)
-    assert LAUNCHES["sort"] == n_sort  # the default mode never launches B5
+    assert LAUNCHES["sort"] == n_sort  # the library mode never launches B5
     ms = time_ms(lambda: merge.sort_mergepath(x1), 5)
     plain_ms = time_ms(lambda: merge.sort_mergepath_plain(x1), 2)
     library_ms = time_ms(lambda: torch.sort(x1), 5)
@@ -1778,7 +1778,7 @@ def separate_launches(sort_mode: str, log_at_query: bool, joins: list,
       and at the remove, which does not fit beside the inserts, sorts and
       merges the logged inserts into the index.
     `count_device()` folds the last removes (two sorts, one merge).  The
-    default mode does the same sorts with `torch.sort`.  Each query
+    "library" mode does the same sorts with `torch.sort`.  Each query
     segment is one record, so its valid rows are its k-mers."""
     from cbl_tpu_torch.wordset import _probe_cheaper
 
@@ -2491,6 +2491,7 @@ def export_check(idx, codes: np.ndarray, offsets: np.ndarray,
         assert words.dtype == np.uint32 and np.array_equal(words, want), mode
         del fresh, words
     del ps
+    out["mode_launches"] = {n: LAUNCHES[n] for n in ("sort", "bitonic_sort")}
 
     ws = idx.wordset
     t0 = time.perf_counter()
@@ -2871,11 +2872,11 @@ def config3_run(codes: np.ndarray, canonical: bool, card: str) -> dict:
              query_ms=ev[1].elapsed_time(ev[2]), launches=launches_now())
     assert total == positive == nk, r
     t_p = time.perf_counter()
-    # one slab: B1 wide and B2 build it, B3 joins the (word, tag) rows of
-    # the index and of the stream's sorted words (its memo) on three
-    # columns; the library sort mode sorts with torch.sort
+    # one slab: B1 wide and B2 build it, B5 sorts its two-column words
+    # (the card's default sort), B3 joins the (word, tag) rows of the
+    # index and of the stream's sorted words (its memo) on three columns
     assert r["launches"] == dict(
-        {n: 0 for n in r["launches"]}, necklace_wide=1, blank=1,
+        {n: 0 for n in r["launches"]}, necklace_wide=1, blank=1, sort=1,
         merge_3col=1), r["launches"]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -4467,9 +4468,9 @@ def entry_check(codes: np.ndarray, qcodes: np.ndarray,
 
 def profile_algebra() -> int:
     """`--profile-algebra`: the set-algebra runs under `torch.profiler`
-    in the ("bitonic", "bitonic") and the default modes; prints the
-    device time by kernel name and the device's idle share of the four
-    operations."""
+    in the ("bitonic", "bitonic") and ("mergepath", "library") modes;
+    prints the device time by kernel name and the device's idle share of
+    the four operations."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -4792,7 +4793,9 @@ def main() -> int:
     for name in ROUND_KERNELS:
         assert dyn_launches[name] >= 1, (
             f"kernel {name} never launched on the dynamic path")
-    assert dyn_launches["sort"] == 0, dyn_launches  # the default sort mode
+    # the default sort mode on the card is B5: each round sorts its new
+    # insert and remove streams (the query stream is the last round's)
+    assert dyn_launches["sort"] >= 2 * SEGS, dyn_launches
     n_m, n_s = LAUNCHES["merge"], LAUNCHES["slog_scan"]
     t_j = time.perf_counter()
     joined = idx.query_codes_stream(segs[SEGS - 1])  # B3 + B4 on the log
@@ -4827,7 +4830,7 @@ def main() -> int:
 
     stamp(6)
     # phase 6: the separate calls, every sort through B5 ("mergepath"),
-    # then run A once more in the default mode
+    # then run A once more under the "library" sort mode
     half_codes = codes[: MAIN_BASES // 2]
     base_b = run_baseline_dynamic(half_codes)
     sep = {}
@@ -4906,8 +4909,10 @@ def main() -> int:
     ex_launches = ex["launches"]
     for name in STATIC_KERNELS:
         assert ex_launches[name] >= 1, ex_launches
-    # each fresh build sorts once and its export once more
-    assert ex_launches["sort"] == ex_launches["bitonic_sort"] == 2, (
+    # each fresh build sorts once and its export once more; the exports
+    # after them run in the default sort mode, B5 on the card
+    assert ex["mode_launches"] == {"sort": 2, "bitonic_sort": 2}, ex
+    assert ex_launches["bitonic_sort"] == 2 < ex_launches["sort"], (
         ex_launches)
 
     stamp(10)

@@ -12,9 +12,14 @@ and empty sides, duplicates, sentinels, negative keys, a word run over
 many tiles), the static slice on CUDA against the slice on the CPU, and
 dynamic rounds, the separate insert / query / remove calls (in every
 sort mode) and set algebra (in three pairs of merge and sort modes) on
-CUDA against a Python-set oracle.  Inputs come from
-numpy.random.default_rng; every comparison is exact integer equality.
+CUDA against a Python-set oracle, and the default sort mode (B5 on the
+card) against the "library" mode at the benchmark cells' shapes.
+Inputs come from numpy.random.default_rng (the cells' sort shapes from a
+seeded torch generator on the card); every comparison is exact integer
+equality.
 """
+
+import contextlib
 
 import numpy as np
 import pytest
@@ -27,6 +32,7 @@ from cbl_tpu_torch.ops._build import PASSES
 from cbl_tpu_torch import wordset as tws
 from cbl_tpu_torch.limbs import SENTINEL
 from cbl_tpu_torch.ops import bitonic, merge, necklace, scan, sort
+from cbl_tpu_torch.profiling import COUNTERS
 
 pytestmark = pytest.mark.gpu
 
@@ -398,14 +404,18 @@ def test_bitonic_merge_kernel_fold_shape(cuda):
         assert torch.equal(x, w) and torch.equal(t, w)
 
 
-def test_sort_merge_mode_launches_no_merge_kernel(cuda):
+def test_sort_merge_mode_launches_no_merge_kernel(cuda, monkeypatch):
+    """The "sort" merge mode sorts both runs at once: one B5 launch (the
+    card's default sort), no merge kernel."""
+    monkeypatch.delenv(sort.SORT_ENV, raising=False)
     a = torch.arange(0, 10_000, 2, device=cuda)
     b = torch.arange(1, 10_000, 2, device=cuda)
     n0 = dict(LAUNCHES)
     with sort.use_merge_mode("sort"):
         got = sort.merge_sorted_pair(a, b)
     assert torch.equal(got, torch.arange(10_000, device=cuda))
-    assert dict(LAUNCHES) == n0
+    assert {n: c - n0[n] for n, c in LAUNCHES.items() if c != n0[n]} == {
+        "sort": 1}
 
 
 def test_library_mode_never_launches_the_sort_kernel(cuda):
@@ -1394,3 +1404,148 @@ def test_entry_forward_on_cuda_matches_cpu(cuda):
     assert torch.equal(got.cpu(), want)
     assert 0 < int(want.sum()) < tentry.CHUNK
     assert not want[torch.from_numpy(~valid)].any()
+
+
+# --- the default sort mode on the card: B5 ----------------------------------
+
+
+def _cell_sort_keys(shape: str, device):
+    """Sort inputs at the benchmark cells' shapes, drawn on the card:
+    a query batch's 2^24 K=25 words with a sentinel tail; 2^25 K=59 word
+    rows (two columns, heavy duplicates in column 0); a K=25 window fold's
+    2^27 rows, 75 % sentinels, keys over the whole int64 range (packed log
+    keys are negative); K=59 log rows (word, word, tag), 3 x 2^22 + 2^21
+    rows, words repeated so that the tag column decides."""
+    g = torch.Generator(device=device).manual_seed(25)
+
+    def draw(lo, hi, n):
+        return torch.randint(lo, hi, (n,), generator=g, device=device)
+
+    if shape == "words_2^24":
+        n, valid = 1 << 24, 14_092_848
+        keys = draw(0, 1 << 56, n)
+        keys[valid:] = SENTINEL
+        return keys
+    if shape == "rows_2^25_x2":
+        n = 1 << 25
+        hi, lo = draw(0, 1 << 22, n), draw(0, 1 << 62, n)
+        sent = draw(0, 20, n) == 0
+        return hi.masked_fill(sent, SENTINEL), lo.masked_fill(sent, SENTINEL)
+    if shape == "fold_2^27":
+        n = 1 << 27
+        keys = draw(-(1 << 62), 1 << 62, n) * 2
+        return keys.masked_fill(draw(0, 4, n) != 0, SENTINEL)
+    n = 3 * (1 << 22) + (1 << 21)
+    pick = draw(0, 1 << 21, n)  # 2^21 distinct words, each about 7 times
+    hi, lo = (draw(0, 1 << 54, 1 << 21)[pick],
+              draw(0, 1 << 62, 1 << 21)[pick])
+    tag = (draw(0, 62, n) << 2) | draw(1, 4, n)
+    sent = draw(0, 10, n) == 0
+    return tuple(c.masked_fill(sent, SENTINEL) for c in (hi, lo, tag))
+
+
+@pytest.mark.parametrize("shape", ["words_2^24", "rows_2^25_x2",
+                                   "fold_2^27", "log_x3"])
+def test_default_sort_mode_runs_b5_on_cuda(cuda, monkeypatch, shape):
+    """With no sort mode set, `sort_keys` of CUDA keys launches B5 once
+    and no library sort, and equals `torch.sort` (the "library" mode) bit
+    for bit at the cells' shapes."""
+    monkeypatch.delenv(sort.SORT_ENV, raising=False)
+    keys = _cell_sort_keys(shape, cuda)
+    n_cols = len(merge.as_cols(keys))
+    key = merge.launch_key("sort", n_cols)
+    routes = [f"sort.{m}" for m in sort.SORT_MODES]
+    n0, c0 = LAUNCHES[key], {r: COUNTERS.get(r, 0) for r in routes}
+    got = sort.sort_keys(keys)
+    torch.cuda.synchronize()
+    assert LAUNCHES[key] == n0 + 1
+    assert {r: COUNTERS.get(r, 0) - c0[r] for r in routes} == {
+        "sort.library": 0, "sort.mergepath": 1, "sort.bitonic": 0}
+    with sort.use_sort_mode("library"):
+        want = sort.sort_keys(keys)
+    assert LAUNCHES[key] == n0 + 1
+    assert COUNTERS["sort.library"] == c0["sort.library"] + 1
+    for g, w in zip(merge.as_cols(got), merge.as_cols(want), strict=True):
+        assert torch.equal(g, w)
+
+
+def _state(idx) -> list:
+    """A port index's whole state as host arrays and ints."""
+    ws = idx.wordset
+    out = [idx.count()]
+    for t in (ws.data, ws._slog, ws.pending, ws.pending_tags):
+        out.append(None if t is None else t.cpu().numpy())
+    return out
+
+
+def test_default_sort_mode_k59_rounds_equal_library_mode(cuda, monkeypatch):
+    """Dynamic rounds at K=59 (a log with a tag column, folds forced by a
+    lowered hard cap), a query of the active log and `flush()`: the
+    default sort mode (B5 on the card) leaves the library mode's state
+    and answers, round by round, and launches no library sort."""
+    monkeypatch.delenv(sort.SORT_ENV, raising=False)
+    monkeypatch.setattr(tws.DeviceWordSet, "_SLOG_HARD_CAP", 1 << 17)
+    rng = np.random.default_rng(59)
+    sb = 40_000
+    codes = rng.integers(0, 4, size=6 * sb, dtype=np.uint8)
+
+    def stream(i, n=sb):
+        c = codes[i * sb:i * sb + n]
+        return c, np.array([0, n // 3, n], dtype=np.int64)
+
+    got = {}
+    for mode in (None, "library"):
+        n0 = LAUNCHES["sort"] + LAUNCHES["sort_3col"]
+        lib0 = COUNTERS.get("sort.library", 0)
+        folds0 = COUNTERS.get("folds.slog.autofold", 0)
+        mode_ctx = sort.use_sort_mode(mode) if mode else None
+        with mode_ctx or contextlib.nullcontext():
+            idx = CBL(k=59, prefix_bits=28, device=cuda)
+            r = [idx.dynamic_round(stream(i % 6), stream((i + 5) % 6),
+                                   stream((i + 2) % 6, sb // 2))
+                 for i in range(10)]
+            r.append(idx.query_codes_stream(*stream(0)))
+            states = [_state(idx)]
+            idx.flush()
+            states.append(_state(idx))
+            r.append(idx.query_codes_stream(*stream(3)))
+            words = idx.wordset.words_array()
+        b5 = LAUNCHES["sort"] + LAUNCHES["sort_3col"] - n0
+        lib = COUNTERS.get("sort.library", 0) - lib0
+        assert COUNTERS.get("folds.slog.autofold", 0) > folds0
+        got[mode] = (r, states, words, b5, lib)
+    default, library = got[None], got["library"]
+    assert default[0] == library[0]
+    assert _same_tree(default[1], library[1])
+    assert np.array_equal(default[2], library[2])
+    assert default[3] > 0 and default[4] == 0, default[3:]
+    assert library[3] == 0 and library[4] > 0, library[3:]
+
+
+def test_default_sort_mode_two_slab_build_equals_library_mode(cuda,
+                                                              monkeypatch):
+    """A canonical K=25 build of two full slabs (2^25 k-mers and more):
+    the default sort mode (B5) leaves the library mode's index, count and
+    self-query, and launches no library sort."""
+    monkeypatch.delenv(sort.SORT_ENV, raising=False)
+    rng = np.random.default_rng(2)
+    n = (1 << 25) + (1 << 22)
+    codes = rng.integers(0, 4, size=n, dtype=np.uint8)
+    offsets = np.linspace(0, n, 9).astype(np.int64)
+    got = {}
+    for mode in (None, "library"):
+        n0, lib0 = LAUNCHES["sort"], COUNTERS.get("sort.library", 0)
+        mode_ctx = sort.use_sort_mode(mode) if mode else None
+        with mode_ctx or contextlib.nullcontext():
+            idx = CBL(k=25, prefix_bits=24, canonical=True, device=cuda)
+            idx.insert_codes_stream(codes, offsets)
+            state = _state(idx)
+            hits = idx.query_codes_stream(codes, offsets)
+        got[mode] = (state, hits, LAUNCHES["sort"] - n0,
+                     COUNTERS.get("sort.library", 0) - lib0)
+        del idx
+    default, library = got[None], got["library"]
+    assert _same_tree(default[0], library[0])
+    assert default[1] == library[1] and default[1][0] == default[1][1] > 0
+    assert default[2] >= 2 and default[3] == 0, default[2:]
+    assert library[2] == 0 and library[3] >= 2, library[2:]

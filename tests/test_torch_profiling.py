@@ -62,11 +62,14 @@ def test_off_by_default_keeps_nothing_and_counts():
     idx.query_codes_stream(b)
     idx.dynamic_round(a, b, c)
     # the query of a slab as large as the index: a probe join (the merge
-    # join's bytes pass the probe's from 2^18 rows), its layout built once
+    # join's bytes pass the probe's from 2^18 rows), its layout built once;
+    # four sorts, `torch.sort` on the CPU: the build, the query's, and in
+    # the round b's (its memo holds the query's unsorted words) and c's
     assert _delta(before) == {"syncs.query_codes_stream": 1, "rounds": 1,
                               "syncs.dynamic_round": 1,
                               "join.probe": 1, "probe_rows": 4096,
                               "index.search_layout": 1,
+                              "sort.library": 4,
                               "slog_rows": idx.wordset._slog_real}
     assert profiling._records is None and profiling._open == []
 

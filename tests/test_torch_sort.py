@@ -15,6 +15,8 @@ widening of the minor uint32 column.  Every comparison is exact integer
 equality.
 """
 
+import contextlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -23,6 +25,7 @@ import torch
 from cbl_tpu.ops import merge_pallas
 from cbl_tpu_torch.limbs import SENTINEL, from_limbs
 from cbl_tpu_torch.ops import merge, sort
+from cbl_tpu_torch.profiling import COUNTERS
 
 torch.set_num_threads(2)
 
@@ -227,8 +230,17 @@ def test_dispatcher_any_length(mode, two, n):
 
 
 def test_sort_mode_selection(monkeypatch):
+    cuda = torch.device("cuda")  # a device name: no card needed
     monkeypatch.delenv(sort.SORT_ENV, raising=False)
+    # the default follows the device: torch.sort on the CPU, B5 on CUDA
     assert sort.sort_mode() == "library"
+    assert sort.sort_mode(torch.device("cpu")) == "library"
+    assert sort.sort_mode(cuda) == "mergepath"
+    assert sort.sort_mode("cuda:0") == "mergepath"
+    with sort.use_sort_mode("library"):  # the override wins on CUDA too
+        assert sort.sort_mode(cuda) == "library"
+    monkeypatch.setenv(sort.SORT_ENV, "library")  # and the environment
+    assert sort.sort_mode(cuda) == "library"
     monkeypatch.setenv(sort.SORT_ENV, "mergepath")
     assert sort.sort_mode() == "mergepath"
     with sort.use_sort_mode("library"):  # the override wins
@@ -236,12 +248,41 @@ def test_sort_mode_selection(monkeypatch):
     assert sort.sort_mode() == "mergepath"
     monkeypatch.setenv(sort.SORT_ENV, "bitonic")
     assert sort.sort_mode() == "bitonic"
+    assert sort.sort_mode(cuda) == "bitonic"
+    with sort.use_sort_mode("mergepath"):
+        assert sort.sort_mode(cuda) == sort.sort_mode() == "mergepath"
     monkeypatch.setenv(sort.SORT_ENV, "pallas")
     with pytest.raises(ValueError, match="CBL_TORCH_SORT"):
         sort.sort_mode()
+    with pytest.raises(ValueError, match="CBL_TORCH_SORT"):
+        sort.sort_mode(cuda)
     with pytest.raises(ValueError, match="use_sort_mode"):
         with sort.use_sort_mode("xla"):
             pass
+
+
+@pytest.mark.parametrize("mode,route", [
+    (None, "library"),  # the CPU's default
+    ("library", "library"),
+    ("mergepath", "mergepath"),
+    ("bitonic", "bitonic"),
+])
+@pytest.mark.parametrize("n_cols", [1, 3])
+def test_sort_keys_counts_its_route(monkeypatch, mode, route, n_cols):
+    """Each `sort_keys` call adds one to `COUNTERS["sort.<route>"]` and
+    nothing to the other routes' counters."""
+    monkeypatch.delenv(sort.SORT_ENV, raising=False)
+    keys = _port_keys(_limb_cols(3000, 7, 2, 50, 0.1), False)
+    if n_cols > 1:
+        keys = (keys,) + tuple(keys.flip(0) % 5 for _ in range(n_cols - 1))
+    names = [f"sort.{m}" for m in sort.SORT_MODES]
+    before = {k: COUNTERS.get(k, 0) for k in names}
+    with (sort.use_sort_mode(mode) if mode else contextlib.nullcontext()):
+        got = sort.sort_keys(keys)
+        sort.sort_keys(got)
+    _assert_cols_equal(got, _lexsorted(keys))
+    assert {k: COUNTERS.get(k, 0) - before[k] for k in names} == {
+        k: 2 * (k == f"sort.{route}") for k in names}
 
 
 def test_mergepath_mode_walks_the_passes(monkeypatch):
