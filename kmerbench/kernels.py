@@ -39,3 +39,7 @@ class Groups:
 
     def launched(self, launches: dict, group: str) -> int:
         return sum(launches.get(key, 0) for key in self.counters[group])
+
+    def missing(self, launches: dict, groups) -> int:
+        """How many of `groups` the launch counters say never ran."""
+        return sum(not self.launched(launches, g) for g in groups)

@@ -1,14 +1,13 @@
 """The traced window split by the program's own spans.
 
-    python -m kmerbench.program_spans --workload <cell> --seed <n> --seconds <s> [--record 0|1] [--profile 0|1]
-
-runs one cell's set-up and window as `run` does, with the program's span
-recording (`cbl_tpu_torch.profiling.recording`) and `torch.profiler`
-(device activity only) each on or off, and prints one JSON line: the
-window's rate and 95th percentile, and, under the profiler, device time
-by program span, host waits and idle gaps by program span, and the
-program's counters a batch.  It reads the window; it is no cell of
-`BENCHMARK.json`, and `run` does not call it.
+`run`'s traced run (`--trace 1`) records the program's spans
+(`cbl_tpu_torch.profiling.recording`, through the system's `recording`)
+beside `torch.profiler`'s device activity, and `report` splits that
+window (`trace.TraceView`) by them: device time by program span, eager
+ops by span, host waits, idle gaps by span and the program's counters a
+batch.  Six per-layer metrics read it (`metrics/span_*_ms.py`,
+`host_wait_ms`, `folds_per_batch`); the traced run prints the whole
+split on stderr.
 
 Crediting.  Each device operation carries the correlation id of the CUDA
 runtime or driver call that enqueued it (`torch.profiler` keeps those
@@ -25,21 +24,19 @@ launch calls that take more than `SLOW_LAUNCH_NS` (a full launch queue).
 An idle gap of the device is named by the innermost program span the
 host was in at its middle, with the blocking call's name after a "/"
 where the host was inside one.
+
+Where the program recorded no spans (the control) every metric reads
+None; where it did, a span that ran no device operation reads 0.0, and
+with no device operation traced at all (a CPU run) the span times read
+None.
 """
 
 from __future__ import annotations
 
-import argparse
 import bisect
 import collections
-import contextlib
-import json
 import re
 import sys
-import time
-import types
-
-from .trace import merge_intervals
 
 BLOCKING = re.compile(r"Synchronize|^cudaMemcpy$|^cuMemcpy[DH]to[DH](?:_v2)?$"
                       r"|^cudaMalloc|^cudaFree|^cuMemAlloc|^cuMemFree")
@@ -174,85 +171,31 @@ def idle_by_program_span(busy: list, calls: list, program: list,
     return out
 
 
-def _kineto(prof) -> tuple:
-    """(device ops, runtime and driver calls) of a profile, each as
-    (name, start ns, end ns, correlation id)."""
-    from torch.autograd import DeviceType
-
-    ops, calls = [], []
-    for e in prof.profiler.kineto_results.events():
-        if e.is_user_annotation():
-            continue
-        row = (e.name(), e.start_ns(), e.start_ns() + e.duration_ns(),
-               e.correlation_id())
-        if e.device_type() == DeviceType.CUDA:
-            ops.append(row)
-        elif row[0].startswith("cu"):
-            calls.append(row)
-    return ops, calls
-
-
-def _program():
-    """`cbl_tpu_torch.profiling` where the program records spans; None in
-    a program from before them."""
-    from cbl_tpu_torch import profiling
-
-    return profiling if hasattr(profiling, "recording") else None
-
-
-@contextlib.contextmanager
-def captured(spans, record: bool, profile: bool):
-    """The program's recording and `torch.profiler` (device activity
-    only), each where asked for, over the block; yields a holder with
-    `.program` (span records), `.spans` (harness spans), `.ops` and
-    `.calls` (`_kineto`) once the block has ended."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile as torch_profile
-
-    holder = types.SimpleNamespace(program=[], spans=[], ops=[], calls=[])
-    prog = _program()
-    with contextlib.ExitStack() as stack:
-        prof = None
-        if profile:
-            cuda = torch.cuda.is_available()
-            prof = stack.enter_context(torch_profile(activities=[
-                ProfilerActivity.CUDA if cuda else ProfilerActivity.CPU]))
-            if cuda:  # the tracer starts at its first launches
-                torch.ones(1, device="cuda").add_(1)
-                torch.cuda.synchronize()
-        if record and prog is not None:
-            holder.program = stack.enter_context(prog.recording())
-        spans.record = []
-        try:
-            yield holder
-        finally:
-            holder.spans, spans.record = spans.record, None
-    if prof is not None:
-        holder.ops, holder.calls = _kineto(prof)
-
-
-def counters() -> dict:
-    prog = _program()
-    return dict(prog.COUNTERS) if prog is not None else {}
-
-
-def report(tr, window: tuple, batches: int, groups) -> dict:
-    """The split of a captured window, per batch (ms) where it is a time."""
-    per = 1e-6 / max(batches, 1)
-    ops = _clip(tr.ops, window)
-    busy = merge_intervals([(a, b) for _, a, b, _ in ops])
+def report(view) -> dict:
+    """The split of a traced window (`trace.TraceView`) by the program's
+    spans, a batch (ms) where it is a time; `"metrics"` holds what the
+    six metric files read."""
+    n = max(view.batches, 1)
+    per = 1e-6 / n
+    ops = [(name, a, b, c) for name, a, b, _, c in view.ops]
+    busy = view.busy()
     busy_ns = sum(b - a for a, b in busy)
-    got = credit(ops, tr.calls, tr.program, tr.spans, window,
-                 groups.group_of)
-    waits = host_waits(tr.calls, tr.program, window)
-    idle = idle_by_program_span(busy, tr.calls, tr.program, tr.spans,
-                                window)
+    got = credit(ops, view.calls, view.program, view.spans, view.window,
+                 view.groups.group_of)
+    waits = host_waits(view.calls, view.program, view.window)
+    idle = idle_by_program_span(busy, view.calls, view.program, view.spans,
+                                view.window)
     by_span = {k: v * per for k, v in got["busy"].most_common()}
-    program_names = {r[0] for r in tr.program}
-    metrics = {m: by_span.get(s, 0.0) if tr.program else None
+    recorded = bool(view.program)
+    program_names = {r[0] for r in view.program}
+    counters = {k: v / n for k, v in sorted(view.counters.items()) if v}
+    metrics = {m: by_span.get(s, 0.0) if recorded and busy_ns else None
                for m, s in SPAN_METRICS.items()}
     metrics["host_wait_ms"] = (sum(waits["ns"].values()) * per
-                               if tr.program else None)
+                               if recorded else None)
+    metrics["folds_per_batch"] = (
+        sum(v for k, v in counters.items() if k.startswith("folds."))
+        if recorded else None)
     return {
         "busy_ms": busy_ns * per,
         "credited_pct": (100.0 * (busy_ns - got["busy"][UNCREDITED])
@@ -263,94 +206,11 @@ def report(tr, window: tuple, batches: int, groups) -> dict:
         "device_by_span": by_span,
         "torch_ops_by_span": {k: v * per
                               for k, v in got["other"].most_common()},
-        "top_torch_ops": {k: [[n, v * per] for n, v in c.most_common(4)]
+        "top_torch_ops": {k: [[name, v * per] for name, v in c.most_common(4)]
                           for k, c in got["top_other"].items()},
-        "host_wait": {k: [v * per, waits["count"][k] / max(batches, 1)]
+        "host_wait": {k: [v * per, waits["count"][k] / n]
                       for k, v in waits["ns"].most_common()},
-        "idle_by_program_span": {k: v * 1e-9 for k, v in idle.most_common(12)},
+        "idle_by_program_span": {k: v * 1e-9 for k, v in idle.most_common()},
+        "counters": counters,
         "metrics": metrics,
     }
-
-
-def run(cell, seed: int, seconds: float, device, record: bool = True,
-        profile: bool = True, base=None) -> dict:
-    """Set-up and window of `cell` (`spec.Cell`) as `run.run_cell` makes
-    them, captured as asked; -> the result as a dict."""
-    import torch
-
-    from . import drive, kernels, spec
-    from .loop import LIMIT
-    from .run import _p95, _sync
-    from .system import PortSystem
-
-    base = base or spec.ROOT
-    spans = drive.Spans()
-    Loop = spec.loop(cell.mix["loop"], base)
-    groups = kernels.Groups(base)
-    traffic = Loop.make_traffic(cell.mix, cell.config, seed)
-    loop = Loop(PortSystem(cell.config, device), cell.config, cell.mix,
-                traffic)
-    loop.setup(spans)
-    _sync(device)
-    before = counters()
-    spans.reset()
-    with captured(spans, record, profile) as tr:
-        w = loop.drive(seconds, spans, device)
-    after = counters()
-    done, lat = w["done"], w["latencies"]
-    n = len(done)
-    ops = sum(loop.ops(i) for i, _ in done)
-    out = loop.outputs()
-    loop.free()
-    ref = loop.reference(device)
-    checks = loop.checks(done, out, ref)
-    result = {
-        "workload": cell.name, "seed": seed, "record": record,
-        "profile": profile, "batches": n,
-        "correct": all(v <= LIMIT for v in checks.values()),
-        "kmer_ops_per_s": ops / (w["t1"] - w["t0"]),
-        "batch_p95_ms": 1e3 * _p95(lat),
-        "counters": {k: (v - before.get(k, 0)) / max(n, 1)
-                     for k, v in sorted(after.items())
-                     if v != before.get(k, 0)},
-        "spans_recorded": len(tr.program),
-        "device": (torch.cuda.get_device_name(device)
-                   if device.type == "cuda" else "cpu"),
-    }
-    result["folds_per_batch"] = (
-        sum(v for k, v in result["counters"].items()
-            if k.startswith("folds.")) if _program() is not None else None)
-    if profile:
-        result.update(report(tr, w["ns"], n, groups))
-    return result
-
-
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(prog="python -m kmerbench.program_spans")
-    ap.add_argument("--workload", required=True)
-    ap.add_argument("--seed", type=int, required=True)
-    ap.add_argument("--seconds", type=float, required=True)
-    ap.add_argument("--record", type=int, choices=(0, 1), default=1)
-    ap.add_argument("--profile", type=int, choices=(0, 1), default=1)
-    args = ap.parse_args(argv)
-
-    import torch
-
-    from . import spec
-
-    if not torch.cuda.is_available():
-        print("refused: no CUDA card", file=sys.stderr)
-        return 2
-    device = torch.device("cuda", 0)
-    torch.cuda.set_device(device)
-    cell = spec.cell(spec.load(), args.workload)
-    t0 = time.perf_counter()
-    result = run(cell, args.seed, args.seconds, device,
-                 bool(args.record), bool(args.profile))
-    result["run_s"] = time.perf_counter() - t0
-    print(json.dumps(result), flush=True)
-    return 0
-
-
-if __name__ == "__main__":
-    sys.exit(main())

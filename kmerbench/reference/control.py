@@ -13,6 +13,8 @@ could not see such a change.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from .kmers import kmer_cols
@@ -76,6 +78,13 @@ class ControlSystem:
 
     def launches(self) -> dict:
         return {}
+
+    def counters(self) -> dict:
+        return {}
+
+    def recording(self):
+        """No program, so no span is recorded."""
+        return contextlib.nullcontext([])
 
     def stage(self, stream):
         codes, offsets = stream

@@ -11,8 +11,10 @@ A run, in order:
    kind, `loops/<kind>.py`);
    `setup_s` runs from the start of the process to the first timed batch;
 3. the window: the loop kind's drive, a closed loop of `--seconds` by
-   default (`drive`), under
-   `torch.profiler` with `--trace 1`;
+   default (`drive`); with `--trace 1` under `torch.profiler` and with
+   the program's span recording on (`trace.profiled`), which the
+   `--trace 0` run, whose numbers are the end-to-end metrics, never
+   turns on;
 4. reads the peak device memory, then what the program holds (counts,
    exported k-mers), frees the program's state, works every answer out
    again with the plain reference and compares (`checks`: counts of
@@ -24,7 +26,9 @@ A run, in order:
    stderr, and the result as the last line of stdout: `correct`,
    `attempted`, `failed` (window batches answered wrong), `metrics` (the
    cell's end-to-end metrics, or with `--trace 1` its per-layer metrics),
-   `device`, with `--trace 1` `breakdown`, and `checks` last.
+   `device`, with `--trace 1` `breakdown`, and `checks` last; with
+   `--trace 1` the window's split by the program's spans
+   (`program_spans.report`) goes to stderr before the checks.
 """
 
 from __future__ import annotations
@@ -101,18 +105,21 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device,
     loop.setup(spans)
     _sync(device)
     launches0 = system.launches()
+    counters0 = system.counters()
     spans.reset()
     setup_s = process_age_s()
     _eprint(f"set-up: {setup_s:.2f} s, of which traffic {t_stage - t_gen:.3f}"
             f" s, staging and warm-up {time.perf_counter() - t_stage:.3f} s")
     if trace:
-        with profiled(spans) as tr:
+        with profiled(spans, system) as tr:
             w = loop.drive(seconds, spans, device)
     else:
         w = loop.drive(seconds, spans, device)
     window_s = w["t1"] - w["t0"]
     launches = {k: v - launches0.get(k, 0)
                 for k, v in system.launches().items()}
+    counters = {k: v - counters0.get(k, 0)
+                for k, v in system.counters().items()}
     peak = torch.cuda.max_memory_allocated(device) \
         if device.type == "cuda" else 0
     done = w["done"]
@@ -131,8 +138,8 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device,
     _eprint(f"reference: {time.perf_counter() - t_ref:.3f} s")
     checks = loop.checks(done, out, ref)
     if device.type == "cuda" and launches0:  # the program's kernels ran
-        checks["kernel_groups_missing"] = sum(
-            not groups.launched(launches, g) for g in mix["kernels"])
+        checks["kernel_groups_missing"] = groups.missing(launches,
+                                                         mix["kernels"])
     failed = loop.wrong(loop.keyed(done), ref)
 
     e2e = {"kmer_ops_per_s": ops / window_s,
@@ -144,7 +151,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device,
         view = TraceView.build(
             tr, w["ns"], batches=len(done), port_s=spans.port_seconds(),
             latencies_s=lat, least_bytes=loop.least_bytes(ref),
-            launches=launches, groups=groups)
+            launches=launches, groups=groups, counters=counters)
         for m in cell.per_layer:
             v = spec.reader(m["name"], base)(view)
             if v is not None:
@@ -170,6 +177,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device,
     }
     if trace:
         result["breakdown"] = breakdown
+        result["program_spans"] = view.program_split()  # stderr, not stdout
     result["checks"] = {k: {"value": v, "limit": LIMIT}
                         for k, v in checks.items()}
     return result
@@ -217,6 +225,9 @@ def main(argv=None) -> int:
     if found:
         _eprint(f"refused: modules {found} were loaded")
         return 3
+    split = result.pop("program_spans", None)
+    if split is not None:
+        _eprint(f"program spans: {json.dumps(split)}")
     for name, c in result["checks"].items():
         _eprint(f"check {name}: {c['value']} (limit {c['limit']})")
     print(json.dumps(result), flush=True)

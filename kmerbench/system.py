@@ -1,9 +1,10 @@
 """The system under test: `cbl_tpu_torch`'s public API and nothing else.
 
-`PortSystem` stages traffic, makes indexes and reads them out; the loops
-(`loops/<kind>.py`) call the index's own methods (`CBL`).  The control
-(`reference.control.ControlSystem`) offers the same, so that it can be
-put in the program's place.  Nothing here waits on the device.
+`PortSystem` stages traffic, makes indexes and reads them out, and hands
+the harness the program's launch counters, its own counters and its span
+recording; the loops (`loops/<kind>.py`) call the index's own methods
+(`CBL`).  The control (`reference.control.ControlSystem`) offers the
+same, so that it can be put in the program's place.  Nothing here waits on the device.
 
 The port runs with its defaults: `run` refuses to start where any
 CBL_TORCH_* variable is set (sort mode, merge mode, the words memo).
@@ -30,6 +31,19 @@ class PortSystem:
     def launches(self) -> dict:
         """The program's kernel launch counters (`ops.LAUNCHES`)."""
         return dict(self.api.LAUNCHES)
+
+    def counters(self) -> dict:
+        """The program's counters (`profiling.COUNTERS`)."""
+        from cbl_tpu_torch import profiling
+
+        return dict(profiling.COUNTERS)
+
+    def recording(self):
+        """The program's span recording (`profiling.recording`): a context
+        that yields the list its span records are appended to."""
+        from cbl_tpu_torch import profiling
+
+        return profiling.recording()
 
     def stage(self, stream):
         """A record stream (codes, offsets) packed and copied to the

@@ -7,7 +7,9 @@
 - The faults are planted in the program underneath the harness, which
   otherwise runs as in a benchmark run (the look for a card skipped):
   a step that leaves the index unchanged, half of each batch left out,
-  an answer altered where it is produced.  The cells run on one card, so
+  an answer altered where it is produced.  Each patches public names of
+  `cbl_tpu_torch` alone (methods of `CBL` and `DeviceWordSet`), so that
+  a change inside the program cannot disarm it.  The cells run on one card, so
   there is no exchange between cards to leave out.
 """
 
@@ -31,38 +33,42 @@ def test_control_is_not_correct(name):
 
 
 def _unchanged(monkeypatch, loop):
-    import cbl_tpu_torch.cbl as cbl
+    """A step that leaves the index as it was: a round only queries, an
+    insert does nothing."""
+    from cbl_tpu_torch import CBL
 
     if loop == "window":
-        orig = cbl._round_into_log
-
-        def stale(a, b, qtag, out_cap):
-            merged, positive, live = orig(a, b, qtag, out_cap)
-            return (cbl._fit(a, out_cap) if a.shape[-1] else merged,
-                    positive, live)
-
-        monkeypatch.setattr(cbl, "_round_into_log", stale)
+        monkeypatch.setattr(
+            CBL, "dynamic_round",
+            lambda self, ins, qry, rm, lazy=False:
+            self.query_codes_stream(qry, lazy=lazy))
     else:
-        monkeypatch.setattr(cbl.CBL, "insert_codes_stream",
+        monkeypatch.setattr(CBL, "insert_codes_stream",
                             lambda self, codes, offsets=None: None)
 
 
 def _half_batch(monkeypatch, loop):
-    import cbl_tpu_torch.cbl as cbl
+    """Half of every read batch left out where it is staged: the first
+    half of its records packed, the rest dropped (a genome, one record,
+    stays whole)."""
+    from cbl_tpu_torch import CBL
 
-    orig = cbl._device_words
+    orig = CBL.pack_stream
 
-    def half(stream, starts, ends, nk_pad, cfg, canonical):
-        words, n_valid = orig(stream, starts, ends, nk_pad, cfg, canonical)
-        words = words.clone()
-        words[..., words.shape[-1] // 2:] = cbl.SENTINEL
-        return words, n_valid
+    def half(self, codes, offsets, slab=None):
+        n = len(offsets) - 1
+        if n > 1:
+            offsets = offsets[: n // 2 + 1]
+            codes = codes[: offsets[-1]]
+        return orig(self, codes, offsets, slab)
 
-    monkeypatch.setattr(cbl, "_device_words", half)
+    monkeypatch.setattr(CBL, "pack_stream", half)
 
 
 def _answer_altered(monkeypatch, loop):
-    import cbl_tpu_torch.cbl as cbl
+    """One more hit (a query, a round) or one more k-mer (a build's
+    count) where the answer is produced."""
+    from cbl_tpu_torch import CBL
     from cbl_tpu_torch.wordset import DeviceWordSet
 
     if loop == "query":
@@ -74,9 +80,11 @@ def _answer_altered(monkeypatch, loop):
         monkeypatch.setattr(DeviceWordSet, "count_device",
                             lambda self: orig(self) + 1)
     else:
-        orig = cbl.slog_counts
-        monkeypatch.setattr(cbl, "slog_counts",
-                            lambda *a: (lambda p, n: (p + 1, n))(*orig(*a)))
+        orig = CBL.dynamic_round
+        monkeypatch.setattr(
+            CBL, "dynamic_round",
+            lambda self, *a, **k: (lambda t, p: (t, p + 1))(
+                *orig(self, *a, **k)))
 
 
 @pytest.mark.parametrize("fault", [_unchanged, _half_batch, _answer_altered])

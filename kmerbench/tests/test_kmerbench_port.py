@@ -17,13 +17,16 @@ def test_cell_runs_correct_on_the_cpu_path(name, trace):
     assert r["correct"], r["checks"]
     assert r["attempted"] > 0 and r["failed"] == 0
     want = {m["name"] for m in (cell.per_layer if trace else cell.end_to_end)}
-    # on the CPU no device op is traced: only the host-clock metric reads
-    assert set(r["metrics"]) == (want & {"enqueue_ms"} if trace else want)
+    # on the CPU no device op is traced: only the host-clock metric and
+    # the program's own spans and counters read
+    host = {"enqueue_ms", "host_wait_ms", "folds_per_batch"}
+    assert set(r["metrics"]) == (want & host if trace else want)
     assert list(r)[-1] == "checks"
 
 
 def test_window_folds_inside_the_run():
     import torch
+    from cbl_tpu_torch import profiling
 
     from kmerbench import drive, spec
     from kmerbench.system import PortSystem
@@ -32,12 +35,14 @@ def test_window_folds_inside_the_run():
     Loop = spec.loop("window")
     t = Loop.make_traffic(cell.mix, cell.config, 1)
     loop = Loop(PortSystem(cell.config, CPU), cell.config, cell.mix, t)
+    before = dict(profiling.COUNTERS)
     loop.setup(drive.Spans())
-    seqs = []
     for i in range(4):
         loop.submit(i, drive.Spans())
-        seqs.append(loop.index.wordset._slog_seq)
-    assert min(seqs) < cell.mix["warm_rounds"]  # the log was folded
+    got = {k: v - before.get(k, 0) for k, v in profiling.COUNTERS.items()}
+    assert got["rounds"] == cell.mix["warm_rounds"] + 4
+    # more rounds than the log's seq holds (62): the log was folded
+    assert sum(v for k, v in got.items() if k.startswith("folds.slog.")) > 0
     out = loop.outputs()
     ref = loop.reference(CPU)
     done = [(i, [0, 0]) for i in range(4)]

@@ -1,14 +1,22 @@
 """Device ops credited to the program's spans, host waits and idle gaps
 named by them (`kmerbench.program_spans`), on synthetic kineto-like
-events; and the window with the program's recording on the CPU path."""
+events; the six metric files that read the split; and `run`'s traced
+run of each tiny cell with the program's recording on.
+
+On the CPU no device operation is traced.  `cpu_ops` hands the trace a
+CPU run's aten ops as its device operations instead, each enqueued by a
+call at its own start, so that the program's spans credit them as they
+credit a card's: the phases that work in a cell read a number there."""
 
 import types
 
 import pytest
 
-from kmerbench import kernels, program_spans as ps
-from kmerbench.tests.tiny import CELLS, CPU, tiny_cell
-from kmerbench.trace import merge_intervals
+from kmerbench import kernels, program_spans as ps, spec, trace
+from kmerbench.reference.control import ControlSystem
+from kmerbench.run import run_cell
+from kmerbench.tests.tiny import CELLS, CPU, SCREEN, tiny_cell, tiny_screen
+from kmerbench.trace import TraceView, merge_intervals
 
 WINDOW = (0, 10_000)
 # the program's records: (name, start, end, parent, call id)
@@ -148,31 +156,135 @@ def test_spans_lookup_walks_out_of_ended_children():
     assert loop.name_at(13) == "b" and loop.name_at(16) is None  # ends
 
 
-def _holder(program):
-    return types.SimpleNamespace(ops=OPS, calls=CALLS, program=program,
-                                 spans=HARNESS)
+SIX = ("span_words_ms", "span_sort_ms", "span_join_ms", "span_index_ms",
+       "host_wait_ms", "folds_per_batch")
+ENTRIES = {m["name"]: m for m in spec.load()["per_layer"] if m["name"] in SIX}
+COUNTERS = {"folds.slog.autofold": 2, "folds.pending": 1, "rounds": 4,
+            "syncs.n": 2}
+
+
+def _view(program, ops=OPS, batches=2):
+    holder = types.SimpleNamespace(ops=ops, calls=CALLS, program=program,
+                                   spans=HARNESS)
+    return TraceView.build(holder, WINDOW, kernels.Groups(), batches=batches,
+                           port_s=0.0, latencies_s=[], least_bytes=0.0,
+                           launches={}, counters=dict(COUNTERS))
 
 
 def test_report_reads_zero_for_a_span_that_never_ran_and_none_without_spans():
-    groups = kernels.Groups()
-    r = ps.report(_holder(PROGRAM), WINDOW, 2, groups)
+    r = ps.report(_view(PROGRAM))
     assert r["metrics"]["span_words_ms"] == pytest.approx(1000 * 1e-6 / 2)
     assert r["metrics"]["host_wait_ms"] == pytest.approx(920 * 1e-6 / 2)
+    assert r["metrics"]["folds_per_batch"] == 1.5
+    assert r["counters"] == {k: v / 2 for k, v in COUNTERS.items()}
     no_join = [("cbl.x", *s[1:]) if s[0] == "join" else s for s in PROGRAM]
-    r = ps.report(_holder(no_join), WINDOW, 2, groups)
-    assert r["metrics"]["span_join_ms"] == 0.0
-    r = ps.report(_holder([]), WINDOW, 2, groups)
+    assert ps.report(_view(no_join))["metrics"]["span_join_ms"] == 0.0
+    r = ps.report(_view([]))
     assert set(r["metrics"].values()) == {None}
     assert r["credited_pct"] == pytest.approx(100 * (1 - 100 / 3100))
+    assert r["program_pct"] == 0.0
+    # no device op traced (a CPU run): device times unread, host waits read
+    r = ps.report(_view(PROGRAM, ops=[]))
+    assert [r["metrics"][m] for m in ps.SPAN_METRICS] == [None] * 4
+    assert r["metrics"]["host_wait_ms"] == pytest.approx(920 * 1e-6 / 2)
 
 
-@pytest.mark.parametrize("record", [True, False])
-@pytest.mark.parametrize("name", CELLS)
-def test_the_window_on_the_cpu_path(name, record):
-    r = ps.run(tiny_cell(name), 2**31 + 11, 0.3, CPU, record=record,
-               profile=False)
-    assert r["correct"] and r["batches"] > 0
-    assert (r["spans_recorded"] > 0) == record
-    assert r["folds_per_batch"] is not None
+@pytest.mark.parametrize("metric,want", [
+    ("span_words_ms", 1000e-6 / 2), ("span_sort_ms", 1100e-6 / 2),
+    ("span_join_ms", 600e-6 / 2), ("span_index_ms", 100e-6 / 2),
+    ("host_wait_ms", 920e-6 / 2), ("folds_per_batch", 1.5)])
+def test_each_metric_file_reads_what_the_report_reads(metric, want):
+    got = spec.reader(metric)(_view(PROGRAM))
+    assert got == ps.report(_view(PROGRAM))["metrics"][metric]
+    assert got == pytest.approx(want)
+    assert spec.reader(metric)(_view([])) is None
+    assert ENTRIES[metric]["workloads"]  # each names the cells it reads in
+
+
+def test_the_breakdown_names_idle_gaps_by_program_span():
+    gaps = dict(_view(PROGRAM).breakdown()["idle_gaps"])
+    assert gaps == pytest.approx({"words": 400e-9, "join": 1500e-9,
+                                  "index": 400e-9, "harness": 1300e-9,
+                                  "harness.wait": 3300e-9})
+
+
+def _cpu_kineto(prof):
+    """A CPU profile's aten ops as device operations, each enqueued by a
+    call at its own start (`trace._kineto`'s rows)."""
+    ops, calls = [], []
+    for i, e in enumerate(prof.profiler.kineto_results.events(), 1):
+        if e.is_user_annotation() or not e.name().startswith("aten::"):
+            continue
+        a = e.start_ns()
+        ops.append((e.name(), a, a + e.duration_ns(), i))
+        calls.append(("cudaLaunchKernel", a, a + 1, i))
+    return ops, calls
+
+
+@pytest.fixture
+def cpu_ops(monkeypatch):
+    monkeypatch.setattr(trace, "_kineto", _cpu_kineto)
+
+
+def _tiny(name):
+    if name == SCREEN:
+        return tiny_screen()
+    cell = tiny_cell(name)
+    if cell.mix["loop"] == "window":
+        # a fold every third round, as at the cells' own size, and one in
+        # the window's first round, however few rounds the window holds
+        cell.mix["window"] = 2
+        cell.mix["reads"]["queries"]["reads"] = 100
+        cell.mix["warm_rounds"] = 6
+    return cell
+
+
+@pytest.mark.parametrize("name", CELLS + (SCREEN,))
+def test_each_metric_reads_in_the_cells_it_lists_and_only_there(name,
+                                                                 cpu_ops):
+    """A metric lists a cell where its phase works in the window: there it
+    reads a number, a span's device time above 0; elsewhere the phase does
+    nothing (0), and the metric is not reported."""
+    r = run_cell(_tiny(name), 2**31 + 13, 0.6, True, CPU)
+    assert r["correct"], r["checks"]
+    split = r["program_spans"]
+    assert split["program_pct"] >= 99.0
+    for m, entry in ENTRIES.items():
+        read = split["metrics"][m]
+        if name in entry["workloads"]:
+            assert r["metrics"][m] == {"value": read, "unit": entry["unit"]}
+            assert read is not None
+            if m in ps.SPAN_METRICS:
+                assert read > 0, m
+        else:
+            assert m not in r["metrics"]
+            assert read == 0.0, m
     if "window" in name:
-        assert r["counters"]["rounds"] == 1.0
+        assert split["counters"]["rounds"] == 1.0
+        assert split["metrics"]["folds_per_batch"] > 0
+
+
+@pytest.mark.parametrize("name", CELLS)
+def test_each_metric_reads_none_under_the_control(name, cpu_ops):
+    cell = tiny_cell(name)
+    r = run_cell(cell, 21, 0.3, True, CPU,
+                 system=ControlSystem(cell.config, CPU, bits=16))
+    split = r["program_spans"]
+    assert split["busy_ms"] > 0  # the control's own ops were traced
+    assert [split["metrics"][m] for m in SIX] == [None] * 6
+    assert not set(SIX) & set(r["metrics"])
+
+
+def test_only_the_traced_run_records_the_programs_spans(monkeypatch):
+    from cbl_tpu_torch import profiling
+
+    entered = []
+    orig = profiling.recording
+    monkeypatch.setattr(profiling, "recording",
+                        lambda: entered.append(1) or orig())
+    cell = tiny_cell("k25_p24.dynamic_window")
+    r = run_cell(cell, 2**31 + 17, 0.2, False, CPU)
+    assert r["correct"] and entered == [] and "program_spans" not in r
+    r = run_cell(cell, 2**31 + 17, 0.2, True, CPU)
+    assert r["correct"] and entered == [1]
+    assert r["program_spans"]["counters"]["rounds"] == 1.0

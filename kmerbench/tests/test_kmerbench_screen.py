@@ -14,20 +14,10 @@ from kmerbench.reference.control import ControlSystem
 from kmerbench.reference.kmers import kmer_cols, rows_differ
 from kmerbench.run import run_cell
 from kmerbench.system import PortSystem
-from kmerbench.tests.tiny import CPU, GENOME_BASES
+from kmerbench.tests.tiny import CPU, SCREEN as CELL, tiny_screen
 
-CELL = "k25_p24_chm13.host_screen"
-SIZES = {"batches": {"count": 3, "reads": 40, "read_bases": 150,
-                     "from_genome": 0.9, "errors": 0.001}}
 SLAB = 4096  # k-mers a slab: the genome takes five
 PENDING = 1024  # rows of the pending log: every later slab merges in
-
-
-def tiny_screen(errors: float = 0.001):
-    cell = spec.cell(spec.load(), CELL)
-    cell.mix["reads"] = {"batches": dict(SIZES["batches"], errors=errors)}
-    cell.config["genome_bases"] = GENOME_BASES
-    return cell
 
 
 @pytest.fixture

@@ -46,12 +46,14 @@ def test_groups_are_declared_in_the_metric_files_that_read_them():
     assert where == {"B1": "necklace_ms", "B2": "necklace_ms",
                      "B3": "merge_ms", "B4": "merge_ms", "B7": "merge_ms",
                      "B5": "sort_ms", "B6": "sort_ms",
-                     "library_sort": "sort_ms"}
+                     "library_sort": "sort_ms", "B8": "probe_ms"}
     assert GROUPS.launched({"necklace_wide": 2, "blank": 1, "x": 5}, "B1") == 2
 
 
 def _view(ops, spans=(), launches=None, batches=4):
-    trace = types.SimpleNamespace(ops=ops, spans=list(spans))
+    # each op with a correlation id of its own; no call, no program span
+    trace = types.SimpleNamespace(ops=[(*o, i) for i, o in enumerate(ops)],
+                                  spans=list(spans), calls=[], program=[])
     return TraceView.build(trace, (0, 1000), batches=batches, port_s=0.002,
                            latencies_s=[0.001 * i for i in range(1, 101)],
                            least_bytes=HBM_BYTES_PER_S * 1e-7,
@@ -111,3 +113,19 @@ def test_a_launched_group_that_reads_no_time_is_an_error():
     v = _view([("renamed_kernel", 0, 10)], launches={"merge_3col": 3})
     with pytest.raises(RuntimeError, match="B3"):
         _read("merge_ms", v)
+
+
+def test_the_query_cell_needs_no_particular_join():
+    """`query_reads` names the kernels that run whichever join the port
+    picks for a clean index (the words, the blanking, the query's sort),
+    and the join's own groups are read only where they are listed."""
+    mix = spec.cell(spec.load(), "k25_p24.query_reads").mix
+    assert mix["kernels"] == ["B1", "B2", "B5"]
+    words_and_sort = {"necklace": 1, "blank": 1, "sort": 1}
+    for join in ({"merge": 1}, {"probe": 1}):  # B3 or B8
+        assert GROUPS.missing({**words_and_sort, **join}, mix["kernels"]) == 0
+    assert GROUPS.missing({**words_and_sort, "probe": 1},
+                          ["B1", "B2", "B3"]) == 1
+    per_layer = {m["name"]: m for m in spec.load()["per_layer"]}
+    assert "k25_p24.query_reads" not in per_layer["merge_ms"]["workloads"]
+    assert "k25_p24.query_reads" in per_layer["span_join_ms"]["workloads"]

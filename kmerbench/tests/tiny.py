@@ -27,11 +27,22 @@ SIZES = {
 }
 CELLS = ("k25_p24.query_reads", "k59_p28.bulk_build",
          "k25_p24.dynamic_window", "k59_p28.dynamic_window")
+SCREEN = "k25_p24_chm13.host_screen"  # its own tests: the genome's slabs
+SCREEN_SIZES = {"batches": {"count": 3, "reads": 40, "read_bases": 150,
+                            "from_genome": 0.9, "errors": 0.001}}
 CPU = torch.device("cpu")
 
 
 def tiny_cell(name: str, bench: dict | None = None, base=spec.ROOT):
     cell = spec.cell(bench or spec.load(base), name, base)
     cell.mix.update(SIZES[cell.mix["loop"]])
+    cell.config["genome_bases"] = GENOME_BASES
+    return cell
+
+
+def tiny_screen(errors: float = 0.001):
+    cell = spec.cell(spec.load(), SCREEN)
+    cell.mix["reads"] = {"batches": dict(SCREEN_SIZES["batches"],
+                                         errors=errors)}
     cell.config["genome_bases"] = GENOME_BASES
     return cell
