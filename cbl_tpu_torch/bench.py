@@ -444,7 +444,7 @@ def run_tpu_sharded_dynamic(codes: np.ndarray, repeats: int, device="cuda"):
     mesh = make_mesh([torch.device(device)])
     return _best_rounds("sharded-dynamic (D=1)",
                         lambda: ShardedCBL(k=K, mesh=mesh),
-                        lambda idx: idx._slog_live_dev, codes, repeats)
+                        lambda idx: idx.slog.live, codes, repeats)
 
 
 def _collect_rounds(args, codes, base, label: str, run) -> dict:

@@ -14,10 +14,13 @@ then:
   `remove_codes_stream` append to the word set's pending log when the
   batch fits it (else they merge or remove at once), and
   `query_codes_stream` joins index and log without folding;
-- dynamic: `dynamic_round(ins, qry, rm)` merges three tagged sorted
-  streams into the sorted log (B3) and scans it once (kernel B4) for the
+- dynamic: `dynamic_round(ins, qry, rm)` hands the streams' sorted words
+  to the word set (`DeviceWordSet.round_words`), which merges them,
+  tagged, into the sorted log (B3) and scans it once (kernel B4) for the
   round's query hits and the distinct count; `flush()` folds the log.
-  Streams of several slabs (or none) take the separate calls instead.
+  `wordset.SortedLog` owns the log; this module reads none of its
+  state.  Streams of several slabs (or none) take the separate calls
+  instead.
 - sequences: `insert_seq(s)` / `remove_seq(s)` run a second, chunked
   pipeline (`_pipeline_words`: chunks of up to `chunk_size` k-mers,
   validity packed one bit a k-mer on the host, B1, no blanking scan) and
@@ -43,6 +46,8 @@ then:
   `load_from_file` write and read `cbl_tpu`'s CBLX checkpoints
   (`serialize`), `interop` the reference's `.cbl` files, and the stats
   methods (`stats`) report the prefix buckets.
+A `PackedStream` owns the memo of its slabs' words (`PackedStream.words`):
+it alone decides when they are computed, sorted and kept.
 Every sort goes through `ops.sort.sort_keys` (kernel B5 for CUDA
 tensors and `torch.sort` for CPU tensors by default; a sort mode set by
 `CBL_TORCH_SORT` or `use_sort_mode` picks `torch.sort` ("library"), B5
@@ -62,8 +67,6 @@ Differences from `cbl_tpu.CBL`:
 
 from __future__ import annotations
 
-import os
-
 import numpy as np
 import torch
 
@@ -72,29 +75,22 @@ from . import necklace, stats
 from .config import CBLConfig, get_config
 from .limbs import (
     SENTINEL,
-    cols,
     ints_to_keys,
     keys_to_limbs,
     kmer_cols,
-    stack,
     to_py_ints,
 )
-from .ops.scan import blank_mask, slog_counts, slog_is_packed
-from .ops.sort import merge_sorted_pair
+from .ops.scan import blank_mask
 from .profiling import count, span, spanned, sync
 from . import wordset as wordset_mod
 from .wordset import (
-    _SLOG_SEQ_MAX,
     DEFAULT_PENDING_CAP,
     DeviceWordSet,
     _contains_sortjoin_kernel,
     _distinct_count,
-    _fit,
     _next_pow2,
-    _quantize_cap,
     host_limbs,
     resolve_device,
-    slog_tagged,
     sort_rows,
 )
 
@@ -199,53 +195,6 @@ def _fused_words_sorted(stream, starts, ends, nk_pad, cfg, canonical):
     return sort_rows(words), n_valid
 
 
-def _merge_slog(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Merge two sorted slogs of one layout (B3, or B7 under "bitonic")."""
-    return stack(merge_sorted_pair(cols(a), cols(b)))
-
-
-@spanned("join")
-def _fused_round_slog(a: torch.Tensor, seq: int, w_i, w_q, w_r,
-                      out_cap: int):
-    """One interleaved round over the sorted log (`cbl_tpu.cbl.
-    _fused_round_slog_fn`): tag the three PRE-SORTED word streams with
-    (seq << 2) | {1 insert, 2 query, 3 remove} (`slog_tagged`: packed
-    keys, or a constant tag column, as `a` is laid out; each stays
-    sorted, sentinel rows stay sentinel, at the end), combine them with
-    two small merges, merge the batch into the log `a` with one big
-    merge, truncate or pad with sentinel rows to `out_cap` (the caller
-    guarantees that only sentinel rows are cut), and scan once (B4 in the
-    log's form).
-
-    The tags make the reference's sequential semantics a property of the
-    order: a round's queries sort after its inserts and before its
-    removes, and the scan honours only entries at or before each query.
-    -> (log [out_cap] or [C, out_cap], positive, live) with int64 0-d
-    counters."""
-    b = _round_batch(seq, w_i, w_q, w_r, slog_is_packed(a))
-    return _round_into_log(a, b, (seq << 2) | 2, out_cap)
-
-
-def _round_batch(seq: int, w_i, w_q, w_r, packed: bool) -> torch.Tensor:
-    """The round's three PRE-SORTED word streams tagged with (seq << 2) |
-    {1, 2, 3} and combined by two merges into one sorted batch of slog
-    rows (packed keys, or a tag column)."""
-    base = seq << 2
-    b = _merge_slog(slog_tagged(w_i, base | 1, packed),
-                    slog_tagged(w_q, base | 2, packed))
-    return _merge_slog(b, slog_tagged(w_r, base | 3, packed))
-
-
-def _round_into_log(a: torch.Tensor, b: torch.Tensor, qtag: int,
-                    out_cap: int):
-    """Merge a round's sorted batch `b` into the log `a` (an empty `a`
-    adopts it), fit to out_cap rows and scan once (B4): (log, positive,
-    live)."""
-    merged = _fit(_merge_slog(a, b) if a.shape[-1] else b, out_cap)
-    positive, live = slog_counts(merged, qtag)
-    return merged, positive, live
-
-
 def _unblanked(starts: np.ndarray, ends: np.ndarray, nk_pad: int) -> int:
     """K-mer starts of a slab that its blank intervals [starts, ends)
     (clipped to nk_pad; B2 blanks their union) leave valid."""
@@ -274,33 +223,50 @@ class PackedStream:
     starts, ends, n_kmers).  Build it once with `CBL.pack_stream` and pass
     it to insert and query, which then pay the host-to-device copy once.
 
-    `_words` memoizes each slab's (words, n_valid, sorted): the necklace
-    transform is a pure function of the staged stream, so an insert fills
-    the memo with sorted words and a later query of the same stream merges
-    them with the index without a sort; a remove or a query against the
-    pending log fills it with the words in stream order.  With
-    CBL_TORCH_NO_WORDS_CACHE set when the stream is built (`cbl_tpu`'s
-    CBL_TPU_NO_WORDS_CACHE), the memo stays empty and every pass runs
-    the word pipeline, for timings of the whole pipeline.  The memo holds
-    at most `_MEMO_ROWS` rows: past them a slab's words are not kept (a
-    slab already kept is still replaced)."""
+    The stream owns the memo of its slabs' words (`words`, and
+    `keep_sorted` for an insert's): the necklace transform is a pure
+    function of the staged stream, so an insert keeps its sorted words
+    and a later query of the same stream merges them with the index
+    without a sort, a round sorts them once, and a remove or a query
+    against a log keeps the words in stream order.  The memo holds at
+    most `_MEMO_ROWS` rows: past them a slab's words are not kept (a slab
+    already kept is still replaced)."""
 
     def __init__(self, cfg: CBLConfig, canonical: bool, slabs: list):
         self.cfg = cfg
         self.canonical = canonical
         self.slabs = slabs
-        self._words: dict = {}
-        self._cache_on = not os.environ.get("CBL_TORCH_NO_WORDS_CACHE")
+        self._words: dict = {}  # slab -> (words, n_valid, sorted)
 
-    def _memo(self, i: int, entry: tuple) -> tuple:
-        """Keep slab i's (words, n_valid, sorted) when the memo is on and
-        has room for it."""
-        if self._cache_on:
-            held = sum(w.shape[-1] for j, (w, _, _) in self._words.items()
-                       if j != i)
-            if held + entry[0].shape[-1] <= _MEMO_ROWS:
-                self._words[i] = entry
+    def words(self, i: int, sort: bool = False, keep: bool = True):
+        """(words, n_valid int32 0-d, sorted) of slab i: as kept, sorted
+        first where `sort` asks and they are not (and kept so); else
+        computed (`_device_words`: B2, B1; sorted where `sort` asks) and
+        kept where `keep` says."""
+        entry = self._words.get(i)
+        if entry is None:
+            nk_pad, stream, s_arr, e_arr, _ = self.slabs[i]
+            compute = _fused_words_sorted if sort else _device_words
+            entry = (*compute(stream, s_arr, e_arr, nk_pad, self.cfg,
+                              self.canonical), sort)
+        elif sort and not entry[2]:
+            entry = (sort_rows(entry[0]), entry[1], True)
+        else:
+            return entry
+        if keep:
+            self._keep(i, entry)
         return entry
+
+    def keep_sorted(self, i: int, words: torch.Tensor, n_valid) -> None:
+        """Keep slab i's sorted words, computed by an insert (an index
+        build's may be the index itself: nothing updates it in place)."""
+        self._keep(i, (words, n_valid, True))
+
+    def _keep(self, i: int, entry: tuple) -> None:
+        held = sum(w.shape[-1] for j, (w, _, _) in self._words.items()
+                   if j != i)
+        if held + entry[0].shape[-1] <= _MEMO_ROWS:
+            self._words[i] = entry
 
     @property
     def n_kmers(self) -> int:
@@ -533,17 +499,6 @@ class CBL:
 
     # --- insert, remove and query of record streams ---
 
-    def _slab_words(self, ps: PackedStream, i: int):
-        """(words, n_valid, sorted) of slab `i` through the stream's memo;
-        a slab computed here is memoized in stream order (unsorted)."""
-        cached = ps._words.get(i)
-        if cached is None:
-            nk_pad, stream, s_arr, e_arr, _ = ps.slabs[i]
-            cached = ps._memo(i, _device_words(
-                stream, s_arr, e_arr, nk_pad, self.cfg, self.canonical)
-                + (False,))
-        return cached
-
     @spanned("cbl.insert_codes_stream")
     def insert_codes_stream(self, codes, offsets: np.ndarray | None = None):
         """Insert every k-mer of a record stream (codes and offsets, or a
@@ -559,14 +514,13 @@ class CBL:
                 data, n_dev, n_valid = _fused_build(
                     stream, s_arr, e_arr, nk_pad, self.cfg, self.canonical
                 )
-                # the memo shares `data`: nothing updates it in place
-                ps._memo(i, (data, n_valid, True))
+                ps.keep_sorted(i, data, n_valid)
                 ws.adopt_built(data, n_dev, n_here)
                 continue
             words, n_valid = _fused_words_sorted(
                 stream, s_arr, e_arr, nk_pad, self.cfg, self.canonical
             )
-            ps._memo(i, (words, n_valid, True))
+            ps.keep_sorted(i, words, n_valid)
             if words.shape[-1] + ws.n_pending <= ws.pending_cap:
                 ws.insert_words(words)
             else:
@@ -577,7 +531,7 @@ class CBL:
         """Remove every k-mer of a record stream: one batch for the word
         set's log (`DeviceWordSet.remove_words`)."""
         ps = self._resolve_stream(codes, offsets)
-        batches = [self._slab_words(ps, i)[0] for i in range(len(ps.slabs))]
+        batches = [ps.words(i)[0] for i in range(len(ps.slabs))]
         if batches:
             self.wordset.remove_words(batches[0] if len(batches) == 1
                                       else torch.cat(batches, dim=-1))
@@ -590,20 +544,15 @@ class CBL:
         with lazy=True they come back as unsynced device 0-d tensors,
         otherwise as ints after one sync.  A pending log or an active slog
         is joined as it is, never folded, and an index with holes (a set
-        operation's result) is joined by one sort, never compacted."""
+        operation's result) is joined by one sort, never compacted.  A
+        query against a log keeps its words in the stream's memo; one of a
+        clean index uses them where kept and does not keep them."""
         ws = self.wordset
         ps = self._resolve_stream(codes, offsets)
-        logged = ws.n_pending > 0 or ws._slog is not None
+        logged = ws.n_pending > 0 or ws.slog.keys is not None
         total = positive = None
         for i, slab in enumerate(ps.slabs):
-            nk_pad, stream, s_arr, e_arr, _ = slab
-            if logged or i in ps._words:
-                # a query against a log leaves its words in the memo
-                words, t, is_sorted = self._slab_words(ps, i)
-            else:
-                words, t = _device_words(stream, s_arr, e_arr, nk_pad,
-                                         self.cfg, self.canonical)
-                is_sorted = False
+            words, t, is_sorted = ps.words(i, keep=logged)
             p = ws.count_hits_device(words, words_sorted=is_sorted,
                                      n_valid=getattr(slab, "n_valid", None))
             total = t if total is None else total + t
@@ -630,14 +579,10 @@ class CBL:
         Returns (total, positive) ints, or unsynced device 0-d tensors with
         lazy=True.
 
-        Streams of ONE slab each run over the sorted log
-        (`_fused_round_slog`): the round enters on the index as it is (its
-        keys become seq-0 inserts; a pending log is folded first), folds
-        the log before its seq would pass 62 where `cbl_tpu` does
-        (`wordset.slog_tag_in_limbs`), and commits its state only after it
-        was enqueued.  Any other streams take the separate insert, query
+        Streams of ONE slab each run over the word set's sorted log
+        (`DeviceWordSet.round_words`) on their sorted words, which the
+        streams keep.  Any other streams take the separate insert, query
         and remove calls."""
-        ws = self.wordset
         count("rounds")
         streams = [self._resolve_round_stream(x) for x in (ins, qry, rm)]
         if any(len(ps.slabs) != 1 for ps in streams):
@@ -645,58 +590,15 @@ class CBL:
             t, p = self.query_codes_stream(streams[1], lazy=lazy)
             self.remove_codes_stream(streams[2])
             return t, p
-        (w_i, _), (w_q, total), (w_r, _) = (
-            self._sorted_slab_words(ps) for ps in streams
+        (w_i, _, _), (w_q, total, _), (w_r, _, _) = (
+            ps.words(0, sort=True) for ps in streams
         )
-        nk_i, nk_q, nk_r = (w.shape[-1] for w in (w_i, w_q, w_r))
-        if ws.n_pending > 0:
-            ws.flush()
-        if ws._slog_capped and ws._slog_seq >= _SLOG_SEQ_MAX:
-            # `cbl_tpu`'s 8-bit tag caps the seq at 62
-            ws._fold_slog("seq_cap")
-        ws.maybe_autofold_slog()
-        if ws._slog is None:
-            ws._compact()  # the index's keys enter the log as a sorted run
-        if ws._slog is not None:
-            a, a_real = ws._slog, ws._slog_real
-        else:
-            # the index's keys enter as implicit seq-0 inserts (tag 1)
-            live = ws._live() if ws._n_upper else ws.data[..., :0]
-            a = slog_tagged(live, 1, ws._slog_pack)
-            a_real = min(ws._n_upper, live.shape[-1])
-        a_cap = a.shape[-1]
-        new_real = a_real + nk_i + nk_q + nk_r
-        out_cap = a_cap if new_real <= a_cap else _quantize_cap(new_real)
-        seq = ws._slog_seq + 1
-        merged, positive, live_n = _fused_round_slog(
-            a, seq, w_i, w_q, w_r, out_cap)
-        # commit state only after the round was enqueued (a failed launch
-        # must not advance the log)
-        ws._slog = merged
-        ws._slog_seq = seq
-        ws._slog_real = new_real
-        ws._slog_count_dev = live_n  # free by-product of the round's scan
-        ws._n_upper = min(ws._n_upper + nk_i, out_cap)
-        count("slog_rows", new_real)
+        positive = self.wordset.round_words(w_i, w_q, w_r)
         if lazy:
             return total, positive
         with sync("dynamic_round"):
             t, p = torch.stack([total.to(torch.int64), positive]).tolist()
         return t, p
-
-    def _sorted_slab_words(self, ps: PackedStream):
-        """(sorted words [nk_pad], n_valid) of a one-slab stream through
-        the PackedStream memo: a stream whose words were computed before
-        (an insert, a remove, or an earlier round) is not run again, and
-        one whose words are sorted is not sorted again."""
-        cached = ps._words.get(0)
-        if cached is None:
-            nk_pad, stream, s_arr, e_arr, _ = ps.slabs[0]
-            cached = _fused_words_sorted(stream, s_arr, e_arr, nk_pad,
-                                         self.cfg, self.canonical) + (True,)
-        elif not cached[2]:
-            cached = (sort_rows(cached[0]), cached[1], True)
-        return ps._memo(0, cached)[:2]
 
     def _resolve_round_stream(self, x) -> PackedStream:
         if isinstance(x, PackedStream):

@@ -117,7 +117,7 @@ def multihost_insert_stream(idx, codes: np.ndarray, offsets: np.ndarray,
     all-blank dummy slabs).  Boundaries come from rank 0's first slab
     (`_agree_boundaries_from_stream`).  A bucket overflow raises at the
     end, as `cbl_tpu`'s does (no re-run)."""
-    idx._fold_slog()
+    idx.flush()
     if not idx._boundaries_from_data and idx._ranks > 1 and idx.D > 1:
         _agree_boundaries_from_stream(idx, codes, offsets, nk_sub)
     for nk_sub_, stream, starts, ends in _local_groups(idx, codes, offsets,
@@ -134,7 +134,7 @@ def multihost_remove_stream(idx, codes: np.ndarray, offsets: np.ndarray,
     partition, as the port's one-process remove: steps that dropped words
     (the drop count summed over the ranks) are all re-run with larger
     buckets by every rank; `cbl_tpu`'s drops them silently."""
-    idx._fold_slog()
+    idx.flush()
     groups = _local_groups(idx, codes, offsets, nk_sub, icap)
     idx._remove_rerun(lambda: iter(groups))
 
@@ -142,7 +142,7 @@ def multihost_remove_stream(idx, codes: np.ndarray, offsets: np.ndarray,
 def multihost_query_stream(idx, codes: np.ndarray, offsets: np.ndarray,
                            nk_sub: int = 4096, icap: int = 64):
     """(total, positive) over the UNION of all ranks' record slices."""
-    idx._fold_slog()
+    idx.flush()
     total = positive = None
     for nk_sub_, stream, starts, ends in _local_groups(idx, codes, offsets,
                                                        nk_sub, icap):
@@ -350,7 +350,7 @@ def run_multihost_dryrun_worker(coordinator: str, n_proc: int, pid: int,
                                      halves[r])
             assert got == tuple(want), (r, got, want)
         assert idx.count() == ref.count(), (idx.count(), ref.count())
-        idx._fold_slog()  # the placement check reads the folded shards
+        idx.flush()  # the placement check reads the folded shards
         assert idx.count() == ref.count(), (idx.count(), ref.count())
         _assert_local_shards_match(idx, ref.wordset.words_array(),
                                    "dyn-rounds")

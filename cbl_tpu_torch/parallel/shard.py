@@ -43,12 +43,12 @@ device:
 
 Every local step reuses the single index's code: the word pipeline
 (`cbl._device_words`: B1, B2), the sort and merge seam (`ops.sort`: B3 by
-default), the round's tagged batch and log merge (`cbl._round_batch`,
-`cbl._round_into_log`: B3, B4) and the word set's kernels (marks,
-compaction, joins, the slog fold).  Bucket sizes, capacities, the
-quantile boundaries and the slog's bookkeeping are `cbl_tpu`'s, so
-boundaries, per-shard counts and rows and the log's seq, real-row bound
-and capacity equal `cbl_tpu`'s on the same input.
+default), the word set's kernels (marks, compaction, joins) and its
+sorted log (`wordset.SortedLog`: one log a shard, its entry, seq cap,
+capacity, tagged batch, merge and scan (B3, B4), commit and fold).  Bucket
+sizes, capacities, the quantile boundaries and the slog's bookkeeping
+are `cbl_tpu`'s, so boundaries, per-shard counts and rows and the log's
+seq, real-row bound and capacity equal `cbl_tpu`'s on the same input.
 
 One intended difference: a bulk remove whose routing overflows a bucket
 re-runs its stream with larger buckets (removing twice is a no-op), so it
@@ -75,14 +75,7 @@ import os
 import numpy as np
 import torch
 
-from ..cbl import (
-    CBL,
-    _device_words,
-    _round_batch,
-    _round_into_log,
-    _stream_len,
-    host_to_device,
-)
+from ..cbl import CBL, _device_words, _stream_len, host_to_device
 from ..config import get_config
 from ..kmer import encode_seq
 from ..limbs import (
@@ -101,8 +94,8 @@ from ..limbs import (
 from ..ops.sort import sort_keys
 from ..serialize import _npz_path
 from ..wordset import (
-    _SLOG_SEQ_MAX,
     MIN_CAP,
+    SortedLog,
     _contains_kernel,
     _contains_sortjoin_kernel,
     _count_hits_merge_kernel,
@@ -112,15 +105,11 @@ from ..wordset import (
     _merge_rows,
     _merge_sortcompact_kernel,
     _next_pow2,
-    _quantize_cap,
+    _out_cap,
     _setop_sort_kernel_packed,
-    _slog_fold_kernel,
     host_limbs,
     resolve_device,
     slog_key,
-    slog_packed,
-    slog_tag_in_limbs,
-    slog_tagged,
     sort_rows,
 )
 
@@ -429,12 +418,10 @@ class ShardedCBL:
         # next blocking call; once read non-zero the index stays corrupt
         self._dropped_dev = None
         self._corrupt = False
-        # the sharded sorted log of dynamic rounds: while set it REPLACES
-        # `data` until `_fold_slog` (the single index's `_slog` contract)
-        self._slog_dev = None
-        self._slog_seq = 0
-        self._slog_real = 0  # per-shard bound on non-sentinel log rows
-        self._slog_live_dev = None  # distinct live words, summed
+        # the sorted log of dynamic rounds, one log a shard: while active
+        # it REPLACES `data` until `flush` (the single index's contract);
+        # its live count is summed over the shards
+        self.slog = SortedLog(self.cfg)
 
     # --- the process group ---------------------------------------------
 
@@ -489,7 +476,7 @@ class ShardedCBL:
         one shard, boundaries from data, or rows already placed (host
         state alone: nothing is copied or waited for)."""
         return (self.D == 1 or self._boundaries_from_data
-                or self._slog_dev is not None or self._count_upper > 0)
+                or self.slog.keys is not None or self._count_upper > 0)
 
     def _maybe_init_boundaries(self, words) -> None:
         """Quantile boundaries from the first word batch (`words`: keys),
@@ -536,7 +523,7 @@ class ShardedCBL:
         folded first: its rows are the set.  (`cbl_tpu` reads the counts
         of the rows before the rounds there, or fails where there were
         none.)"""
-        self._fold_slog()
+        self.flush()
         if self._counts_host is None:
             self._check_dropped()
         return self._counts_nocheck()
@@ -573,7 +560,7 @@ class ShardedCBL:
         self._counts_nocheck()
 
     def _ensure_clean(self) -> None:
-        self._fold_slog()
+        self.flush()
         if self._dups:
             self._dedup_now()
 
@@ -698,18 +685,14 @@ class ShardedCBL:
 
     # --- the sharded sorted log (interleaved dynamic rounds) --------------
 
-    def _fold_slog(self) -> None:
-        """Fold an active log back into clean shards (a scatter-max and a
-        compaction sort a shard)."""
-        if self._slog_dev is None:
+    def flush(self) -> None:
+        """Fold an active sorted log back into clean shards (a scatter-max
+        and a compaction sort a shard), to `cbl_tpu`'s capacity: the
+        log's real-row bound, to the next power of two."""
+        if self.slog.keys is None:
             return
-        slog = self._slog_dev
-        self._slog_dev = None
-        self._slog_seq = 0
-        self._slog_live_dev = None
-        c_out = max(_next_pow2(max(self._slog_real, 1)), MIN_CAP)
-        self._slog_real = 0
-        out = [_slog_fold_kernel(s, c_out) for s in slog]
+        c_out = _out_cap(self.slog.real)
+        out = self.slog.fold(c_out)
         self.data = [o[0] for o in out]
         self.C = c_out
         self._dups = False
@@ -749,29 +732,24 @@ class ShardedCBL:
         self._maybe_init_boundaries_from_stream(*ps[0]._host0)
         (w_i, _), (w_q, nv_q), (w_r, _) = (self._stream_sorted_words(p)
                                            for p in ps)
-        nk_i, nk_q, nk_r = (w[0].shape[-1] for w in (w_i, w_q, w_r))
-        if slog_tag_in_limbs(self.cfg) and self._slog_seq >= _SLOG_SEQ_MAX:
-            self._fold_slog()  # `cbl_tpu`'s 8-bit tag caps the seq at 62
-        packed = slog_packed(self.cfg)
-        if self._slog_dev is None:
-            # the shards' rows enter as seq-0 inserts, the whole capacity
-            self._slog_dev = [slog_tagged(d, 1, packed) for d in self.data]
-            self._slog_real = min(
-                self._count_upper if not self._dups else self.C, self.C)
-        S_in = self._slog_dev[0].shape[-1]
-        n_round = nk_i + nk_q + nk_r
+        n_round = sum(w[0].shape[-1] for w in (w_i, w_q, w_r))
+        slog = self.slog
+        if slog.at_seq_cap():
+            self.flush()
+        # no autofold (`cbl_tpu`'s sharded log has none); the shards' rows
+        # enter as seq-0 inserts, the whole capacity
+        entry = None if slog.keys is not None else (
+            self.data, min(self._count_upper if not self._dups else self.C,
+                           self.C))
         cap_b = max(4096, _next_pow2(max(1, 2 * n_round // self.D)))
         # a shard receives at most D cap_b padded rows, but the round has
         # only n_round real ones
-        new_real = self._slog_real + min(n_round, self.D * cap_b)
-        S_out = S_in if new_real <= S_in else _quantize_cap(new_real)
-        seq = self._slog_seq + 1
-        batches = [_round_batch(seq, a, b, c, packed)
-                   for a, b, c in zip(w_i, w_q, w_r)]
+        logs, real, S_out = slog.begin(min(n_round, self.D * cap_b), entry)
+        batches = slog.tag(w_i, w_q, w_r)
         if self.D > 1:
             routed = [
-                _route_sorted(b, _slog_bounds(self._bnd_on(dev), packed),
-                              cap_b)
+                _route_sorted(b, _slog_bounds(self._bnd_on(dev),
+                                              slog.packed), cap_b)
                 for b, dev in zip(batches, self.mesh)
             ]
             del batches
@@ -780,20 +758,16 @@ class ShardedCBL:
             del routed
             batches = [sort_rows(r) for r in recv]
             del recv
-        qtag = (seq << 2) | 2
-        out = [_round_into_log(a, b, qtag, S_out)
-               for a, b in zip(self._slog_dev, batches)]
-        self._slog_dev = [o[0] for o in out]
-        self._slog_seq = seq
-        self._slog_real = new_real
+        out = slog.merge(logs, batches, real, S_out)
+        del logs  # the old log goes with the commit
         # the live count, the hits and the drops: one sum (one all_reduce)
         i64 = torch.int64
         live, hits, drops = _total(
-            [torch.stack([o[2].to(i64), o[1].to(i64),
+            [torch.stack([o[1].to(i64), o[0].to(i64),
                           dropped[i] if self.D > 1
-                          else torch.zeros((), dtype=i64, device=o[1].device)])
+                          else torch.zeros((), dtype=i64, device=o[0].device)])
              for i, o in enumerate(out)], self.mesh[0], self._ranks)
-        self._slog_live_dev = live
+        slog.live = live
         self._counts_host = None
         if self.D > 1:
             self._add_dropped(drops)
@@ -840,7 +814,7 @@ class ShardedCBL:
         step, split evenly over the shards, routed to their owners and
         folded with duplicates dropped.  On a multi-process mesh every
         rank passes the same words and stages its own shards' part."""
-        self._fold_slog()
+        self.flush()
         words = self._as_keys(words)
         self._maybe_init_boundaries(words)
         for _, srcs in self._word_batches(words):
@@ -857,7 +831,7 @@ class ShardedCBL:
     def remove_words(self, words) -> None:
         """Remove keys (SENTINEL rows and absent words are no-ops), routed
         as `insert_words` routes them (the same words on every rank)."""
-        self._fold_slog()
+        self.flush()
         words = self._as_keys(words)
         for _, srcs in self._word_batches(words):
             recv = self._route_exchange(srcs, self.B)
@@ -900,7 +874,7 @@ class ShardedCBL:
         self._single_process("contains_words",
                              "the counting query multihost_query_stream")
         self._check_dropped()
-        self._fold_slog()
+        self.flush()
         words = self._as_keys(words)
         out = []
         for n, srcs in self._word_batches(words):
@@ -915,9 +889,9 @@ class ShardedCBL:
         return torch.cat(out).cpu().numpy()
 
     def count(self) -> int:
-        if self._slog_dev is not None and self._slog_live_dev is not None:
+        if self.slog.keys is not None and self.slog.live is not None:
             self._check_dropped()
-            return int(self._slog_live_dev)
+            return int(self.slog.live)
         return int(self.shard_counts.sum())
 
     def count_hits(self, words) -> int:
@@ -926,7 +900,7 @@ class ShardedCBL:
         self._single_process("count_hits",
                              "the counting query multihost_query_stream")
         self._check_dropped()
-        self._fold_slog()
+        self.flush()
         words = self._as_keys(words)
         total = None
         for _, srcs in self._word_batches(words):
@@ -1133,7 +1107,7 @@ class ShardedCBL:
         recovered stream ends with a repartition on the full contents."""
         self._single_process("insert_codes_stream",
                              "distributed.multihost_insert_stream")
-        self._fold_slog()
+        self.flush()
         for attempt in range(max(self.D.bit_length(), 1) + 1):
             for nk_sub, stream, starts, ends in self._sub_slab_groups(
                     codes, offsets):
@@ -1177,7 +1151,7 @@ class ShardedCBL:
         stream at D > 1).  `cbl_tpu` drops such words silently."""
         self._single_process("remove_codes_stream",
                              "distributed.multihost_remove_stream")
-        self._fold_slog()
+        self.flush()
         self._remove_rerun(lambda: self._sub_slab_groups(codes, offsets))
 
     def _remove_rerun(self, groups) -> None:
@@ -1218,7 +1192,7 @@ class ShardedCBL:
         self._single_process("query_codes_stream",
                              "distributed.multihost_query_stream")
         self._check_dropped()
-        self._fold_slog()
+        self.flush()
         total = positive = None
         for nk_sub, stream, starts, ends in self._sub_slab_groups(codes,
                                                                   offsets):
@@ -1248,7 +1222,7 @@ class ShardedCBL:
         self._single_process("contains_codes_stream",
                              "the counting query multihost_query_stream")
         self._check_dropped()
-        self._fold_slog()
+        self.flush()
         k = self.cfg.k
         nk = max(len(codes) - k + 1, 0)
         parts = []
@@ -1449,7 +1423,7 @@ class ShardedCBL:
         destination can exceed; a drop raises.  Under ranks each quantile
         row is read by the rank that owns its shard and one `all_gather`
         hands every rank all of them."""
-        self._fold_slog()
+        self.flush()
         if self.D == 1:
             return
         if self._dups:

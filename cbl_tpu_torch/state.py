@@ -7,11 +7,12 @@ n_bits > 60, `limbs`).  Its pending log is a [P, L] limb array `pending`,
 uint32 `pending_tags` and the counters `n_pending` and `_pending_rm`; the
 port's is a key tensor of the same layout and int64 tags of the same
 values.  During dynamic rounds `cbl_tpu`
-holds a sorted log as uint32 columns (`ws._slog`): L limbs of
+holds a sorted log as uint32 columns (its `_slog`): L limbs of
 (word << 8) | tag where the config leaves 8 spare bits
 (`wordset.slog_tag_in_limbs`), else L word limbs and a tag column; this
-port holds one int64 slog key a row (`wordset.slog_key`) where
-`wordset.slog_packed`, else the word's columns and an int64 tag column.
+port's `wordset.SortedLog` holds one int64 slog key a row
+(`wordset.slog_key`) where `wordset.slog_packed`, else the word's columns
+and an int64 tag column.
 Either of `cbl_tpu`'s layouts maps to either of the port's; the join and
 sentinel tag (0xFF packed, 0xFFFFFFFF in a tag column) maps to the
 port's (0xFF in a key, INT64_MAX in a tag column) and back.  The
@@ -48,6 +49,7 @@ from .ops.scan import slog_is_packed
 from .wordset import (
     _SLOG_BIAS,
     DeviceWordSet,
+    SortedLog,
     slog_packed,
     slog_tag_in_limbs,
 )
@@ -131,12 +133,9 @@ def _shl8_or(limbs: list, tags: np.ndarray) -> list:
             for l, v in enumerate(limbs)]
 
 
-def slog_from_arrays(cols_u32, seq: int, real: int, n_upper: int,
-                     cfg: CBLConfig, device) -> DeviceWordSet:
-    """A port word set holding `cbl_tpu`'s active sorted log: `cols_u32`
-    are its [n] uint32 columns (`ws._slog`, packed or with a tag column),
-    `seq`, `real` and `n_upper` its `_slog_seq`, `_slog_real` and
-    `_n_upper`."""
+def _slog_keys(cols_u32, cfg: CBLConfig) -> np.ndarray:
+    """The port's slog keys ([n], or [C, n] with the tag last) of
+    `cbl_tpu`'s [n] uint32 slog columns."""
     cols = [np.asarray(c, dtype=np.uint32) for c in cols_u32]
     L = cfg.word_limbs
     in_limbs = slog_tag_in_limbs(cfg)
@@ -161,22 +160,27 @@ def slog_from_arrays(cols_u32, seq: int, real: int, n_upper: int,
     else:
         tags[query | sent] = SENTINEL
         keys = np.concatenate([words.reshape(-1, len(tags)), tags[None]])
+    return keys
+
+
+def slog_from_arrays(cols_u32, seq: int, real: int, n_upper: int,
+                     cfg: CBLConfig, device) -> DeviceWordSet:
+    """A port word set holding `cbl_tpu`'s active sorted log: `cols_u32`
+    are its [n] uint32 columns (its `_slog`, packed or with a tag column),
+    `seq`, `real` and `n_upper` its `_slog_seq`, `_slog_real` and
+    `_n_upper`."""
     ws = DeviceWordSet(cfg, device)
-    ws._slog = torch.from_numpy(keys).to(ws.device)
-    ws._slog_seq = int(seq)
-    ws._slog_real = int(real)
+    keys = torch.from_numpy(_slog_keys(cols_u32, cfg)).to(ws.device)
+    ws.slog = SortedLog(cfg, [keys], int(seq), int(real))
     ws._n_upper = int(n_upper)
     return ws
 
 
-def slog_to_arrays(ws: DeviceWordSet):
-    """(columns, seq, real, n_upper) of a port word set's active slog in
-    `cbl_tpu`'s layout for its config: a tuple of [n] uint32 arrays,
-    sentinel rows all-ones."""
-    if ws._slog is None:
-        raise ValueError("no active sorted log")
-    keys = ws._slog.cpu().numpy()
-    if slog_is_packed(ws._slog):
+def _slog_cols(log: torch.Tensor, cfg: CBLConfig) -> tuple:
+    """`cbl_tpu`'s [n] uint32 slog columns of one port log, sentinel rows
+    all-ones."""
+    keys = log.cpu().numpy()
+    if slog_is_packed(log):
         sent = keys == SENTINEL
         words = (keys >> np.int64(8)) + np.int64(_SLOG_BIAS)
         words[sent] = SENTINEL
@@ -187,8 +191,8 @@ def slog_to_arrays(ws: DeviceWordSet):
         words = words[0] if len(words) == 1 else words
         sent = keys[0] == SENTINEL
         query = tags == SENTINEL
-    L = ws.cfg.word_limbs
-    in_limbs = slog_tag_in_limbs(ws.cfg)
+    L = cfg.word_limbs
+    in_limbs = slog_tag_in_limbs(cfg)
     tag_max = _tag_max(in_limbs)
     if np.any(tags[~query] >= tag_max):
         raise ValueError(f"a slog tag does not fit below {tag_max:#x}")
@@ -199,7 +203,17 @@ def slog_to_arrays(ws: DeviceWordSet):
         tags.astype(np.uint32)]
     for c in cols:
         c[sent] = np.uint32(_U32_MAX)
-    return tuple(cols), ws._slog_seq, ws._slog_real, ws._n_upper
+    return tuple(cols)
+
+
+def slog_to_arrays(ws: DeviceWordSet):
+    """(columns, seq, real, n_upper) of a port word set's active slog in
+    `cbl_tpu`'s layout for its config: a tuple of [n] uint32 arrays,
+    sentinel rows all-ones."""
+    if ws.slog.keys is None:
+        raise ValueError("no active sorted log")
+    return (_slog_cols(ws.slog.keys[0], ws.cfg), ws.slog.seq, ws.slog.real,
+            ws._n_upper)
 
 
 def pending_from_arrays(ws: DeviceWordSet, pending_u32: np.ndarray,
@@ -238,7 +252,7 @@ def sharded_from_arrays(arrays: dict, cfg: CBLConfig, canonical: bool,
                         mesh, batch_per_device: int = 1 << 14):
     """A port `ShardedCBL` on `mesh` in the state of `cbl_tpu`'s, given as
     the dict of `sharded_to_arrays`; each shard's log goes through
-    `slog_from_arrays`."""
+    `_slog_keys`."""
     from .parallel import ShardedCBL
 
     data = np.asarray(arrays["data"], dtype=np.uint32)
@@ -263,16 +277,14 @@ def sharded_from_arrays(arrays: dict, cfg: CBLConfig, canonical: bool,
     sh._count_upper = int(arrays["count_upper"])
     if arrays.get("slog") is not None:
         cols_u32 = [np.asarray(c, dtype=np.uint32) for c in arrays["slog"]]
-        sh._slog_dev = [
-            slog_from_arrays([c[d] for c in cols_u32], 0, 0, 0, cfg,
-                             dev)._slog
-            for d, dev in enumerate(sh.mesh)
-        ]
-        sh._slog_seq = int(arrays["slog_seq"])
-        sh._slog_real = int(arrays["slog_real"])
         live = arrays.get("slog_live")
-        sh._slog_live_dev = (None if live is None else torch.tensor(
-            int(live), dtype=torch.int64, device=sh.mesh[0]))
+        sh.slog = SortedLog(
+            cfg,
+            [torch.from_numpy(_slog_keys([c[d] for c in cols_u32], cfg))
+             .to(dev) for d, dev in enumerate(sh.mesh)],
+            int(arrays["slog_seq"]), int(arrays["slog_real"]),
+            None if live is None else torch.tensor(
+                int(live), dtype=torch.int64, device=sh.mesh[0]))
     return sh
 
 
@@ -290,14 +302,9 @@ def sharded_to_arrays(sh) -> dict:
         counts=None if counts is None else np.asarray(counts, np.int64),
         dups=sh._dups, count_upper=sh._count_upper,
         boundaries_from_data=sh._boundaries_from_data,
-        slog=None, slog_seq=sh._slog_seq, slog_real=sh._slog_real,
-        slog_live=(None if sh._slog_live_dev is None
-                   else int(sh._slog_live_dev)))
-    if sh._slog_dev is not None:
-        per_shard = []
-        for s in sh._slog_dev:
-            ws = DeviceWordSet(sh.cfg, s.device, pending_cap=1)
-            ws._slog = s
-            per_shard.append(slog_to_arrays(ws)[0])
+        slog=None, slog_seq=sh.slog.seq, slog_real=sh.slog.real,
+        slog_live=(None if sh.slog.live is None else int(sh.slog.live)))
+    if sh.slog.keys is not None:
+        per_shard = [_slog_cols(s, sh.cfg) for s in sh.slog.keys]
         out["slog"] = tuple(np.stack(c) for c in zip(*per_shard))
     return out

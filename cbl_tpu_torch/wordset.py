@@ -22,13 +22,19 @@ sectors a query, nothing of the index's length, for an index much larger
 than the batch.
 
 Interleaved dynamic rounds keep the set as a (word, tag)-sorted log, the
-"slog" (`_slog`: one int64 key a row where the word and an 8-bit tag fit
-one, see `slog_key`; else the word's columns and a tag column, see
+"slog" (one int64 key a row where the word and an 8-bit tag fit one, see
+`slog_key`; else the word's columns and a tag column, see
 `slog_tagged`): inserts, queries and removes of a round are merged in
 with their tags, and kernel B4 scans the log once for the round's query
-hits and the distinct count.  The log folds back into a sorted `data`
-tensor on `flush()`, at `cbl_tpu`'s seq cap (`slog_tag_in_limbs`) and
-under the autofold policy, exactly as in `cbl_tpu`.
+hits and the distinct count.  `SortedLog` owns the log: its keys (one
+tensor a shard), seq, real-row bound and live count, and every rule of
+it (entry, seq cap, capacity, the round's merges and scan, commit, join,
+count, fold); this module alone reads or writes them.  A word set runs a
+round with `DeviceWordSet.round_words`, and the sharded index
+(`parallel.ShardedCBL`) through the same object, its exchange between
+tagging and merging.  The log folds back into a sorted `data` tensor on
+`flush()`, at `cbl_tpu`'s seq cap (`slog_tag_in_limbs`) and under the
+autofold policy, exactly as in `cbl_tpu`.
 
 Separate insert and remove calls go through the pending log, as in
 `cbl_tpu`: `pending` holds appended words and `pending_tags` their
@@ -116,7 +122,7 @@ def _out_cap(upper: int) -> int:
 def _quantize_cap(n: int, frac_log: int = 3) -> int:
     """Capacity rounded up to a 1/8-power-of-two step, never below
     MIN_CAP and always a multiple of 4096 (`cbl_tpu.wordset._quantize_cap`:
-    the slog's capacity family, on which `_slog_real`, the round's
+    the slog's capacity family, on which `SortedLog.real`, the round's
     truncation and the autofold policy depend)."""
     if n <= MIN_CAP:
         return MIN_CAP
@@ -364,8 +370,13 @@ def _build_sorted_kernel(batch: torch.Tensor):
 
 def _compact_marked(words: torch.Tensor, keep: torch.Tensor, out_cap: int):
     """Make every row that is not kept SENTINEL, compact by one sort, fit
-    to out_cap: (keys [out_cap], kept count)."""
-    s = sort_rows(torch.where(keep, words, SENTINEL))
+    to out_cap: (keys [out_cap], kept count).  Neither `words` nor the
+    marked rows are held past their use: a fold passes the words of a
+    whole log (2^27 rows) as a temporary, freed before the sort."""
+    marked = torch.where(keep, words, SENTINEL)
+    del words
+    s = sort_rows(marked)
+    del marked
     return _fit(s, out_cap), keep.sum()
 
 
@@ -680,8 +691,9 @@ def _pending_override_kernel(pending, tags, queries):
 #
 # The seq cap is `cbl_tpu`'s, whatever the port's layout: it folds before
 # seq 63 where it packs its tag into the word limbs (`slog_tag_in_limbs`);
-# rounds run with seq = _slog_seq + 1, so a remove's tag (62 << 2) | 3 =
-# 251 stays below 0xFF, and at 63 it would pack to 0xFF and be ignored.
+# rounds run with seq = `SortedLog.seq` + 1, so a remove's tag
+# (62 << 2) | 3 = 251 stays below 0xFF, and at 63 it would pack to 0xFF
+# and be ignored.
 _SLOG_BIAS = 1 << 55
 _SLOG_SEQ_MAX = 62
 
@@ -754,25 +766,6 @@ def _fit(s: torch.Tensor, out_cap: int) -> torch.Tensor:
     return torch.cat([s, pad], dim=-1)
 
 
-def _compact_sort_kernel(data: torch.Tensor, out_cap: int):
-    """Sort so that sentinels fall to the end, then truncate or pad with
-    SENTINEL to out_cap: (keys [out_cap], valid count).  The valid keys
-    are unique and at most out_cap."""
-    s = sort_rows(data)
-    return _fit(s, out_cap), _valid_mask(s).sum()
-
-
-def _slog_join_count(slog: torch.Tensor, words: torch.Tensor,
-                     words_sorted: bool = False):
-    """Hits of `words` against a slog without folding it: the queries get
-    the join's tag (after every entry of their word), one merge (B3), one
-    scan (B4).  A query row is a hit when its word is live there."""
-    qtag = slog_query_tag(slog)
-    q = slog_tagged(words, qtag, slog_is_packed(slog))
-    merge = merge_sorted_pair if words_sorted else merge_with_unsorted
-    return slog_counts(stack(merge(cols(slog), cols(q))), qtag)[0]
-
-
 def _slog_fold_kernel(slog: torch.Tensor, out_cap: int):
     """Fold a slog to a sorted index: keep the last row of each run whose
     last entry is an insert (as its word), make every other row SENTINEL,
@@ -788,9 +781,157 @@ def _slog_fold_kernel(slog: torch.Tensor, out_cap: int):
     run_live = (last >= 0) & is_insert[last.clamp(min=0)]
     keep = run_live[run_id]
     keep[:-1] &= run_start[1:]  # one row per run: its last
-    return _compact_sort_kernel(
-        torch.where(keep, slog_words(slog), SENTINEL), out_cap
-    )
+    return _compact_marked(slog_words(slog), keep, out_cap)
+
+
+def _merge_slog(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Merge two sorted slogs of one layout (B3, or B7 under "bitonic")."""
+    return stack(merge_sorted_pair(cols(a), cols(b)))
+
+
+@spanned("join")
+def _fused_round_slog(slog: "SortedLog", logs: list, ins, qry, rm,
+                      real: int, out_cap: int) -> list:
+    """One interleaved round over the sorted log of one device
+    (`cbl_tpu.cbl._fused_round_slog_fn`): `SortedLog.tag`, then
+    `SortedLog.merge`, with no exchange between them."""
+    return slog.merge(logs, slog.tag(ins, qry, rm), real, out_cap)
+
+
+class SortedLog:
+    """The sorted log of dynamic rounds, and the one owner of its state
+    and rules.
+
+    `keys` holds one log a shard ([S] packed keys or [C, S] rows, every
+    shard's of capacity S; a word set is one shard), or None while no log
+    is active; while one is, it REPLACES the index as the set, until
+    `fold`.  `seq` (the last round's) and `real` (a host bound on a
+    shard's non-sentinel rows, on which capacities and the autofold
+    depend, so rounds never wait for the device) are shared by the
+    shards; `live` is the distinct live words, an int64 0-d tensor (the
+    round's scan gives it for free), or None where not yet counted.
+    `packed` is the layout (one key a row, `slog_packed`, or a tag
+    column) and `capped` whether rounds fold before seq 63
+    (`slog_tag_in_limbs`, where `cbl_tpu` does).
+
+    A round is `begin` (the index entered where no log is active, the
+    capacity), `tag` (each shard's three sorted streams tagged and
+    combined; a sharded index exchanges the batches here) and `merge`
+    (merged into each log, fit, scanned once, then committed)."""
+
+    # autofold policy (`cbl_tpu`'s, kept identical so that both fold in
+    # the same rounds): the log holds dead rows (overwritten inserts,
+    # removes, query rows) that every later merge and scan pays for; fold
+    # when its real-row bound exceeds FOLD_MULT x the live-set
+    # power-of-two bound, or the hard cap (which bounds `cbl_tpu`'s int32
+    # scan marker; the port's marker is int64)
+    FOLD_MULT = 4
+    HARD_CAP = 1 << 27
+
+    def __init__(self, cfg: CBLConfig, keys: list | None = None,
+                 seq: int = 0, real: int = 0, live=None):
+        self.packed = slog_packed(cfg)
+        self.capped = slog_tag_in_limbs(cfg)
+        self.keys = keys
+        self.seq = seq
+        self.real = real
+        self.live = live
+
+    def at_seq_cap(self) -> bool:
+        """True when the next round would pass seq 62 where `cbl_tpu`'s
+        8-bit tag caps it: the log must fold first."""
+        return self.capped and self.seq >= _SLOG_SEQ_MAX
+
+    def autofold_due(self, live_cap: int) -> bool:
+        """The autofold policy, for a set whose live keys a compacted
+        index of `live_cap` rows holds."""
+        return self.keys is not None and (
+            self.real > self.FOLD_MULT * live_cap
+            or self.real > self.HARD_CAP)
+
+    def begin(self, added: int, entry: tuple | None = None) -> tuple:
+        """(logs, real, out_cap) of the next round, nothing committed: the
+        active logs and their bound, or where no log is active `entry`,
+        (the index's keys a shard, sorted; their real-row bound), whose
+        keys enter as implicit seq-0 inserts (tag 1); the bound grown by
+        the round's `added` rows, and the capacity kept while it holds
+        them, else the bound quantized (`_quantize_cap`)."""
+        if self.keys is not None:
+            logs, real = self.keys, self.real
+        else:
+            keys, real = entry
+            logs = [slog_tagged(k, 1, self.packed) for k in keys]
+        real += added
+        cap = logs[0].shape[-1]
+        return logs, real, cap if real <= cap else _quantize_cap(real)
+
+    def tag(self, ins: list, qry: list, rm: list) -> list:
+        """Each shard's three PRE-SORTED word streams tagged with
+        (seq << 2) | {1 insert, 2 query, 3 remove} for the next seq
+        (`slog_tagged` in the log's layout: each stays sorted, sentinel
+        rows stay sentinel, at the end) and combined by two small merges
+        into one sorted batch a shard.
+
+        The tags make the reference's sequential semantics a property of
+        the order: a round's queries sort after its inserts and before its
+        removes, and the scan honours only entries at or before each
+        query."""
+        base = (self.seq + 1) << 2
+        out = []
+        for w_i, w_q, w_r in zip(ins, qry, rm):
+            b = _merge_slog(slog_tagged(w_i, base | 1, self.packed),
+                            slog_tagged(w_q, base | 2, self.packed))
+            out.append(_merge_slog(b, slog_tagged(w_r, base | 3,
+                                                  self.packed)))
+        return out
+
+    def merge(self, logs: list, batches: list, real: int,
+              out_cap: int) -> list:
+        """Merge each shard's sorted batch into its log with one big merge
+        (an empty log adopts it), truncate or pad with sentinel rows to
+        `out_cap` (`begin` ensures that only sentinel rows are cut) and
+        scan once (B4 in the log's form); then commit the logs, the seq
+        and `real`, only now that the round was enqueued (a failed launch
+        must not advance the log).  -> [(positive, live)] a shard, int64
+        0-d counters; the caller keeps the live count (`live`), summed
+        over its shards."""
+        qtag = ((self.seq + 1) << 2) | 2
+        keys, out = [], []
+        for a, b in zip(logs, batches):
+            keys.append(_fit(_merge_slog(a, b) if a.shape[-1] else b,
+                             out_cap))
+            out.append(slog_counts(keys[-1], qtag))
+        self.keys = keys
+        self.seq += 1
+        self.real = real
+        return out
+
+    def join_count(self, words: torch.Tensor, words_sorted: bool = False):
+        """Hits of `words` against a log of one shard without folding it:
+        the queries get the join's tag (after every entry of their word),
+        one merge (B3), one scan (B4).  A query row is a hit when its word
+        is live there."""
+        log = self.keys[0]
+        qtag = slog_query_tag(log)
+        q = slog_tagged(words, qtag, self.packed)
+        merge = merge_sorted_pair if words_sorted else merge_with_unsorted
+        return slog_counts(stack(merge(cols(log), cols(q))), qtag)[0]
+
+    def count(self) -> torch.Tensor:
+        """The distinct live words of a log of one shard: the last round's
+        by-product, else one scan (B4) of the runs whose last entry is an
+        insert."""
+        if self.live is None:
+            log = self.keys[0]
+            self.live = slog_counts(log, slog_query_tag(log))[1]
+        return self.live
+
+    def fold(self, out_cap: int) -> list:
+        """End the log: each shard's folded to a sorted index of `out_cap`
+        rows (`_slog_fold_kernel`) -> [(keys, distinct count)] a shard."""
+        logs, self.keys = self.keys, None
+        self.seq, self.real, self.live = 0, 0, None
+        return [_slog_fold_kernel(s, out_cap) for s in logs]
 
 
 class DeviceWordSet:
@@ -821,19 +962,9 @@ class DeviceWordSet:
         self.n_pending = 0
         self._pending_rm = False
         self._reset_pending()
-        # sorted-log state (dynamic rounds): while `_slog` is set it
-        # REPLACES `data` as the set (data was merged into it on entry)
-        # until `_fold_slog` runs.  `_slog_real` is a host upper bound on
-        # its non-sentinel rows; capacities and the autofold depend only
-        # on it, so rounds never wait for the device.
-        self._slog: torch.Tensor | None = None
-        self._slog_seq = 0
-        self._slog_count_dev = None
-        self._slog_real = 0
-        # the log's layout (one key a row, or a tag column), and whether
-        # rounds fold before seq 63 (where `cbl_tpu` does)
-        self._slog_pack = slog_packed(cfg)
-        self._slog_capped = slog_tag_in_limbs(cfg)
+        # the sorted log of dynamic rounds (one shard's): while active it
+        # REPLACES `data` as the set (data entered it) until `_fold_slog`
+        self.slog = SortedLog(cfg)
 
     @property
     def data(self) -> torch.Tensor:
@@ -892,7 +1023,8 @@ class DeviceWordSet:
         if not self._holes:
             return
         out_cap = self._live_cap()
-        self.data, n_dev = _compact_sort_kernel(self.data, out_cap)
+        self.data, n_dev = _compact_marked(self.data, _valid_mask(self.data),
+                                           out_cap)
         self.capacity = out_cap
         self._holes = False
         self._set_count(n_dev)
@@ -921,7 +1053,7 @@ class DeviceWordSet:
         of DISTINCT keys; `n_upper` bounds the valid keys.  Row counts are
         Python ints and the count an int64 tensor: 64 bits, so an index
         may pass 2^31 rows."""
-        if self._n_upper != 0 or self._slog is not None or self.n_pending:
+        if self._n_upper != 0 or self.slog.keys is not None or self.n_pending:
             raise ValueError("adopt_built needs an empty word set")
         self.data = data
         self.capacity = data.shape[-1]
@@ -1068,43 +1200,54 @@ class DeviceWordSet:
         """Collapse an active slog into a clean sorted `data` (one
         compaction sort).  No-op when no slog is active.  `cause` names
         the fold in `COUNTERS` (`folds.slog.<cause>`)."""
-        if self._slog is None:
+        if self.slog.keys is None:
             return
         count("folds.slog." + cause)
-        slog = self._slog
-        self._slog = None
-        self._slog_seq = 0
-        self._slog_count_dev = None
-        self._slog_real = 0
         out_cap = self._live_cap()
-        self.data, n_dev = _slog_fold_kernel(slog, out_cap)
+        [(self.data, n_dev)] = self.slog.fold(out_cap)
         self.capacity = out_cap
         self._holes = False
         self._dups = False
         self._set_count(n_dev)
 
-    # autofold policy (`cbl_tpu`'s, kept identical so that both fold in
-    # the same rounds): the slog holds dead rows (overwritten inserts,
-    # removes, query rows) that every later merge and scan pays for; fold
-    # when its real-row bound exceeds FOLD_MULT x the live-set power-of-two
-    # bound, or the hard cap (which bounds `cbl_tpu`'s int32 scan marker;
-    # the port's marker is int64)
-    _SLOG_FOLD_MULT = 4
-    _SLOG_HARD_CAP = 1 << 27
+    def round_words(self, w_i: torch.Tensor, w_q: torch.Tensor,
+                    w_r: torch.Tensor) -> torch.Tensor:
+        """One interleaved round over the sorted log on three PRE-SORTED
+        word batches ([N] or [2, N], sentinel rows at the end): insert
+        `w_i`, count-query `w_q` (it sees the inserts, not yet the
+        removes), remove `w_r`.  -> the query's hits, an unsynced int64
+        0-d tensor.
 
-    def maybe_autofold_slog(self) -> None:
-        if self._slog is None:
-            return
-        if (
-            self._slog_real > self._SLOG_FOLD_MULT * self._live_cap()
-            or self._slog_real > self._SLOG_HARD_CAP
-        ):
+        A pending log is folded first; the slog folds before its seq would
+        pass 62 where `cbl_tpu` does (`SortedLog.at_seq_cap`), and under
+        the autofold policy, after which one wait for the exact count
+        tightens `_n_upper` (the fold's output has no duplicates; rounds
+        of three 2^24-row slabs pass the hard cap every third round, and
+        this wait is then for every round in flight).  Where no log is
+        active the index, compacted, enters as a sorted run of seq-0
+        inserts; the round's merges and scan run under `join`
+        (`_fused_round_slog`), and the log commits after them."""
+        slog = self.slog
+        if self.n_pending > 0:
+            self.flush()
+        if slog.at_seq_cap():
+            self._fold_slog("seq_cap")
+        if slog.autofold_due(self._live_cap()):
             self._fold_slog("autofold")
-            # one scalar sync tightens _n_upper to the exact live count
-            # (the fold's output has no duplicates).  Folds are not rare:
-            # rounds of three 2^24-row slabs pass the hard cap every third
-            # round, and this sync then waits for every round in flight
-            _ = self.n
+            _ = self.n  # the exact count tightens _n_upper
+        entry = None
+        if slog.keys is None:
+            self._compact()  # the index's keys enter the log as a sorted run
+            keys = self._live() if self._n_upper else self.data[..., :0]
+            entry = ([keys], min(self._n_upper, keys.shape[-1]))
+        logs, real, out_cap = slog.begin(
+            sum(w.shape[-1] for w in (w_i, w_q, w_r)), entry)
+        [(positive, live)] = _fused_round_slog(
+            slog, logs, [w_i], [w_q], [w_r], real, out_cap)
+        slog.live = live  # free by-product of the round's scan
+        self._n_upper = min(self._n_upper + w_i.shape[-1], out_cap)
+        count("slog_rows", real)
+        return positive
 
     # --- queries and removal ---
 
@@ -1128,10 +1271,10 @@ class DeviceWordSet:
         `COUNTERS` counts each call's join: "join.probe" (and
         "probe_rows", the rows it searched) or "join.merge" (every
         other)."""
-        if self._slog is not None:
+        if self.slog.keys is not None:
             if self.n_pending == 0:
                 count("join.merge")
-                return _slog_join_count(self._slog, words, words_sorted)
+                return self.slog.join_count(words, words_sorted)
             # rare: rounds and separate calls mixed
             self._fold_slog("query")
         if self.n_pending > 0:
@@ -1192,26 +1335,19 @@ class DeviceWordSet:
         self._set_count(n_dev)
 
     def count(self) -> int:
-        if self._slog is not None and self.n_pending == 0:
-            live = self._slog_count()
+        if self.slog.keys is not None and self.n_pending == 0:
+            live = self.slog.count()
             with sync("count"):
                 return int(live)
         self.flush()
         return self.n
 
-    def _slog_count(self):
-        if self._slog_count_dev is None:
-            # distinct live words: runs whose last entry is an insert
-            self._slog_count_dev = slog_counts(
-                self._slog, slog_query_tag(self._slog))[1]
-        return self._slog_count_dev
-
     def count_device(self):
         """The distinct count as an unsynced device 0-d tensor.  The
         pending log is folded (enqueued, never waited for); an active slog
         alone is counted by a scan (B4), not folded."""
-        if self._slog is not None and self.n_pending == 0:
-            return self._slog_count()
+        if self.slog.keys is not None and self.n_pending == 0:
+            return self.slog.count()
         self.flush()
         if self._n_dev is None:
             return torch.zeros((), dtype=torch.int64, device=self.device)

@@ -1679,15 +1679,16 @@ def dynamic_run(codes: np.ndarray, timed: bool, k: int = K,
         distinct, positive = torch.stack([n_dev, pos_dev]).tolist()
     t2 = time.perf_counter()
     launches = dict(LAUNCHES) if timed else None
-    ws = idx.wordset
+    slog = idx.wordset.slog
+    log = slog.keys[0]
     return idx, segs, dict(
         ops=ops, distinct=distinct, positive=positive,
         wall_s=t2 - t0, stage_s=t1 - t0, rounds_s=t2 - t1,
         rounds_ms=ev[0].elapsed_time(ev[1]), launches=launches,
-        log_rows=ws._slog.shape[-1],
-        log_cols=1 if ws._slog.dim() == 1 else ws._slog.shape[0],
-        log_real=ws._slog_real,
-        seq=ws._slog_seq, prof=prof,
+        log_rows=log.shape[-1],
+        log_cols=1 if log.dim() == 1 else log.shape[0],
+        log_real=slog.real,
+        seq=slog.seq, prof=prof,
     )
 
 
@@ -1741,7 +1742,7 @@ def separate_run(codes: np.ndarray, sort_mode: str, log_at_query: bool):
             q = segs[i - 1 if i else 0]
             joins.append((ws._live().shape[-1], q.slabs[0][0],
                           not (ws.n_pending or ws._holes
-                               or ws._slog is not None)))
+                               or ws.slog.keys is not None)))
             _, p = idx.query_codes_stream(q, lazy=True)
             idx.remove_codes_stream(halves[i])
             assert ws.n_pending > 0 and ws._pending_rm, i
@@ -1849,7 +1850,7 @@ def multi_slab_round_check(codes: np.ndarray) -> str:
     ps = a.pack_stream(*one(ins), slab=1 << 20)
     assert len(ps.slabs) == 2
     got = a.dynamic_round(ps, qry, rm)
-    assert a.wordset._slog is None and a.wordset.n_pending > 0
+    assert a.wordset.slog.keys is None and a.wordset.n_pending > 0
     b.insert_codes_stream(*one(ins))
     want = b.query_codes_stream(*qry)
     b.remove_codes_stream(*rm)
@@ -3740,15 +3741,15 @@ def sharded_dynamic_run(codes: np.ndarray, mesh: list, timed: bool) -> dict:
         ops += 2 * (sb - K + 1) + sb // 2 - K + 1
     ev[1].record()
     distinct, positive = torch.stack(
-        [idx._slog_live_dev.to(pos_dev.device), pos_dev]).tolist()
+        [idx.slog.live.to(pos_dev.device), pos_dev]).tolist()
     t2 = time.perf_counter()
     launches = launches_now() if timed else None
     assert idx.count() == distinct  # the overflow check, after the clock
     return dict(ops=ops, distinct=distinct, positive=positive,
                 wall_s=t2 - t0, stage_s=t1 - t0, rounds_s=t2 - t1,
                 rounds_ms=ev[0].elapsed_time(ev[1]), launches=launches,
-                log_rows=idx._slog_dev[0].shape[-1], log_real=idx._slog_real,
-                seq=idx._slog_seq, shards=idx.D)
+                log_rows=idx.slog.keys[0].shape[-1], log_real=idx.slog.real,
+                seq=idx.slog.seq, shards=idx.D)
 
 
 def sharded_bulk_run(codes: np.ndarray, offsets: np.ndarray,
@@ -4121,7 +4122,7 @@ def rank_worker(coordinator: str, pid: int, oracle: str,
         r["tps"] = clock("rounds", lambda: [
             list(d.multihost_dynamic_round(idx, *s)) for s in staged])
         assert r["tps"] == want["tps"].tolist(), (r["tps"], want["tps"])
-        idx._fold_slog()
+        idx.flush()
         d._assert_local_shards_match(idx, want["rounds"], "rounds")
         r["after_rounds"] = idx.count()
         r["launches"] = launches_now()

@@ -220,13 +220,13 @@ def assert_same_state(jidx, tidx, where=None):
     there."""
     jw, tw = jidx.wordset, tidx.wordset
     names = ("_holes", "_dups", "_n_upper", "capacity", "n_pending",
-             "_pending_rm", "pending_cap", "_n_host", "_slog_seq",
-             "_slog_real")
+             "_pending_rm", "pending_cap", "_n_host")
     got = {n: getattr(tw, n) for n in names}
     want = {n: getattr(jw, n) for n in names}
     assert got == want, where
-    assert (tw._slog is None) == (jw._slog is None), where
-    if tw._slog is None:
+    assert (tw.slog.seq, tw.slog.real) == (jw._slog_seq, jw._slog_real), where
+    assert (tw.slog.keys is None) == (jw._slog is None), where
+    if tw.slog.keys is None:
         np.testing.assert_array_equal(tw.data.numpy(),
                                       from_limbs(np.asarray(jw.data)),
                                       err_msg=str(where))

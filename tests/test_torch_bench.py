@@ -1,5 +1,5 @@
-"""The port's benchmark (`cbl_tpu_torch.bench`), its words-cache switch
-and `parallel.dryrun_multichip`, on the CPU.
+"""The port's benchmark (`cbl_tpu_torch.bench`), the words memo of its
+streams and `parallel.dryrun_multichip`, on the CPU.
 
 - `make_genome_corpus` equals the root `bench.py`'s array for array;
 - the counts of `run_static`, `run_tpu_records` (plain and canonical),
@@ -13,9 +13,8 @@ and `parallel.dryrun_multichip`, on the CPU.
 - a baseline count that is off by one, or a workload that fails, makes
   the run raise with no line; without a card and without `--device` the
   run exits non-zero;
-- with CBL_TORCH_NO_WORDS_CACHE the memo of a PackedStream stays empty
-  and every count equals the memoised run's and `cbl_tpu`'s with
-  CBL_TPU_NO_WORDS_CACHE;
+- every step that reads or writes a PackedStream's words memo counts as
+  `cbl_tpu`'s does, and leaves every stream's memo filled;
 - `dryrun_multichip` passes on 4 CPU shards, its final count that of a
   single `CBL` driven through the same steps.
 Inputs come from numpy.random.default_rng; every comparison is exact.
@@ -279,27 +278,21 @@ def _cache_steps(make, pack, codes):
     return out, ps + one
 
 
-def test_words_cache_switch(monkeypatch):
+def test_words_cache_switch():
+    """The memo's steps count as `cbl_tpu`'s do, and every stream's memo
+    is filled (the memo has no switch)."""
     codes = _codes(12_000, seed=3)
-
-    def port():
-        return CBL(k=25, device="cpu", pending_cap=1 << 14)
 
     def port_pack(idx, x, off):
         return idx.pack_stream(x, off)
 
-    monkeypatch.delenv("CBL_TORCH_NO_WORDS_CACHE", raising=False)
-    memo, streams = _cache_steps(port, port_pack, codes)
-    assert all(s._cache_on for s in streams)
+    memo, streams = _cache_steps(
+        lambda: CBL(k=25, device="cpu", pending_cap=1 << 14), port_pack,
+        codes)
     assert all(s._words for s in streams)
-    monkeypatch.setenv("CBL_TORCH_NO_WORDS_CACHE", "1")
-    monkeypatch.setenv("CBL_TPU_NO_WORDS_CACHE", "1")
-    no_memo, streams = _cache_steps(port, port_pack, codes)
-    assert not any(s._cache_on or s._words for s in streams)
-    ref, ref_streams = _cache_steps(
+    ref, _ = _cache_steps(
         lambda: cbl_tpu.CBL(k=25, pending_cap=1 << 14), port_pack, codes)
-    assert not any(s._cache_on or s._words for s in ref_streams)
-    assert no_memo == memo == ref
+    assert memo == ref
 
 
 @pytest.mark.parametrize("kmers_per_shard", [1 << 12, 1 << 16])

@@ -135,12 +135,12 @@ def _port_state(idx) -> dict:
 
 def _port_slog(idx) -> dict:
     from cbl_tpu_torch.state import slog_to_arrays
-    from cbl_tpu_torch.wordset import DeviceWordSet
+    from cbl_tpu_torch.wordset import DeviceWordSet, SortedLog
 
-    out = dict(seq=idx._slog_seq, real=idx._slog_real)
-    for gid, s in zip(idx._local_shard_ids(), idx._slog_dev):
+    out = dict(seq=idx.slog.seq, real=idx.slog.real)
+    for gid, s in zip(idx._local_shard_ids(), idx.slog.keys):
         ws = DeviceWordSet(idx.cfg, s.device, pending_cap=1)
-        ws._slog = s
+        ws.slog = SortedLog(idx.cfg, [s])
         for j, c in enumerate(slog_to_arrays(ws)[0]):
             out[f"slog{j}_{gid}"] = c
     return out
@@ -227,7 +227,7 @@ def _misc_worker(coordinator: str, pid: int, out: str) -> None:
         tps.append(d.multihost_dynamic_round(idx, *segs))
     arrays["tps"] = np.array(tps)
     arrays["live"] = idx.count()
-    idx._fold_slog()
+    idx.flush()
     for gid, rows in idx.local_shard_rows().items():
         arrays[f"rounds_{gid}"] = rows
     chunks = list(idx.iter_words_chunks(chunk_rows=1000))
@@ -268,7 +268,7 @@ def _misc_worker(coordinator: str, pid: int, out: str) -> None:
     res["empty_slice"] = [idx2.count(),
                           *d.multihost_query_stream(idx2, *part),
                           *d.multihost_dynamic_round(idx2, part, part, part)]
-    idx2._fold_slog()
+    idx2.flush()
     res["empty_slice"].append(idx2.count())
     if pid == 0:
         # a plain list of devices inside the group is an index of one
@@ -645,7 +645,7 @@ def test_k59_two_ranks_match_one_process(misc_run):
     for a in (a0, a1):
         np.testing.assert_array_equal(a["tps"], np.array(tps))
         assert int(a["live"]) == one.count()
-    one._fold_slog()
+    one.flush()
     rows = one.local_shard_rows()
     for g in range(8):
         np.testing.assert_array_equal(

@@ -11,7 +11,8 @@ the fold at the seq cap of 62 (with a remove at seq 62) and the
 autofold, at K=25 and K=7 (one limb), and after `flush()` with a static
 query; one round at K=27, over the log with a tag column
 (`tests/test_torch_slog_tag.py` holds that layout).  Every comparison is
-exact integer equality.
+exact integer equality.  A fold frees the words it reads off the log
+before its compaction sort.
 """
 
 import numpy as np
@@ -39,21 +40,21 @@ def _jax_slog(jidx):
         return None
     cols = tuple(np.asarray(c) for c in jw._slog)
     return state.slog_from_arrays(cols, jw._slog_seq, jw._slog_real,
-                                  jw._n_upper, jidx.cfg, "cpu")._slog
+                                  jw._n_upper, jidx.cfg, "cpu").slog.keys[0]
 
 
 def _assert_same_state(jidx, tidx):
     jw, tw = jidx.wordset, tidx.wordset
     assert tidx.count() == jidx.count()
-    assert (tw._slog_seq, tw._slog_real, tw._n_upper) == (
+    assert (tw.slog.seq, tw.slog.real, tw._n_upper) == (
         jw._slog_seq, jw._slog_real, jw._n_upper)
     want = _jax_slog(jidx)
     if want is None:
-        assert tw._slog is None
+        assert tw.slog.keys is None
         np.testing.assert_array_equal(tw.data.numpy(),
                                       from_limbs(np.asarray(jw.data)))
     else:
-        assert torch.equal(tw._slog, want)
+        assert torch.equal(tw.slog.keys[0], want)
 
 
 def _rounds(jidx, tidx, rounds):
@@ -103,7 +104,7 @@ def test_bench_rounds_match_jax(canonical):
         got = tidx.query_codes_stream(*foreign)
         assert got == jidx.query_codes_stream(*foreign)
         assert 0 < got[1] < got[0]
-        assert tidx.wordset._slog is not None  # queries never fold
+        assert tidx.wordset.slog.keys is not None  # queries never fold
     assert streams[1][0][1]._words  # the memo holds the sorted words
     t, p = tidx.dynamic_round(streams[1][0][0], streams[1][0][1],
                               streams[1][1][0], lazy=True)
@@ -113,7 +114,7 @@ def test_bench_rounds_match_jax(canonical):
     before = tidx.query_codes_stream(streams[1][0][2])
     jidx.wordset.flush()
     tidx.flush()
-    assert tidx.wordset._slog is None
+    assert tidx.wordset.slog.keys is None
     _assert_same_state(jidx, tidx)
     assert tidx.query_codes_stream(streams[1][0][2]) == before == \
         jidx.query_codes_stream(streams[0][0][2])
@@ -165,7 +166,7 @@ def test_seq_cap_fold_and_remove_at_max_seq():
         qry = target if r > _SLOG_SEQ_MAX - 1 else _one(pool[:sb])
         res = _rounds(jidx, tidx, [(ins, qry, rm)])
         rounds.append(res[0])
-        seqs.append(tidx.wordset._slog_seq)
+        seqs.append(tidx.wordset.slog.seq)
         if at_max:
             assert seqs[-1] == _SLOG_SEQ_MAX
     assert max(seqs) == _SLOG_SEQ_MAX and seqs[_SLOG_SEQ_MAX] == 1
@@ -183,7 +184,7 @@ def test_autofold_matches_jax():
     seqs = []
     for _ in range(8):
         _rounds(jidx, tidx, [(_one(codes), _one(codes), _one(miss))])
-        seqs.append(tidx.wordset._slog_seq)
+        seqs.append(tidx.wordset.slog.seq)
     assert any(b <= a for a, b in zip(seqs, seqs[1:]))  # an autofold
     assert tidx.count() == jidx.count() > 0
 
@@ -240,25 +241,59 @@ def test_unported_round_paths_raise():
     j27, t27 = _pair(k=27)
     _rounds(j27, t27, [(_one(codes), _one(codes[:6_000]),
                         _one(codes[:3_000]))])
-    assert t27.wordset._slog.shape[0] == 2  # the word's column and a tag's
+    # the word's column and a tag's
+    assert t27.wordset.slog.keys[0].shape[0] == 2
     jidx, idx = _pair()
     multi = idx.pack_stream(*_one(codes), slab=4096)
     assert len(multi.slabs) == 3
     with pytest.raises(TypeError):
         idx.dynamic_round(codes, codes, codes)
-    assert idx.wordset._slog is None and idx.count() == 0
+    assert idx.wordset.slog.keys is None and idx.count() == 0
     half = _one(codes[2_000:6_000])
     got = idx.dynamic_round(multi, _one(codes), half)
     jidx.insert_codes_stream(*_one(codes))
     want = jidx.query_codes_stream(*_one(codes))
     jidx.remove_codes_stream(*half)
     assert got == want == (len(codes) - 24,) * 2
-    assert idx.wordset._slog is None and idx.wordset.n_pending > 0
+    assert idx.wordset.slog.keys is None and idx.wordset.n_pending > 0
     # a query stream too short for one k-mer has no slab
     got = idx.dynamic_round(_one(codes[:3_000]), _one(codes[:10]), half)
     jidx.insert_codes_stream(*_one(codes[:3_000]))
     jidx.remove_codes_stream(*half)
-    assert got == (0, 0) and idx.wordset._slog is None
+    assert got == (0, 0) and idx.wordset.slog.keys is None
     assert idx.query_codes_stream(*_one(codes)) == \
         jidx.query_codes_stream(*_one(codes))
     assert idx.count() == jidx.count() > 0
+
+
+@pytest.mark.parametrize("k,prefix_bits", [(25, 24), (59, 28)])
+def test_the_fold_frees_the_log_words_before_its_sort(k, prefix_bits,
+                                                      monkeypatch):
+    """The words a fold reads off the whole log (2^27 rows in the
+    benchmark's windows) are freed before its compaction sort, where the
+    windows' device memory peaks: only their marked copy lives on."""
+    import weakref
+
+    from cbl_tpu_torch import wordset as tws
+
+    codes = np.random.default_rng(5).integers(0, 4, size=6_000,
+                                              dtype=np.uint8)
+    idx = CBL(k=k, prefix_bits=prefix_bits, device="cpu")
+    idx.dynamic_round(_one(codes), _one(codes[:3_000]),
+                      _one(codes[1_000:4_000]))
+    made, alive = [], []
+    slog_words, sort_rows = tws.slog_words, tws.sort_rows
+
+    def words(log):
+        w = slog_words(log)
+        made.append(weakref.ref(w))
+        return w
+
+    def sort(rows):
+        alive.append([r() is not None for r in made])
+        return sort_rows(rows)
+
+    monkeypatch.setattr(tws, "slog_words", words)
+    monkeypatch.setattr(tws, "sort_rows", sort)
+    idx.flush()
+    assert alive == [[False]]

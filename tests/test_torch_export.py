@@ -75,7 +75,7 @@ def _pair(k, canonical, state):
     # is a tagged sort in both packages and leaves no holes
     assert {"built": tw._dups, "holes": tw._holes == (k > 13),
             "pending": tw.n_pending > 0 and tw._pending_rm,
-            "round": tw._slog is not None}[state]
+            "round": tw.slog.keys is not None}[state]
     return j, t
 
 
@@ -89,7 +89,7 @@ def _same_array(got, want, what=""):
 def _same_state(j, t):
     """Both word sets folded to the same sorted unique keys."""
     jw, tw = j.wordset, t.wordset
-    assert (tw.n_pending, tw._slog, tw._holes, tw._dups) == (0, None,
+    assert (tw.n_pending, tw.slog.keys, tw._holes, tw._dups) == (0, None,
                                                               False, False)
     assert (jw.n_pending, jw._holes, jw._dups) == (0, False, False)
     assert tw.n == jw.n and tw._n_upper == jw._n_upper

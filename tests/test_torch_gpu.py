@@ -1473,7 +1473,8 @@ def _state(idx) -> list:
     """A port index's whole state as host arrays and ints."""
     ws = idx.wordset
     out = [idx.count()]
-    for t in (ws.data, ws._slog, ws.pending, ws.pending_tags):
+    log = None if ws.slog.keys is None else ws.slog.keys[0]
+    for t in (ws.data, log, ws.pending, ws.pending_tags):
         out.append(None if t is None else t.cpu().numpy())
     return out
 
@@ -1484,7 +1485,7 @@ def test_default_sort_mode_k59_rounds_equal_library_mode(cuda, monkeypatch):
     default sort mode (B5 on the card) leaves the library mode's state
     and answers, round by round, and launches no library sort."""
     monkeypatch.delenv(sort.SORT_ENV, raising=False)
-    monkeypatch.setattr(tws.DeviceWordSet, "_SLOG_HARD_CAP", 1 << 17)
+    monkeypatch.setattr(tws.SortedLog, "HARD_CAP", 1 << 17)
     rng = np.random.default_rng(59)
     sb = 40_000
     codes = rng.integers(0, 4, size=6 * sb, dtype=np.uint8)

@@ -52,8 +52,8 @@ def _assert_same_state(jidx, tidx):
             tw._dups, tw._holes, tw.pending_cap) == (
         jw.n_pending, jw._pending_rm, jw._n_upper, jw.capacity,
         jw._dups, jw._holes, jw.pending_cap)
-    assert (tw._slog is None) == (jw._slog is None)
-    if tw._slog is None:
+    assert (tw.slog.keys is None) == (jw._slog is None)
+    if tw.slog.keys is None:
         np.testing.assert_array_equal(tw.data.numpy(),
                                       from_limbs(np.asarray(jw.data)))
     pend, tags, n_pending, pending_rm = state.pending_to_arrays(tw)
@@ -485,7 +485,7 @@ def test_multi_slab_round_takes_the_separate_calls(sort_mode, monkeypatch):
             -(-max(len(c) - 24, 0) // 4096) for c in (ins, qry, rm)]
         assert tidx.dynamic_round(*packed) == want
         assert 0 < want[1] <= want[0]
-        assert tidx.wordset._slog is None
+        assert tidx.wordset.slog.keys is None
         _assert_same_state(jidx, tidx)
     assert tidx.count() == jidx.count()
     # the same three calls on a second index give the same answers
@@ -514,16 +514,16 @@ def test_slog_and_pending_log_interleaved(sort_mode):
     for idx in (jidx, tidx):
         idx.insert_kmers(kmers)
         idx.remove_kmers(kmers[:20])
-    assert tidx.wordset._slog is not None and tidx.wordset.n_pending == 70
+    assert tidx.wordset.slog.keys is not None and tidx.wordset.n_pending == 70
     _assert_same_state(jidx, tidx)
     _steps(jidx, tidx, [("qry", *one(codes[:6_000]))])
-    assert tidx.wordset._slog is None and tidx.wordset.n_pending == 70
+    assert tidx.wordset.slog.keys is None and tidx.wordset.n_pending == 70
     np.testing.assert_array_equal(tidx.contains_kmers(kmers),
                                   np.asarray(jidx.contains_kmers(kmers)))
     rnd = (one(codes[4_000:8_000]), one(codes[:8_000]),
            one(codes[5_000:7_000]))
     assert tidx.dynamic_round(*rnd) == jidx.dynamic_round(*rnd)
-    assert tidx.wordset.n_pending == 0 and tidx.wordset._slog is not None
+    assert tidx.wordset.n_pending == 0 and tidx.wordset.slog.keys is not None
     _assert_same_state(jidx, tidx)
     # a pending log beside an active sorted log: count() folds both
     for idx in (jidx, tidx):

@@ -8,8 +8,8 @@ import numpy as np
 import pytest
 import torch
 
-from cbl_tpu_torch import CBL, profiling
-from cbl_tpu_torch.wordset import _SLOG_SEQ_MAX, DeviceWordSet
+from cbl_tpu_torch import CBL, PackedStream, profiling
+from cbl_tpu_torch.wordset import _SLOG_SEQ_MAX, SortedLog
 
 torch.set_num_threads(2)
 
@@ -70,7 +70,7 @@ def test_off_by_default_keeps_nothing_and_counts():
                               "join.probe": 1, "probe_rows": 4096,
                               "index.search_layout": 1,
                               "sort.library": 4,
-                              "slog_rows": idx.wordset._slog_real}
+                              "slog_rows": idx.wordset.slog.real}
     assert profiling._records is None and profiling._open == []
 
 
@@ -118,6 +118,45 @@ def test_span_tree_of_the_benchmark_calls(k, pb):
         assert r[1] <= r[2]
 
 
+@pytest.mark.parametrize("k,pb", CONFIGS)
+def test_span_tree_of_an_autofolding_round(k, pb, monkeypatch):
+    """The window's rounds as the benchmark runs them: fresh streams over
+    staged slabs of 4096 k-mers, the hard cap lowered to their scale.
+    The round that autofolds holds the fold (`index`, its sort inside),
+    then the exact count's wait (`sync.n`), the compaction check before
+    the new log, and the round's merges and scan (`join`)."""
+    monkeypatch.setattr(SortedLog, "HARD_CAP", 1 << 16)
+    idx = CBL(k=k, prefix_bits=pb, device="cpu")
+    W, S = 3, 8
+    genome = np.random.default_rng(8).integers(0, 4, 1200, dtype=np.uint8)
+    ins = [ps.slabs for ps in _reads(idx, S, 9, genome)]
+    qry = [ps.slabs for ps in _reads(idx, 2, 10, genome)]
+    fresh = lambda slabs: PackedStream(idx.cfg, idx.canonical, slabs)
+    assert {s[0][0] for s in ins + qry} == {4096}
+    for j in range(W):
+        idx.insert_codes_stream(fresh(ins[j]))
+    for r in range(W, W + 24):
+        before = dict(profiling.COUNTERS)
+        with profiling.recording() as rec:
+            idx.dynamic_round(fresh(ins[r % S]), fresh(qry[r % 2]),
+                              fresh(ins[(r - W) % S]), lazy=True)
+        d = _delta(before)
+        if "folds.slog.autofold" in d:
+            break
+    else:
+        pytest.fail("no round autofolded")
+    assert d == {"rounds": 1, "folds.slog.autofold": 1, "syncs.n": 1,
+                 "sort.library": 4, "slog_rows": idx.wordset.slog.real}
+    assert _tree(rec) == [
+        ("cbl.dynamic_round", [
+            WORDS, SORT, WORDS, SORT, WORDS, SORT,
+            ("index", [SORT]),  # the autofold
+            ("sync.n", []),  # the exact count after it
+            ("index", []),  # _compact before the new log starts
+            ("join", [])]),
+    ]
+
+
 def test_calls_inside_calls_share_their_call_id():
     idx = CBL(k=25, device="cpu")
     rng = np.random.default_rng(4)
@@ -143,7 +182,7 @@ def _trigger(site):
     if site == "n":
         return lambda: idx.count()
     if site == "count_hits":
-        words = idx._slab_words(b, 0)[0]
+        words = b.words(0)[0]
         return lambda: idx.wordset.count_hits(words)
     if site == "count":
         idx.dynamic_round(a, b, c, lazy=True)
@@ -200,7 +239,7 @@ def test_autofolds_of_a_window_are_counted(k, pb, monkeypatch):
     was active folded it first; below the seq cap that fold is the
     autofold's.  The hard cap is lowered to these slabs' scale (2^27
     rows, three 2^24-row slabs a round in the benchmark's windows)."""
-    monkeypatch.setattr(DeviceWordSet, "_SLOG_HARD_CAP", 1 << 16)
+    monkeypatch.setattr(SortedLog, "HARD_CAP", 1 << 16)
     idx = CBL(k=k, prefix_bits=pb, device="cpu")
     W, S = 3, 8
     genome = np.random.default_rng(8).integers(0, 4, 1200, dtype=np.uint8)
@@ -212,12 +251,12 @@ def test_autofolds_of_a_window_are_counted(k, pb, monkeypatch):
     before = dict(profiling.COUNTERS)
     want, rows = 0, 0
     for r in range(W, W + 24):
-        seq = ws._slog_seq
+        seq = ws.slog.seq
         idx.dynamic_round(ins[r % S], qry[r % 2], ins[(r - W) % S],
                           lazy=True)
-        if 0 < seq < _SLOG_SEQ_MAX and ws._slog_seq == 1:
+        if 0 < seq < _SLOG_SEQ_MAX and ws.slog.seq == 1:
             want += 1
-        rows += ws._slog_real
+        rows += ws.slog.real
     d = _delta(before)
     assert want >= 3
     assert d["folds.slog.autofold"] == want
@@ -232,7 +271,7 @@ def test_fold_causes():
     idx.insert_codes_stream(a)
     before = dict(profiling.COUNTERS)
     idx.dynamic_round(a, b, c, lazy=True)
-    idx.wordset._slog_seq = _SLOG_SEQ_MAX
+    idx.wordset.slog.seq = _SLOG_SEQ_MAX
     idx.dynamic_round(a, b, c, lazy=True)  # folds at the seq cap
     assert _delta(before).get("folds.slog.seq_cap") == 1
     idx.insert_kmers([7, 8])  # the pending log beside the slog

@@ -71,7 +71,7 @@ def _same_state(jidx, tidx, what=""):
              "_holes", "pending_cap")
     assert ({n: getattr(tw, n) for n in names}
             == {n: getattr(jw, n) for n in names}), what
-    assert tw._slog is None and jw._slog is None, what
+    assert tw.slog.keys is None and jw._slog is None, what
     np.testing.assert_array_equal(tw.data.numpy(),
                                   from_limbs(np.asarray(jw.data)),
                                   err_msg=str(what))
@@ -234,10 +234,10 @@ def test_contains_after_rounds_and_threshold_one(monkeypatch):
     for idx in (j, t):
         idx.insert_codes_stream(*one(a))
         idx.dynamic_round(one(b), one(a), one(c[:2_000]))
-    assert t.wordset._slog is not None
+    assert t.wordset.slog.keys is not None
     qs = [a[:3_000], b, _seq(rng, 2_000), c]
     want = _both(j, t, "contains_seqs", qs)
-    assert t.wordset._slog is None
+    assert t.wordset.slog.keys is None
     assert want[0].all() and want[1].all() and not want[2].any()
     _both(j, t, "remove_seqs", [a[2_000:4_000]])
     codes = t._codes_of(a)

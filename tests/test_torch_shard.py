@@ -513,12 +513,12 @@ def test_dynamic_rounds_k25(D):
     codes = _codes(16_000, 77)
     ref, port = _pair(D)
     _run_rounds(ref, port, codes, 4_000, 4)
-    ref._slog_seq = port._slog_seq = 60
+    ref._slog_seq = port.slog.seq = 60
     _run_rounds(ref, port, codes, 4_000, 3, order=[0, 1, 2])
-    assert port._slog_seq == 1  # folded before seq 63
-    assert port._slog_dev is not None
+    assert port.slog.seq == 1  # folded before seq 63
+    assert port.slog.keys is not None
     _same_words(ref, port)
-    assert port._slog_dev is None  # the export folded
+    assert port.slog.keys is None  # the export folded
     single = CBL(k=25, device="cpu")
     np.testing.assert_array_equal(
         port.words_array(), _oracle_rounds(single, codes, 4_000,
@@ -541,9 +541,9 @@ def test_dynamic_rounds_k13_run_past_seq_62(D):
     codes = _codes(12_000, 13)
     ref, port = _pair(D, k=13, pb=20)
     _run_rounds(ref, port, codes, 3_000, 2)
-    ref._slog_seq = port._slog_seq = 60
+    ref._slog_seq = port.slog.seq = 60
     _run_rounds(ref, port, codes, 3_000, 4, order=[2, 3, 0, 1])
-    assert port._slog_seq == 64 and port._slog_dev[0].shape[0] == 2
+    assert port.slog.seq == 64 and port.slog.keys[0].shape[0] == 2
     _same_words(ref, port)
 
 
@@ -553,7 +553,7 @@ def test_dynamic_rounds_k59(D):
     codes = _codes(12_000, 123)
     ref, port = _pair(D, k=59, pb=28)
     _run_rounds(ref, port, codes, 4_000, 3)
-    assert port._slog_dev[0].shape[0] == 3
+    assert port.slog.keys[0].shape[0] == 3
     _same_words(ref, port)
 
 
@@ -591,11 +591,11 @@ def test_shard_counts_during_rounds():
         x.dynamic_round(*args)
     _same_state(ref, port, "round")
     n = port.count()  # read off the log's scan
-    assert port._slog_dev is not None
+    assert port.slog.keys is not None
     with pytest.raises(TypeError):
         ref.shard_balance()
     bal = port.shard_balance()
-    assert port._slog_dev is None and int(bal.sum()) == n
+    assert port.slog.keys is None and int(bal.sum()) == n
     np.testing.assert_array_equal(port.words_array(), ref.words_array())
 
 
@@ -630,7 +630,7 @@ def test_multi_group_round_takes_the_bulk_calls():
     args = ((codes, _off(codes)), (codes[:5_000], np.array([0, 5_000])),
             (codes[:2_000], np.array([0, 2_000])))
     assert port.dynamic_round(*args) == ref.dynamic_round(*args)
-    assert port._slog_dev is None
+    assert port.slog.keys is None
     _same_state(ref, port, "bulk fallback")
     with pytest.raises(ValueError, match="tuples"):
         port.dynamic_round(port.pack_stream(*args[0]), *args[1:])

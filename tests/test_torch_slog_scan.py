@@ -201,7 +201,7 @@ def test_slog_packed_configs():
         assert capped == jws.slog_packed(cbl_tpu.config.get_config(
             k=k, prefix_bits=pb)), k
         ws = tws.DeviceWordSet(cfg, "cpu")
-        assert (ws._slog_pack, ws._slog_capped) == (packed, capped), k
+        assert (ws.slog.packed, ws.slog.capped) == (packed, capped), k
 
 
 def test_slog_scan_wrapper_checks_and_counts_no_cpu_launch(monkeypatch):

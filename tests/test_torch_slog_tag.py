@@ -38,7 +38,6 @@ import cbl_tpu
 from cbl_tpu import wordset as jws
 from cbl_tpu.ops.scan_pallas import slog_scan_counts_pallas
 from cbl_tpu_torch import CBL, LAUNCHES, state
-from cbl_tpu_torch import cbl as tcbl
 from cbl_tpu_torch import wordset as tws
 from cbl_tpu_torch.config import get_config
 from cbl_tpu_torch.limbs import SENTINEL, from_limbs
@@ -232,7 +231,7 @@ def test_tag_scan_wrapper_checks_and_counts_no_cpu_launch(monkeypatch):
     off = np.array([0, 600], dtype=np.int64)
     assert idx.dynamic_round((codes, off), (codes, off),
                              (codes[:300], off // 2)) == (588, 588)
-    assert idx.wordset._slog.shape[0] == 2  # word and tag columns
+    assert idx.wordset.slog.keys[0].shape[0] == 2  # word and tag columns
     assert not any(LAUNCHES.values())
 
 
@@ -258,18 +257,18 @@ def _assert_same_state(jidx, tidx):
     `state.slog_from_arrays`, and the port's back through
     `slog_to_arrays`), or the folded index."""
     jw, tw = jidx.wordset, tidx.wordset
-    assert (tw._slog_seq, tw._slog_real, tw._n_upper) == (
+    assert (tw.slog.seq, tw.slog.real, tw._n_upper) == (
         jw._slog_seq, jw._slog_real, jw._n_upper)
     assert tidx.count() == jidx.count()
     if jw._slog is None:
-        assert tw._slog is None
+        assert tw.slog.keys is None
         np.testing.assert_array_equal(
             tw.data.numpy(), from_limbs(np.asarray(jw.data), tw._cols))
         return
     cols = _jax_cols(jidx)
     want = state.slog_from_arrays(cols, jw._slog_seq, jw._slog_real,
-                                  jw._n_upper, jidx.cfg, "cpu")._slog
-    assert torch.equal(tw._slog, want)
+                                  jw._n_upper, jidx.cfg, "cpu").slog.keys[0]
+    assert torch.equal(tw.slog.keys[0], want)
     back, seq, real, n_upper = state.slog_to_arrays(tw)
     assert (seq, real, n_upper) == (jw._slog_seq, jw._slog_real, jw._n_upper)
     for a, b in zip(back, cols, strict=True):
@@ -294,7 +293,7 @@ def test_k13_rounds_run_past_seq_62_as_cbl_tpu(monkeypatch):
     power-of-two log capacities here (7 instead of 30 steps up to the
     last round's 786,432 rows): `cbl_tpu` traces fewer round programs."""
     pow2 = functools.partial(tws._quantize_cap, frac_log=0)
-    for mod in (jws, tcbl):  # the modules whose rounds call it
+    for mod in (jws, tws):  # the modules whose rounds call it
         monkeypatch.setattr(mod, "_quantize_cap", pow2)
     cfg = get_config(13, 20)
     assert not tws.slog_tag_in_limbs(cfg) and not tws.slog_packed(cfg)
@@ -308,8 +307,8 @@ def test_k13_rounds_run_past_seq_62_as_cbl_tpu(monkeypatch):
                for idx, (segs, halves) in zip((jidx, tidx), streams)]
         assert res[1] == res[0], r
         _assert_same_state(jidx, tidx)
-        assert tidx.wordset._slog_seq == r + 1
-    assert tidx.wordset._slog.shape[0] == 2
+        assert tidx.wordset.slog.seq == r + 1
+    assert tidx.wordset.slog.keys[0].shape[0] == 2
     jidx.wordset.flush()
     tidx.flush()
     _assert_same_state(jidx, tidx)
@@ -333,19 +332,19 @@ def test_seq_cap_follows_cbl_tpu(k, capped):
     seqs = []
     for r in range(6):
         if r == 2:
-            jidx.wordset._slog_seq = tidx.wordset._slog_seq = 60
+            jidx.wordset._slog_seq = tidx.wordset.slog.seq = 60
         res = [idx.dynamic_round(segs[r % 4], segs[(r + 1) % 4],
                                  halves[(r + 2) % 4])
                for idx, (segs, halves) in zip((jidx, tidx), streams)]
         assert res[1] == res[0], r
         _assert_same_state(jidx, tidx)
-        seqs.append(tidx.wordset._slog_seq)
+        seqs.append(tidx.wordset.slog.seq)
     assert seqs == ([1, 2, 61, 62, 1, 2] if capped
                     else [1, 2, 61, 62, 63, 64])
-    assert tidx.wordset._slog.shape[0] == (2 if k <= 27 else 3)
+    assert tidx.wordset.slog.keys[0].shape[0] == (2 if k <= 27 else 3)
     if not capped:
-        assert int(tidx.wordset._slog[-1][
-            tidx.wordset._slog[0] != SENTINEL].max()) == (64 << 2) | 3
+        assert int(tidx.wordset.slog.keys[0][-1][
+            tidx.wordset.slog.keys[0][0] != SENTINEL].max()) == (64 << 2) | 3
     q = _one(pool[100:700])
     assert tidx.query_codes_stream(*q) == jidx.query_codes_stream(*q)
     jidx.wordset.flush()
@@ -361,7 +360,7 @@ def test_k59_rounds_match_jax(monkeypatch, canonical):
     folds before the fourth round, then `count()` and a query of the
     active log (no fold), the state carried back, and `flush()`."""
     monkeypatch.setattr(jws.DeviceWordSet, "_SLOG_HARD_CAP", 60_000)
-    monkeypatch.setattr(tws.DeviceWordSet, "_SLOG_HARD_CAP", 60_000)
+    monkeypatch.setattr(tws.SortedLog, "HARD_CAP", 60_000)
     k, sb = 59, BUILD_BASES
     codes = np.random.default_rng(59 + canonical).integers(
         0, 4, size=5 * sb, dtype=np.uint8)
@@ -381,16 +380,16 @@ def test_k59_rounds_match_jax(monkeypatch, canonical):
         assert res[1] == res[0], r
         assert 0 < res[1][1] <= res[1][0]
         _assert_same_state(jidx, tidx)
-        seqs.append(tidx.wordset._slog_seq)
+        seqs.append(tidx.wordset.slog.seq)
     assert seqs == [1, 2, 3, 1]  # the autofold at the fourth round's entry
-    assert tidx.wordset._slog.shape[0] == 3
+    assert tidx.wordset.slog.keys[0].shape[0] == 3
     assert tidx.count() == jidx.count() > 0
     # a query of the active log (a stream of the rounds: `cbl_tpu` traces
     # no new word pipeline)
     got = tidx.query_codes_stream(streams[1][1][0])
     assert got == jidx.query_codes_stream(streams[0][1][0])
     assert 0 < got[1] < got[0]
-    assert tidx.wordset._slog is not None  # queries never fold
+    assert tidx.wordset.slog.keys is not None  # queries never fold
     jidx.wordset.flush()
     tidx.flush()
     _assert_same_state(jidx, tidx)
@@ -416,7 +415,7 @@ def test_slog_states_carry_both_ways(k, prefix_bits):
     tidx = CBL(k=k, prefix_bits=prefix_bits, device="cpu")
     tidx.wordset = state.slog_from_arrays(cols, jw._slog_seq, jw._slog_real,
                                           jw._n_upper, jidx.cfg, "cpu")
-    assert tidx.wordset._slog.shape[0] == (2 if k <= 27 else 3)
+    assert tidx.wordset.slog.keys[0].shape[0] == (2 if k <= 27 else 3)
     _assert_same_state(jidx, tidx)
     rnd = (_one(codes[1500:3000]), _one(codes[:3000]), _one(codes[:700]))
     assert tidx.dynamic_round(*rnd) == jidx.dynamic_round(*rnd)

@@ -383,7 +383,7 @@ def test_dynamic_rounds_at_wide_k():
         calls = CBL(k=k, prefix_bits=24, device="cpu")
         n = len(codes) - k + 1
         assert rounds.dynamic_round(one, one, half) == (n, n)
-        assert rounds.wordset._slog.shape[0] == (2 if k == 27 else 3)
+        assert rounds.wordset.slog.keys[0].shape[0] == (2 if k == 27 else 3)
         calls.insert_codes_stream(*one)
         calls.remove_codes_stream(*half)
         assert rounds.count() == calls.count() > 0
@@ -472,7 +472,7 @@ def test_states_carry_both_ways(k, prefix_bits):
         np.array([1, 2, 3, 5], np.uint32),)
     ws = state.slog_from_arrays(cols, 1, 4, 4, get_config(k, prefix_bits),
                                 "cpu")
-    assert ws._slog.shape == (3, 4) and ws.count() == 1
+    assert ws.slog.keys[0].shape == (3, 4) and ws.count() == 1
     back = state.slog_to_arrays(ws)
     assert back[1:] == (1, 4, 4)
     for a, b in zip(back[0], cols, strict=True):
